@@ -1,0 +1,456 @@
+"""Local multi-process execution backend — the Spark stand-in.
+
+Emulates exactly the Spark semantics the framework depends on (SURVEY.md §4:
+the reference's hard invariant is *one task slot per executor*, which its test
+harness realized as a 2-worker local Standalone cluster with 1 core each):
+
+* N long-lived **executor processes**, each with its own working directory and
+  a single task slot — so per-executor state (the IPC channel, the jax child
+  process, the executor-state file) survives across tasks, like
+  ``SPARK_REUSE_WORKER=1``.
+* **Jobs** fan partition tasks out to executors. Launch jobs can *pin*
+  partition *i* to executor *i* (Spark achieves the same distribution
+  stochastically plus the reference's retry-on-stale-manager trick,
+  TFSparkNode.py:173-179); feed jobs go through a shared queue and land on
+  whichever executor is free — exercising the reconnect-via-state-file path.
+* Lazy RDDs with ``mapPartitions`` composition; actions are
+  ``collect``/``foreachPartition``/``count``/``sum``.
+
+This backend is a first-class deployment option for single-host TPU boxes (no
+JVM needed) *and* the test harness for the Spark code paths.
+"""
+
+import logging
+import os
+import queue
+import shutil
+import tempfile
+import threading
+import time
+import traceback
+import uuid
+
+import cloudpickle
+
+from tensorflowonspark_tpu_torch import resilience
+
+logger = logging.getLogger(__name__)
+
+# Spawned (never forked): a LocalSparkContext is routinely created from a
+# threaded parent (pytest with a prior context's collector thread, jax's
+# thread pools), and forking a threaded process deadlocks — the documented
+# full-suite hang. Executor children are spawn-clean; the jax child each
+# node launch starts is itself spawned (util.spawn_process).
+_mp = __import__("multiprocessing").get_context("spawn")
+
+#: module-global registry, inside each executor process, of background
+#: child processes started by node-launch tasks (reaped at executor stop)
+_executor_children = []
+
+
+def register_child_process(proc):
+    """Called from node-launch tasks to let the executor reap the jax child."""
+    _executor_children.append(proc)
+
+
+def _executor_main(executor_id, workdir, private_q, shared_q, result_q, stop_ev):
+    os.chdir(workdir)
+    os.environ["TOS_LOCAL_EXECUTOR_ID"] = str(executor_id)
+    logger.info("local executor %d up in %s", executor_id, workdir)
+    while not stop_ev.is_set():
+        task = None
+        try:
+            task = private_q.get(timeout=0.05)
+        except queue.Empty:
+            try:
+                task = shared_q.get(timeout=0.05)
+            except queue.Empty:
+                continue
+        if task is None:
+            break
+        job_id, pidx, fn_blob, data_blob = task
+        try:
+            fn = cloudpickle.loads(fn_blob)
+            data = cloudpickle.loads(data_blob)
+            result = fn(iter(data), pidx)
+            payload = cloudpickle.dumps(list(result) if result is not None else None)
+            result_q.put((job_id, pidx, executor_id, "ok", payload))
+        except BaseException:
+            result_q.put((job_id, pidx, executor_id, "error", traceback.format_exc()))
+    # reap background children (the jax processes) on the way out
+    for proc in _executor_children:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=5)
+    logger.info("local executor %d down", executor_id)
+
+
+class TaskError(RuntimeError):
+    """A partition task failed on an executor; carries the remote traceback."""
+
+    def __init__(self, executor_id, partition, remote_traceback):
+        super().__init__(
+            "task for partition {} failed on executor {}:\n{}".format(
+                partition, executor_id, remote_traceback
+            )
+        )
+        self.executor_id = executor_id
+        self.partition = partition
+        self.remote_traceback = remote_traceback
+
+
+class _Job:
+    def __init__(self, job_id, num_tasks):
+        self.job_id = job_id
+        self.num_tasks = num_tasks
+        self.results = {}
+        self.error = None
+        self.done = threading.Event()
+
+    def wait(self, timeout=None):
+        if not self.done.wait(timeout=timeout):
+            raise TimeoutError("job {} did not finish in {}s".format(self.job_id, timeout))
+        if self.error is not None:
+            raise self.error
+        return [self.results[i] for i in range(self.num_tasks)]
+
+
+class LocalRDD:
+    """Minimal lazy RDD: each partition carries its data and its own chain of
+    per-partition iterator transforms (so unions of differently-transformed
+    RDDs — e.g. the epochs-via-union trick over a mapped RDD — just work)."""
+
+    def __init__(self, sc, parts):
+        self._sc = sc
+        self._parts = list(parts)  # [(data, fns_tuple), ...]
+        self._pinned = False
+
+    # transformations ---------------------------------------------------------
+
+    def mapPartitions(self, fn):
+        rdd = LocalRDD(self._sc, [(data, fns + (fn,)) for data, fns in self._parts])
+        rdd._pinned = self._pinned
+        return rdd
+
+    def mapPartitionsWithIndex(self, fn):
+        """``fn(partition_index, iterator)`` like pyspark's. The flag lives on
+        a fresh wrapper, never on the caller's function object."""
+
+        def _indexed(pidx, it, _fn=fn):
+            return _fn(pidx, it)
+
+        _indexed._wants_index = True
+        return self.mapPartitions(_indexed)
+
+    def map(self, fn):
+        def _mapper(it, _fn=fn):
+            return (_fn(x) for x in it)
+
+        return self.mapPartitions(_mapper)
+
+    def union(self, other):
+        return LocalRDD(self._sc, self._parts + other._parts)
+
+    def cache(self):
+        return self
+
+    # actions -----------------------------------------------------------------
+
+    def getNumPartitions(self):
+        return len(self._parts)
+
+    def foreachPartition(self, fn):
+        self.mapPartitions(fn)._execute()
+        return None
+
+    def collect(self):
+        parts = self._execute()
+        return [x for part in parts for x in (part or [])]
+
+    def count(self):
+        return len(self.collect())
+
+    def sum(self):
+        return sum(self.collect())
+
+    def _execute(self):
+        job = self._sc._submit_job(self._parts, pin=self._pinned)
+        return job.wait(timeout=self._sc.task_timeout)
+
+
+def _make_chain(fns):
+    def _chain(it, pidx, _fns=fns):
+        for f in _fns:
+            it = f(pidx, it) if getattr(f, "_wants_index", False) else f(it)
+        return it if it is not None else []
+
+    return _chain
+
+
+class LocalDataFrame:
+    """Minimal columnar view over a LocalRDD of row tuples — just enough
+    DataFrame surface for the ML pipeline layer (select/columns/rdd/collect),
+    mirroring how the reference pipeline uses Spark DataFrames
+    (pipeline.py:411-413 ``dataset.select(cols).rdd``)."""
+
+    def __init__(self, rdd, columns):
+        self._rdd = rdd
+        self.columns = list(columns)
+
+    def select(self, *cols):
+        if len(cols) == 1 and isinstance(cols[0], (list, tuple)):
+            cols = tuple(cols[0])
+        idx = [self.columns.index(c) for c in cols]
+
+        def _project(it, _idx=tuple(idx)):
+            return (tuple(row[i] for i in _idx) for row in it)
+
+        return LocalDataFrame(self._rdd.mapPartitions(_project), cols)
+
+    @property
+    def rdd(self):
+        return self._rdd
+
+    def collect(self):
+        return self._rdd.collect()
+
+    def count(self):
+        return self._rdd.count()
+
+
+class LocalDStream:
+    """Micro-batch stream handle (the ``pyspark.streaming.DStream`` surface
+    the framework uses: ``foreachRDD``)."""
+
+    def __init__(self, ssc):
+        self._ssc = ssc
+        self._handlers = []
+
+    def foreachRDD(self, fn):
+        self._handlers.append(fn)
+        return self
+
+
+class LocalStreamingContext:
+    """DStream-equivalent micro-batch driver — the ``StreamingContext``
+    stand-in for single-host deployments and tests (the reference fed
+    training from Spark Streaming DStreams,
+    /root/reference/tensorflowonspark/TFCluster.py:83-85 and
+    examples/mnist/estimator/mnist_spark_streaming.py).
+
+    ``queueStream`` mirrors pyspark's: one queued RDD is consumed per batch
+    interval; ``feed`` pushes further micro-batches while running.
+    """
+
+    def __init__(self, sc, batch_interval=1.0):
+        self.sc = sc
+        self.batch_interval = batch_interval
+        # bounded: a producer outpacing the batch ticker should block at the
+        # feed call, not grow the backlog without limit
+        self._queue = queue.Queue(maxsize=1024)
+        self._streams = []
+        self._stop_ev = threading.Event()
+        self._thread = None
+        self._busy = threading.Lock()  # held while a micro-batch is feeding
+
+    def queueStream(self, rdds=None):
+        stream = LocalDStream(self)
+        self._streams.append(stream)
+        for rdd in rdds or []:
+            self._queue.put(rdd)
+        return stream
+
+    def feed(self, rdd):
+        """Push one more micro-batch into the stream."""
+        self._queue.put(rdd)
+
+    def start(self):
+        def _run():
+            while not self._stop_ev.is_set():
+                # dequeue AND handle under one lock hold: a batch popped but
+                # not yet feeding must be invisible to stop()'s graceful
+                # drain, or it feeds after the end-of-feed markers
+                with self._busy:
+                    try:
+                        rdd = self._queue.get(timeout=self.batch_interval)
+                    except queue.Empty:
+                        continue
+                    for stream in self._streams:
+                        for handler in stream._handlers:
+                            try:
+                                handler(rdd)
+                            except Exception:
+                                logger.exception("streaming micro-batch handler failed")
+
+        self._thread = threading.Thread(target=_run, name="tos-streaming", daemon=True)
+        self._thread.start()
+
+    def stop(self, stopSparkContext=False, stopGraceFully=True):
+        if stopGraceFully:
+            # drain queued micro-batches AND wait out the in-flight handler —
+            # queue emptiness alone would let shutdown's end-of-feed markers
+            # cut off a batch that was dequeued but not yet fully fed
+            drain = resilience.Backoff(base=0.1, factor=1.0, max_delay=0.1, jitter=0.0)
+            for _ in drain.attempts(deadline=resilience.Deadline(60)):
+                if self._queue.empty():
+                    break
+            with self._busy:
+                pass
+        self._stop_ev.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        if stopSparkContext:
+            self.sc.stop()
+
+    def awaitTermination(self, timeout=None):
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+
+
+class LocalSparkContext:
+    """Driver handle to the local executor pool (the ``sc`` stand-in)."""
+
+    PIN_SUPPORTED = True
+
+    def __init__(self, num_executors=2, workdir_root=None, task_timeout=600):
+        self.num_executors = num_executors
+        self.defaultParallelism = num_executors
+        self.task_timeout = task_timeout
+        self.applicationId = "local-" + uuid.uuid4().hex[:8]
+        self.defaultFS = "file://"
+        self._workdir_root = workdir_root or tempfile.mkdtemp(prefix="tos_local_")
+        self._own_workdir = workdir_root is None
+        self._result_q = _mp.Queue()
+        self._shared_q = _mp.Queue()
+        self._stop_ev = _mp.Event()
+        self._jobs = {}
+        self._jobs_lock = threading.Lock()
+        self._job_counter = 0
+        self._private_qs = []
+        self._procs = []
+        for i in range(num_executors):
+            wd = os.path.join(self._workdir_root, "executor-{}".format(i))
+            os.makedirs(wd, exist_ok=True)
+            pq = _mp.Queue()
+            proc = _mp.Process(
+                target=_executor_main,
+                args=(i, wd, pq, self._shared_q, self._result_q, self._stop_ev),
+                name="local-executor-{}".format(i),
+                daemon=False,
+            )
+            proc.start()
+            self._private_qs.append(pq)
+            self._procs.append(proc)
+        self._collector = threading.Thread(
+            target=self._collect_results, name="tos-local-collector", daemon=True
+        )
+        self._collector.start()
+
+    # Spark-surface API -------------------------------------------------------
+
+    def parallelize(self, data, numSlices=None, pin_to_executors=False):
+        """``pin_to_executors`` may be True (partition i → executor i) or an
+        explicit list of executor ids (partition i → executor ids[i])."""
+        data = list(data)
+        n = numSlices or self.defaultParallelism
+        n = max(1, min(n, len(data)) if data else n)
+        size, extra = divmod(len(data), n)
+        partitions, start = [], 0
+        for i in range(n):
+            end = start + size + (1 if i < extra else 0)
+            partitions.append(data[start:end])
+            start = end
+        rdd = LocalRDD(self, [(p, ()) for p in partitions])
+        rdd._pinned = (
+            list(pin_to_executors) if isinstance(pin_to_executors, (list, tuple)) else bool(pin_to_executors)
+        )
+        return rdd
+
+    def union(self, rdds):
+        out = rdds[0]
+        for r in rdds[1:]:
+            out = out.union(r)
+        return out
+
+    def createDataFrame(self, data, columns, numSlices=None):
+        """Rows (tuples/lists) + column names → LocalDataFrame."""
+        rows = [tuple(r) for r in data]
+        return LocalDataFrame(self.parallelize(rows, numSlices), columns)
+
+    def stop(self, cleanup=True):
+        self._stop_ev.set()
+        for pq in self._private_qs:
+            try:
+                pq.put(None)
+            except (OSError, ValueError):
+                pass
+        for proc in self._procs:
+            proc.join(timeout=10)
+            if proc.is_alive():
+                logger.warning("killing unresponsive executor %s", proc.name)
+                proc.kill()
+                proc.join(timeout=5)
+        # collector re-checks _stop_ev every 0.2s result-queue timeout
+        self._collector.join(timeout=5)
+        if cleanup and self._own_workdir:
+            shutil.rmtree(self._workdir_root, ignore_errors=True)
+
+    # scheduling --------------------------------------------------------------
+
+    def _submit_job(self, parts, pin=False):
+        """``parts``: [(data, fns_tuple), ...]. Each distinct transform chain
+        is cloudpickled once per job (a feed job unions the same chain over
+        epochs × partitions; re-serializing the closure per partition was the
+        dominant driver-side cost)."""
+        with self._jobs_lock:
+            self._job_counter += 1
+            job_id = self._job_counter
+            job = _Job(job_id, len(parts))
+            self._jobs[job_id] = job
+        targets = None
+        if pin:
+            targets = list(pin) if isinstance(pin, (list, tuple)) else list(range(len(parts)))
+            if len(targets) < len(parts) or any(t >= self.num_executors for t in targets):
+                raise ValueError(
+                    "cannot pin {} partitions onto executors {} (pool size {})".format(
+                        len(parts), targets, self.num_executors
+                    )
+                )
+        fn_blobs = {}
+        data_blobs = {}  # keyed by id(): epoch-unions repeat the same lists
+        for pidx, (data, fns) in enumerate(parts):
+            fn_blob = fn_blobs.get(fns)
+            if fn_blob is None:
+                fn_blob = fn_blobs[fns] = cloudpickle.dumps(_make_chain(fns))
+            data_blob = data_blobs.get(id(data))
+            if data_blob is None:
+                data_blob = data_blobs[id(data)] = cloudpickle.dumps(data)
+            task = (job_id, pidx, fn_blob, data_blob)
+            if targets is not None:
+                self._private_qs[targets[pidx]].put(task)
+            else:
+                self._shared_q.put(task)
+        return job
+
+    def _collect_results(self):
+        while True:
+            try:
+                job_id, pidx, eid, status, payload = self._result_q.get(timeout=0.2)
+            except queue.Empty:
+                if self._stop_ev.is_set():
+                    return
+                continue
+            with self._jobs_lock:
+                job = self._jobs.get(job_id)
+            if job is None:
+                continue
+            if status == "error":
+                job.error = TaskError(eid, pidx, payload)
+                job.done.set()
+            else:
+                job.results[pidx] = cloudpickle.loads(payload)
+                if len(job.results) == job.num_tasks:
+                    job.done.set()
+            if job.done.is_set():
+                with self._jobs_lock:
+                    self._jobs.pop(job_id, None)

@@ -1,0 +1,343 @@
+"""Deterministic, seedable fault injection across every plane.
+
+The recovery machinery (watchdog, ``TFCluster.abort``, ``run_with_recovery``,
+checkpoint resume, serving shed/retry) is only trustworthy if it is
+*continuously exercised*. This package plants named injection sites at the
+failure-prone seams — reservation traffic, feed queues, the data loader,
+checkpoint IO, the serving socket — and fires faults according to a
+:class:`ChaosPlan`: a seeded RNG plus per-site probability / count budget,
+so a fault schedule is exactly reproducible from ``(seed, site, call #)``.
+
+Default off, and cheap enough to leave compiled into the hot paths: every
+site guards on the module-level ``active`` boolean, so with no plan
+installed an injection site costs one attribute read and a falsy branch —
+no allocation, no function call (mirroring the disabled
+:mod:`~tensorflowonspark_tpu_torch.obs` registry).
+
+Plans propagate to child processes through the ``TOS_CHAOS_PLAN`` env var:
+:func:`install` exports it by default, spawned executors / jax children
+inherit it, and this module re-installs from the env at import. Every
+triggered fault increments ``chaos_faults_injected_total`` (plus a
+per-site counter) and records a ``chaos_fault`` span, so injected faults
+surface in ``TFCluster.metrics()`` wherever the firing process publishes
+its registry.
+
+Typical use (tests, chaos CI leg)::
+
+    plan = (chaos.ChaosPlan(seed=7)
+            .site("reservation.client_reset", probability=0.3, max_count=2)
+            .site("serving.latency", probability=0.5, delay_s=0.05))
+    chaos.install(plan)
+    try:
+        ...   # run the workload; recovery paths absorb the faults
+        assert plan.fired() > 0
+    finally:
+        chaos.uninstall()
+
+Site vocabulary (see ``docs/architecture.md``):
+
+==============================  ==============================================
+site                            effect at the injection point
+==============================  ==============================================
+``reservation.client_reset``    client request raises ``ConnectionResetError``
+``reservation.reg_drop``        server drops the connection before replying
+``reservation.slow_accept``     server stalls after accepting a connection
+``reservation.late_register``   client sleeps before registering
+``feed.stall``                  feeder sleeps before enqueueing a chunk
+``feed.slow_consumer``          ``DataFeed`` sleeps before dequeueing
+``feed.truncate_chunk``         train feeder drops the tail of one chunk
+``data.producer_delay``         loader producer sleeps before emitting
+``data.poison``                 loader yields one undecodable record
+``data.shard_read``             read-ahead shard open sleeps (``delay_s``) or
+                                raises ``IOError`` (``error: true``); errors
+                                are retried under ``SHARD_READ_RETRY``
+``data.decode_kill``            decode plane SIGKILLs one of its own worker
+                                processes mid-round — the lease protocol
+                                must re-decode the orphaned slots on the
+                                respawned pool without losing or
+                                duplicating a row
+``data.cache_tear``             decoded-slab cache commit publishes a TORN
+                                manifest (truncated half-way, the crash-
+                                between-write-and-fsync shape) — verify-on-
+                                publish must reject the generation and its
+                                records must simply decode again
+``data.readahead_stall``        read-ahead shard reader sleeps ``delay_s``
+                                per chunk, charged into shard-read time so
+                                ``classify_stalls`` sees io_bound and the
+                                ``ReadaheadAutotuner`` must deepen
+``data.device_link``            autotuned feed sleeps ``delay_s`` inside the
+                                timed region of every host->device transfer
+                                (probes and windows), so injected latency
+                                flows into the link estimate and the window
+                                size K must adapt
+``data.tokenize_error``         text producer swaps one record for invalid
+                                UTF-8 bytes; the tokenizer rejects it and the
+                                skip is charged against ``max_bad_records``
+                                identically in every pack mode (the length
+                                check runs producer-side)
+``data.pack_stall``             text packer sleeps ``delay_s`` inside the
+                                timed packing region, charged into parse time
+                                so ``classify_stalls`` reports the job
+                                input-bound (decode_bound)
+``checkpoint.corrupt_write``    newest checkpoint left torn on disk (in the
+                                async engine: shard bitrot after the
+                                manifest, caught by cheap-verify)
+``checkpoint.restore_fail``     restore raises ``IOError``
+``ckpt.snapshot_stall``         snapshot-to-host copy sleeps before copying
+                                (``delay_s``) — the training-thread cost
+``ckpt.write_slow``             background checkpoint writer sleeps
+                                (``delay_s``) inside the timed write region
+``ckpt.commit_tear``            commit dies between shard write and publish:
+                                staging dir left unpublished; with
+                                ``publish_torn: true`` the rename happens
+                                over a half-written manifest instead
+``node.kill``                   jax child SIGKILLs itself from the heartbeat
+                                loop (``victim``: executor id, ``after_beats``:
+                                beats to wait) — a permanent node loss the
+                                recovery ladder must blacklist and shrink past
+``node.flap``                   heartbeat loop stalls ``delay_s`` (``victim``,
+                                ``after_beats`` as above) — a transient loss
+                                that should NOT lead to a blacklist
+``node.preempt``                jax child SIGTERMs itself from the heartbeat
+                                loop (``victim``/``after_beats`` as above) —
+                                a preemption *warning*, not a kill: the
+                                child's real SIGTERM handler drains async
+                                checkpoints, commits a ``preempted`` parting
+                                status, and exits clean before the platform
+                                kill would land; the ladder must classify it
+                                ``preemption`` (no blacklist, no restart
+                                budget). Node sites also honor a generic
+                                ``once_path`` param: a cross-process one-shot
+                                latch file (skip when it exists, create on
+                                fire), so a victim respawned by the ladder
+                                does not die again on every life
+``control.driver_crash``        watchdog drops the in-memory membership
+                                registry with no parting commit and recovers
+                                it from the journal under a bumped epoch —
+                                a driver restart mid-train; live executors
+                                must be re-adopted without relaunch
+``control.lease_delay``         registry lease renewal sleeps ``delay_s`` —
+                                benign control-plane latency that must not
+                                expire healthy leases
+``control.journal_tear``        registry manifest publish dies half-written
+                                (or with ``target: "journal"`` a journal
+                                append is torn); recovery must detect the
+                                CRC mismatch and fall back to the previous
+                                committed manifest plus journal replay
+``serving.latency``             predictor sleeps before dispatch
+``serving.conn_drop``           server closes the connection mid-request
+``serving.overload``            submit sheds with ``Overloaded``
+``serving.replica_kill``        mesh monitor SIGKILLs a serving replica
+                                mid-load (``victim: <rid>`` targets one);
+                                the router fails requests over and the
+                                monitor relaunches it
+``serving.router_partition``    router loses a replica's connection: the
+                                pooled client is dropped and the attempt
+                                raises ``ConnectionResetError``, driving
+                                failover and the replica's circuit breaker
+``serving.swap_torn``           model-generation publish commits a torn
+                                manifest; replicas must reject the swap via
+                                ``manifest.verify()`` and keep serving the
+                                old bundle
+``comm.link_delay``             host gradient all-reduce sleeps ``delay_s``
+                                before the exchange on rank ``victim`` only
+                                (a straggling DCN link); peers must absorb
+                                it — bucketed overlap hides the wait behind
+                                backprop and the straggler stays visible in
+                                the MULTICHIP per-rank step-time spread
+``native_io.read_fail``         TFRecord read raises ``IOError``
+``store.read_error``            one remote store HTTP request raises
+                                ``IOError`` — absorbed by the store's retry
+                                budget (``resilience_retries_total`` climbs,
+                                the stream stays byte-identical)
+``store.remote_stall``          remote store request sleeps ``delay_s`` — the
+                                latency lands in shard-read time, so the
+                                stall classifier calls the run io_bound and
+                                the prefetch autotuner must deepen
+``store.prefetch_tear``         staged-shard publish commits a torn
+                                ``MANIFEST.json``; verify-on-read must
+                                reject and recount the stage and the shard
+                                re-fetches cold
+==============================  ==============================================
+"""
+
+import json
+import logging
+import os
+import random
+import threading
+import time
+
+from tensorflowonspark_tpu_torch import obs
+
+logger = logging.getLogger(__name__)
+
+#: env var carrying the JSON plan into spawned children
+ENV_VAR = "TOS_CHAOS_PLAN"
+#: optional file that gets one line appended per fired fault — lets the
+#: chaos CI leg assert "faults > 0" across many short-lived processes
+LOG_ENV_VAR = "TOS_CHAOS_LOG"
+
+#: single cached boolean read by every injection site; True iff a plan is
+#: installed in this process
+active = False
+
+_plan = None
+_install_lock = threading.Lock()
+
+
+class ChaosPlan:
+    """A reproducible fault schedule: a seed plus per-site specs.
+
+    Each site spec holds a ``probability`` (per arrival at the site), an
+    optional ``max_count`` budget (``None`` = unlimited), and free-form
+    params interpreted by the site (``delay_s`` for delay faults, etc.).
+    Each site draws from its own ``random.Random`` seeded from
+    ``(plan seed, site name)``, so schedules are independent of the order
+    in which *other* sites fire — crucial for cross-process determinism.
+    """
+
+    def __init__(self, seed=0, sites=None):
+        self.seed = seed
+        self.sites = {}
+        self._lock = threading.Lock()
+        self._rngs = {}
+        self._fired = {}
+        for name, spec in (sites or {}).items():
+            self.site(name, **spec)
+
+    def site(self, name, probability=1.0, max_count=None, **params):
+        """Add (or replace) a site spec; chainable."""
+        if not 0.0 <= probability <= 1.0:
+            raise ValueError("probability must be in [0, 1]")
+        spec = dict(params)
+        spec["probability"] = probability
+        spec["max_count"] = max_count
+        with self._lock:
+            self.sites[name] = spec
+            self._rngs[name] = random.Random("{}:{}".format(self.seed, name))
+            self._fired.setdefault(name, 0)
+        return self
+
+    def should_fire(self, name):
+        """Roll the site's RNG; returns the spec dict when the fault
+        triggers, else None. Respects the site's ``max_count`` budget."""
+        spec = self.sites.get(name)
+        if spec is None:
+            return None
+        with self._lock:
+            budget = spec["max_count"]
+            if budget is not None and self._fired[name] >= budget:
+                return None
+            if self._rngs[name].random() >= spec["probability"]:
+                return None
+            self._fired[name] += 1
+        return spec
+
+    def fired(self, name=None):
+        """Faults fired so far — for one site, or in total."""
+        with self._lock:
+            if name is not None:
+                return self._fired.get(name, 0)
+            return sum(self._fired.values())
+
+    def to_json(self):
+        return json.dumps({"seed": self.seed, "sites": self.sites}, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, text):
+        data = json.loads(text)
+        return cls(seed=data.get("seed", 0), sites=data.get("sites") or {})
+
+    def __repr__(self):
+        return "ChaosPlan(seed={}, sites={})".format(self.seed, sorted(self.sites))
+
+
+def install(plan, propagate=True):
+    """Activate ``plan`` in this process; with ``propagate`` (default) the
+    plan is also exported through :data:`ENV_VAR` so processes spawned from
+    here inherit it."""
+    global _plan, active
+    with _install_lock:
+        _plan = plan
+        active = plan is not None
+        if propagate:
+            if plan is not None:
+                os.environ[ENV_VAR] = plan.to_json()
+            else:
+                os.environ.pop(ENV_VAR, None)
+    if plan is not None:
+        logger.info("chaos plan installed: %r", plan)
+
+
+def uninstall():
+    """Deactivate fault injection and clear the propagation env var."""
+    install(None, propagate=True)
+
+
+def plan():
+    """The installed :class:`ChaosPlan`, or None."""
+    return _plan
+
+
+def fire(site):
+    """Roll ``site`` against the installed plan. Returns the site's spec
+    dict when the fault fires (after recording it in obs), else None.
+
+    Injection sites guard the call with ``if chaos.active:`` so the
+    disabled path never reaches here.
+    """
+    p = _plan
+    if p is None:
+        return None
+    spec = p.should_fire(site)
+    if spec is None:
+        return None
+    _record(site)
+    return spec
+
+
+def delay(site):
+    """Fire ``site`` as a delay fault: sleep its ``delay_s`` (default
+    50 ms) when triggered. Returns True if a delay was injected."""
+    spec = fire(site)
+    if spec is None:
+        return False
+    time.sleep(spec.get("delay_s", 0.05))
+    return True
+
+
+def _record(site):
+    safe = site.replace(".", "_").replace("-", "_")
+    obs.counter("chaos_faults_injected_total", help="faults injected by the chaos plan").inc()
+    obs.counter("chaos_fault_{}_total".format(safe), help="chaos faults at {}".format(site)).inc()
+    with obs.span("chaos_fault", site=site):
+        pass  # marker span: wall-clock point of injection for trace ordering
+    # black-box moment: a fault injection flushes this process's flight
+    # shard (no-op when the tracing plane is inert), so even a fault that
+    # kills the process leaves its final spans on disk
+    try:
+        obs.flight_dump("chaos:{}".format(site))
+    except Exception:  # the dump is best-effort, the fault must still fire
+        pass
+    logger.warning("chaos: injected fault at %s", site)
+    log_path = os.environ.get(LOG_ENV_VAR)
+    if log_path:
+        try:
+            with open(log_path, "a") as f:
+                f.write(site + "\n")
+        except OSError:  # the assertion file is best-effort
+            pass
+
+
+def _install_from_env():
+    text = os.environ.get(ENV_VAR)
+    if not text:
+        return
+    try:
+        install(ChaosPlan.from_json(text), propagate=False)
+    except (ValueError, KeyError) as e:
+        logger.warning("ignoring malformed %s: %s", ENV_VAR, e)
+
+
+_install_from_env()

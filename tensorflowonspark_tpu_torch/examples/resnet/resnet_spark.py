@@ -1,0 +1,179 @@
+"""ResNet training on a cluster — the port of ``examples/resnet/resnet_spark.py``.
+
+``--dataset imagenet`` trains ResNet-50 v1.5 (base LR 0.1·bs/256 with a
+linear warmup), ``--dataset cifar`` ResNet-56 (piecewise LR), both with SGD
+momentum 0.9 and the L2 term in the loss, on the reference's synthetic input
+path (one seeded random batch per worker, re-fed every step). Each node's
+trainer child runs on ``--platform`` (default ``gpu``: one CUDA device per
+process; ``gpu`` without a CUDA device raises). ``--bn_impl pallas`` runs
+every BatchNorm through the port's Triton kernels; ``flax`` is plain PyTorch
+math (single process only).
+
+Usage (one executor, one H100)::
+
+    python -m tensorflowonspark_tpu_torch.examples.resnet.resnet_spark \\
+        --dataset imagenet --bn_impl pallas --batch_size 64 --train_steps 5
+
+Each logged step lands in the node's obs registry as a ``train_step`` span
+(step, loss, images/s) and the BN kernels' launches as
+``fused_bn_<kernel>_launches_total`` counters, so a driver reads them from
+``cluster.metrics()``.
+
+Not yet ported, and refused with an error: ``--model_dir`` (checkpoints),
+``--data_dir`` / ``--eval_dir`` (the real-data input plane),
+``--profile_steps``, ``--steps_per_loop`` > 1 and ``--auto_recover``.
+"""
+
+import argparse
+
+
+def lr_schedule(args):
+    """Reference schedules: piecewise for CIFAR, warmup+scaled for ImageNet."""
+    from tensorflowonspark_tpu_torch.train import optim
+
+    if args.dataset == "cifar":
+        # (0.1, 91ep) (0.01, 136ep) (0.001, 182ep) — in steps
+        spe = max(args.steps_per_epoch, 1)
+        return optim.piecewise_constant_schedule(0.1, {91 * spe: 0.1, 136 * spe: 0.1})
+    base = 0.1 * args.batch_size / 256.0
+    warmup = 5 * max(args.steps_per_epoch, 1)
+    return optim.linear_schedule(0.0, base, warmup)
+
+
+def refuse_unported(args):
+    """Raise for the options whose machinery is not yet ported."""
+    unported = [
+        ("--model_dir", args.model_dir, "checkpointing"),
+        ("--data_dir", args.data_dir, "the real-data input plane"),
+        ("--eval_dir", args.eval_dir, "the real-data input plane"),
+        ("--profile_steps", args.profile_steps, "profiling"),
+        ("--steps_per_loop", (args.steps_per_loop or 1) > 1, "the fused train loop"),
+        ("--auto_recover", args.auto_recover, "failure recovery"),
+    ]
+    for flag, value, what in unported:
+        if value:
+            raise NotImplementedError(
+                "{} is not yet ported to tensorflowonspark_tpu_torch ({} comes in a "
+                "later slice)".format(flag, what)
+            )
+
+
+def main_fun(args, ctx):
+    import time
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import obs
+    from tensorflowonspark_tpu_torch.models import resnet
+    from tensorflowonspark_tpu_torch.ops import fused_bn
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
+
+    refuse_unported(args)
+    ctx.initialize_distributed()
+    strategy = SyncDataParallel(ctx.device)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    if args.dataset == "cifar":
+        build, image_size, classes = resnet.resnet56, 32, 10
+    else:
+        build, image_size, classes = resnet.resnet50, 224, 1000
+    if args.image_size:
+        image_size = args.image_size
+    optimizer = optim.sgd(lr_schedule(args), momentum=0.9)
+    generator = torch.Generator().manual_seed(0)  # the reference's PRNGKey(0)
+    state = strategy.create_state(
+        lambda: build(dtype=dtype, bn_impl=args.bn_impl, generator=generator), optimizer
+    )
+    loss_fn = resnet.make_loss_fn(weight_decay=1e-4)
+    step = strategy.compile_train_step(loss_fn, optimizer, mutable=True)
+
+    rng = np.random.default_rng(ctx.executor_id)
+    synthetic = strategy.shard_batch(
+        {
+            "image": rng.standard_normal((args.batch_size, image_size, image_size, 3)).astype(np.float32),
+            "label": rng.integers(0, classes, args.batch_size),
+        }
+    )
+
+    launches0 = fused_bn.launch_counts()
+    t0, metrics = time.perf_counter(), {}
+    i = last_log = 0
+    while i < args.train_steps:
+        with obs.span("train_step", step=i + 1) as sp:
+            state, metrics = step(state, synthetic)
+            i += 1
+            if i - last_log >= args.log_steps:
+                loss = float(metrics["loss"])  # waits for the device
+                dt = time.perf_counter() - t0
+                # avg_exp_per_second analogue (reference common.py:241-244)
+                ips = args.batch_size * (i - last_log) / dt
+                sp.set(loss=loss, images_per_sec=ips)
+                print("step {}: loss {:.3f} {:.1f} img/s".format(i, loss, ips))
+                last_log, t0 = i, time.perf_counter()
+    for name, n in fused_bn.launch_counts().items():
+        obs.counter(
+            "fused_bn_{}_launches_total".format(name),
+            help="launches of the fused-BN {} kernel by the training loop".format(name),
+        ).inc(n - launches0[name])
+    if metrics:
+        print("final loss {:.3f}".format(float(metrics["loss"])))
+
+
+def build_parser():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--batch_size", type=int, default=128)
+    parser.add_argument("--bn_impl", choices=["flax", "pallas"], default="flax",
+                        help="BatchNorm: 'pallas' runs the port's Triton kernels, 'flax' "
+                             "plain PyTorch math (single process only)")
+    parser.add_argument("--cluster_size", type=int, default=None,
+                        help="explicit cluster size (default: from the Spark conf/parallelism under Spark; 1 on the local backend)")
+    parser.add_argument("--data_dir", default=None, help="TFRecord shard dir (not yet ported)")
+    parser.add_argument("--dataset", choices=["cifar", "imagenet"], default="cifar")
+    parser.add_argument("--eval_dir", default=None, help="eval shard dir (not yet ported)")
+    parser.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16")
+    parser.add_argument("--image_size", type=int, default=None,
+                        help="override the dataset's native size (tests/CI)")
+    parser.add_argument("--log_steps", type=int, default=20)
+    parser.add_argument("--steps_per_loop", type=int, default=1, help="not yet ported above 1")
+    parser.add_argument("--model_dir", default=None, help="checkpoint dir (not yet ported)")
+    parser.add_argument("--profile_steps", default=None, metavar="START[,STOP]",
+                        help="not yet ported")
+    parser.add_argument("--steps_per_epoch", type=int, default=390)
+    parser.add_argument("--train_steps", type=int, default=100)
+    parser.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
+                        help="device of each trainer: one CUDA device per process, or the CPU")
+    parser.add_argument("--auto_recover", type=int, default=0, metavar="N",
+                        help="not yet ported")
+    return parser
+
+
+def main(argv=None, sc=None):
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+
+    from tensorflowonspark_tpu_torch import TFCluster, util
+    from tensorflowonspark_tpu_torch.backends import get_spark_context
+
+    # spark-submit / pyspark when present, local backend otherwise;
+    # a caller-supplied sc is passed through with owned=False
+    sc, args.cluster_size, owned = get_spark_context(
+        "resnet_spark", args.cluster_size, sc=sc, local_default=1
+    )
+    try:
+        cluster = TFCluster.run(
+            sc, main_fun, args, args.cluster_size,
+            input_mode=TFCluster.InputMode.TENSORFLOW, master_node="chief",
+            env={util.ENV_PLATFORM: args.platform},
+        )
+        cluster.shutdown()
+        print("resnet training complete")
+    finally:
+        if owned:
+            sc.stop()
+
+
+if __name__ == "__main__":
+    from tensorflowonspark_tpu_torch import util
+
+    util.setup_logging()
+    main()

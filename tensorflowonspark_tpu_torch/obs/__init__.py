@@ -1,0 +1,50 @@
+"""Cross-layer observability: metrics registry, aggregation, export, tracing.
+
+The paper's design (and the reference repo) is a thin orchestration layer
+whose only instrumentation is example-level step timing; everything else —
+reservation progress, feed-queue depth, serving sheds, recovery relaunches —
+is invisible outside log grep. This package is the measurement substrate the
+ROADMAP's production north-star needs, dependency-free (stdlib only) so it is
+importable from every process in the runtime: the Spark driver, executor
+processes, spawned jax children, and the serving server.
+
+Layers (data flows left to right):
+
+* :mod:`~tensorflowonspark_tpu_torch.obs.registry` — process-local counters /
+  gauges / bounded histograms; thread-safe; near-zero overhead when disabled.
+* :mod:`~tensorflowonspark_tpu_torch.obs.trace` — lifecycle spans (reservation,
+  node launch, feed waves, checkpoint, serving) recorded as structured
+  events with wall + monotonic timestamps.
+* :mod:`~tensorflowonspark_tpu_torch.obs.tracing` — cluster-wide trace context:
+  a ``trace_id``/root ``span_id`` minted by ``TFCluster.run`` and threaded
+  through the env lane to every tier, plus NTP-style clock-offset
+  estimation from the reservation handshake.
+* :mod:`~tensorflowonspark_tpu_torch.obs.flight` — per-process crash-safe JSONL
+  ring shards under ``TOS_TRACE_DIR`` (CRC line framing + tmp/rename
+  segment commits), dumped on chaos faults, failure classification, and
+  unhandled child exit. Merged offline by
+  :mod:`~tensorflowonspark_tpu_torch.obs.tracemerge` into one Chrome-trace JSON.
+* :mod:`~tensorflowonspark_tpu_torch.obs.aggregate` — executor-side nodes publish
+  registry snapshots over the existing TFManager channel; the driver merges
+  them into one cluster view (``TFCluster.metrics()``).
+* :mod:`~tensorflowonspark_tpu_torch.obs.exporter` — Prometheus text format over a
+  tiny stdlib HTTP endpoint, plus a JSON dump for tests and ``bench.py``.
+
+Metric naming follows Prometheus conventions: ``<area>_<what>_<unit>``,
+counters end in ``_total``, histograms in ``_seconds`` (see
+docs/architecture.md "Observability"). The global registry honors
+``TOS_OBS=0`` to disable all collection process-wide.
+"""
+
+from tensorflowonspark_tpu_torch.obs.registry import (  # noqa: F401
+    Registry,
+    counter,
+    enabled,
+    gauge,
+    get_registry,
+    histogram,
+    set_enabled,
+    snapshot,
+)
+from tensorflowonspark_tpu_torch.obs.trace import span  # noqa: F401
+from tensorflowonspark_tpu_torch.obs.flight import dump as flight_dump  # noqa: F401

@@ -1,0 +1,343 @@
+"""Per-process flight recorder: a crash-safe JSONL ring of spans/events.
+
+Every traced process (driver, Spark executor, jax child, forked decode
+worker, serving replica) owns one **shard** — a directory under
+``TOS_TRACE_DIR`` named ``<host>-<pid>-<proc>`` — and appends framed JSONL
+records to it.  The format is built from two idioms that already survive
+crash tests elsewhere in the tree:
+
+* **CRC line framing** (the membership registry's journal,
+  :mod:`tensorflowonspark_tpu_torch.registry`): every line is
+  ``"{crc32:08x} {json}\\n"``.  A reader stops at the first torn or
+  corrupt line and keeps the intact prefix — a process SIGKILLed mid-write
+  loses at most its final line.
+* **tmp+rename segment commit** (:mod:`tensorflowonspark_tpu_torch.ckpt.manifest`):
+  the active segment is ``seg-NNNNNN.open``; when it reaches the size bound
+  it is flushed, fsynced, and *renamed* to ``seg-NNNNNN.jsonl``.  Sealed
+  segments are therefore always whole; only the ``.open`` tail can tear.
+
+The ring is bounded twice over: segments are size-bounded
+(``TOS_TRACE_SEG_BYTES``, default 1 MiB) and the shard keeps at most
+``TOS_TRACE_SEGMENTS`` sealed segments (default 8), deleting the oldest —
+so a runaway loop cannot fill a disk, and the *most recent* history is what
+survives.  Because the oldest segment may have been pruned, every segment
+opens with its own ``meta`` header record (host, pid, proc label, trace id,
+a paired wall/monotonic clock sample, and the current clock offset), keeping
+any surviving segment self-describing for the merger.
+
+:meth:`FlightRecorder.dump` is the black-box moment: it appends a ``dump``
+marker record and fsyncs the active segment.  It is invoked on chaos fault
+injection (:func:`tensorflowonspark_tpu_torch.chaos._record`), on
+``FailureEvent`` classification in the elastic ladder, and on unhandled
+jax-child exit — so every recovery leaves a flight recording behind.
+
+Fork safety: :class:`FlightRecorder` remembers the pid that opened it.  A
+forked child (the decode plane uses the ``fork`` start method) that inherits
+the module-global recorder re-opens a *new* shard directory for its own pid
+on first write, and abandons — without flushing — the inherited file object,
+so the parent's buffered bytes are never duplicated into the parent's file.
+"""
+
+import json
+import os
+import socket
+import threading
+import time
+import zlib
+
+from tensorflowonspark_tpu_torch import durable
+from tensorflowonspark_tpu_torch.obs import registry as _registry
+
+#: env var naming the root directory all shards are written under; unset
+#: means the flight recorder (and the whole tracing plane) is inert
+TRACE_DIR_ENV = "TOS_TRACE_DIR"
+
+#: active-segment size bound before seal+rotate (bytes)
+SEG_BYTES_ENV = "TOS_TRACE_SEG_BYTES"
+DEFAULT_SEG_BYTES = 1 << 20
+
+#: sealed segments retained per shard (oldest pruned beyond this)
+SEGMENTS_ENV = "TOS_TRACE_SEGMENTS"
+DEFAULT_SEGMENTS = 8
+
+
+def _frame(payload):
+    """CRC-frame one JSON payload line (the registry-journal idiom)."""
+    return "{:08x} {}\n".format(zlib.crc32(payload.encode("utf-8")) & 0xFFFFFFFF, payload)
+
+
+def _unframe(line):
+    """Return the decoded record, or None for a torn/corrupt line."""
+    line = line.rstrip("\n")
+    if not line:
+        return None
+    parts = line.split(" ", 1)
+    if len(parts) != 2 or len(parts[0]) != 8:
+        return None
+    try:
+        want = int(parts[0], 16)
+    except ValueError:
+        return None
+    if zlib.crc32(parts[1].encode("utf-8")) & 0xFFFFFFFF != want:
+        return None
+    try:
+        return json.loads(parts[1])
+    except ValueError:
+        return None
+
+
+class FlightRecorder:
+    """Appends framed records to a ring of segments in one shard directory."""
+
+    def __init__(self, root, proc, trace_id=None, clock_offset=0.0,
+                 max_segment_bytes=None, max_segments=None):
+        self.root = root
+        self.proc = proc
+        self.trace_id = trace_id
+        self.clock_offset = float(clock_offset)
+        self.max_segment_bytes = int(
+            max_segment_bytes
+            if max_segment_bytes is not None
+            else os.environ.get(SEG_BYTES_ENV, DEFAULT_SEG_BYTES)
+        )
+        self.max_segments = int(
+            max_segments
+            if max_segments is not None
+            else os.environ.get(SEGMENTS_ENV, DEFAULT_SEGMENTS)
+        )
+        self._lock = threading.Lock()
+        self._pid = None
+        self._fh = None
+        self._seg_index = 0
+        self._seg_bytes = 0
+        self._records = _registry.counter(
+            "flight_records_total", help="records appended to the local flight shard"
+        )
+        self._dumps = _registry.counter(
+            "flight_dumps_total", help="flight-recorder ring dumps (black-box flushes)"
+        )
+        self._open_for_pid()
+
+    # -- shard/segment lifecycle --------------------------------------------
+
+    @property
+    def shard_dir(self):
+        return os.path.join(
+            self.root, "{}-{}-{}".format(socket.gethostname(), self._pid, self.proc)
+        )
+
+    def _open_for_pid(self):
+        self._pid = os.getpid()
+        os.makedirs(self.shard_dir, exist_ok=True)
+        self._seg_index = 0
+        self._open_segment()
+
+    def _seg_path(self, sealed):
+        return os.path.join(
+            self.shard_dir,
+            "seg-{:06d}.{}".format(self._seg_index, "jsonl" if sealed else "open"),
+        )
+
+    def _open_segment(self):
+        self._fh = open(self._seg_path(sealed=False), "a", encoding="utf-8")
+        self._seg_bytes = 0
+        self._write_locked(self._header())
+
+    def _header(self):
+        return {
+            "kind": "meta",
+            "v": 1,
+            "host": socket.gethostname(),
+            "pid": self._pid,
+            "proc": self.proc,
+            "trace": self.trace_id,
+            "wall": time.time(),
+            "mono": time.monotonic(),
+            "clock_off": self.clock_offset,
+        }
+
+    def _seal_locked(self):
+        """Commit the active segment: flush+fsync, then rename .open -> .jsonl
+        (the ckpt/manifest.py commit idiom — rename is the publish)."""
+        self._fh.flush()
+        os.fsync(self._fh.fileno())
+        self._fh.close()
+        os.rename(self._seg_path(sealed=False), self._seg_path(sealed=True))
+        # the crash that the flight recorder exists for is exactly the one
+        # that loses an unfsynced directory entry: seal durably or the
+        # post-mortem merge sees a gap where the final segment was
+        durable.fsync_dir(self.shard_dir)
+        self._seg_index += 1
+        self._open_segment()
+        self._prune_locked()
+
+    def _prune_locked(self):
+        sealed = sorted(
+            f for f in os.listdir(self.shard_dir)
+            if f.startswith("seg-") and f.endswith(".jsonl")
+        )
+        for victim in sealed[: max(0, len(sealed) - self.max_segments)]:
+            try:
+                os.unlink(os.path.join(self.shard_dir, victim))
+            except OSError:
+                pass
+
+    # -- writes --------------------------------------------------------------
+
+    def _write_locked(self, record):
+        line = _frame(json.dumps(record, sort_keys=True, separators=(",", ":")))
+        self._fh.write(line)
+        self._seg_bytes += len(line.encode("utf-8"))
+
+    def append(self, record):
+        """Append one record dict (a ``kind`` key identifies the type)."""
+        with self._lock:
+            if os.getpid() != self._pid:
+                # forked child: abandon the inherited file object WITHOUT
+                # flushing (its buffer holds a copy of the parent's pending
+                # bytes) and start a fresh shard for this pid
+                self._fh = None
+                self._open_for_pid()
+            self._write_locked(record)
+            self._fh.flush()
+            if self._seg_bytes >= self.max_segment_bytes:
+                self._seal_locked()
+        self._records.inc()
+
+    def dump(self, reason):
+        """Black-box flush: append a ``dump`` marker and fsync the tail."""
+        self.append({"kind": "dump", "reason": reason, "ts": time.time()})
+        with self._lock:
+            if self._fh is not None and os.getpid() == self._pid:
+                self._fh.flush()
+                os.fsync(self._fh.fileno())
+        self._dumps.inc()
+
+    def set_clock_offset(self, offset, rtt=None):
+        """Record a measured wall-clock offset (local + offset = driver time);
+        future segment headers carry it too."""
+        self.clock_offset = float(offset)
+        rec = {"kind": "clock", "offset_s": self.clock_offset, "ts": time.time()}
+        if rtt is not None:
+            rec["rtt_s"] = float(rtt)
+        self.append(rec)
+
+    def close(self):
+        with self._lock:
+            if self._fh is not None and os.getpid() == self._pid:
+                self._fh.flush()
+                os.fsync(self._fh.fileno())
+                self._fh.close()
+            self._fh = None
+
+
+# -- readers (used by the exporter /trace endpoint and tracemerge) -----------
+
+
+def read_segment(path):
+    """Parse one segment file.
+
+    Returns ``(records, torn)`` where ``torn`` counts lines at/after the
+    first framing failure — those (and everything following, which can no
+    longer be trusted to be aligned) are discarded, keeping the intact
+    prefix, exactly like the membership-registry journal replay.
+    """
+    records, torn = [], 0
+    try:
+        with open(path, "r", encoding="utf-8", errors="replace") as f:
+            lines = f.readlines()
+    except OSError:
+        return records, torn
+    for i, line in enumerate(lines):
+        rec = _unframe(line)
+        if rec is None:
+            torn = len(lines) - i
+            break
+        records.append(rec)
+    return records, torn
+
+
+def read_shard(shard_dir):
+    """All surviving records of one shard, sealed segments then open tail."""
+    try:
+        names = os.listdir(shard_dir)
+    except OSError:
+        return [], 0
+    segs = sorted(n for n in names if n.startswith("seg-") and n.endswith(".jsonl"))
+    segs += sorted(n for n in names if n.startswith("seg-") and n.endswith(".open"))
+    records, torn = [], 0
+    for name in segs:
+        recs, t = read_segment(os.path.join(shard_dir, name))
+        records.extend(recs)
+        torn += t
+    return records, torn
+
+
+def list_shards(root):
+    """Shard directories under a trace root (any dir holding seg files)."""
+    try:
+        entries = sorted(os.listdir(root))
+    except OSError:
+        return []
+    out = []
+    for name in entries:
+        path = os.path.join(root, name)
+        if not os.path.isdir(path):
+            continue
+        try:
+            if any(n.startswith("seg-") for n in os.listdir(path)):
+                out.append(path)
+        except OSError:
+            continue
+    return out
+
+
+# -- module-global recorder ---------------------------------------------------
+
+_recorder = None
+_rec_lock = threading.Lock()
+
+
+def configure(root, proc, trace_id=None, clock_offset=0.0):
+    """Open (or replace) the process-global recorder. Called at each process
+    tier's entry point via :func:`tensorflowonspark_tpu_torch.obs.tracing.install_from_env`."""
+    global _recorder
+    with _rec_lock:
+        if _recorder is not None:
+            _recorder.close()
+        _recorder = FlightRecorder(root, proc, trace_id=trace_id, clock_offset=clock_offset)
+        return _recorder
+
+
+def current(create=True):
+    """The process-global recorder, lazily created from ``TOS_TRACE_DIR``
+    (with a generic proc label) so dump triggers work even in processes that
+    never called an explicit install. None when tracing is inert."""
+    global _recorder
+    with _rec_lock:
+        if _recorder is None and create:
+            root = os.environ.get(TRACE_DIR_ENV)
+            if root and _registry.enabled():
+                _recorder = FlightRecorder(
+                    root,
+                    os.environ.get("TOS_TRACE_PROC", "proc"),
+                    trace_id=os.environ.get("TOS_TRACE_ID"),
+                    clock_offset=float(os.environ.get("TOS_TRACE_CLOCK_OFF", "0") or 0.0),
+                )
+        return _recorder
+
+
+def dump(reason):
+    """Dump the process-global recorder, if the tracing plane is active."""
+    rec = current()
+    if rec is not None:
+        rec.dump(reason)
+
+
+def reset():
+    """Drop the process-global recorder (tests)."""
+    global _recorder
+    with _rec_lock:
+        if _recorder is not None:
+            _recorder.close()
+        _recorder = None

@@ -1,0 +1,311 @@
+"""Process-local metrics registry: counters, gauges, bounded histograms.
+
+One :class:`Registry` per process is the normal shape (the module-global
+:func:`get_registry`), but short-lived Spark tasks create private instances so
+repeated tasks on a long-lived executor never double-count when they
+accumulate onto the executor channel (see
+:func:`tensorflowonspark_tpu_torch.obs.aggregate.accumulate_to_channel`).
+
+Design constraints, in order:
+
+* **Off the hot path.** Training loops call ``Counter.inc()`` per step and the
+  feed plane calls it per chunk. A disabled registry must make those calls
+  free: one attribute load + a truth test, no allocation (proven by the
+  micro-test in tests/test_obs_registry.py).
+* **Thread-safe.** Instruments are hit from feeder threads, the serving pool,
+  and the snapshot publisher concurrently. Counters/gauges ride a plain lock;
+  snapshots are consistent per-instrument (not globally atomic — a snapshot
+  taken mid-step may show step N's counter with step N-1's gauge, which is
+  fine for monitoring).
+* **Bounded.** Histograms hold fixed bucket arrays; events (from
+  :mod:`~tensorflowonspark_tpu_torch.obs.trace`) live in a bounded deque. Nothing
+  grows with run length.
+"""
+
+import collections
+import os
+import threading
+import time
+
+#: default histogram bucket upper bounds (seconds): tuned to span IPC round
+#: trips (~1 ms) through reservation assembly and XLA compiles (~minutes)
+DEFAULT_BUCKETS = (
+    0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+    30.0, 60.0, 120.0, 300.0,
+)
+
+#: bounded event buffer size (lifecycle spans are low-rate by design)
+MAX_EVENTS = int(os.environ.get("TOS_OBS_MAX_EVENTS", "1024"))
+
+
+class Counter:
+    """Monotonically increasing value. ``inc()`` is a no-op (and allocates
+    nothing) while the owning registry is disabled."""
+
+    __slots__ = ("name", "help", "_value", "_lock", "_registry")
+
+    def __init__(self, registry, name, help=""):
+        self.name = name
+        self.help = help
+        self._value = 0.0
+        self._lock = threading.Lock()
+        self._registry = registry
+
+    def inc(self, amount=1):
+        if not self._registry._enabled:
+            return
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self):
+        with self._lock:
+            return self._value
+
+    def _snapshot(self):
+        return {"value": self.value, "help": self.help}
+
+
+class Gauge:
+    """Point-in-time value (queue depth, rate, pending count)."""
+
+    __slots__ = ("name", "help", "_value", "_lock", "_registry")
+
+    def __init__(self, registry, name, help=""):
+        self.name = name
+        self.help = help
+        self._value = 0.0
+        self._lock = threading.Lock()
+        self._registry = registry
+
+    def set(self, value):
+        if not self._registry._enabled:
+            return
+        with self._lock:
+            self._value = float(value)
+
+    def inc(self, amount=1):
+        if not self._registry._enabled:
+            return
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount=1):
+        self.inc(-amount)
+
+    @property
+    def value(self):
+        with self._lock:
+            return self._value
+
+    def _snapshot(self):
+        return {"value": self.value, "help": self.help}
+
+
+class Histogram:
+    """Fixed-bucket histogram of observations (latencies, sizes).
+
+    Buckets are NON-cumulative internally (``_counts[i]`` = observations in
+    ``(bounds[i-1], bounds[i]]``; observations above the last bound only land
+    in ``count``); the Prometheus exporter renders the cumulative form the
+    text format requires.
+    """
+
+    __slots__ = ("name", "help", "bounds", "_counts", "_sum", "_count", "_lock", "_registry")
+
+    def __init__(self, registry, name, help="", buckets=DEFAULT_BUCKETS):
+        self.name = name
+        self.help = help
+        self.bounds = tuple(sorted(float(b) for b in buckets))
+        self._counts = [0] * len(self.bounds)
+        self._sum = 0.0
+        self._count = 0
+        self._lock = threading.Lock()
+        self._registry = registry
+
+    def observe(self, value):
+        if not self._registry._enabled:
+            return
+        value = float(value)
+        with self._lock:
+            self._sum += value
+            self._count += 1
+            # linear scan: bucket lists are short (<=16 default) and the scan
+            # is branch-predictable; bisect would allocate nothing either but
+            # buys little here
+            for i, bound in enumerate(self.bounds):
+                if value <= bound:
+                    self._counts[i] += 1
+                    break
+
+    def time(self):
+        """Context manager observing the block's wall duration."""
+        return _Timer(self)
+
+    @property
+    def count(self):
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self):
+        with self._lock:
+            return self._sum
+
+    def _snapshot(self):
+        with self._lock:
+            return {
+                "buckets": [[b, c] for b, c in zip(self.bounds, self._counts)],
+                "sum": self._sum,
+                "count": self._count,
+                "help": self.help,
+            }
+
+
+class _Timer:
+    __slots__ = ("_hist", "_t0")
+
+    def __init__(self, hist):
+        self._hist = hist
+
+    def __enter__(self):
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        self._hist.observe(time.monotonic() - self._t0)
+        return False
+
+
+class Registry:
+    """A named collection of instruments + a bounded event buffer.
+
+    ``counter``/``gauge``/``histogram`` are get-or-create: the same name
+    always returns the same instrument (a kind clash raises — two layers
+    disagreeing about a metric's type is a bug worth failing on).
+    """
+
+    def __init__(self, enabled=True):
+        self._enabled = bool(enabled)
+        self._lock = threading.Lock()
+        self._metrics = collections.OrderedDict()  # name -> instrument
+        self._events = collections.deque(maxlen=MAX_EVENTS)
+
+    # -- enable/disable ------------------------------------------------------
+
+    def enable(self):
+        self._enabled = True
+
+    def disable(self):
+        self._enabled = False
+
+    @property
+    def enabled(self):
+        return self._enabled
+
+    # -- instruments ---------------------------------------------------------
+
+    def _get_or_create(self, kind, name, help, **kwargs):
+        with self._lock:
+            inst = self._metrics.get(name)
+            if inst is None:
+                inst = kind(self, name, help=help, **kwargs)
+                self._metrics[name] = inst
+            elif type(inst) is not kind:
+                raise ValueError(
+                    "metric {!r} already registered as {} (wanted {})".format(
+                        name, type(inst).__name__, kind.__name__
+                    )
+                )
+            return inst
+
+    def counter(self, name, help=""):
+        return self._get_or_create(Counter, name, help)
+
+    def gauge(self, name, help=""):
+        return self._get_or_create(Gauge, name, help)
+
+    def histogram(self, name, help="", buckets=DEFAULT_BUCKETS):
+        return self._get_or_create(Histogram, name, help, buckets=buckets)
+
+    # -- events (written by obs.trace) ---------------------------------------
+
+    def add_event(self, event):
+        if not self._enabled:
+            return
+        # the deque is bounded: appending at capacity silently evicts the
+        # oldest event, which must not be invisible — count every drop so
+        # operators can tell a quiet run from a clipped event window
+        if len(self._events) == self._events.maxlen:
+            self.counter(
+                "obs_events_dropped_total",
+                help="events evicted from the bounded buffer (oldest-first)",
+            ).inc()
+        self._events.append(event)
+
+    def events(self):
+        return list(self._events)
+
+    # -- snapshot ------------------------------------------------------------
+
+    def snapshot(self):
+        """JSON-able view of everything: the wire format of the aggregation
+        plane and the input of both exporters."""
+        counters, gauges, histograms = {}, {}, {}
+        with self._lock:
+            metrics = list(self._metrics.items())
+        for name, inst in metrics:
+            if isinstance(inst, Counter):
+                counters[name] = inst._snapshot()
+            elif isinstance(inst, Gauge):
+                gauges[name] = inst._snapshot()
+            else:
+                histograms[name] = inst._snapshot()
+        return {
+            "ts": time.time(),
+            "counters": counters,
+            "gauges": gauges,
+            "histograms": histograms,
+            "events": list(self._events),
+        }
+
+    def reset(self):
+        """Drop all instruments and events (tests)."""
+        with self._lock:
+            self._metrics.clear()
+            self._events.clear()
+
+
+#: the process-global registry; TOS_OBS=0 disables collection process-wide
+_global = Registry(enabled=os.environ.get("TOS_OBS", "1") != "0")
+
+
+def get_registry():
+    return _global
+
+
+def set_enabled(value):
+    if value:
+        _global.enable()
+    else:
+        _global.disable()
+
+
+def enabled():
+    return _global._enabled
+
+
+def counter(name, help=""):
+    return _global.counter(name, help=help)
+
+
+def gauge(name, help=""):
+    return _global.gauge(name, help=help)
+
+
+def histogram(name, help="", buckets=DEFAULT_BUCKETS):
+    return _global.histogram(name, help=help, buckets=buckets)
+
+
+def snapshot():
+    return _global.snapshot()

@@ -1,0 +1,314 @@
+"""Cluster-wide trace context: one ``trace_id`` from driver to decode worker.
+
+:func:`TFCluster.run <tensorflowonspark_tpu_torch.TFCluster.run>` mints a
+``trace_id`` and a root ``span_id`` and threads them through the same
+env-propagation lane the chaos plan rides (``cluster_meta["env"]`` →
+executor → ``os.environ`` in the spawned jax child → inherited by forked
+decode workers and serving replicas).  Every span or event recorded anywhere
+in the cluster then carries the same causal identity, so
+:mod:`~tensorflowonspark_tpu_torch.obs.tracemerge` can stitch per-process flight
+shards (:mod:`~tensorflowonspark_tpu_torch.obs.flight`) into one timeline.
+
+Minting is idempotent: if a trace is already active in the driver process
+(an elastic-ladder relaunch calling :func:`TFCluster.run` again), the
+existing ``trace_id`` is reused — a recovery ladder is ONE trace, and the
+kill, the watchdog's ``lease_expired`` event, and the relaunch all line up
+on it.
+
+Span identity is tracked per thread: a thread-local stack gives each span a
+fresh 64-bit ``span_id`` and its enclosing span (or the propagated root) as
+``parent``.  The stack is maintained by :class:`obs.trace.Span
+<tensorflowonspark_tpu_torch.obs.trace.Span>` itself, so every *existing* span
+site gains trace identity without being edited.
+
+Clock alignment: each executor measures its wall-clock offset against the
+driver from the reservation REG round-trip (the server stamps its reply;
+offset = ``server_ts - (t0 + t1) / 2``, NTP-style, best = min-RTT sample —
+see :func:`observe_clock`).  The offset is exported via
+``TOS_TRACE_CLOCK_OFF`` so same-host children inherit it, and recorded into
+the flight shard for the merger.
+
+Span sites
+----------
+
+Every span name in the tree must be a string literal, opened via ``with``,
+and listed here (enforced by the ``trace-discipline`` tosa rule, the
+tracing analogue of chaos-obs-coverage):
+
+``reservation_roundtrip``  driver awaiting all executor reservations
+``node_launch``            executor registration + cluster-assembly wait
+``node_main``              the jax child's user training/inference fn
+``feed_wave``              one executor feed wave (partition batch stream)
+``inference_wave``         one executor inference wave
+``chaos_fault``            marker span for an injected chaos fault
+``step_fetch``             training loop pulling the next host batch
+``h2d_transfer``           host→device transfer of a feed window
+``step_compute``           one optimizer step (jit dispatch + wait)
+``ckpt_snapshot``          checkpoint snapshot handoff to the async engine
+``comm_allreduce``         one bucketed all-reduce on the comm thread (retro)
+``comm_window``            backprop window a bucket may hide under (retro)
+``pipeline_stage``         one 1F1B stage op (fwd/bwd/fused loss) (retro)
+``pipeline_transfer``      stage-boundary activation/cotangent hop (retro)
+``serving_route``          serving-mesh router handling one client request
+``elastic_relaunch``       recovery-ladder relaunch attempt
+``elastic_regrow``         scaler-initiated regrow restart (drain → relaunch)
+``control_decision``       marker span for a Controller knob move
+
+``comm_allreduce``/``comm_window`` and ``pipeline_stage``/
+``pipeline_transfer`` are *retroactive* spans (:func:`record_span`): the
+bucketed-overlap comm thread and the 1F1B stage/comm threads record
+perf-counter intervals while overlapping compute, and the step publishes
+them afterwards with explicit timestamps so the merger can draw the comm
+and pipeline tracks without the tracer ever being on the hot path.
+"""
+
+import os
+import secrets
+import threading
+import time
+
+from tensorflowonspark_tpu_torch.obs import flight as _flight
+from tensorflowonspark_tpu_torch.obs import registry as _registry
+
+#: env lane keys (the same propagation mechanism as TOS_CHAOS_PLAN)
+TRACE_ENV = "TOS_TRACE_ID"
+PARENT_ENV = "TOS_TRACE_PARENT"
+DIR_ENV = _flight.TRACE_DIR_ENV  # TOS_TRACE_DIR
+CLOCK_ENV = "TOS_TRACE_CLOCK_OFF"
+PROC_ENV = "TOS_TRACE_PROC"
+
+
+class _State:
+    def __init__(self):
+        self.trace_id = None
+        self.root_parent = None
+        self.proc = None
+        self.best_rtt = None
+
+
+_state = _State()
+_tls = threading.local()
+
+
+def _new_id():
+    return secrets.token_hex(8)
+
+
+def _stack():
+    st = getattr(_tls, "stack", None)
+    if st is None:
+        st = _tls.stack = []
+    return st
+
+
+# -- context -----------------------------------------------------------------
+
+
+def active():
+    """True once a trace context is installed in this process."""
+    return _state.trace_id is not None
+
+
+def trace_id():
+    return _state.trace_id
+
+
+def current_span_id():
+    """The innermost open span on this thread, else the propagated root."""
+    st = _stack()
+    return st[-1] if st else _state.root_parent
+
+
+def mint(proc="driver"):
+    """Mint (or reuse) the process trace context and return the env dict to
+    thread through the cluster_meta env lane.
+
+    Only :func:`TFCluster.run` calls this.  Re-minting inside an already
+    traced process keeps the existing ``trace_id`` (ladder relaunches stay
+    on one trace) but always returns a complete propagation env.
+    """
+    if not active():
+        _state.trace_id = os.environ.get(TRACE_ENV) or _new_id() + _new_id()
+        _state.root_parent = _new_id()
+        _state.proc = proc
+        os.environ[TRACE_ENV] = _state.trace_id
+        root = os.environ.get(DIR_ENV)
+        if root and _registry.enabled():
+            _flight.configure(root, proc, trace_id=_state.trace_id)
+    env = {TRACE_ENV: _state.trace_id, PARENT_ENV: _state.root_parent or ""}
+    root = os.environ.get(DIR_ENV)
+    if root:
+        env[DIR_ENV] = root
+    return env
+
+
+def install_from_env(proc, env=None):
+    """Adopt a propagated trace context in a non-driver tier.
+
+    ``env`` (e.g. the executor-side ``cluster_meta["env"]``) is folded into
+    ``os.environ`` first so children spawned later inherit the lane; the
+    executor's already-measured ``TOS_TRACE_CLOCK_OFF`` is left alone.
+    Returns True when a trace became (or already was) active.
+    """
+    if env:
+        for key in (TRACE_ENV, PARENT_ENV, DIR_ENV):
+            if key in env and env[key]:
+                os.environ[key] = str(env[key])
+    tid = os.environ.get(TRACE_ENV)
+    if not tid:
+        return False
+    if _state.trace_id != tid:
+        _state.trace_id = tid
+        _state.root_parent = os.environ.get(PARENT_ENV) or None
+        _state.best_rtt = None
+    _state.proc = proc
+    os.environ[PROC_ENV] = proc
+    root = os.environ.get(DIR_ENV)
+    if root and _registry.enabled():
+        rec = _flight.current(create=False)
+        if rec is None or rec.proc != proc:
+            _flight.configure(
+                root, proc, trace_id=tid, clock_offset=clock_offset()
+            )
+    return True
+
+
+def propagation_env():
+    """The env entries a traced process should pass to anything it spawns."""
+    if not active():
+        return {}
+    env = {TRACE_ENV: _state.trace_id}
+    if _state.root_parent:
+        env[PARENT_ENV] = _state.root_parent
+    for key in (DIR_ENV, CLOCK_ENV):
+        if os.environ.get(key):
+            env[key] = os.environ[key]
+    return env
+
+
+def reset():
+    """Forget the process trace context and recorder (tests)."""
+    _state.trace_id = None
+    _state.root_parent = None
+    _state.proc = None
+    _state.best_rtt = None
+    _tls.stack = []
+    for key in (TRACE_ENV, PARENT_ENV, PROC_ENV, CLOCK_ENV):
+        os.environ.pop(key, None)
+    _flight.reset()
+
+
+# -- span plumbing (driven by obs.trace.Span) --------------------------------
+
+
+def push_span():
+    """Allocate a span id, note its parent, and make it current for the
+    thread.  Returns ``(span_id, parent_id)`` — (None, None) when no trace
+    context is active (spans still work, they just carry no identity)."""
+    if not active():
+        return None, None
+    sid = _new_id()
+    parent = current_span_id()
+    _stack().append(sid)
+    return sid, parent
+
+
+def pop_span(span_id):
+    st = _stack()
+    if span_id is not None and st and st[-1] == span_id:
+        st.pop()
+
+
+def record(record):
+    """Write one record to the local flight shard, if one is open."""
+    rec = _flight.current()
+    if rec is not None:
+        rec.append(record)
+
+
+def event(name, **attrs):
+    """Record an instant event (e.g. ``lease_expired``, ``child_failed``)
+    onto the current trace at the current causal position."""
+    if not active() and not os.environ.get(DIR_ENV):
+        return
+    evt = {
+        "kind": "event",
+        "name": name,
+        "trace": _state.trace_id,
+        "span": _new_id(),
+        "parent": current_span_id(),
+        "ts": time.time(),
+    }
+    if attrs:
+        evt["attrs"] = attrs
+    record(evt)
+
+
+def record_span(name, ts, dur_s, ok=True, track=None, **attrs):
+    """Retroactively record a completed span with explicit timestamps.
+
+    Used for intervals measured off-thread (the bucketed-overlap comm
+    thread) where a context manager cannot wrap the work.  ``track`` labels
+    a dedicated merge-time lane (the comm track)."""
+    rec = {
+        "kind": "span",
+        "name": name,
+        "trace": _state.trace_id,
+        "span": _new_id(),
+        "parent": current_span_id(),
+        "ts": float(ts),
+        "dur_s": float(dur_s),
+        "ok": bool(ok),
+        "tid": threading.get_native_id(),
+    }
+    if track:
+        rec["track"] = track
+    if attrs:
+        rec["attrs"] = attrs
+    record(rec)
+
+
+# -- clock alignment ---------------------------------------------------------
+
+
+def clock_offset():
+    """Seconds to ADD to local wall time to get driver wall time."""
+    try:
+        return float(os.environ.get(CLOCK_ENV, "0") or 0.0)
+    except ValueError:
+        return 0.0
+
+
+def observe_clock(server_ts, t0, t1):
+    """Fold one driver-stamped round-trip into the clock-offset estimate.
+
+    ``t0``/``t1`` are local wall clocks around the request; ``server_ts`` is
+    the driver's stamp from the reply.  NTP-style midpoint estimate; the
+    lowest-RTT sample wins (its midpoint error bound is tightest).  The
+    winning offset is exported via ``TOS_TRACE_CLOCK_OFF`` for same-host
+    children and journaled into the flight shard for the merger.
+    """
+    rtt = t1 - t0
+    if rtt < 0:
+        return None
+    if _state.best_rtt is not None and rtt >= _state.best_rtt:
+        return None
+    _state.best_rtt = rtt
+    offset = server_ts - (t0 + t1) / 2.0
+    os.environ[CLOCK_ENV] = repr(offset)
+    rec = _flight.current()
+    if rec is not None:
+        rec.set_clock_offset(offset, rtt=rtt)
+    return offset
+
+
+# -- convenience -------------------------------------------------------------
+
+
+def span(name, registry=None, **attrs):
+    """Alias for :func:`tensorflowonspark_tpu_torch.obs.trace.span` (the single
+    span implementation — every span participates in tracing when a context
+    is active)."""
+    from tensorflowonspark_tpu_torch.obs import trace as _trace
+
+    return _trace.span(name, registry=registry, **attrs)
