@@ -7,46 +7,74 @@ Run from the root of a checkout on a machine with one NVIDIA GPU::
 Phases, each printing one JSON line (``{"phase": ...}``); any failure raises
 and the script exits non-zero:
 
-1. ``device``   the card's name and power limit (``nvidia-smi``).
-2. ``build``    compiles the four fused-BatchNorm Triton kernels from the
-                sources in the checkout (into ``build/triton``).
-3. ``kernel``   at every BatchNorm shape of a ResNet-50 step (batch 64,
-                224 px, bf16), each kernel against its plain PyTorch version:
-                the max error beside its stated tolerance, the kernel's time,
-                the plain version's, one PyTorch library call computing the
-                same function (a yardstick only; the port never calls it) and
-                the least time the card could take (bytes moved / 3.35 TB/s,
-                the H100 SXM data sheet). Lines are printed for the stem and a
-                stage-3 shape; the ``kernels`` line carries per-step totals.
-4. ``slice``    the port's main path: ``TFCluster.run`` on the local backend,
-                one executor, the port's ``resnet_spark.main_fun`` on full
-                ResNet-50, bf16, ``bn_impl="pallas"``, batch 64, 5 steps. Per-
-                step losses (finite), images/s over steps 2-5, and each
-                kernel's launch count read back from the trainer's obs
-                counters (``cluster.metrics()``), which must be 53 per step.
-5. ``compare``  in this process, one train step of the same model, weights
-                (seed 0) and batch through the kernels and through their
-                plain versions (``bn_impl="flax"``), in float32 and in bf16,
-                with TF32 off for convs and matmuls: both losses and their
-                difference, and the relative difference of the gradients,
-                each against a stated limit; then a control run with a 1%
-                dgamma fault that the gradient limit must catch.
-6. ``kernels``  every kernel of the port and whether phases 3-4 launched it.
+1. ``device``     the card's name and power limit (``nvidia-smi``).
+2. ``build``      compiles the four fused-BatchNorm Triton kernels (into
+                  ``build/triton``) and, at the same time in a second thread,
+                  the three flash-attention CUDA kernels with ``nvcc`` (into
+                  ``build/cuda``), from the sources in the checkout.
+3. ``kernel``     at every BatchNorm shape of a ResNet-50 step (batch 64,
+                  224 px, bf16), each BN kernel against its plain PyTorch
+                  version: the max error beside its stated tolerance, the
+                  kernel's time, the plain version's, one PyTorch library
+                  call computing the same function (a yardstick only; the
+                  port never calls it) and the least time the card could take
+                  (bytes moved / 3.35 TB/s, the H100 SXM data sheet). Lines
+                  are printed for the stem and a stage-3 shape.
+4. ``kernel``     each flash-attention kernel against its plain version at
+                  the LM slice's shape ([B·H=64, L=2048, D=64] bf16, causal,
+                  with the packed segment layout of the slice's own corpus),
+                  and once in f32 at [16, 1024, 64]: the errors (bf16
+                  outputs elementwise and as a norm) beside their limits,
+                  two faults the bf16 limits must catch (an output off by
+                  1%; O with a kv block dropped), kernel, plain and
+                  yardstick times
+                  (``scaled_dot_product_attention`` with the causal+segment
+                  mask, and its backward), and the bound from this run's
+                  segments (989 TFLOP/s bf16 or 67 TFLOP/s f32, 3.35 TB/s).
+5. ``slice``      the port's ResNet path: ``TFCluster.run`` on the local
+                  backend, one executor, the port's ``resnet_spark.main_fun``
+                  on full ResNet-50, bf16, ``bn_impl="pallas"``, batch 64, 5
+                  steps. Per-step losses (finite), images/s over steps 2-5,
+                  and each BN kernel's launch count read back from the
+                  trainer's obs counters, which must be 53 per step.
+6. ``compare``    one ResNet-50 train step, BN kernels vs plain versions, in
+                  float32 and bf16 with TF32 off, then a 1% dgamma fault
+                  that the gradient limit must catch.
+7. ``slice_lm``   the port's LM path: ``TFCluster.run`` → the port's
+                  ``transformer_spark.main_fun`` at ``TransformerConfig``'s
+                  full width (vocab 32000, d_model 512, 6 layers, 8 heads,
+                  d_ff 2048), seq 2048, batch 8, bf16, on byte-tokenized
+                  packed text, 5 steps: losses (finite), tokens/s over steps
+                  2-5, the packing efficiency, and each flash kernel's
+                  launches, which must be 6 per step.
+8. ``compare_lm`` one LM train step on the same weights (seed 0) and packed
+                  batch through the kernels (``attention="flash"``) and
+                  through a reference, with TF32 off: in float32 plain
+                  attention, in bf16 the kernels' plain versions on the
+                  same autograd path. Loss and gradient differences
+                  against stated limits; then, in each dtype, a 1% dk fault
+                  in the dk/dv kernel's output that the gradient limit
+                  must catch.
+9. ``kernels``    every kernel of the port and whether phases 5 and 7
+                  launched it.
 
 Then one JSON line with every kernel's measurements, the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script fails before printing anything.
 """
 
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
 BATCH, IMAGE, STEPS = 64, 224, 5
 BF16_ULP = 2.0 ** -7  # bf16 keeps 8 significant bits
 REL_F32_SUM = 1e-4  # f32 per-channel sums of up to 8e5 values, added in another order
@@ -60,6 +88,38 @@ KERNEL_TABLE = [
     ("bn_bwd_dx", "tensorflowonspark_tpu/ops/fused_bn.py:138", (3, 5), 7),
 ]
 SOURCE = "tensorflowonspark_tpu_torch/ops/fused_bn.py"
+
+#: the LM slice: TransformerConfig's defaults at full width
+LM = dict(vocab_size=32000, d_model=512, n_layers=6, n_heads=8, d_ff=2048)
+LM_SEQ, LM_BATCH = 2048, 8
+#: one bf16 LM step, kernels vs their plain versions: the loss, all
+#: gradients (relative) and each of the last layer's q, k, v projection
+#: gradients (relative, forward kernel on both sides)
+LM_BF16_LOSS_TOL, LM_BF16_GRAD_TOL, LM_BF16_ATTN_GRAD_TOL = 2e-4, 2e-3, 3e-3
+#: (wrapper, TPU kernel it replaces, matrix products per attended (q, k)
+#: pair, [BH, L, D] tensors moved, [BH, L] f32 row vectors moved)
+FLASH_TABLE = [
+    ("flash_fwd", "tensorflowonspark_tpu/ops/flash_attention.py:54", 2, 4, 1),
+    ("flash_bwd_dq", "tensorflowonspark_tpu/ops/flash_attention.py:104", 3, 5, 2),
+    ("flash_bwd_dkv", "tensorflowonspark_tpu/ops/flash_attention.py:151", 4, 6, 2),
+]
+FLASH_SOURCE = "tensorflowonspark_tpu_torch/csrc/flash_attention.cu"
+#: kernel vs plain version, f32 outputs (lse everywhere, every output of the
+#: f32 line): the same f32 math summed in another order, within this much
+#: of the largest reference value (floor 1)
+FLASH_F32_TOL = 1e-4
+#: bf16 outputs, held elementwise: |got - ref| <= tol * (|ref| + rms(ref)).
+#: The summands of dq, dk and dv cancel, so one bf16 ulp at the scale of the
+#: summands lands on smaller values (a sound kernel reads up to 1.4e-2 at
+#: the slice's shape on an H100); a kv block dropped from the rows past it
+#: reads 3.2
+FLASH_BF16_ELEM_TOL = 2.0 ** -5
+#: bf16 outputs, held as a norm: ||got - ref|| / ||ref||. O differs most: p
+#: rounds to bf16 against a running max in the kernel and the final max in
+#: the plain version (reads 1.1e-3); dq, dk, dv round the same p and ds on
+#: both sides (read <= 8.5e-5). A 1% fault in any output reads 1.0e-2
+FLASH_BF16_NORM_TOL = {"flash_fwd": 2.0 ** -8, "flash_bwd_dq": 2.0 ** -10,
+                       "flash_bwd_dkv": 2.0 ** -10}
 
 
 def emit(obj):
@@ -324,7 +384,401 @@ def phase_compare(torch, fused_bn, resnet):
                              "limit {}: the gradient check cannot see it".format(control, grad_tol))
 
 
+def lm_corpus(here):
+    """The LM slice's corpus (the example's synthetic TFRecord text) under
+    ``build/`` in the checkout, and the first packed batch that the trainer
+    (executor 0 of 1: every shard, seed 0) draws from it."""
+    from tensorflowonspark_tpu_torch import tfrecord
+    from tensorflowonspark_tpu_torch.data import TextPipeline, Tokenizer
+    from tensorflowonspark_tpu_torch.examples.transformer import transformer_spark
+
+    data_dir = os.path.join(here, "build", "lm_corpus")
+    transformer_spark.make_text_corpus(data_dir)
+    stream = iter(TextPipeline(tfrecord.list_shards(data_dir), Tokenizer(kind="byte"),
+                               seq_len=LM_SEQ + 1, batch_size=LM_BATCH, seed=0, epochs=None,
+                               pack_workers=0))
+    batch = next(stream)
+    stream.close()
+    return data_dir, batch
+
+
+def attended_pairs(seg):
+    """(q, k) pairs per head that causal attention with the segment fence
+    needs on ``seg`` ``[B, L]`` (pad rows, id 0, attend to each other):
+    n(n+1)/2 for each id with n positions in a row."""
+    import numpy as np
+
+    total = 0
+    for row in np.asarray(seg):
+        _, counts = np.unique(row, return_counts=True)
+        total += int((counts * (counts + 1) // 2).sum())
+    return total
+
+
+def flash_bound(name, seg, heads, length, d, elem_bytes, pairs=None):
+    """(bound_ms, bound_by) of one call: the larger of bytes over the memory
+    rate (each input read once, each output written once) and the matrix
+    products' flops on the attended pairs over the dtype's peak rate."""
+    _, _, products, tensors, rows = next(t for t in FLASH_TABLE if t[0] == name)
+    b = seg.shape[0]
+    bh = b * heads
+    if pairs is None:
+        pairs = attended_pairs(seg) * heads
+    flops = products * 2 * d * pairs
+    moved = tensors * bh * length * d * elem_bytes + rows * bh * length * 4 + b * length * 4
+    peak = BF16_FLOPS_PER_S if elem_bytes == 2 else F32_FLOPS_PER_S
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_errors(name, got, want):
+    """``(max_abs_err, failures, readings)`` of one kernel's outputs against
+    its plain version's: f32 outputs within ``FLASH_F32_TOL`` of the largest
+    value; bf16 outputs elementwise and as a norm (``FLASH_BF16_*``)."""
+    import torch
+
+    failures, readings, max_abs = [], {"elem": None, "norm": None}, 0.0
+    for i, (g, r) in enumerate(zip(got, want)):
+        g, rf = g.float(), r.float()
+        diff = (g - rf).abs()
+        err = float(diff.max())
+        max_abs = max(max_abs, err)
+        if r.dtype == torch.float32:
+            tol = FLASH_F32_TOL * max(1.0, float(rf.abs().max()))
+            if not err <= tol:
+                failures.append("output {}: max abs err {} > {}".format(i, err, tol))
+            continue
+        rms = rf.square().mean().sqrt()
+        elem = float((diff / (rf.abs() + rms)).max())
+        norm = float((g - rf).norm() / rf.norm())
+        readings = {"elem": max(readings["elem"] or 0.0, elem),
+                    "norm": max(readings["norm"] or 0.0, norm)}
+        if not elem <= FLASH_BF16_ELEM_TOL:
+            failures.append("output {}: elementwise err {} > {}".format(i, elem, FLASH_BF16_ELEM_TOL))
+        if not norm <= FLASH_BF16_NORM_TOL[name]:
+            failures.append("output {}: norm err {} > {}".format(i, norm, FLASH_BF16_NORM_TOL[name]))
+    return max_abs, failures, readings
+
+
+def o_dropped_block(fa, q, k, v, seg, scale, heads):
+    """The plain forward's O with keys 64-127 dropped from every query row
+    past them: a fault that the elementwise limit must catch."""
+    import torch
+
+    s = fa._masked_scores(q, k, seg, scale, True, heads)
+    s[:, 128:, 64:128] = fa.NEG_BIG
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    denom = torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
+    return (torch.einsum("bqk,bkd->bqd", p.to(q.dtype).float(), v.float()) / denom).to(q.dtype)
+
+
+def _sdpa_backend(torch, F, q, k, v, mask):
+    """The first of PyTorch's fused SDPA backends that takes this boolean
+    mask and dtype (the yardstick's; the port never calls SDPA)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            torch.cuda.synchronize()
+            return backend
+        except RuntimeError:
+            continue
+    raise RuntimeError("no SDPA backend takes a boolean mask here")
+
+
+def phase_flash_kernel(torch, F, fa, seg_slice):
+    """Each flash kernel against its plain version, bf16 at the slice's
+    shape and f32 at [16, 1024, 64], causal with the corpus's segments. On
+    the bf16 line two faults must fail the check: each kernel's first
+    output (O, dq, dk) off by 1%, and O with a kv block dropped. Returns the
+    bf16 line's numbers per LM step (6 layers)."""
+    from torch.nn.attention import sdpa_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' einsums in full f32
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    heads, d = LM["n_heads"], LM["d_model"] // LM["n_heads"]
+    totals = {}
+    for dtype_name, b, length in (("bfloat16", LM_BATCH, LM_SEQ), ("float32", 2, 1024)):
+        dtype = getattr(torch, dtype_name)
+        seg = seg_slice[:b, :length].contiguous()
+        shape = (b * heads, length, d)
+        q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, seg, scale, True, heads)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        args = (seg, scale, True, heads)
+        bwd = (seg, do, lse_ref, delta, scale, True, heads)
+        q4, k4, v4, do4 = (t.view(b, heads, length, d) for t in (q, k, v, do))
+        pos = torch.arange(length, device="cuda")
+        mask = ((pos[:, None] >= pos[None, :])[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]
+        backend = _sdpa_backend(torch, F, q4, k4, v4, mask)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+        with sdpa_kernel([backend]):
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+
+        def library_fwd():
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+        def library_bwd():
+            return torch.autograd.grad(out, (qg, kg, vg), do4, retain_graph=True)
+
+        cases = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *args),
+                          lambda: fa.flash_fwd_plain(q, k, v, *args), library_fwd),
+            "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, *bwd),
+                             lambda: fa.flash_bwd_dq_plain(q, k, v, *bwd), library_bwd),
+            "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, *bwd),
+                              lambda: fa.flash_bwd_dkv_plain(q, k, v, *bwd), library_bwd),
+        }
+        pairs = attended_pairs(seg.cpu()) * heads
+        for name, (kernel, plain, library) in cases.items():
+            got, want = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            err, failures, readings = flash_errors(name, got, want)
+            controls = {}
+            if dtype_name == "bfloat16":
+                faults = {"x1.01": (got[0].float() * 1.01,) + got[1:]}
+                if name == "flash_fwd":
+                    faults["dropped_kv_block"] = (o_dropped_block(fa, q, k, v, seg, scale, heads),
+                                                  got[1])
+                for fault, outs in faults.items():
+                    _, caught, controls[fault] = flash_errors(name, outs, want)
+                    if not caught:
+                        raise AssertionError("{}: the {} fault passed the check ({})".format(
+                            name, fault, controls[fault]))
+            if failures:
+                raise AssertionError("{} {} at {}: {}".format(name, dtype_name, shape, failures))
+            ms = time_ms(torch, kernel, flush)
+            plain_ms = time_ms(torch, plain, flush)
+            library_ms = time_ms(torch, library, flush)
+            b_ms, b_by = flash_bound(name, seg, heads, length, d, q.element_size(), pairs)
+            causal_ms, _ = flash_bound(name, seg, heads, length, d, q.element_size(),
+                                       b * heads * length * (length + 1) // 2)
+            line = {"phase": "kernel", "name": name, "shape": list(shape), "dtype": dtype_name,
+                    "causal": True, "segments": int(sum(len(set(r)) for r in seg.cpu().tolist())),
+                    "max_abs_err": err, "elem_err": readings["elem"], "norm_err": readings["norm"],
+                    "elem_tolerance": FLASH_BF16_ELEM_TOL, "norm_tolerance": FLASH_BF16_NORM_TOL[name],
+                    "f32_tolerance": FLASH_F32_TOL, "controls": controls,
+                    "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "library": "sdpa {} {}".format(
+                        backend.name, "forward" if name == "flash_fwd" else "backward (dq+dk+dv)"),
+                    "bound_ms": b_ms, "bound_by": b_by, "bound_ms_dense_causal": causal_ms}
+            emit(line)
+            if dtype_name == "bfloat16":
+                n_layers = LM["n_layers"]
+                totals[name] = {"ms": n_layers * ms, "plain_ms": n_layers * plain_ms,
+                                "library_ms": n_layers * library_ms, "bound_ms": n_layers * b_ms,
+                                "bound_by": b_by, "max_abs_err": err}
+        del q, k, v, do, q4, k4, v4, do4, qg, kg, vg, out, o_ref, lse_ref, delta, mask
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_slice_lm(torch, fa, data_dir, steps):
+    """The port's LM path through the user's entry points."""
+    from tensorflowonspark_tpu_torch import TFCluster, util
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+    from tensorflowonspark_tpu_torch.examples.transformer import transformer_spark
+
+    args = transformer_spark.build_parser().parse_args([
+        "--vocab_size", str(LM["vocab_size"]), "--d_model", str(LM["d_model"]),
+        "--n_layers", str(LM["n_layers"]), "--n_heads", str(LM["n_heads"]),
+        "--d_ff", str(LM["d_ff"]), "--seq_len", str(LM_SEQ), "--batch_size", str(LM_BATCH),
+        "--dtype", "bfloat16", "--tokenizer", "byte", "--train_steps", str(steps),
+        "--log_steps", "1", "--data_dir", data_dir,
+    ])
+    fa.reset_launch_counts()  # the trainer's counts start at 0 in its fresh process
+    t0 = time.perf_counter()
+    sc = LocalSparkContext(num_executors=1)
+    try:
+        cluster = TFCluster.run(
+            sc, transformer_spark.main_fun, args, 1,
+            input_mode=TFCluster.InputMode.TENSORFLOW, master_node="chief",
+            env={util.ENV_PLATFORM: "gpu"},
+        )
+        if not cluster.wait_for_completion(timeout=600):
+            raise TimeoutError("the LM trainer did not finish within 600 s")
+        metrics = cluster.metrics(include_driver=False)
+        cluster.shutdown()
+    finally:
+        sc.stop()
+    wall = time.perf_counter() - t0
+    events = sorted(
+        (e for e in metrics["events"] if e.get("span") == "train_step"), key=lambda e: e["step"]
+    )
+    losses = [e.get("loss") for e in events]
+    if len(events) != steps or not all(isinstance(v, float) and math.isfinite(v) for v in losses):
+        raise AssertionError("expected {} finite LM step losses, got {}".format(steps, losses))
+    timed = [e["dur_s"] for e in events[1:]]
+    launches = {
+        name: int(metrics["counters"].get(
+            "flash_attention_{}_launches_total".format(name[len("flash_"):]), {}).get("value", 0))
+        for name, *_ in FLASH_TABLE
+    }
+    want = LM["n_layers"] * steps
+    efficiency = metrics["gauges"].get("text_pack_efficiency", {}).get("value")
+    emit({"phase": "slice_lm", "model": "transformer", "config": dict(LM, seq_len=LM_SEQ),
+          "dtype": "bfloat16", "batch": LM_BATCH, "steps": steps, "losses": losses,
+          "step_s": [e["dur_s"] for e in events],
+          "tokens_per_sec_steps_2_5": LM_BATCH * LM_SEQ * len(timed) / sum(timed),
+          "packing_efficiency": efficiency, "launches": launches,
+          "expected_launches": want, "wall_s": wall})
+    bad = {k: v for k, v in launches.items() if v != want}
+    if bad:
+        raise AssertionError("flash kernel launches {} != {} x {} steps".format(
+            bad, LM["n_layers"], steps))
+    if not (isinstance(efficiency, float) and 0 < efficiency <= 1):
+        raise AssertionError("packing efficiency {} outside (0, 1]".format(efficiency))
+    return launches
+
+
+def _lm_grads(torch, fa, transformer, dtype_name, impl, batch):
+    """Loss, all parameter gradients (flattened), the last layer's attention
+    projection gradients (``{"q", "k", "v"}`` weights) and flash launches
+    of one LM training forward and backward (weights seed 0)."""
+    model = transformer.create_model(
+        dtype=dtype_name, attention=impl, generator=torch.Generator().manual_seed(0), **LM
+    ).cuda().train()
+    before = fa.launch_counts()
+    loss, _ = transformer.make_loss_fn(model)(model, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    grad = torch.cat([p.grad.float().flatten() for p in model.parameters()])
+    last = getattr(model, "layer_{}".format(LM["n_layers"] - 1)).attn
+    attn = {name: getattr(last, name).weight.grad.float() for name in ("q", "k", "v")}
+    del model, last
+    torch.cuda.empty_cache()
+    return loss.item(), grad, attn, {k: after[k] - before[k] for k in after}
+
+
+def _rel(got, ref):
+    return float((got - ref).norm() / ref.norm())
+
+
+@contextlib.contextmanager
+def plain_kernels(fa, wrappers):
+    """The given flash wrappers replaced by their plain versions inside the
+    block: the same autograd path and the same bf16 casts of p and ds, with
+    those kernels not launched."""
+    saved = {fn.__name__: fn for fn in wrappers}
+    for name in saved:
+        setattr(fa, name, getattr(fa, name + "_plain"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(fa, name, fn)
+
+
+@contextlib.contextmanager
+def dk_fault(fa):
+    """dk off by 1% in the dk/dv kernel's output inside the block."""
+    real = fa.flash_bwd_dkv
+
+    def faulted(*args):
+        dk, dv = real(*args)
+        return dk * 1.01, dv
+
+    # the wrapper counts its launches on the module's name for it, which
+    # is this stand-in while the fault is in
+    faulted.launches = 0
+    fa.flash_bwd_dkv = faulted
+    try:
+        yield
+    finally:
+        fa.flash_bwd_dkv = real
+
+
+def phase_compare_lm(torch, fa, transformer, host_batch):
+    """One LM train step through the flash kernels against a reference step
+    on the same weights and packed batch, then the same step with a 1% fault
+    in dk, each against stated limits.
+
+    float32 (TF32 off): against plain attention, the dense f32 math; the
+    loss and the relative difference of all parameter gradients, which the
+    fault must break.
+
+    bfloat16: against the kernels' plain versions on the same autograd path
+    (plain attention keeps p and ds in f32: the kernels' bf16 rounding alone
+    moves the gradients by 1.2e-3). The loss and the whole gradient are
+    held to a step's bf16 rounding, which leaves no room for a 1% fault: any
+    difference flips bf16 roundings layer after layer (the whole gradient
+    reads 1.1e-3 apart, the dk fault 1.6e-3; the q, k, v projections of all
+    layers 8.9e-4 and 2.0e-3). The fault is held in the last layer's q, k
+    and v projection gradients, each relative to its own norm, with the
+    forward kernel on both sides and only the backward kernels against
+    their plain versions: there the gradient arriving at attention is the
+    same on both sides, and dq, dk, dv reach the weights in one product."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = {k: torch.as_tensor(v).cuda() for k, v in host_batch.items()}
+    n = LM["n_layers"]
+    kernels = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    bwd_plain = {"flash_fwd": n, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    none = dict.fromkeys(kernels, 0)
+    run = lambda dtype, impl="flash": _lm_grads(torch, fa, transformer, dtype, impl, batch)  # noqa: E731
+
+    lk, gk, _, nk = run("float32")
+    lp, gp, _, np_ = run("float32", "plain")
+    with dk_fault(fa):
+        lf, gf, _, _ = run("float32")
+    if (nk, np_) != (kernels, none):
+        raise AssertionError("flash launches: kernels {} plain {}".format(nk, np_))
+    f32 = {"loss_diff": abs(lk - lp), "grad_rel_diff": _rel(gk, gp),
+           "control_grad_rel_diff": _rel(gf, gp), "finite": math.isfinite(lk)}
+    emit({"phase": "compare_lm", "dtype": "float32", "tf32": False,
+          "reference": "plain attention", "loss_kernels": lk, "loss_reference": lp,
+          "loss_tolerance": 1e-4, "grad_tolerance": 1e-4, "control": "dk x 1.01", **f32})
+    del gk, gp, gf
+
+    lk, gk, ak, nk = run("bfloat16")
+    with plain_kernels(fa, fa.KERNELS):
+        lp, gp, _, np_ = run("bfloat16")
+    with plain_kernels(fa, (fa.flash_bwd_dq, fa.flash_bwd_dkv)):
+        lb, _, ab, nb = run("bfloat16")
+    with dk_fault(fa):
+        lf, gf, af, _ = run("bfloat16")
+    if (nk, np_, nb) != (kernels, none, bwd_plain):
+        raise AssertionError("flash launches: kernels {} plain {} plain backward {}".format(
+            nk, np_, nb))
+    bf16 = {"finite": math.isfinite(lk), "loss_diff": abs(lk - lp), "grad_rel_diff": _rel(gk, gp),
+            "last_attn_grad_rel_diff": {n: _rel(ak[n], ab[n]) for n in ak},
+            "control_grad_rel_diff": _rel(gf, gp),
+            "control_last_attn_grad_rel_diff": {n: _rel(af[n], ab[n]) for n in af},
+            "loss_diff_plain_backward": abs(lk - lb)}
+    emit({"phase": "compare_lm", "dtype": "bfloat16", "tf32": False,
+          "reference": "plain versions (last_attn: plain backward, forward kernel)",
+          "loss_kernels": lk, "loss_reference": lp, "loss_tolerance": LM_BF16_LOSS_TOL,
+          "grad_tolerance": LM_BF16_GRAD_TOL, "attn_grad_tolerance": LM_BF16_ATTN_GRAD_TOL,
+          "control": "dk x 1.01", **bf16})
+    del gk, gp, gf, ak, ab, af
+
+    checks = [
+        ("f32 loss", f32["finite"] and f32["loss_diff"] <= 1e-4),
+        ("f32 gradients", f32["grad_rel_diff"] <= 1e-4),
+        ("f32 dk fault caught", f32["control_grad_rel_diff"] > 1e-4),
+        ("bf16 loss", bf16["finite"] and bf16["loss_diff"] <= LM_BF16_LOSS_TOL),
+        ("bf16 gradients", bf16["grad_rel_diff"] <= LM_BF16_GRAD_TOL),
+        ("bf16 projection gradients",
+         max(bf16["last_attn_grad_rel_diff"].values()) <= LM_BF16_ATTN_GRAD_TOL),
+        ("bf16 dk fault caught",
+         max(bf16["control_last_attn_grad_rel_diff"].values()) > LM_BF16_ATTN_GRAD_TOL),
+        ("same forward", bf16["loss_diff_plain_backward"] == 0.0),
+    ]
+    failed = [name for name, ok in checks if not ok]
+    if failed:
+        raise AssertionError("compare_lm failed: {} (f32 {}, bf16 {})".format(failed, f32, bf16))
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -337,7 +791,8 @@ def main():
     sys.path.insert(0, here)
     import torch.nn.functional as F
 
-    from tensorflowonspark_tpu_torch.models import resnet
+    from tensorflowonspark_tpu_torch.models import resnet, transformer
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
     from tensorflowonspark_tpu_torch.ops import fused_bn
 
     smi = subprocess.run(
@@ -351,6 +806,19 @@ def main():
           "cuda": torch.version.cuda, "triton": triton.__version__})
 
     t0 = time.perf_counter()
+    # nvcc builds the CUDA kernels while triton compiles the BN kernels
+    cuda_build = {}
+
+    def build_cuda():
+        t = time.perf_counter()
+        try:
+            cuda_build["path"] = fa.build()
+        except Exception as e:  # re-raised below, in the main thread
+            cuda_build["error"] = e
+        cuda_build["seconds"] = time.perf_counter() - t
+
+    nvcc_thread = threading.Thread(target=build_cuda)
+    nvcc_thread.start()
     for c in (64, 256):
         x = torch.randn(3136, c, device="cuda").to(torch.bfloat16)
         v = torch.ones(c, device="cuda")
@@ -359,19 +827,39 @@ def main():
         dg, db = fused_bn.bn_bwd_reduce(x, x, mean, var, 1e-5)
         fused_bn.bn_bwd_dx(x, x, mean, var, v, dg, db, 1e-5)
     torch.cuda.synchronize()
-    emit({"phase": "build", "kernels": [t[0] for t in KERNEL_TABLE], "seconds":
-          time.perf_counter() - t0, "cache": os.environ.get("TRITON_CACHE_DIR")})
+    nvcc_thread.join()
+    if "error" in cuda_build:
+        raise cuda_build["error"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):  # load and launch each kernel once
+        x = torch.randn(8, 130, 64, device="cuda", generator=gen).to(dtype)
+        _, lse = fa.flash_fwd(x, x, x, None, 0.125, True, 1)
+        fa.flash_bwd_dq(x, x, x, None, x, lse, lse, 0.125, True, 1)
+        fa.flash_bwd_dkv(x, x, x, None, x, lse, lse, 0.125, True, 1)
+    torch.cuda.synchronize()
+    emit({"phase": "build", "kernels": [t[0] for t in KERNEL_TABLE] + [t[0] for t in FLASH_TABLE],
+          "seconds": time.perf_counter() - t0, "cache": os.environ.get("TRITON_CACHE_DIR"),
+          "cuda_seconds": cuda_build["seconds"], "cuda_library": cuda_build["path"]})
 
     shapes = bn_shapes(torch, fused_bn, resnet)
     if len(shapes) != 53:
         raise AssertionError("expected 53 BatchNorm layers, found {}".format(len(shapes)))
     totals = phase_kernel(torch, F, fused_bn, shapes)
+    data_dir, lm_batch = lm_corpus(here)
+    seg_slice = torch.as_tensor(lm_batch["segment_ids"][:, :-1]).cuda().contiguous()
+    flash_totals = phase_flash_kernel(torch, F, fa, seg_slice)
+    del seg_slice
     torch.cuda.empty_cache()  # hand the trainer child the card's memory
     launches = phase_slice(torch, fused_bn)
     phase_compare(torch, fused_bn, resnet)
+    torch.cuda.empty_cache()
+    flash_launches = phase_slice_lm(torch, fa, data_dir, STEPS)
+    phase_compare_lm(torch, fa, transformer, lm_batch)
     emit({"phase": "kernels", "kernels": [
         {"name": name, "route": "triton", "source": SOURCE, "launched": launches[name] > 0}
-        for name, *_ in KERNEL_TABLE]})
+        for name, *_ in KERNEL_TABLE] + [
+        {"name": name, "route": "cuda", "source": FLASH_SOURCE, "launched": flash_launches[name] > 0}
+        for name, *_ in FLASH_TABLE], "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "triton", "source": SOURCE, "replaces": replaces,
          "launches": launches[name], "max_abs_err": totals[name]["max_abs_err"],
@@ -380,7 +868,15 @@ def main():
          "library_ms": totals[name]["library_ms"],
          "per": "ResNet-50 step, batch {}, {} px, bf16: sum over its 53 BatchNorm "
                 "layers".format(BATCH, IMAGE)}
-        for name, replaces, *_ in KERNEL_TABLE]})
+        for name, replaces, *_ in KERNEL_TABLE] + [
+        {"name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
+         "launches": flash_launches[name], "max_abs_err": flash_totals[name]["max_abs_err"],
+         "ms": flash_totals[name]["ms"], "plain_ms": flash_totals[name]["plain_ms"],
+         "bound_ms": flash_totals[name]["bound_ms"], "bound_by": flash_totals[name]["bound_by"],
+         "library_ms": flash_totals[name]["library_ms"],
+         "per": "transformer LM step, batch {}, seq {}, bf16, causal with packed segments: "
+                "sum over its {} attention layers".format(LM_BATCH, LM_SEQ, LM["n_layers"])}
+        for name, replaces, *_ in FLASH_TABLE]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

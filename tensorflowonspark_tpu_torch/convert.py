@@ -7,7 +7,11 @@ loads, name for name:
 
 * conv ``kernel`` HWIO → ``weight`` OIHW;
 * Dense ``kernel`` ``[in, out]`` → ``weight`` ``[out, in]``;
-* BatchNorm ``scale`` / ``bias`` → ``weight`` / ``bias``;
+* attention ``q``/``k``/``v`` ``kernel`` ``[d_model, H, D]`` → ``weight``
+  ``[H·D, d_model]``, ``o`` ``kernel`` ``[H, D, d_model]`` → ``weight``
+  ``[d_model, H·D]``;
+* Embed ``embedding`` ``[vocab, d_model]`` → ``weight`` (as it is);
+* BatchNorm and RMSNorm ``scale`` / ``bias`` → ``weight`` / ``bias``;
 * ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``.
 
 Any key left unmatched on either side raises, as does a shape mismatch:
@@ -17,7 +21,7 @@ a silently partial load would train a different model.
 import numpy as np
 import torch
 
-_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -40,10 +44,14 @@ def _convert_leaf(collection, path, value):
             arr = arr.transpose(3, 2, 0, 1)
         elif arr.ndim == 2:  # [in, out] -> [out, in]
             arr = arr.T
+        elif arr.ndim == 3 and path[-2] == "o":  # [H, D, out] -> [out, H*D]
+            arr = arr.reshape(-1, arr.shape[2]).T
+        elif arr.ndim == 3:  # DenseGeneral [in, H, D] -> [H*D, in]
+            arr = arr.reshape(arr.shape[0], -1).T
         else:
             raise ValueError("kernel {} has unexpected rank {}".format("/".join(path), arr.ndim))
     name = ".".join(path[:-1] + (leaves[leaf],))
-    return name, torch.from_numpy(np.ascontiguousarray(arr))
+    return name, torch.from_numpy(np.array(arr, order="C"))  # a writable copy
 
 
 def convert_variables(variables, module=None):

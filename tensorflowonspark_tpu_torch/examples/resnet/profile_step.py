@@ -40,9 +40,9 @@ GROUPS = [
 PHASES = ("train_step.forward", "train_step.backward", "train_step.optimizer")
 
 
-def _group(name):
+def _group(name, groups=GROUPS):
     low = name.lower()
-    for group, frags in GROUPS:
+    for group, frags in groups:
         if any(f in low for f in frags):
             return group
     return "other_pytorch"
@@ -61,9 +61,10 @@ def _union_us(intervals):
     return total
 
 
-def read_trace(events, traced):
+def read_trace(events, traced, groups=GROUPS):
     """Per-step readings from the profiler events of ``traced`` steps run
-    inside one ``profile_window`` range."""
+    inside one ``profile_window`` range; kernels are summed by ``groups``
+    (``(name, kernel-name fragments)``, matched in order)."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -71,10 +72,11 @@ def read_trace(events, traced):
                if e.device_type == cuda and not getattr(e, "is_user_annotation", False)]
     ranges = [e for e in events if e.device_type != cuda]
     window = next(e for e in ranges if e.name == "profile_window")
-    groups, by_name = {}, {}
+    by_group, by_name = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
-        groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + us / 1e3 / traced
+        group = _group(e.name, groups)
+        by_group[group] = by_group.get(group, 0.0) + us / 1e3 / traced
         by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / traced
     busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in kernels])
     window_us = window.time_range.elapsed_us()
@@ -86,7 +88,7 @@ def read_trace(events, traced):
                 len(spans), phase, traced))
         host_ms[phase] = sum(e.time_range.elapsed_us() for e in spans) / 1e3 / traced
         device_ms[phase] = sum(e.device_time_total for e in spans) / 1e3 / traced
-    kernel_ms = sum(groups.values())
+    kernel_ms = sum(by_group.values())
     device_ms["train_step.backward"] = (
         kernel_ms - device_ms["train_step.forward"] - device_ms["train_step.optimizer"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -97,7 +99,7 @@ def read_trace(events, traced):
         "device_busy_ms_per_step": busy_us / 1e3 / traced,
         "device_idle_share": 1.0 - busy_us / window_us,
         "phase_host_ms": host_ms, "phase_device_ms": device_ms,
-        "device_ms_by_group": groups,
+        "device_ms_by_group": by_group,
         "top_kernels_ms_per_step": [[name[:80], ms] for name, ms in top],
     }
 

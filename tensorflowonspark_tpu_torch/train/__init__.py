@@ -2,6 +2,7 @@
 parallelism; checkpointing comes in a later slice)."""
 
 from tensorflowonspark_tpu_torch.train.optim import (  # noqa: F401
+    adamw,
     linear_schedule,
     piecewise_constant_schedule,
     sgd,

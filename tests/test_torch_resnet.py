@@ -122,7 +122,7 @@ def test_converter_raises_on_unmatched_keys_and_shapes():
     with pytest.raises(KeyError, match="head.weight"):
         convert.convert_variables({"params": params, "batch_stats": variables["batch_stats"]}, module)
     with pytest.raises(KeyError, match="no port counterpart"):
-        convert.convert_variables({"params": {"embed": {"embedding": np.zeros((4, 2))}}})
+        convert.convert_variables({"params": {"embed": {"codebook": np.zeros((4, 2))}}})
     with pytest.raises(ValueError, match="shape"):
         convert.convert_variables(variables, resnet.ResNet(**dict(cfg, num_classes=7)))
 
