@@ -11,7 +11,9 @@ and the script exits non-zero:
 2. ``build``      compiles the four fused-BatchNorm Triton kernels (into
                   ``build/triton``) and, at the same time in a second thread,
                   the three flash-attention CUDA kernels with ``nvcc`` (into
-                  ``build/cuda``), from the sources in the checkout.
+                  ``build/cuda``), from the sources in the checkout; reports
+                  each CUDA kernel's registers and spill bytes from the
+                  ``-Xptxas -v`` log.
 3. ``kernel``     at every BatchNorm shape of a ResNet-50 step (batch 64,
                   224 px, bf16), each BN kernel against its plain PyTorch
                   version: the max error beside its stated tolerance, the
@@ -29,8 +31,15 @@ and the script exits non-zero:
                   1%; O with a kv block dropped), kernel, plain and
                   yardstick times
                   (``scaled_dot_product_attention`` with the causal+segment
-                  mask, and its backward), and the bound from this run's
-                  segments (989 TFLOP/s bf16 or 67 TFLOP/s f32, 3.35 TB/s).
+                  mask, and its backward), the bound from this run's
+                  segments (989 TFLOP/s bf16 or 67 TFLOP/s f32, 3.35 TB/s)
+                  and the 64 x 64 blocks each kernel visits (the bf16
+                  backward kernels skip the pairs that the fence empties:
+                  ``visited_blocks``) beside the causal ones. Then a bf16
+                  backward line at the slice's shape without segment ids
+                  (pure causal, ``kernel_causal``): dq and dk/dv against
+                  their plain versions, their times against SDPA's backward
+                  with ``is_causal=True``.
 5. ``slice``      the port's ResNet path: ``TFCluster.run`` on the local
                   backend, one executor, the port's ``resnet_spark.main_fun``
                   on full ResNet-50, bf16, ``bn_impl="pallas"``, batch 64, 5
@@ -535,6 +544,9 @@ def phase_flash_kernel(torch, F, fa, seg_slice):
                               lambda: fa.flash_bwd_dkv_plain(q, k, v, *bwd), library_bwd),
         }
         pairs = attended_pairs(seg.cpu()) * heads
+        n_blk = -(-length // 64)
+        blocks_causal = b * n_blk * (n_blk + 1) // 2
+        blocks_fenced = int(fa.visited_blocks(seg.cpu(), True).sum())
         for name, (kernel, plain, library) in cases.items():
             got, want = kernel(), plain()
             got = got if isinstance(got, tuple) else (got,)
@@ -568,7 +580,13 @@ def phase_flash_kernel(torch, F, fa, seg_slice):
                     "ms": ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "library": "sdpa {} {}".format(
                         backend.name, "forward" if name == "flash_fwd" else "backward (dq+dk+dv)"),
-                    "bound_ms": b_ms, "bound_by": b_by, "bound_ms_dense_causal": causal_ms}
+                    "bound_ms": b_ms, "bound_by": b_by, "bound_ms_dense_causal": causal_ms,
+                    # 64 x 64 block pairs of the batch: the bf16 backward
+                    # kernels skip those the fence empties, the others only
+                    # the causal ones
+                    "blocks_visited": (blocks_fenced if dtype_name == "bfloat16" and name != "flash_fwd"
+                                       else blocks_causal),
+                    "blocks_causal": blocks_causal}
             emit(line)
             if dtype_name == "bfloat16":
                 n_layers = LM["n_layers"]
@@ -578,6 +596,57 @@ def phase_flash_kernel(torch, F, fa, seg_slice):
         del q, k, v, do, q4, k4, v4, do4, qg, kg, vg, out, o_ref, lse_ref, delta, mask
         torch.cuda.empty_cache()
     return totals
+
+
+def phase_flash_causal(torch, F, fa):
+    """The bf16 backward kernels at the slice's shape without segment ids
+    (pure causal, every causal block visited): dq and dk/dv against their
+    plain versions under the bf16 limits, and their times against SDPA's
+    whole backward with ``is_causal=True``. This shows the kernels' design
+    apart from the fence's skipped blocks."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    heads, d = LM["n_heads"], LM["d_model"] // LM["n_heads"]
+    shape = (LM_BATCH * heads, LM_SEQ, d)
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o_ref, lse = fa.flash_fwd_plain(q, k, v, None, scale, True, heads)
+    bwd = (None, do, lse, (do.float() * o_ref.float()).sum(-1), scale, True, heads)
+    q4, k4, v4, do4 = (t.view(LM_BATCH, heads, LM_SEQ, d) for t in (q, k, v, do))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    n_blk = -(-LM_SEQ // 64)
+    pairs = LM_BATCH * heads * LM_SEQ * (LM_SEQ + 1) // 2
+    no_ids = torch.zeros(LM_BATCH, LM_SEQ, dtype=torch.int32)
+    line = {"phase": "kernel_causal", "shape": list(shape), "dtype": "bfloat16", "causal": True,
+            "segments": None, "blocks_visited": int(fa.visited_blocks(no_ids, True).sum()),
+            "blocks_causal": LM_BATCH * n_blk * (n_blk + 1) // 2,
+            "library": "sdpa backward (dq+dk+dv), is_causal=True"}
+    for name, kernel, plain in (
+            ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, *bwd), lambda: fa.flash_bwd_dq_plain(q, k, v, *bwd)),
+            ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, *bwd),
+             lambda: fa.flash_bwd_dkv_plain(q, k, v, *bwd))):
+        got, want = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        err, failures, readings = flash_errors(name, got, want)
+        if failures:
+            raise AssertionError("{} bfloat16 at {} without segment ids: {}".format(name, shape, failures))
+        del got, want
+        b_ms, b_by = flash_bound(name, no_ids, heads, LM_SEQ, d, q.element_size(), pairs)
+        line[name] = {"ms": time_ms(torch, kernel, flush), "max_abs_err": err, "elem_err": readings["elem"],
+                      "norm_err": readings["norm"], "bound_ms": b_ms, "bound_by": b_by}
+    line["library_ms"] = time_ms(
+        torch, lambda: torch.autograd.grad(out, (qg, kg, vg), do4, retain_graph=True), flush)
+    line["pair_ms"] = line["flash_bwd_dq"]["ms"] + line["flash_bwd_dkv"]["ms"]
+    emit(line)
+    del q, k, v, do, q4, k4, v4, do4, qg, kg, vg, out, o_ref, lse, bwd
+    torch.cuda.empty_cache()
 
 
 def phase_slice_lm(torch, fa, data_dir, steps):
@@ -839,7 +908,8 @@ def main():
     torch.cuda.synchronize()
     emit({"phase": "build", "kernels": [t[0] for t in KERNEL_TABLE] + [t[0] for t in FLASH_TABLE],
           "seconds": time.perf_counter() - t0, "cache": os.environ.get("TRITON_CACHE_DIR"),
-          "cuda_seconds": cuda_build["seconds"], "cuda_library": cuda_build["path"]})
+          "cuda_seconds": cuda_build["seconds"], "cuda_library": cuda_build["path"],
+          "cuda_kernels": fa.kernel_resources()})
 
     shapes = bn_shapes(torch, fused_bn, resnet)
     if len(shapes) != 53:
@@ -848,6 +918,7 @@ def main():
     data_dir, lm_batch = lm_corpus(here)
     seg_slice = torch.as_tensor(lm_batch["segment_ids"][:, :-1]).cuda().contiguous()
     flash_totals = phase_flash_kernel(torch, F, fa, seg_slice)
+    phase_flash_causal(torch, F, fa)
     del seg_slice
     torch.cuda.empty_cache()  # hand the trainer child the card's memory
     launches = phase_slice(torch, fused_bn)

@@ -34,7 +34,7 @@ from tensorflowonspark_tpu_torch.examples.resnet.profile_step import read_trace
 
 #: kernel-name fragments of each group, matched in this order
 GROUPS = [
-    ("flash_attention_cuda", ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+    ("flash_attention_cuda", ("flash_fwd_kernel", "flash_bwd_dq_", "flash_bwd_dkv_")),
     ("gemm", ("gemm", "cublas", "cutlass", "xmma", "nvjet")),
 ]
 LM = dict(vocab_size=32000, d_model=512, n_layers=6, n_heads=8, d_ff=2048)

@@ -20,13 +20,23 @@ finite sentinel as the TPU kernels, and keeps its sums in f32; ``p`` and
 artifact) and segment ids stay ``[B, L]`` int32, read at ``bh // heads``.
 
 **Bound.** Every kernel is a chain of matrix products (2, 3 and 4 of
-``2·L²·D`` flops per head, halved by the causal skip) over ``O(L·D)`` bytes,
-so the tensor cores bound them (H100 SXM: 989 TFLOP/s dense bf16), not
-device memory. **Design** (right and simple first; ``wgmma``/TMA come
-later): one CTA of 4 warps per (bh, 64-row block), tiles staged in shared
-memory, bf16 products on the tensor cores through warp-level WMMA with f32
-accumulators, f32 inputs on a plain FMA path (never TF32); every CTA owns
-its output rows, so the sums are deterministic.
+``2·D`` flops per attended (q, k) pair) over ``O(L·D)`` bytes: the tensor
+cores (H100 SXM: 989 TFLOP/s dense bf16) bound the work the causal mask
+leaves; the packed-sequence fence masks most of it, and then the bytes
+(3.35 TB/s) bound the data's own work.
+
+**Design.** The forward and the f32 backward (right and simple first): one
+CTA of 4 warps per (bh, 64-row block), tiles staged in shared memory, bf16
+products through warp-level WMMA with f32 accumulators in shared memory,
+f32 inputs on a plain FMA path (never TF32). The bf16 backward kernels are
+built for Hopper: one warpgroup a CTA, ``wgmma`` products with f32
+accumulators in registers, TMA loads into 128-byte-swizzled tiles through
+an ``mbarrier`` ring of 2–3 stages (the next block's tiles in flight while
+the tensor cores work), scores computed transposed in dk/dv so that Pᵀ
+and dSᵀ come out of the accumulators as the next product's register
+operand, and the fence-aware block skip (``visited_blocks`` is its plain
+mirror): a block pair whose segment-id ranges do not overlap is never
+visited. Every CTA owns its output rows, so the sums are deterministic.
 
 **No block rule.** The JAX package needs blocks that tile L exactly
 (``_pick_block``: Pallas pads a ragged block with garbage), and its
@@ -43,7 +53,8 @@ input lies on the CPU; on a CUDA tensor it launches the kernel or raises
 the launch in its ``launches`` attribute. The kernels are compiled with
 ``nvcc`` at the first CUDA launch (never at import) into ``build/cuda`` in
 the checkout, keyed by a hash of the source and flags, and bound through
-``ctypes``.
+``ctypes``; the tensor maps of the TMA loads are encoded through the
+runtime's driver entry point (no ``-lcuda``).
 """
 
 import ctypes
@@ -81,46 +92,86 @@ def _nvcc():
     raise RuntimeError("flash attention kernels: nvcc not found (set CUDA_HOME)")
 
 
-def library_path():
-    """Where the build of the current source lives: ``build/cuda``, named by
-    a hash of the source and the flags, so a stale build is never loaded."""
-    with open(SOURCE, "rb") as f:
+def library_path(source=SOURCE, build_dir=BUILD_DIR):
+    """Where the build of ``source`` lives: ``build/cuda``, named by a hash
+    of the source and the flags, so a stale build is never loaded."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, "flash_attention_{}.so".format(digest))
+    return os.path.join(build_dir, "flash_attention_{}.so".format(digest))
 
 
-def build():
+def build(source=SOURCE, build_dir=BUILD_DIR):
     """Compile the kernels if this source has no build yet (``nvcc`` writes
     to a private name, renamed into place, so concurrent processes never
-    load a half-written library); returns the path of the library."""
-    path = library_path()
+    load a half-written library); returns the path of the library. The
+    ``-Xptxas -v`` report lands beside it (``.log``)."""
+    path = library_path(source, build_dir)
     if os.path.isfile(path):
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     tmp = "{}.{}.tmp".format(path, os.getpid())
-    out = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", tmp, SOURCE],
+    out = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", tmp, source],
                          capture_output=True, text=True, timeout=600)
     with open(path[:-3] + ".log", "w") as f:
         f.write(out.stdout + out.stderr)
     if out.returncode != 0:
-        raise RuntimeError("nvcc failed to build {}:\n{}".format(SOURCE, out.stderr[-4000:]))
+        raise RuntimeError("nvcc failed to build {}:\n{}".format(source, out.stderr[-4000:]))
     os.replace(tmp, path)
     return path
+
+
+def bind(path):
+    """The kernels' C interface of the library at ``path`` (``ctypes``)."""
+    lib = ctypes.CDLL(path)
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tos_flash_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [f32, i32, ptr]
+    lib.tos_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 5 + [f32, i32, ptr]
+    lib.tos_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 5 + [f32, i32, ptr]
+    for fn in (lib.tos_flash_fwd, lib.tos_flash_bwd_dq, lib.tos_flash_bwd_dkv):
+        fn.restype = i32
+    return lib
 
 
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.tos_flash_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [f32, i32, ptr]
-            lib.tos_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 5 + [f32, i32, ptr]
-            lib.tos_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 5 + [f32, i32, ptr]
-            for fn in (lib.tos_flash_fwd, lib.tos_flash_bwd_dq, lib.tos_flash_bwd_dkv):
-                fn.restype = i32
-            _lib = lib
+            _lib = bind(build())
     return _lib
+
+
+def kernel_resources(log_path=None):
+    """Registers and spill bytes of each compiled kernel, read from the
+    ``-Xptxas -v`` log that :func:`build` writes beside the library:
+    ``[{"kernel", "dtype", "head_dim", "registers", "spill_stores",
+    "spill_loads"}, ...]``."""
+    import re
+
+    with open(log_path or library_path()[:-3] + ".log") as f:
+        text = f.read()
+    out, current = [], None
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+            kernel = next((k for k in ("flash_fwd_kernel", "flash_bwd_dq_wgmma_kernel",
+                                       "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_kernel",
+                                       "flash_bwd_dkv_kernel") if k in name), name)
+            dim = re.search(r"I(?:f|13__nv_bfloat16)?Li(\d+)E", name)
+            current = {"kernel": kernel,
+                       "dtype": "float32" if re.search(r"IfLi\d+E", name) else "bfloat16",
+                       "head_dim": int(dim.group(1)) if dim else None}
+            out.append(current)
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            current["spill_stores"], current["spill_loads"] = map(int, spill.groups())
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            current["registers"] = int(regs.group(1))
+    return out
 
 
 # -- checks -------------------------------------------------------------------
@@ -164,10 +215,14 @@ def _check(q, seg, heads, like=(), rows=()):
                              .format(length, q.device, tuple(seg.shape), seg.dtype))
 
 
+_STATUS = {-1: "unsupported head dim or dtype",
+           -2: "the driver's tensor-map encoder is missing or refused the operands"}
+
+
 def _raise_on(status, name):
     if status != 0:
         raise RuntimeError("{} kernel launch failed: {}".format(
-            name, "unsupported head dim or dtype" if status < 0 else "CUDA error {}".format(status)))
+            name, _STATUS.get(status, "CUDA error {}".format(status))))
 
 
 def _ptr(t):
@@ -179,6 +234,27 @@ def _stream(t):
 
 
 # -- plain versions (the reference for tests and chip_smoke.py) -------------
+
+
+def visited_blocks(seg, causal, block=64):
+    """The plain mirror of the bf16 backward kernels' block skip
+    (``visit_list`` in the CUDA source): ``[B, n, n]`` booleans, True where
+    the (q block, kv block) pair of a row of ``seg`` (``int [B, L]``) is
+    visited, ``n = ceil(L / block)``. A pair is skipped when the causal mask
+    empties it (kv block after the q block) or when the ``[min, max]``
+    segment-id ranges of its two blocks do not overlap, which holds no pair
+    of equal ids. Pass zeros for no fence."""
+    seg = torch.as_tensor(seg)
+    b, length = seg.shape
+    n = -(-length // block)
+    pad = n * block - length
+    info = torch.iinfo(seg.dtype)
+    lo = torch.nn.functional.pad(seg, (0, pad), value=info.max).view(b, n, block).amin(-1)
+    hi = torch.nn.functional.pad(seg, (0, pad), value=info.min).view(b, n, block).amax(-1)
+    visit = (hi[:, :, None] >= lo[:, None, :]) & (lo[:, :, None] <= hi[:, None, :])
+    if causal:
+        visit &= torch.ones(n, n, dtype=torch.bool, device=seg.device).tril()
+    return visit
 
 
 def _masked_scores(q, k, seg, scale, causal, heads):

@@ -138,3 +138,121 @@ def test_cpu_tensors_take_the_plain_versions_at_any_head_dim():
     out = fa.flash_attention(_t(q), _t(k), _t(v), causal=True)
     want = plain_attention(_t(q), _t(k), _t(v), causal=True)
     np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5)
+
+
+def _layout(kind, b, length, seed):
+    """Segment ids ``[b, length]`` of one packed layout (``seed`` draws the
+    random ones)."""
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((b, length), np.int32)
+    if kind == "mid_block":  # ids starting mid-block, a pad-0 tail
+        return _segments(b, length, ((0, 100), (100, 171), (171, min(230, length - 1))))
+    if kind == "packed":  # random lengths, then padding over the last eighth
+        for row in range(b):
+            pos, sid = 0, 1
+            while pos < length - length // 8:
+                n = int(rng.integers(1, max(2, length // 3)))
+                seg[row, pos:min(pos + n, length - length // 8)] = sid
+                pos, sid = pos + n, sid + 1
+    elif kind == "one_long":  # one segment over many blocks, a short pad tail
+        seg[:, :length - 9] = 1
+    elif kind == "alternating":  # non-contiguous ids: 1, 2, 1, 2, ...
+        seg[:, 0::2], seg[:, 1::2] = 1, 2
+    elif kind == "reused":  # an id that comes back after others
+        seg[:, :40], seg[:, 40:90], seg[:, 90:150], seg[:, 150:] = 1, 2, 1, 3
+    elif kind == "all_pad":  # a row of padding only, beside a packed one
+        seg[1:] = _layout("packed", b - 1, length, seed + 1)
+    elif kind != "no_ids":
+        raise ValueError(kind)
+    return seg
+
+
+LAYOUTS = ["mid_block", "packed", "one_long", "alternating", "reused", "all_pad", "no_ids"]
+
+
+@pytest.mark.parametrize("length", [256, 200])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", LAYOUTS)
+def test_visited_blocks_never_drop_an_attended_pair(kind, causal, length):
+    """Every (q block, kv block) pair that holds an attended (q, k) pair
+    (equal ids, and k <= q when causal) is visited; causal pairs above the
+    diagonal never are; without a fence every causal pair is."""
+    for seed in range(3):
+        seg = _layout(kind, 2, length, seed)
+        visit = fa.visited_blocks(_t(seg), causal).numpy()
+        n = -(-length // 64)
+        assert visit.shape == (2, n, n)
+        attended = seg[:, :, None] == seg[:, None, :]
+        if causal:
+            attended &= np.tril(np.ones((length, length), bool))
+        pad = n * 64 - length
+        blocks = np.pad(attended, ((0, 0), (0, pad), (0, pad))).reshape(2, n, 64, n, 64).any((2, 4))
+        assert not (blocks & ~visit).any()
+        if causal:
+            assert not (visit & ~np.tril(np.ones((n, n), bool))).any()
+        if kind in ("no_ids", "one_long", "alternating"):
+            assert (visit == blocks).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["mid_block", "packed", "alternating", "reused", "all_pad"])
+def test_plain_versions_skipping_unvisited_blocks_match_pallas_interpret(kind, causal, monkeypatch):
+    """The plain versions with every score of a block pair that the kernels
+    skip forced to the sentinel (what the skip computes) equal the JAX
+    package's flash attention in interpret mode: o and lse within 2e-5,
+    the gradients within 5e-4."""
+    q, k, v = _qkv(8)
+    w = np.random.default_rng(9).standard_normal((B, H, L, D)).astype(np.float32)
+    seg = _layout(kind, B, L, 10)
+    masked_scores = fa._masked_scores
+
+    def skipping(q, k, seg, scale, causal, heads):
+        s = masked_scores(q, k, seg, scale, causal, heads)
+        visit = fa.visited_blocks(seg, causal).repeat_interleave(64, 1).repeat_interleave(64, 2)
+        visit = visit[:, :s.shape[1], :s.shape[2]].repeat_interleave(heads, 0)
+        return torch.where(visit, s, fa.NEG_BIG)
+
+    monkeypatch.setattr(fa, "_masked_scores", skipping)
+    merge = lambda x: x.reshape(B * H, L, D)  # noqa: E731
+    jo, jlse = jfa._flash_fwd(
+        jnp.asarray(merge(q)), jnp.asarray(merge(k)), jnp.asarray(merge(v)),
+        jnp.asarray(np.repeat(seg, H, axis=0)), 1 / math.sqrt(D), causal, 64, 64, True,
+    )
+    o, lse = fa.flash_fwd(_t(merge(q)), _t(merge(k)), _t(merge(v)), _t(seg), 1 / math.sqrt(D), causal, H)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :, 0], atol=2e-5)
+
+    def jloss(q, k, v):
+        o = jfa.flash_attention(q, k, v, causal=causal, segment_ids=jnp.asarray(seg),
+                                block_q=64, block_k=64, interpret=True)
+        return jnp.sum(o * w)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (_t(x, True) for x in (q, k, v))
+    (fa.flash_attention(tq, tk, tv, causal=causal, segment_ids=_t(seg)) * _t(w)).sum().backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4)
+
+
+def test_kernel_resources_reads_registers_and_spills_from_the_ptxas_log(tmp_path):
+    """The build report's parser, on a log in ``nvcc -Xptxas -v``'s format."""
+    log = tmp_path / "flash.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_125flash_bwd_dq_wgmma_kernelILi64ELi3EEEv14CUtensorMap_stS1_S1_S1_PKiPKfS5_"
+        "P13__nv_bfloat16iifb' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_125flash_bwd_dq_wgmma_kernelILi64ELi3EEE\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 154 registers, used 1 barriers, 992 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelIfLi128EEEvPKT_S3_S3_PKiS3_PKfS7_PS1_S8_iifb' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_bwd_dkv_kernelIfLi128EEE\n"
+        "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers, 432 bytes cmem[0]\n"
+    )
+    assert fa.kernel_resources(str(log)) == [
+        {"kernel": "flash_bwd_dq_wgmma_kernel", "dtype": "bfloat16", "head_dim": 64, "registers": 154,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "flash_bwd_dkv_kernel", "dtype": "float32", "head_dim": 128, "registers": 255,
+         "spill_stores": 12, "spill_loads": 16},
+    ]

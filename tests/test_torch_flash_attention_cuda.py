@@ -30,11 +30,17 @@ def _card():
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' einsums in full f32
 
 
-def _packed_segments(b, length, gen):
-    """Segments of random lengths (some starting mid-block), then padding
-    (id 0) over the last eighth of each row."""
+def _packed_segments(b, length, gen, layout="packed"):
+    """Segment ids on the card. ``packed``: segments of random lengths (some
+    starting mid-block), then padding (id 0) over the last eighth of each
+    row; ``alternating``: ids 1, 2, 1, 2, ... (non-contiguous: every block
+    pair is visited, and most scores are fenced); ``pad_row``: the first row
+    padding only, the others packed."""
     seg = torch.zeros(b, length, dtype=torch.int32)
-    for row in range(b):
+    if layout == "alternating":
+        seg[:, 0::2], seg[:, 1::2] = 1, 2
+        return seg.cuda()
+    for row in range(1 if layout == "pad_row" else 0, b):
         pos, sid = 0, 1
         while pos < length - length // 8:
             n = int(torch.randint(1, max(2, length // 3), (1,), generator=gen))
@@ -68,17 +74,20 @@ def _close(name, got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,heads,length,d,causal,segmented", [
-    (2, 2, 256, 64, True, True),
-    (1, 3, 200, 64, True, True),     # ragged L, a partial last block
-    (2, 1, 130, 128, False, True),   # D=128, ragged, not causal
-    (1, 2, 320, 128, True, False),
-    (1, 1, 64, 64, False, False),
+    (2, 2, 256, 64, True, "packed"),
+    (1, 3, 200, 64, True, "packed"),       # ragged L, a partial last block
+    (2, 1, 130, 128, False, "packed"),     # D=128, ragged, not causal
+    (1, 2, 320, 128, True, None),
+    (1, 1, 64, 64, False, None),
+    (2, 2, 256, 64, True, "alternating"),  # non-contiguous ids
+    (3, 2, 200, 64, False, "pad_row"),     # a row of padding only
+    (2, 4, 2048, 128, True, "packed"),     # D=128 at the slice's length
 ])
 def test_kernels_match_plain_versions_on_card(dtype, b, heads, length, d, causal, segmented):
     _card()
     gen = torch.Generator().manual_seed(length + d)
     q, k, v, do = (torch.randn(b * heads, length, d, generator=gen).cuda().to(dtype) for _ in range(4))
-    seg = _packed_segments(b, length, gen) if segmented else None
+    seg = _packed_segments(b, length, gen, segmented) if segmented else None
     scale = 1.0 / math.sqrt(d)
     args = (seg, scale, causal, heads)
     before = fa.launch_counts()
