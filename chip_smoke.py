@@ -34,12 +34,14 @@ and the script exits non-zero:
                   mask, and its backward), the bound from this run's
                   segments (989 TFLOP/s bf16 or 67 TFLOP/s f32, 3.35 TB/s)
                   and the 64 x 64 blocks each kernel visits (the bf16
-                  backward kernels skip the pairs that the fence empties:
+                  kernels skip the pairs that the fence empties:
                   ``visited_blocks``) beside the causal ones. Then a bf16
-                  backward line at the slice's shape without segment ids
-                  (pure causal, ``kernel_causal``): dq and dk/dv against
-                  their plain versions, their times against SDPA's backward
-                  with ``is_causal=True``.
+                  line at the slice's shape without segment ids (pure
+                  causal, ``kernel_causal``): the forward, dq and dk/dv
+                  against their plain versions under the same limits, the
+                  forward's time against SDPA's forward and the backward
+                  pair's against SDPA's backward, both with
+                  ``is_causal=True``.
 5. ``slice``      the port's ResNet path: ``TFCluster.run`` on the local
                   backend, one executor, the port's ``resnet_spark.main_fun``
                   on full ResNet-50, bf16, ``bn_impl="pallas"``, batch 64, 5
@@ -581,11 +583,10 @@ def phase_flash_kernel(torch, F, fa, seg_slice):
                     "library_ms": library_ms, "library": "sdpa {} {}".format(
                         backend.name, "forward" if name == "flash_fwd" else "backward (dq+dk+dv)"),
                     "bound_ms": b_ms, "bound_by": b_by, "bound_ms_dense_causal": causal_ms,
-                    # 64 x 64 block pairs of the batch: the bf16 backward
-                    # kernels skip those the fence empties, the others only
-                    # the causal ones
-                    "blocks_visited": (blocks_fenced if dtype_name == "bfloat16" and name != "flash_fwd"
-                                       else blocks_causal),
+                    # 64 x 64 block pairs of the batch: the bf16 kernels
+                    # skip those the fence empties, the f32 ones only the
+                    # causal ones
+                    "blocks_visited": blocks_fenced if dtype_name == "bfloat16" else blocks_causal,
                     "blocks_causal": blocks_causal}
             emit(line)
             if dtype_name == "bfloat16":
@@ -599,11 +600,12 @@ def phase_flash_kernel(torch, F, fa, seg_slice):
 
 
 def phase_flash_causal(torch, F, fa):
-    """The bf16 backward kernels at the slice's shape without segment ids
-    (pure causal, every causal block visited): dq and dk/dv against their
-    plain versions under the bf16 limits, and their times against SDPA's
-    whole backward with ``is_causal=True``. This shows the kernels' design
-    apart from the fence's skipped blocks."""
+    """The bf16 kernels at the slice's shape without segment ids (pure
+    causal, every causal block visited): the forward, dq and dk/dv against
+    their plain versions under the bf16 limits, the forward's time against
+    SDPA's forward and the backward pair's against SDPA's whole backward,
+    both with ``is_causal=True``. This shows the kernels' design apart from
+    the fence's skipped blocks."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -619,6 +621,11 @@ def phase_flash_causal(torch, F, fa):
     qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
         out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def library_fwd():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
     n_blk = -(-LM_SEQ // 64)
     pairs = LM_BATCH * heads * LM_SEQ * (LM_SEQ + 1) // 2
     no_ids = torch.zeros(LM_BATCH, LM_SEQ, dtype=torch.int32)
@@ -627,6 +634,7 @@ def phase_flash_causal(torch, F, fa):
             "blocks_causal": LM_BATCH * n_blk * (n_blk + 1) // 2,
             "library": "sdpa backward (dq+dk+dv), is_causal=True"}
     for name, kernel, plain in (
+            ("flash_fwd", lambda: fa.flash_fwd(q, k, v, None, scale, True, heads), lambda: (o_ref, lse)),
             ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, *bwd), lambda: fa.flash_bwd_dq_plain(q, k, v, *bwd)),
             ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, *bwd),
              lambda: fa.flash_bwd_dkv_plain(q, k, v, *bwd))):
@@ -641,6 +649,7 @@ def phase_flash_causal(torch, F, fa):
         b_ms, b_by = flash_bound(name, no_ids, heads, LM_SEQ, d, q.element_size(), pairs)
         line[name] = {"ms": time_ms(torch, kernel, flush), "max_abs_err": err, "elem_err": readings["elem"],
                       "norm_err": readings["norm"], "bound_ms": b_ms, "bound_by": b_by}
+    line["flash_fwd"].update(library="sdpa forward, is_causal=True", library_ms=time_ms(torch, library_fwd, flush))
     line["library_ms"] = time_ms(
         torch, lambda: torch.autograd.grad(out, (qg, kg, vg), do4, retain_graph=True), flush)
     line["pair_ms"] = line["flash_bwd_dq"]["ms"] + line["flash_bwd_dkv"]["ms"]

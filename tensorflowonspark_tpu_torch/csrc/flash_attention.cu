@@ -18,17 +18,22 @@
 // of that work is masked, and the bytes (3.35 TB/s) bound the data's own
 // work.
 //
-// Forward, and the f32 backward (simple first): one CTA of 4 warps per
-// (bh, 64-row block). Q/dO or K/V tiles are staged in shared memory,
-// scores and accumulators live in shared memory as f32, and bf16 forward
-// products run on the tensor cores through warp-level WMMA (m16n16k16, f32
-// accumulate). f32 inputs take a plain FMA path (no TF32).
+// float32 (simple first): one CTA of 4 warps per (bh, 64-row block). Q/dO
+// or K/V tiles are staged in shared memory, scores and accumulators live in
+// shared memory as f32, and the products take a plain FMA path (no TF32).
 //
-// bf16 backward (dq and dk/dv, the Hopper design): one warpgroup a CTA,
+// bf16 (the Hopper design, forward and backward): one warpgroup a CTA,
 // `wgmma` products (m64n64k16, f32 accumulators in registers), operands fed
 // by TMA into 128-byte-swizzled shared tiles through an mbarrier ring of 2-3
 // stages, so the next block's tiles are in flight while the tensor cores
 // work on this one. No score or accumulator tile touches shared memory:
+//   forward: Q resident; the ring carries (K, V). S = Q K^T reads both
+//          operands from shared memory; the online softmax runs in the
+//          accumulators' registers in the log2 domain (the four lanes of a
+//          quad hold a row: max by two shuffles, the running sum kept per
+//          lane and reduced once at the end), and P, rounded to bf16, is
+//          already the A operand layout of O += P V (B = V, transposed
+//          descriptor).
 //   dq:    Q, dO resident; the ring carries (K, V). S = Q K^T and
 //          dP = dO V^T read both operands from shared memory; dS is formed
 //          in the accumulators' registers, which are already the A operand
@@ -36,9 +41,10 @@
 //   dk/dv: K, V resident; the ring carries (Q, dO). Scores are computed
 //          transposed, S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come
 //          out in the A operand layout of dV += P^T dO and dK += dS^T Q.
-// Blocks that the causal mask or the segment fence empty are never visited
-// (visit_list: a block pair is skipped when the [min, max] segment-id
-// ranges of its two blocks do not overlap, which is exact for any ids).
+// The bf16 kernels never visit a block pair that the causal mask or the
+// segment fence empties (visit_list: a block pair is skipped when the
+// [min, max] segment-id ranges of its two blocks do not overlap, which is
+// exact for any ids).
 //
 // Common to every kernel: p and ds are cast to the input dtype before the
 // second product, as the TPU kernels do. Every CTA owns its output rows, so
@@ -48,11 +54,14 @@
 // sentinel -0.7 * FLT_MAX of the TPU kernels (not -inf), so a row whose
 // first visited block is fully masked accumulates finite garbage that the
 // correction exp(sentinel - m_real) = 0 wipes once its diagonal arrives.
+// The bf16 forward keeps its scores in the log2 domain (exp2): it sets the
+// sentinel after scaling (sentinel * log2 e would overflow to -inf) and
+// starts each row's max at it, so the max never reaches -inf and the
+// correction exp2(m_old - m_new) is never -inf - -inf = NaN.
 
 #include <cuda.h>  // CUtensorMap (types only: the encoder comes from the runtime's entry point)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <climits>
 #include <cstdint>
@@ -66,10 +75,6 @@ constexpr float kNegBig = -0.7f * 3.4028234663852886e38f;
 
 using bf16 = __nv_bfloat16;
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
@@ -79,29 +84,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared-memory row strides. Input tiles pad their rows: 8 bf16 (16 bytes,
-// WMMA's ldm rule) or 1 f32 (an odd stride, so the FMA path's column walks
-// hit 32 distinct banks). f32 scores and accumulators are unpadded.
-template <typename T> struct Pad { static constexpr int value = std::is_same<T, bf16>::value ? 8 : 1; };
-
 __host__ __device__ constexpr size_t round128(size_t n) { return (n + 127) / 128 * 128; }
 // one per-row vector of 64 words
 constexpr size_t kVecBytes = round128(sizeof(float) * kBlock);
 
-// Shared-memory plan of one CTA: `tiles` input tiles [64][D + pad], `scores`
-// f32 [64][64] buffers, `casts` T-typed [64][64 + pad] copies of p / ds
-// (none for f32: they overwrite their f32 scores in place), `accs` f32
-// [64][D] accumulators and 4 per-row vectors of 64 words.
-template <typename T, int D> struct Plan {
-  static constexpr int kTileLd = D + Pad<T>::value;
-  static constexpr int kCastLd = std::is_same<T, bf16>::value ? kBlock + Pad<T>::value : kBlock;
-  static constexpr size_t kTile = round128(sizeof(T) * kBlock * kTileLd);
+// Shared-memory plan of one CTA of the float32 kernels: `tiles` input
+// tiles [64][D + 1] (an odd row stride, so the FMA path's column walks hit
+// 32 distinct banks), `scores` f32 [64][64] buffers (p and ds overwrite
+// their scores in place), `accs` f32 [64][D] accumulators and 4 per-row
+// vectors of 64 words.
+template <int D> struct Plan {
+  static constexpr int kTileLd = D + 1;
+  static constexpr size_t kTile = round128(sizeof(float) * kBlock * kTileLd);
   static constexpr size_t kScore = round128(sizeof(float) * kBlock * kBlock);
-  static constexpr size_t kCast = std::is_same<T, bf16>::value ? round128(sizeof(T) * kBlock * kCastLd) : 0;
   static constexpr size_t kAcc = round128(sizeof(float) * kBlock * D);
   static constexpr size_t kVec = 4 * kVecBytes;
-  static constexpr size_t bytes(int tiles, int scores, int casts, int accs) {
-    return tiles * kTile + scores * kScore + casts * kCast + accs * kAcc + kVec;
+  static constexpr size_t bytes(int tiles, int scores, int accs) {
+    return tiles * kTile + scores * kScore + accs * kAcc + kVec;
   }
 };
 
@@ -117,21 +116,11 @@ struct Carver {
 
 // Rows [row0, row0 + 64) of a [L, D] matrix into a [64][ld] tile; rows past
 // L read as zeros.
-template <typename T, int D>
-__device__ void load_tile(T* dst, int ld, const T* src, int row0, int L) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int kVecs = D / 8;  // 16-byte vectors a row
-    for (int i = threadIdx.x; i < kBlock * kVecs; i += kThreads) {
-      int r = i / kVecs, c = (i % kVecs) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row0 + r < L) v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-    }
-  } else {
-    for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
-      int r = i / D, c = i % D;
-      dst[r * ld + c] = row0 + r < L ? src[(size_t)(row0 + r) * D + c] : 0.0f;
-    }
+template <int D>
+__device__ void load_tile(float* dst, int ld, const float* src, int row0, int L) {
+  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
+    int r = i / D, c = i % D;
+    dst[r * ld + c] = row0 + r < L ? src[(size_t)(row0 + r) * D + c] : 0.0f;
   }
 }
 
@@ -141,58 +130,30 @@ __device__ void load_vec(U* dst, const U* src, int row0, int L, U fill) {
   for (int i = threadIdx.x; i < kBlock; i += kThreads) dst[i] = row0 + i < L ? src[row0 + i] : fill;
 }
 
-// C[64][N] (+)= A[64][K] . B[K][N] over shared memory. A(i, k) is
+// C[64][N] (+)= A[64][K] . B[K][N] over shared memory, f32 FMA. A(i, k) is
 // A[k * lda + i] when A_COL (A stored transposed) else A[i * lda + k];
-// B(k, j) is B[j * ldb + k] when B_COL else B[k * ldb + j].
-template <typename T, int N, int K, bool A_COL, bool B_COL, bool ACCUM>
-__device__ void tile_mm(const T* A, int lda, const T* B, int ldb, float* C, int ldc) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    // tensor cores: warp w owns output rows [16w, 16w + 16), all N columns
-    namespace wmma = nvcuda::wmma;
-    using LA = typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
-    using LB = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-    const int i0 = (threadIdx.x / 32) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[N / 16];
+// B(k, j) is B[j * ldb + k] when B_COL else B[k * ldb + j]. Thread t owns
+// column j = t % N of rows g, g + G, g + 2G, ... (G = 128 / N row groups,
+// g = t / N); a warp shares its rows, so A reads broadcast and B reads walk
+// distinct banks.
+template <int N, int K, bool A_COL, bool B_COL, bool ACCUM>
+__device__ void tile_mm(const float* A, int lda, const float* B, int ldb, float* C, int ldc) {
+  constexpr int G = kThreads / N;
+  constexpr int R = kBlock / G;
+  const int j = threadIdx.x % N, g = threadIdx.x / N;
+  float acc[R];
 #pragma unroll
-    for (int n = 0; n < N / 16; ++n) {
-      if (ACCUM) wmma::load_matrix_sync(acc[n], C + i0 * ldc + n * 16, ldc, wmma::mem_row_major);
-      else wmma::fill_fragment(acc[n], 0.0f);
+  for (int r = 0; r < R; ++r) acc[r] = ACCUM ? C[(g + r * G) * ldc + j] : 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const float b = B_COL ? B[j * ldb + k] : B[k * ldb + j];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = g + r * G;
+      acc[r] = fmaf(A_COL ? A[k * lda + i] : A[i * lda + k], b, acc[r]);
     }
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::load_matrix_sync(a, A_COL ? A + kk * 16 * lda + i0 : A + i0 * lda + kk * 16, lda);
-#pragma unroll
-      for (int n = 0; n < N / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-        wmma::load_matrix_sync(b, B_COL ? B + n * 16 * ldb + kk * 16 : B + kk * 16 * ldb + n * 16, ldb);
-        wmma::mma_sync(acc[n], a, b, acc[n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < N / 16; ++n)
-      wmma::store_matrix_sync(C + i0 * ldc + n * 16, acc[n], ldc, wmma::mem_row_major);
-  } else {
-    // f32 FMA: thread t owns column j = t % N of rows g, g + G, g + 2G, ...
-    // (G = 128 / N row groups, g = t / N); a warp shares its rows, so A
-    // reads broadcast and B reads walk distinct banks
-    constexpr int G = kThreads / N;
-    constexpr int R = kBlock / G;
-    const int j = threadIdx.x % N, g = threadIdx.x / N;
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = ACCUM ? C[(g + r * G) * ldc + j] : 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float b = B_COL ? B[j * ldb + k] : B[k * ldb + j];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = g + r * G;
-        acc[r] = fmaf(A_COL ? A[k * lda + i] : A[i * lda + k], b, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) C[(g + r * G) * ldc + j] = acc[r];
   }
+#pragma unroll
+  for (int r = 0; r < R; ++r) C[(g + r * G) * ldc + j] = acc[r];
 }
 
 // The masked, scaled score of (query qi, key kj): -inf past L (no weight at
@@ -206,19 +167,21 @@ __device__ __forceinline__ float masked_score(float s, float scale, int qi, int 
   return s;
 }
 
+// float32 forward (FMA, never TF32): bf16 takes flash_fwd_wgmma_kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ seg, T* __restrict__ o, float* __restrict__ lse,
                  int L, int heads, float scale, bool causal) {
-  using P = Plan<T, D>;
+  static_assert(std::is_same<T, float>::value, "bf16 takes flash_fwd_wgmma_kernel");
+  using P = Plan<D>;
   extern __shared__ __align__(128) char smem[];
   Carver cv{smem};
   T* qs = cv.take<T>(P::kTile);
   T* ks = cv.take<T>(P::kTile);
   T* vs = cv.take<T>(P::kTile);
   float* s = cv.take<float>(P::kScore);
-  T* ps = std::is_same<T, bf16>::value ? cv.take<T>(P::kCast) : reinterpret_cast<T*>(s);
+  float* ps = s;  // p overwrites its scores in place
   float* acc = cv.take<float>(P::kAcc);
   float* m_row = cv.take<float>(kVecBytes);
   float* l_row = cv.take<float>(kVecBytes);
@@ -230,7 +193,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_tile<T, D>(qs, P::kTileLd, q + base, q0, L);
+  load_tile<D>(qs, P::kTileLd, q + base, q0, L);
   if (seg_b) load_vec(seg_q, seg_b, q0, L, -1);
   for (int i = threadIdx.x; i < kBlock * D; i += kThreads) acc[i] = 0.0f;
   for (int i = threadIdx.x; i < kBlock; i += kThreads) { m_row[i] = kNegBig; l_row[i] = 0.0f; }
@@ -241,11 +204,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int kb = 0; kb < kv_end; ++kb) {
     const int k0 = kb * kBlock;
     __syncthreads();  // the previous block is done with ks / vs / ps
-    load_tile<T, D>(ks, P::kTileLd, k + base, k0, L);
-    load_tile<T, D>(vs, P::kTileLd, v + base, k0, L);
+    load_tile<D>(ks, P::kTileLd, k + base, k0, L);
+    load_tile<D>(vs, P::kTileLd, v + base, k0, L);
     if (seg_b) load_vec(seg_k, seg_b, k0, L, -1);
     __syncthreads();
-    tile_mm<T, kBlock, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, kBlock);
+    tile_mm<kBlock, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, kBlock);
     __syncthreads();
     // online softmax: warp w folds rows [16w, 16w + 16), lanes 2 columns each
     for (int r = warp * 16; r < warp * 16 + 16; ++r) {
@@ -258,9 +221,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const float corr = expf(m_old - m_new);
       const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
       const float row_sum = warp_sum(p0 + p1);
-      __syncwarp();  // every lane has read its scores before ps (maybe s) is written
-      ps[r * P::kCastLd + lane] = from_f<T>(p0);
-      ps[r * P::kCastLd + lane + 32] = from_f<T>(p1);
+      __syncwarp();  // every lane has read its scores before ps (= s) is written
+      ps[r * kBlock + lane] = p0;
+      ps[r * kBlock + lane + 32] = p1;
       for (int c = lane; c < D; c += 32) acc[r * D + c] *= corr;
       if (lane == 0) {
         l_row[r] = l_row[r] * corr + row_sum;
@@ -268,19 +231,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
     }
     __syncthreads();
-    tile_mm<T, D, kBlock, false, false, true>(ps, P::kCastLd, vs, P::kTileLd, acc, D);
+    tile_mm<D, kBlock, false, false, true>(ps, kBlock, vs, P::kTileLd, acc, D);
   }
   __syncthreads();
   for (int r = warp * 16; r < warp * 16 + 16; ++r) {
     const int qi = q0 + r;
     if (qi >= L) break;
     const float denom = fmaxf(l_row[r], 1e-30f);
-    for (int c = lane; c < D; c += 32) o[base + (size_t)qi * D + c] = from_f<T>(acc[r * D + c] / denom);
+    for (int c = lane; c < D; c += 32) o[base + (size_t)qi * D + c] = acc[r * D + c] / denom;
     if (lane == 0) lse[(size_t)bh * L + qi] = m_row[r] + logf(denom);
   }
 }
 
-// f32 backward (FMA, never TF32): bf16 takes the wgmma kernels below.
+// float32 backward (FMA, never TF32): bf16 takes the wgmma kernels below.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -288,7 +251,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const float* __restrict__ delta, T* __restrict__ dq, int L, int heads, float scale,
                     bool causal) {
   static_assert(std::is_same<T, float>::value, "bf16 takes flash_bwd_dq_wgmma_kernel");
-  using P = Plan<T, D>;
+  using P = Plan<D>;
   extern __shared__ __align__(128) char smem[];
   Carver cv{smem};
   T* qs = cv.take<T>(P::kTile);
@@ -308,8 +271,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const size_t base = (size_t)bh * L * D;
   const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;
 
-  load_tile<T, D>(qs, P::kTileLd, q + base, q0, L);
-  load_tile<T, D>(dos, P::kTileLd, dout + base, q0, L);
+  load_tile<D>(qs, P::kTileLd, q + base, q0, L);
+  load_tile<D>(dos, P::kTileLd, dout + base, q0, L);
   load_vec(lse_r, lse + (size_t)bh * L, q0, L, 0.0f);
   load_vec(delta_r, delta + (size_t)bh * L, q0, L, 0.0f);
   if (seg_b) load_vec(seg_q, seg_b, q0, L, -1);
@@ -320,12 +283,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int kb = 0; kb < kv_end; ++kb) {
     const int k0 = kb * kBlock;
     __syncthreads();
-    load_tile<T, D>(ks, P::kTileLd, k + base, k0, L);
-    load_tile<T, D>(vs, P::kTileLd, v + base, k0, L);
+    load_tile<D>(ks, P::kTileLd, k + base, k0, L);
+    load_tile<D>(vs, P::kTileLd, v + base, k0, L);
     if (seg_b) load_vec(seg_k, seg_b, k0, L, -1);
     __syncthreads();
-    tile_mm<T, kBlock, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, kBlock);
-    tile_mm<T, kBlock, D, false, true, false>(dos, P::kTileLd, vs, P::kTileLd, dp, kBlock);
+    tile_mm<kBlock, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, kBlock);
+    tile_mm<kBlock, D, false, true, false>(dos, P::kTileLd, vs, P::kTileLd, dp, kBlock);
     __syncthreads();
     // ds = p * (dp - delta) * scale, p recomputed from the saved lse; each
     // thread reads then overwrites its own entries
@@ -333,19 +296,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       const int r = i / kBlock, c = i % kBlock;
       const float x = masked_score(s[i], scale, q0 + r, k0 + c, L, causal, seg_b, seg_q[r], seg_k[c]);
       const float p = expf(x - lse_r[r]);
-      dss[r * P::kCastLd + c] = from_f<T>(p * (dp[i] - delta_r[r]) * scale);
+      dss[r * kBlock + c] = p * (dp[i] - delta_r[r]) * scale;
     }
     __syncthreads();
-    tile_mm<T, D, kBlock, false, false, true>(dss, P::kCastLd, ks, P::kTileLd, acc, D);
+    tile_mm<D, kBlock, false, false, true>(dss, kBlock, ks, P::kTileLd, acc, D);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    if (q0 + r < L) dq[base + (size_t)(q0 + r) * D + c] = from_f<T>(acc[i]);
+    if (q0 + r < L) dq[base + (size_t)(q0 + r) * D + c] = acc[i];
   }
 }
 
-// f32 backward (FMA, never TF32): bf16 takes the wgmma kernels below.
+// float32 backward (FMA, never TF32): bf16 takes the wgmma kernels below.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -353,7 +316,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int L, int heads,
                      float scale, bool causal) {
   static_assert(std::is_same<T, float>::value, "bf16 takes flash_bwd_dkv_wgmma_kernel");
-  using P = Plan<T, D>;
+  using P = Plan<D>;
   extern __shared__ __align__(128) char smem[];
   Carver cv{smem};
   T* ks = cv.take<T>(P::kTile);
@@ -375,8 +338,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const size_t base = (size_t)bh * L * D;
   const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;
 
-  load_tile<T, D>(ks, P::kTileLd, k + base, k0, L);
-  load_tile<T, D>(vs, P::kTileLd, v + base, k0, L);
+  load_tile<D>(ks, P::kTileLd, k + base, k0, L);
+  load_tile<D>(vs, P::kTileLd, v + base, k0, L);
   if (seg_b) load_vec(seg_k, seg_b, k0, L, -1);
   for (int i = threadIdx.x; i < kBlock * D; i += kThreads) dk_acc[i] = dv_acc[i] = 0.0f;
 
@@ -386,14 +349,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int qb = q_begin; qb < n_q; ++qb) {
     const int q0 = qb * kBlock;
     __syncthreads();
-    load_tile<T, D>(qs, P::kTileLd, q + base, q0, L);
-    load_tile<T, D>(dos, P::kTileLd, dout + base, q0, L);
+    load_tile<D>(qs, P::kTileLd, q + base, q0, L);
+    load_tile<D>(dos, P::kTileLd, dout + base, q0, L);
     load_vec(lse_r, lse + (size_t)bh * L, q0, L, 0.0f);
     load_vec(delta_r, delta + (size_t)bh * L, q0, L, 0.0f);
     if (seg_b) load_vec(seg_q, seg_b, q0, L, -1);
     __syncthreads();
-    tile_mm<T, kBlock, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, kBlock);
-    tile_mm<T, kBlock, D, false, true, false>(dos, P::kTileLd, vs, P::kTileLd, dp, kBlock);
+    tile_mm<kBlock, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, kBlock);
+    tile_mm<kBlock, D, false, true, false>(dos, P::kTileLd, vs, P::kTileLd, dp, kBlock);
     __syncthreads();
     // rows are queries, columns keys; queries past L carry no weight
     for (int i = threadIdx.x; i < kBlock * kBlock; i += kThreads) {
@@ -401,19 +364,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       const float x = masked_score(s[i], scale, q0 + r, k0 + c, L, causal, seg_b, seg_q[r], seg_k[c]);
       const float p = q0 + r < L ? expf(x - lse_r[r]) : 0.0f;
       const float ds = p * (dp[i] - delta_r[r]) * scale;
-      ps[r * P::kCastLd + c] = from_f<T>(p);
-      dss[r * P::kCastLd + c] = from_f<T>(ds);
+      ps[r * kBlock + c] = p;
+      dss[r * kBlock + c] = ds;
     }
     __syncthreads();
-    tile_mm<T, D, kBlock, true, false, true>(ps, P::kCastLd, dos, P::kTileLd, dv_acc, D);
-    tile_mm<T, D, kBlock, true, false, true>(dss, P::kCastLd, qs, P::kTileLd, dk_acc, D);
+    tile_mm<D, kBlock, true, false, true>(ps, kBlock, dos, P::kTileLd, dv_acc, D);
+    tile_mm<D, kBlock, true, false, true>(dss, kBlock, qs, P::kTileLd, dk_acc, D);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
     const int r = i / D, c = i % D;
     if (k0 + r < L) {
-      dk[base + (size_t)(k0 + r) * D + c] = from_f<T>(dk_acc[i]);
-      dv[base + (size_t)(k0 + r) * D + c] = from_f<T>(dv_acc[i]);
+      dk[base + (size_t)(k0 + r) * D + c] = dk_acc[i];
+      dv[base + (size_t)(k0 + r) * D + c] = dv_acc[i];
     }
   }
 }
@@ -421,7 +384,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int bh, int heads,
                int L, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = Plan<T, D>::bytes(3, 1, 1, 1);
+  const size_t smem = Plan<D>::bytes(3, 1, 1);
   auto kern = flash_fwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -435,7 +398,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
               const float* delta, void* dq, int bh, int heads, int L, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = Plan<T, D>::bytes(4, 2, 0, 1);
+  const size_t smem = Plan<D>::bytes(4, 2, 1);
   auto kern = flash_bwd_dq_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -450,7 +413,7 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
                const float* delta, void* dk, void* dv, int bh, int heads, int L, float scale, int causal,
                cudaStream_t stream) {
-  const size_t smem = Plan<T, D>::bytes(4, 2, 0, 2);
+  const size_t smem = Plan<D>::bytes(4, 2, 2);
   auto kern = flash_bwd_dkv_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -462,11 +425,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const int* seg, cons
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward for Hopper: wgmma + TMA + mbarrier ring (see the header).
+// bf16 kernels for Hopper: wgmma + TMA + mbarrier ring (see the header).
 
 constexpr int kPanelBytes = kBlock * 64 * 2;  // a 64-row x 64-column bf16 panel: 128-byte rows
 constexpr int kSwizzleAtom = 1024;            // 8 rows of 128 bytes: one 128-byte-swizzle atom
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -674,19 +638,20 @@ __device__ int visit_list(const int* seg_b, int L, int own0, int lo, int hi, int
   return scratch[0];
 }
 
-// Shared-memory plan of a backward CTA (offsets from a 1024-byte-aligned
-// base): two resident [64][D] tiles, a ring of STAGES pairs of tiles, a
-// ring of STAGES row vectors (RowVec), 1 + STAGES mbarriers, a scratch
-// word, then flags[] and list[] of n_blk words each.
+// Shared-memory plan of a bf16 CTA (offsets from a 1024-byte-aligned
+// base): RESIDENT resident [64][D] tiles (Q in the forward; Q, dO or K, V in
+// the backward), a ring of STAGES pairs of tiles, a ring of STAGES row
+// vectors (RowVec: the forward uses only the ids), 1 + STAGES mbarriers, a
+// scratch word, then flags[] and list[] of n_blk words each.
 struct RowVec {
   float lse2[kBlock];  // lse * log2 e
   float delta[kBlock];
   int seg[kBlock];
 };
 
-template <int D, int STAGES> struct RingPlan {
+template <int D, int STAGES, int RESIDENT> struct RingPlan {
   static constexpr int kTile = (D / 64) * kPanelBytes;
-  static constexpr int kRing = 2 * kTile;
+  static constexpr int kRing = RESIDENT * kTile;
   static constexpr int kVec = kRing + STAGES * 2 * kTile;
   static constexpr int kBars = kVec + STAGES * (int)sizeof(RowVec);
   static constexpr int kScratch = kBars + (1 + STAGES) * 8;
@@ -715,12 +680,180 @@ __device__ __forceinline__ void init_barriers(uint64_t* bars, int n) {
 
 template <int D, int STAGES>
 __global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
+                       bf16* __restrict__ o, float* __restrict__ lse, int L, int heads, float scale, bool causal) {
+  using R = RingPlan<D, STAGES, 1>;
+  extern __shared__ char smem_raw[];
+  char* smem = align_atom(smem_raw);
+  char* qs = smem;
+  RowVec* vec = reinterpret_cast<RowVec*>(smem + R::kVec);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + R::kBars);  // [0] resident, [1 + s] ring stage s
+  int* scratch = reinterpret_cast<int*>(smem + R::kScratch);
+  const int n_blk = (L + kBlock - 1) / kBlock;
+  int* flags = reinterpret_cast<int*>(smem + R::kList);
+  int* list = flags + n_blk;
+  auto ks = [&](int s) { return smem + R::kRing + s * 2 * R::kTile; };
+  auto vs = [&](int s) { return smem + R::kRing + s * 2 * R::kTile + R::kTile; };
+
+  // the causal work of a q block grows with its index: the heaviest first
+  const int bh = blockIdx.x, qb = n_blk - 1 - (int)blockIdx.y, q0 = qb * kBlock;
+  const int tid = threadIdx.x;
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;
+
+  init_barriers(bars, 1 + STAGES);
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], R::kTile);
+    load_tile_tma<D>(qs, &tm_q, &bars[0], q0, bh);
+  }
+  // this thread's two q rows and their ids
+  int qi[2], seg_q[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qi[h] = q0 + acc_row(2 * h);
+    seg_q[h] = seg_b && qi[h] < L ? seg_b[qi[h]] : 0;
+  }
+  const float scale2 = scale * kLog2e;
+  const int n_vis = visit_list(seg_b, L, q0, 0, causal ? qb + 1 : n_blk, flags, list, scratch);
+
+  // ring stage s takes kv block kb: K, V by TMA, the keys' ids by the
+  // threads, read into a register (fetch) well before they are stored
+  auto fetch = [&](int kb) {
+    const int j = kb * kBlock + tid;
+    return seg_b && tid < kBlock && j < L ? seg_b[j] : -1;
+  };
+  auto issue = [&](int s, int kb, int ids) {
+    if (tid == 0) {
+      mbar_expect_tx(&bars[1 + s], 2 * R::kTile);
+      load_tile_tma<D>(ks(s), &tm_k, &bars[1 + s], kb * kBlock, bh);
+      load_tile_tma<D>(vs(s), &tm_v, &bars[1 + s], kb * kBlock, bh);
+    }
+    if (tid < kBlock) vec[s].seg[tid] = ids;
+  };
+  {
+    int ids[STAGES];
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) ids[i] = i < n_vis ? fetch(list[i]) : -1;
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i)
+      if (i < n_vis) issue(i, list[i], ids[i]);
+  }
+  __syncthreads();  // the ring's ids are in shared memory
+  mbar_wait(&bars[0], 0);
+
+  // O's accumulator; each row's running max m (log2 domain, from the
+  // sentinel) and this lane's share of its running sum l (the quad's four
+  // shares take the same corrections and are added at the end)
+  float acc[D / 64][32], m[2] = {kNegBig, kNegBig}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int pn = 0; pn < D / 64; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[pn][i] = 0.0f;
+
+  for (int it = 0; it < n_vis; ++it) {
+    const int s = it % STAGES, k0 = list[it] * kBlock;
+    const bool refill = it + STAGES < n_vis;
+    const int ahead = refill ? fetch(list[it + STAGES]) : -1;
+    mbar_wait(&bars[1 + s], (it / STAGES) & 1);
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    pin(sc);
+    wg_fence();
+    tile_abt<D>(sc, qs, ks(s));  // S = Q K^T
+    wg_commit();
+    wg_wait_all();
+    pin(sc);
+    // scores in the log2 domain, masked after scaling: the sentinel where
+    // the causal mask or the fence drops a key, -inf past L; then each
+    // row's new max over its quad
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1, c = acc_col(i);  // c is even: this pair is columns c, c + 1
+      const int2 sk = seg_b ? *reinterpret_cast<const int2*>(&vec[s].seg[c]) : make_int2(0, 0);
+      const int sv[2] = {sk.x, sk.y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kj = k0 + c + e;
+        float x = sc[i + e] * scale2;
+        if ((causal && kj > qi[h]) || (seg_b && sv[e] != seg_q[h])) x = kNegBig;
+        if (kj >= L) x = -INFINITY;
+        sc[i + e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= corr[h];
+    }
+    // the previous O += P V has completed (waited below), so acc is ours
+#pragma unroll
+    for (int pn = 0; pn < D / 64; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[pn][i] *= corr[(i >> 1) & 1];
+    // p = exp2(x - m): summed in f32, packed as bf16 into the A fragments
+    // of O += P V
+    uint32_t frag[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1;
+      const float p0 = exp2f(sc[i] - m[h]), p1 = exp2f(sc[i + 1] - m[h]);
+      l[h] += p0 + p1;
+      frag[i >> 3][(i & 7) >> 1] = pack_bf16(p0, p1);
+    }
+    pin(frag);
+#pragma unroll
+    for (int pn = 0; pn < D / 64; ++pn) pin(acc[pn]);
+    wg_fence();
+    tile_fb<D>(acc, frag, vs(s));  // O += P V
+    wg_commit();
+    wg_wait_all();
+    pin(frag);
+#pragma unroll
+    for (int pn = 0; pn < D / 64; ++pn) pin(acc[pn]);
+    __syncthreads();  // every thread is done with stage s
+    if (refill) issue(s, list[it + STAGES], ahead);
+  }
+
+  // O = acc / max(l, 1e-30); lse = m + log(denominator) in natural-log units
+  float den[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    den[h] = fmaxf(l[h], 1e-30f);
+  }
+  const size_t base = (size_t)bh * L * D;
+#pragma unroll
+  for (int pn = 0; pn < D / 64; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1, r = q0 + acc_row(i);
+      if (r < L)
+        *reinterpret_cast<uint32_t*>(o + base + (size_t)r * D + pn * 64 + acc_col(i)) =
+            pack_bf16(acc[pn][i] / den[h], acc[pn][i + 1] / den[h]);
+    }
+  if (tid % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (qi[h] < L) lse[(size_t)bh * L + qi[h]] = m[h] * kLn2 + logf(den[h]);
+  }
+}
+
+template <int D, int STAGES>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                           const int* __restrict__ seg, const float* __restrict__ lse,
                           const float* __restrict__ delta, bf16* __restrict__ dq, int L, int heads, float scale,
                           bool causal) {
-  using R = RingPlan<D, STAGES>;
+  using R = RingPlan<D, STAGES, 2>;
   extern __shared__ char smem_raw[];
   char* smem = align_atom(smem_raw);
   char* qs = smem;
@@ -854,7 +987,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
                            const int* __restrict__ seg, const float* __restrict__ lse,
                            const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int L,
                            int heads, float scale, bool causal) {
-  using R = RingPlan<D, STAGES>;
+  using R = RingPlan<D, STAGES, 2>;
   extern __shared__ char smem_raw[];
   char* smem = align_atom(smem_raw);
   char* ks = smem;
@@ -1037,16 +1170,18 @@ EncodeTiled encode_tiled() {
 // No tensor-map encoder, or it refused a map.
 constexpr int kNoTensorMap = -2;
 
-// q, k, v, dO ([BH, L, D] bf16) as 3-D tensor maps of 64 x 64 boxes,
-// 128-byte swizzled; box rows past L read as zeros.
-int make_maps(CUtensorMap (&maps)[4], const void* const (&ptrs)[4], int bh, int L, int D) {
+// N operands ([BH, L, D] bf16: q, k, v and, for the backward, dO) as 3-D
+// tensor maps of 64 x 64 boxes, 128-byte swizzled; box rows past L read as
+// zeros.
+template <int N>
+int make_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N], int bh, int L, int D) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return kNoTensorMap;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
   const cuuint32_t box[3] = {64, kBlock, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < N; ++i) {
     CUresult r = enc(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptrs[i]), dims, strides, box,
                      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1055,8 +1190,25 @@ int make_maps(CUtensorMap (&maps)[4], const void* const (&ptrs)[4], int bh, int 
   return 0;
 }
 
-// Ring depth: 3 stages at D = 64 (64 KB a CTA), 2 at D = 128 (96 KB).
+// Ring depth: 3 stages at D = 64, 2 at D = 128. A backward CTA holds 64 KB
+// or 96 KB of tiles (3 or 2 CTAs an SM), a forward CTA 56 KB or 80 KB.
 template <int D> constexpr int kStages = D == 64 ? 3 : 2;
+
+template <int D>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int bh,
+                     int heads, int L, float scale, int causal, cudaStream_t stream) {
+  constexpr int S = kStages<D>;
+  CUtensorMap m[3];
+  if (int err = make_maps(m, {q, k, v}, bh, L, D)) return err;
+  const int n_blk = (L + kBlock - 1) / kBlock;
+  const size_t smem = RingPlan<D, S, 1>::bytes(n_blk);
+  auto kern = flash_fwd_wgmma_kernel<D, S>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(bh, n_blk), kThreads, smem, stream>>>(m[0], m[1], m[2], seg, static_cast<bf16*>(o), lse, L, heads,
+                                                     scale, causal != 0);
+  return (int)cudaGetLastError();
+}
 
 template <int D>
 int launch_dq_wgmma(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
@@ -1066,7 +1218,7 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v, const int* seg,
   CUtensorMap m[4];
   if (int err = make_maps(m, {q, k, v, dout}, bh, L, D)) return err;
   const int n_blk = (L + kBlock - 1) / kBlock;
-  const size_t smem = RingPlan<D, S>::bytes(n_blk);
+  const size_t smem = RingPlan<D, S, 2>::bytes(n_blk);
   auto kern = flash_bwd_dq_wgmma_kernel<D, S>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1083,7 +1235,7 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const int* seg
   CUtensorMap m[4];
   if (int err = make_maps(m, {q, k, v, dout}, bh, L, D)) return err;
   const int n_blk = (L + kBlock - 1) / kBlock;
-  const size_t smem = RingPlan<D, S>::bytes(n_blk);
+  const size_t smem = RingPlan<D, S, 2>::bytes(n_blk);
   auto kern = flash_bwd_dkv_wgmma_kernel<D, S>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1106,8 +1258,8 @@ extern "C" {
 int tos_flash_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int bh,
                   int heads, int L, int D, int dtype, float scale, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64) return launch_fwd<bf16, 64>(q, k, v, seg, o, lse, bh, heads, L, scale, causal, st);
-  if (dtype == 1 && D == 128) return launch_fwd<bf16, 128>(q, k, v, seg, o, lse, bh, heads, L, scale, causal, st);
+  if (dtype == 1 && D == 64) return launch_fwd_wgmma<64>(q, k, v, seg, o, lse, bh, heads, L, scale, causal, st);
+  if (dtype == 1 && D == 128) return launch_fwd_wgmma<128>(q, k, v, seg, o, lse, bh, heads, L, scale, causal, st);
   if (dtype == 0 && D == 64) return launch_fwd<float, 64>(q, k, v, seg, o, lse, bh, heads, L, scale, causal, st);
   if (dtype == 0 && D == 128) return launch_fwd<float, 128>(q, k, v, seg, o, lse, bh, heads, L, scale, causal, st);
   return kUnsupported;

@@ -1,13 +1,13 @@
-"""Times the flash-attention backward kernels (dq and dk/dv) on the card.
+"""Times the bf16 flash-attention kernels (forward, dq, dk/dv) on the card.
 
 At the LM slice's shape (``[B·H = 64, L = 2048, D = 64]`` bf16, causal), on
 two lines: with the segment ids of the example's first packed batch (the
 main path's attention), and without ids (pure causal). Per line and kernel:
 the median device time of a launch with the 50 MB L2 flushed before each,
-``scaled_dot_product_attention``'s whole backward (dq + dk + dv; boolean
-causal+segment mask, or ``is_causal=True``) as the yardstick, the blocks the
-kernels visit (``visited_blocks``) and the outputs' agreement with the
-plain versions.
+``scaled_dot_product_attention``'s forward and whole backward (dq + dk + dv;
+boolean causal+segment mask, or ``is_causal=True``) as the yardsticks, the
+blocks the kernels visit (``visited_blocks``) and the outputs' agreement
+with the plain versions.
 
 ``--baseline SOURCE`` also builds another copy of ``flash_attention.cu``
 (the same C interface, e.g. an earlier commit's, unpacked under ``build/``)
@@ -15,7 +15,7 @@ into ``build/cuda_baseline`` and times its kernels in turns with the
 current ones (baseline, current, current, baseline, per round), so that
 both are read on one card in one process::
 
-    python -m tensorflowonspark_tpu_torch.examples.transformer.bench_flash_bwd \\
+    python -m tensorflowonspark_tpu_torch.examples.transformer.bench_flash \\
         --baseline build/parent/flash_attention.cu
 
 Prints one JSON line per line of work, then the card's name and power
@@ -50,13 +50,22 @@ def time_ms(torch, fn, flush, iters):
 
 
 def launchers(torch, fa, lib):
-    """dq and dk/dv through the C interface of ``lib`` (the wrappers' calls,
-    without their launch counts)."""
+    """The forward, dq and dk/dv through the C interface of ``lib`` (the
+    wrappers' calls, without their launch counts)."""
     def stream(t):
         return torch.cuda.current_stream(t.device).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
+
+    def fwd(q, k, v, seg, scale, causal, heads):
+        o = torch.empty_like(q)
+        bh, length, d = q.shape
+        lse = torch.empty((bh, length), device=q.device, dtype=torch.float32)
+        fa._raise_on(lib.tos_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(seg), o.data_ptr(), lse.data_ptr(), bh, heads,
+            length, d, 1, float(scale), int(causal), stream(q)), "flash_fwd")
+        return o, lse
 
     def dq(q, k, v, seg, do, lse, delta, scale, causal, heads):
         out = torch.empty_like(q)
@@ -76,7 +85,7 @@ def launchers(torch, fa, lib):
             int(causal), stream(q)), "flash_bwd_dkv")
         return dk, dv
 
-    return {"flash_bwd_dq": dq, "flash_bwd_dkv": dkv}
+    return {"flash_fwd": fwd, "flash_bwd_dq": dq, "flash_bwd_dkv": dkv}
 
 
 def agreement(torch, got, want):
@@ -108,7 +117,7 @@ def main(argv=None):
     parser.add_argument("--data_dir", default=os.path.join(tempfile.gettempdir(), "tos_transformer_corpus"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
-        raise SystemExit("bench_flash_bwd: needs a CUDA device")
+        raise SystemExit("bench_flash: needs a CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
@@ -133,17 +142,25 @@ def main(argv=None):
     for line, seg in (("segments", seg_all), ("causal", None)):
         o_ref, lse = fa.flash_fwd_plain(q, k, v, seg, scale, True, HEADS)
         delta = (do.float() * o_ref.float()).sum(-1)
-        bwd = (seg, do, lse, delta, scale, True, HEADS)
+        inputs = {"flash_fwd": (seg, scale, True, HEADS),
+                  "flash_bwd_dq": (seg, do, lse, delta, scale, True, HEADS)}
+        inputs["flash_bwd_dkv"] = inputs["flash_bwd_dq"]
         qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
         if seg is None:
-            with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
-                out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-            library = "sdpa backward (dq+dk+dv), is_causal=True"
+            sdpa = dict(is_causal=True)
+            backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+            library = "sdpa, is_causal=True"
         else:
-            mask = ((pos[:, None] >= pos[None, :])[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]
-            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-                out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
-            library = "sdpa backward (dq+dk+dv), memory-efficient, boolean causal+segment mask"
+            sdpa = dict(attn_mask=((pos[:, None] >= pos[None, :])[None]
+                                   & (seg[:, :, None] == seg[:, None, :]))[:, None])
+            backends = [SDPBackend.EFFICIENT_ATTENTION]
+            library = "sdpa, memory-efficient, boolean causal+segment mask"
+        with sdpa_kernel(backends):
+            out = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
+
+        def library_fwd():
+            with sdpa_kernel(backends):
+                return F.scaled_dot_product_attention(q4, k4, v4, **sdpa)
 
         def library_bwd():
             return torch.autograd.grad(out, (qg, kg, vg), do4, retain_graph=True)
@@ -154,25 +171,28 @@ def main(argv=None):
         result = {"line": line, "shape": list(shape), "dtype": "bfloat16", "causal": True,
                   "blocks_visited": int(visit.sum()), "blocks_causal": BATCH * n * (n + 1) // 2,
                   "library": library, "card": card}
-        want = {"flash_bwd_dq": fa.flash_bwd_dq_plain(q, k, v, *bwd),
-                 "flash_bwd_dkv": fa.flash_bwd_dkv_plain(q, k, v, *bwd)}
+        want = {"flash_fwd": (o_ref, lse),
+                "flash_bwd_dq": fa.flash_bwd_dq_plain(q, k, v, *inputs["flash_bwd_dq"]),
+                "flash_bwd_dkv": fa.flash_bwd_dkv_plain(q, k, v, *inputs["flash_bwd_dkv"])}
         times = {name: {impl: [] for impl in impls} for name in want}
-        lib_ms = []
+        lib_ms = {"forward": [], "backward": []}
         for _ in range(args.rounds):
-            lib_ms.append(time_ms(torch, library_bwd, flush, args.iters))
+            lib_ms["forward"].append(time_ms(torch, library_fwd, flush, args.iters))
+            lib_ms["backward"].append(time_ms(torch, library_bwd, flush, args.iters))
             for name in want:
                 for impl in order:
-                    fn = impls[impl][name]
-                    times[name][impl].append(time_ms(torch, lambda: fn(q, k, v, *bwd), flush, args.iters))
-        result["library_ms"] = statistics.median(lib_ms)
+                    fn, a = impls[impl][name], inputs[name]
+                    times[name][impl].append(time_ms(torch, lambda: fn(q, k, v, *a), flush, args.iters))
+        result["library_ms"] = {phase: statistics.median(ms) for phase, ms in lib_ms.items()}
         for name in want:
             result[name] = {impl: {"ms": statistics.median(times[name][impl]), "ms_each": times[name][impl],
-                                   "vs_plain": agreement(torch, impls[impl][name](q, k, v, *bwd), want[name])}
+                                   "vs_plain": agreement(torch, impls[impl][name](q, k, v, *inputs[name]),
+                                                         want[name])}
                             for impl in impls}
         for impl in impls:
-            result["pair_ms_" + impl] = sum(result[name][impl]["ms"] for name in want)
+            result["pair_ms_" + impl] = sum(result[name][impl]["ms"] for name in ("flash_bwd_dq", "flash_bwd_dkv"))
         print(json.dumps(result), flush=True)
-        del out, qg, kg, vg, want, o_ref, lse, delta
+        del out, qg, kg, vg, want, o_ref, lse, delta, inputs
         torch.cuda.empty_cache()
     print(card, flush=True)
 

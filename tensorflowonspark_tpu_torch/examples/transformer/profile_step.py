@@ -11,9 +11,10 @@ then:
   step time and tokens/s;
 * traces ``--traced`` more steps with ``torch.profiler`` and reads from
   that one trace the kernels' device time by group (the port's flash-
-  attention CUDA kernels, GEMMs, other PyTorch kernels), the device's busy
-  time and idle share of the window, and the ``train_step.forward`` /
-  ``.backward`` / ``.optimizer`` ranges (as the ResNet profiler does).
+  attention CUDA kernels, GEMMs, other PyTorch kernels) and of each flash
+  kernel, the device's busy time and idle share of the window, and the
+  ``train_step.forward`` / ``.backward`` / ``.optimizer`` ranges (as the
+  ResNet profiler does).
 
 Prints one JSON line per ``--attention`` given (``flash``: the kernels;
 ``plain``: dense attention in f32)::
@@ -32,9 +33,11 @@ import time
 
 from tensorflowonspark_tpu_torch.examples.resnet.profile_step import read_trace
 
+#: kernel-name fragments of the port's flash-attention kernels
+FLASH_KERNELS = ("flash_fwd_", "flash_bwd_dq_", "flash_bwd_dkv_")
 #: kernel-name fragments of each group, matched in this order
 GROUPS = [
-    ("flash_attention_cuda", ("flash_fwd_kernel", "flash_bwd_dq_", "flash_bwd_dkv_")),
+    ("flash_attention_cuda", FLASH_KERNELS),
     ("gemm", ("gemm", "cublas", "cutlass", "xmma", "nvjet")),
 ]
 LM = dict(vocab_size=32000, d_model=512, n_layers=6, n_heads=8, d_ff=2048)
@@ -97,6 +100,11 @@ def profile(attention, host_batch, steps, traced):
         "loss": float(metrics["loss"]),
     }
     out.update(read_trace(prof.events(), traced, GROUPS))
+    cuda = torch.autograd.DeviceType.CUDA
+    out["flash_ms_by_kernel"] = {
+        frag.strip("_"): sum(e.time_range.elapsed_us() for e in prof.events()
+                             if e.device_type == cuda and frag in e.name) / 1e3 / traced
+        for frag in FLASH_KERNELS}
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 

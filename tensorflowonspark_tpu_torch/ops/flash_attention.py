@@ -12,10 +12,11 @@ wrapper             computes                                     replaces (JAX p
 ``flash_bwd_dkv``   dv = Σ pᵀ·dO, dk = Σ dsᵀ·Q                    ``_bwd_dkv_kernel``
 =================  ===========================================  =================
 
-Each kernel skips the blocks that the causal mask empties, applies the
-causal mask and the packed-sequence fence (``seg_q == seg_k``) with the same
-finite sentinel as the TPU kernels, and keeps its sums in f32; ``p`` and
-``ds`` are cast to the input dtype before the second product, as there.
+Each kernel skips the blocks that the causal mask empties (the bf16 kernels
+also those that the fence empties), applies the causal mask and the
+packed-sequence fence (``seg_q == seg_k``) with the same finite sentinel as
+the TPU kernels, and keeps its sums in f32; ``p`` and ``ds`` are cast to the
+input dtype before the second product, as there.
 ``lse`` is ``[BH, L]`` f32 (the TPU's ``[BH, L, 8]`` lanes are a tiling
 artifact) and segment ids stay ``[B, L]`` int32, read at ``bh // heads``.
 
@@ -25,18 +26,19 @@ cores (H100 SXM: 989 TFLOP/s dense bf16) bound the work the causal mask
 leaves; the packed-sequence fence masks most of it, and then the bytes
 (3.35 TB/s) bound the data's own work.
 
-**Design.** The forward and the f32 backward (right and simple first): one
-CTA of 4 warps per (bh, 64-row block), tiles staged in shared memory, bf16
-products through warp-level WMMA with f32 accumulators in shared memory,
-f32 inputs on a plain FMA path (never TF32). The bf16 backward kernels are
-built for Hopper: one warpgroup a CTA, ``wgmma`` products with f32
-accumulators in registers, TMA loads into 128-byte-swizzled tiles through
-an ``mbarrier`` ring of 2–3 stages (the next block's tiles in flight while
-the tensor cores work), scores computed transposed in dk/dv so that Pᵀ
-and dSᵀ come out of the accumulators as the next product's register
-operand, and the fence-aware block skip (``visited_blocks`` is its plain
-mirror): a block pair whose segment-id ranges do not overlap is never
-visited. Every CTA owns its output rows, so the sums are deterministic.
+**Design.** float32 (right and simple first): one CTA of 4 warps per (bh,
+64-row block), tiles, scores and accumulators staged in shared memory,
+products on a plain FMA path (never TF32). The three bf16 kernels are built
+for Hopper: one warpgroup a CTA, ``wgmma`` products with f32 accumulators
+in registers, TMA loads into 128-byte-swizzled tiles through an
+``mbarrier`` ring of 2–3 stages (the next block's tiles in flight while the
+tensor cores work), and the fence-aware block skip (``visited_blocks`` is
+its plain mirror): a block pair whose segment-id ranges do not overlap is
+never visited. The forward keeps its online softmax in the accumulators'
+registers, in the log2 domain, with P rounded to bf16 as the register
+operand of O += P·V; dk/dv computes its scores transposed, so that Pᵀ and
+dSᵀ come out of the accumulators as the next product's register operand.
+Every CTA owns its output rows, so the sums are deterministic.
 
 **No block rule.** The JAX package needs blocks that tile L exactly
 (``_pick_block``: Pallas pads a ragged block with garbage), and its
@@ -154,9 +156,9 @@ def kernel_resources(log_path=None):
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             name = entry.group(1)
-            kernel = next((k for k in ("flash_fwd_kernel", "flash_bwd_dq_wgmma_kernel",
-                                       "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dq_kernel",
-                                       "flash_bwd_dkv_kernel") if k in name), name)
+            kernel = next((k for k in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                                       "flash_bwd_dkv_wgmma_kernel", "flash_fwd_kernel",
+                                       "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel") if k in name), name)
             dim = re.search(r"I(?:f|13__nv_bfloat16)?Li(\d+)E", name)
             current = {"kernel": kernel,
                        "dtype": "float32" if re.search(r"IfLi\d+E", name) else "bfloat16",
@@ -237,7 +239,7 @@ def _stream(t):
 
 
 def visited_blocks(seg, causal, block=64):
-    """The plain mirror of the bf16 backward kernels' block skip
+    """The plain mirror of the bf16 kernels' block skip
     (``visit_list`` in the CUDA source): ``[B, n, n]`` booleans, True where
     the (q block, kv block) pair of a row of ``seg`` (``int [B, L]``) is
     visited, ``n = ceil(L / block)``. A pair is skipped when the causal mask

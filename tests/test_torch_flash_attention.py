@@ -245,6 +245,12 @@ def test_kernel_resources_reads_registers_and_spills_from_the_ptxas_log(tmp_path
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 154 registers, used 1 barriers, 992 bytes cmem[0]\n"
         "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi128ELi2EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16Pfiifb'"
+        " for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi128ELi2EEE\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 808 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
         "'_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelIfLi128EEEvPKT_S3_S3_PKiS3_PKfS7_PS1_S8_iifb' for 'sm_90a'\n"
         "ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_bwd_dkv_kernelIfLi128EEE\n"
         "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads\n"
@@ -253,6 +259,102 @@ def test_kernel_resources_reads_registers_and_spills_from_the_ptxas_log(tmp_path
     assert fa.kernel_resources(str(log)) == [
         {"kernel": "flash_bwd_dq_wgmma_kernel", "dtype": "bfloat16", "head_dim": 64, "registers": 154,
          "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "flash_fwd_wgmma_kernel", "dtype": "bfloat16", "head_dim": 128, "registers": 168,
+         "spill_stores": 0, "spill_loads": 0},
         {"kernel": "flash_bwd_dkv_kernel", "dtype": "float32", "head_dim": 128, "registers": 255,
          "spill_stores": 12, "spill_loads": 16},
     ]
+
+
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def _forward_kernel_loop(q, k, v, seg, scale, causal, heads, block=64):
+    """A blockwise twin of the bf16 forward kernel's loop
+    (``flash_fwd_wgmma_kernel``): per q block, only the kv blocks that
+    ``visited_blocks`` keeps, scores in the log2 domain, the sentinel set
+    after scaling and -inf past L, m starting at the sentinel, l summed from
+    the f32 p, and p rounded to the input dtype before P·V; then
+    ``O = acc / max(l, 1e-30)`` and ``lse = m·ln 2 + log(max(l, 1e-30))``."""
+    bh, length, d = q.shape
+    n = -(-length // block)
+    ids = torch.zeros(bh // heads, length, dtype=torch.int32) if seg is None else seg
+    visit = fa.visited_blocks(ids, causal, block)
+    pad = n * block - length
+    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad)) for t in (k, v))
+    ids_k = torch.nn.functional.pad(ids, (0, pad), value=-1)
+    pos = torch.arange(n * block)
+    o = torch.empty(bh, length, d)
+    lse = torch.empty(bh, length)
+    for b in range(bh):
+        for qb in range(n):
+            qi = pos[qb * block:min((qb + 1) * block, length)]
+            m = torch.full((len(qi),), fa.NEG_BIG)
+            l = torch.zeros(len(qi))
+            acc = torch.zeros(len(qi), d)
+            for kb in range(qb + 1 if causal else n):
+                if not visit[b // heads, qb, kb]:
+                    continue
+                kj = pos[kb * block:(kb + 1) * block]
+                x = q[b, qi].float() @ kf[b, kj].T * (scale * LOG2E)
+                drop = torch.zeros(len(qi), block, dtype=torch.bool)
+                if causal:
+                    drop |= kj[None] > qi[:, None]
+                if seg is not None:
+                    drop |= ids_k[b // heads, kj][None] != ids[b // heads, qi][:, None]
+                x = torch.where(drop, fa.NEG_BIG, x)
+                x = torch.where(kj[None] >= length, -math.inf, x)
+                m_new = torch.maximum(m, x.amax(1))
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(x - m_new[:, None])
+                l = l * corr + p.sum(1)
+                acc = acc * corr[:, None] + p.to(q.dtype).float() @ vf[b, kj]
+                m = m_new
+            den = l.clamp_min(1e-30)
+            o[b, qi] = acc / den[:, None]
+            lse[b, qi] = m * LN2 + torch.log(den)
+    return o.to(q.dtype), lse
+
+
+def _first_visited_block_masked(seg, causal, length, block=64):
+    """Rows (of any batch row) that attend no key of the first kv block
+    their q block visits: the sentinel-garbage rows that the correction
+    exp2(sentinel - m) = 0 must wipe."""
+    visit = fa.visited_blocks(_t(seg), causal, block).numpy()
+    rows = 0
+    for b in range(seg.shape[0]):
+        for qb in range(visit.shape[1]):
+            kb = int(np.argmax(visit[b, qb]))
+            qi = np.arange(qb * block, min((qb + 1) * block, length))
+            kj = np.arange(kb * block, min((kb + 1) * block, length))
+            attend = seg[b, qi][:, None] == seg[b, kj][None]
+            if causal:
+                attend &= kj[None] <= qi[:, None]
+            rows += int((~attend.any(1)).sum())
+    return rows
+
+
+@pytest.mark.parametrize("length", [256, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["mid_block", "reused", "all_pad"])
+def test_forward_kernel_loop_twin_matches_pallas_interpret(kind, causal, dtype, length):
+    """The bf16 forward kernel's loop, written blockwise in the log2 domain
+    over the visited blocks only, against the JAX package's forward in
+    interpret mode: o and lse within 2e-5 (f32) or 0.05 (bf16), the JAX
+    tests' tolerances. The mid_block and reused layouts hold rows whose
+    first visited block is fully masked for them."""
+    q, k, v = _qkv(12, length=length)
+    seg = _layout(kind, B, length, 13)
+    if kind in ("mid_block", "reused"):
+        assert _first_visited_block_masked(seg, causal, length) > 0
+    merge = lambda x: x.reshape(B * H, length, D)  # noqa: E731
+    jo, jlse = jfa._flash_fwd(
+        *(jnp.asarray(merge(x), dtype) for x in (q, k, v)), jnp.asarray(np.repeat(seg, H, axis=0)),
+        1 / math.sqrt(D), causal, 64, 64, True,
+    )
+    o, lse = _forward_kernel_loop(*(_t(merge(x)).to(getattr(torch, dtype)) for x in (q, k, v)), _t(seg),
+                                  1 / math.sqrt(D), causal, H)
+    tol = 2e-5 if dtype == "float32" else 0.05
+    np.testing.assert_allclose(o.float().numpy(), np.asarray(jo, np.float32), atol=tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :, 0], atol=tol)

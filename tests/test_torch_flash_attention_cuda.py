@@ -35,10 +35,19 @@ def _packed_segments(b, length, gen, layout="packed"):
     starting mid-block), then padding (id 0) over the last eighth of each
     row; ``alternating``: ids 1, 2, 1, 2, ... (non-contiguous: every block
     pair is visited, and most scores are fenced); ``pad_row``: the first row
-    padding only, the others packed."""
+    padding only, the others packed; ``reused``: in every 256 positions ids
+    a, a+1, a, a+2 over [0, 40), [40, 90), [90, 150), [150, 256) (a fresh a
+    each time), so the rows of id a+2 in the third 64-row block find their
+    first visited kv block (the chunk's first) fully masked."""
     seg = torch.zeros(b, length, dtype=torch.int32)
     if layout == "alternating":
         seg[:, 0::2], seg[:, 1::2] = 1, 2
+        return seg.cuda()
+    if layout == "reused":
+        for c0 in range(0, length, 256):
+            a = 1 + 3 * (c0 // 256)
+            for lo, hi, sid in ((0, 40, a), (40, 90, a + 1), (90, 150, a), (150, 256, a + 2)):
+                seg[:, c0 + lo:c0 + hi] = sid
         return seg.cuda()
     for row in range(1 if layout == "pad_row" else 0, b):
         pos, sid = 0, 1
@@ -82,6 +91,8 @@ def _close(name, got, want):
     (2, 2, 256, 64, True, "alternating"),  # non-contiguous ids
     (3, 2, 200, 64, False, "pad_row"),     # a row of padding only
     (2, 4, 2048, 128, True, "packed"),     # D=128 at the slice's length
+    (1, 8, 2048, 64, True, "reused"),      # rows whose first visited block is fully masked
+    (1, 8, 2048, 64, False, "packed"),     # not causal, fenced: the whole row range is a candidate
 ])
 def test_kernels_match_plain_versions_on_card(dtype, b, heads, length, d, causal, segmented):
     _card()
