@@ -8,20 +8,25 @@ Phases, each printing one JSON line (``{"phase": ...}``); any failure raises
 and the script exits non-zero:
 
 1. ``device``     the card's name and power limit (``nvidia-smi``).
-2. ``build``      compiles the four fused-BatchNorm Triton kernels (into
-                  ``build/triton``) and, at the same time in a second thread,
-                  the three flash-attention CUDA kernels with ``nvcc`` (into
-                  ``build/cuda``), from the sources in the checkout; reports
-                  each CUDA kernel's registers and spill bytes from the
-                  ``-Xptxas -v`` log.
+2. ``build``      compiles the two elementwise fused-BatchNorm Triton
+                  kernels (into ``build/triton``) and, at the same time, one
+                  thread a source, the CUDA kernels with ``nvcc`` (into
+                  ``build/cuda``): the two BatchNorm reductions
+                  (``csrc/fused_bn.cu``) and the three flash-attention
+                  kernels (``csrc/flash_attention.cu``), from the sources in
+                  the checkout; reports each CUDA kernel's registers and
+                  spill bytes from the ``-Xptxas -v`` logs.
 3. ``kernel``     at every BatchNorm shape of a ResNet-50 step (batch 64,
                   224 px, bf16), each BN kernel against its plain PyTorch
                   version: the max error beside its stated tolerance, the
                   kernel's time, the plain version's, one PyTorch library
                   call computing the same function (a yardstick only; the
                   port never calls it) and the least time the card could take
-                  (bytes moved / 3.35 TB/s, the H100 SXM data sheet). Lines
-                  are printed for the stem and a stage-3 shape.
+                  (bytes moved / 3.35 TB/s, the H100 SXM data sheet); the two
+                  reductions called again must give bitwise-equal outputs.
+                  Lines are printed for the stem and a stage-3 shape, and one
+                  ``kernel_odd`` line at 37 channels (the reductions' scalar
+                  path).
 4. ``kernel``     each flash-attention kernel against its plain version at
                   the LM slice's shape ([B·H=64, L=2048, D=64] bf16, causal,
                   with the packed segment layout of the slice's own corpus),
@@ -88,17 +93,26 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
 BATCH, IMAGE, STEPS = 64, 224, 5
 BF16_ULP = 2.0 ** -7  # bf16 keeps 8 significant bits
-REL_F32_SUM = 1e-4  # f32 per-channel sums of up to 8e5 values, added in another order
+#: f32 per-channel outputs of sums of up to 8e5 values, relative to the
+#: largest (floor 1): the kernels round each sum once from near-exact
+#: partials, the plain versions sum in f64 (bn_stats) or in torch's f32
+#: order (bn_bwd_reduce)
+REL_F32_SUM = 1e-4
 
 #: (wrapper, TPU kernel it replaces, (bytes per element of the activation
-#: moved, f32 per-channel vectors moved), flops per element)
+#: moved, f32 per-channel vectors moved), flops per element, route, source)
 KERNEL_TABLE = [
-    ("bn_stats", "tensorflowonspark_tpu/ops/fused_bn.py:87", (1, 2), 3),
-    ("bn_normalize", "tensorflowonspark_tpu/ops/fused_bn.py:108", (2, 4), 3),
-    ("bn_bwd_reduce", "tensorflowonspark_tpu/ops/fused_bn.py:116", (2, 4), 5),
-    ("bn_bwd_dx", "tensorflowonspark_tpu/ops/fused_bn.py:138", (3, 5), 7),
+    ("bn_stats", "tensorflowonspark_tpu/ops/fused_bn.py:87", (1, 2), 3,
+     "cuda", "tensorflowonspark_tpu_torch/csrc/fused_bn.cu"),
+    ("bn_normalize", "tensorflowonspark_tpu/ops/fused_bn.py:108", (2, 4), 3,
+     "triton", "tensorflowonspark_tpu_torch/ops/fused_bn.py"),
+    ("bn_bwd_reduce", "tensorflowonspark_tpu/ops/fused_bn.py:116", (2, 4), 5,
+     "cuda", "tensorflowonspark_tpu_torch/csrc/fused_bn.cu"),
+    ("bn_bwd_dx", "tensorflowonspark_tpu/ops/fused_bn.py:138", (3, 5), 7,
+     "triton", "tensorflowonspark_tpu_torch/ops/fused_bn.py"),
 ]
-SOURCE = "tensorflowonspark_tpu_torch/ops/fused_bn.py"
+#: the reductions, which must repeat bitwise
+REDUCTIONS = ("bn_stats", "bn_bwd_reduce")
 
 #: the LM slice: TransformerConfig's defaults at full width
 LM = dict(vocab_size=32000, d_model=512, n_layers=6, n_heads=8, d_ff=2048)
@@ -148,43 +162,71 @@ def bound(name, rows, n_ch, elem_bytes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(torch, fn, flush, iters=7):
-    """Median device time of one call of ``fn``, with the 50 MB L2 flushed
-    before each (the main path finds these activations cold)."""
-    fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return sorted(s.elapsed_time(e) for s, e in events)[iters // 2]
+def bn_cases(torch, F, fused_bn, nhwc, x, dy, gamma, beta, eps):
+    """``{wrapper: (kernel, plain version, library call, relative tolerance)}``
+    of the four BN kernels on ``x``, ``dy`` ``[R, C]``, the activation of
+    shape ``nhwc``."""
+    x4 = x.view(nhwc).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+    dy4 = dy.view(nhwc).permute(0, 3, 1, 2)
+    mean, var = fused_bn.bn_stats_plain(x)
+    dgamma, dbeta = fused_bn.bn_bwd_reduce_plain(x, dy, mean, var, eps)
+    invstd = torch.rsqrt(var + eps)
+    nbb = torch.ops.aten.native_batch_norm_backward
+    return {
+        "bn_stats": (
+            lambda: fused_bn.bn_stats(x), lambda: fused_bn.bn_stats_plain(x),
+            lambda: torch.var_mean(x, dim=0, correction=0), REL_F32_SUM,
+        ),
+        "bn_normalize": (
+            lambda: fused_bn.bn_normalize(x, mean, var, gamma, beta, eps),
+            lambda: fused_bn.bn_normalize_plain(x, mean, var, gamma, beta, eps),
+            lambda: F.batch_norm(x4, mean, var, gamma, beta, training=False, eps=eps),
+            BF16_ULP,
+        ),
+        "bn_bwd_reduce": (
+            lambda: fused_bn.bn_bwd_reduce(x, dy, mean, var, eps),
+            lambda: fused_bn.bn_bwd_reduce_plain(x, dy, mean, var, eps),
+            lambda: nbb(dy4, x4, gamma, None, None, mean, invstd, True, eps,
+                        [False, True, True]),
+            REL_F32_SUM,
+        ),
+        "bn_bwd_dx": (
+            lambda: fused_bn.bn_bwd_dx(x, dy, mean, var, gamma, dgamma, dbeta, eps),
+            lambda: fused_bn.bn_bwd_dx_plain(x, dy, mean, var, gamma, dgamma, dbeta, eps),
+            lambda: nbb(dy4, x4, gamma, None, None, mean, invstd, True, eps,
+                        [True, False, False]),
+            BF16_ULP,
+        ),
+    }
 
 
-def bn_shapes(torch, fused_bn, resnet):
-    """Input shapes (N, H, W, C) of the 53 BatchNorm layers of the slice's
-    model, read with hooks from an eval-mode forward (no kernel runs)."""
-    model = resnet.resnet50(dtype=torch.bfloat16, bn_impl="pallas").cuda().eval()
-    shapes = []
-    hooks = [
-        m.register_forward_pre_hook(lambda _m, inp: shapes.append(tuple(inp[0].shape)))
-        for m in model.modules() if isinstance(m, fused_bn.FusedBatchNorm)
-    ]
-    with torch.no_grad():
-        model(torch.zeros(BATCH, IMAGE, IMAGE, 3, device="cuda"))
-    for h in hooks:
-        h.remove()
-    del model
-    return shapes
+def check_bn(torch, name, kernel, plain, rel_tol, where):
+    """The kernel's max abs error against its plain version and its
+    tolerance; raises beyond it, and for a reduction whose second call is
+    not bitwise equal to its first."""
+    got, want = kernel(), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, want))
+    scale = max(float(r.float().abs().max()) for r in want)
+    # f32 sums: relative to the largest value (floor 1); bf16 outputs:
+    # one unit in the last place at the largest magnitude
+    tol = rel_tol * (max(1.0, scale) if rel_tol == REL_F32_SUM else scale)
+    if not err <= tol:
+        raise AssertionError("{} at {}: max abs err {} > tolerance {}".format(name, where, err, tol))
+    if name in REDUCTIONS and not all(torch.equal(a, b) for a, b in zip(kernel(), got)):
+        raise AssertionError("{} at {}: a second call is not bitwise equal to the first".format(
+            name, where))
+    return err, tol
 
 
 def phase_kernel(torch, F, fused_bn, shapes):
-    """Every kernel against its plain version at each distinct shape; per-
-    step totals weight each shape by how many layers have it."""
+    """Every kernel against its plain version at each distinct shape, and the
+    reductions' repeat bitwise; per-step totals weight each shape by how
+    many layers have it. Then every kernel at 37 channels."""
+    from tensorflowonspark_tpu_torch.examples.resnet.bench_bn import time_ms
+
     counts = {}
     for s in shapes:
         counts[s] = counts.get(s, 0) + 1
@@ -201,51 +243,9 @@ def phase_kernel(torch, F, fused_bn, shapes):
         dy = torch.randn(rows, c, device="cuda", generator=gen).to(torch.bfloat16)
         gamma = torch.randn(c, device="cuda", generator=gen)
         beta = torch.randn(c, device="cuda", generator=gen)
-        x4 = x.view(n, h, w, c).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
-        dy4 = dy.view(n, h, w, c).permute(0, 3, 1, 2)
-        mean, var = fused_bn.bn_stats_plain(x)
-        dgamma, dbeta = fused_bn.bn_bwd_reduce_plain(x, dy, mean, var, eps)
-        invstd = torch.rsqrt(var + eps)
-        nbb = torch.ops.aten.native_batch_norm_backward
-        cases = {
-            "bn_stats": (
-                lambda: fused_bn.bn_stats(x), lambda: fused_bn.bn_stats_plain(x),
-                lambda: torch.var_mean(x, dim=0, correction=0), REL_F32_SUM,
-            ),
-            "bn_normalize": (
-                lambda: fused_bn.bn_normalize(x, mean, var, gamma, beta, eps),
-                lambda: fused_bn.bn_normalize_plain(x, mean, var, gamma, beta, eps),
-                lambda: F.batch_norm(x4, mean, var, gamma, beta, training=False, eps=eps),
-                BF16_ULP,
-            ),
-            "bn_bwd_reduce": (
-                lambda: fused_bn.bn_bwd_reduce(x, dy, mean, var, eps),
-                lambda: fused_bn.bn_bwd_reduce_plain(x, dy, mean, var, eps),
-                lambda: nbb(dy4, x4, gamma, None, None, mean, invstd, True, eps,
-                            [False, True, True]),
-                REL_F32_SUM,
-            ),
-            "bn_bwd_dx": (
-                lambda: fused_bn.bn_bwd_dx(x, dy, mean, var, gamma, dgamma, dbeta, eps),
-                lambda: fused_bn.bn_bwd_dx_plain(x, dy, mean, var, gamma, dgamma, dbeta, eps),
-                lambda: nbb(dy4, x4, gamma, None, None, mean, invstd, True, eps,
-                            [True, False, False]),
-                BF16_ULP,
-            ),
-        }
+        cases = bn_cases(torch, F, fused_bn, shape, x, dy, gamma, beta, eps)
         for name, (kernel, plain, library, rel_tol) in cases.items():
-            got, want = kernel(), plain()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            torch.cuda.synchronize()
-            err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, want))
-            scale = max(float(r.float().abs().max()) for r in want)
-            # f32 sums: relative to the largest value (floor 1); bf16 outputs:
-            # one unit in the last place at the largest magnitude
-            tol = rel_tol * (max(1.0, scale) if rel_tol == REL_F32_SUM else scale)
-            if not err <= tol:
-                raise AssertionError("{} at {}: max abs err {} > tolerance {}".format(
-                    name, shape, err, tol))
+            err, tol = check_bn(torch, name, kernel, plain, rel_tol, shape)
             ms = time_ms(torch, kernel, flush)
             plain_ms = time_ms(torch, plain, flush)
             library_ms = time_ms(torch, library, flush)
@@ -261,8 +261,23 @@ def phase_kernel(torch, F, fused_bn, shapes):
                 emit({"phase": "kernel", "name": name, "at": named[shape],
                       "shape": [rows, c], "dtype": "bfloat16", "layers": n_layers,
                       "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by})
-        del x, dy, x4, dy4
+                      "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "repeat_bitwise": name in REDUCTIONS})
+        del x, dy, cases
+    # 37 channels: 74-byte rows, so the reductions take their scalar path
+    rows, c = BATCH * 14 * 14, 37
+    x = (torch.randn(rows, c, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
+    dy = torch.randn(rows, c, device="cuda", generator=gen).to(torch.bfloat16)
+    gamma, beta = torch.randn(c, device="cuda", generator=gen), torch.randn(c, device="cuda", generator=gen)
+    line = {"phase": "kernel_odd", "shape": [rows, c], "dtype": "bfloat16",
+            "vector_path": fused_bn._vector_path(x, dy)}
+    odd = bn_cases(torch, F, fused_bn, (BATCH, 14, 14, c), x, dy, gamma, beta, eps)
+    for name, (kernel, plain, _, rel_tol) in odd.items():
+        err, tol = check_bn(torch, name, kernel, plain, rel_tol, (rows, c))
+        line[name] = {"max_abs_err": err, "tolerance": tol, "ms": time_ms(torch, kernel, flush),
+                      "bound_ms": bound(name, rows, c, x.element_size())[0],
+                      "repeat_bitwise": name in REDUCTIONS}
+    emit(line)
     return totals
 
 
@@ -348,10 +363,13 @@ def phase_compare(torch, fused_bn, resnet):
         "label": torch.as_tensor(rng.integers(0, 1000, BATCH)).cuda(),
     }
     loss_fn = resnet.make_loss_fn(weight_decay=1e-4)
-    # (loss limit, gradient limit). float32: only the sum order differs
-    # (53 layers; the gradients read 1.2e-6 apart on an H100); bfloat16: BN
-    # outputs that round one bf16 ulp apart propagate through the network
-    # (the gradients read 8.9e-3 apart)
+    # (loss limit, gradient limit). float32: the gradient limit sits between
+    # the sound reading (3.1e-7 on an H100) and the 1% dgamma fault below
+    # (9.0e-4); it holds only because both sides round each layer's Σx and
+    # Σx² once from exact sums (any two f32 summation orders of the stem's
+    # statistics move the gradients about 2e-4). bfloat16: BN outputs that
+    # round one bf16 ulp apart propagate through the network (the gradients
+    # read 3.8e-3 apart)
     limits = {"float32": (1e-3, 1e-4), "bfloat16": (5e-2, 3e-2)}
     grads = {}
     for dtype_name, (tol, grad_tol) in limits.items():
@@ -505,6 +523,8 @@ def phase_flash_kernel(torch, F, fa, seg_slice):
     the bf16 line two faults must fail the check: each kernel's first
     output (O, dq, dk) off by 1%, and O with a kv block dropped. Returns the
     bf16 line's numbers per LM step (6 layers)."""
+    from tensorflowonspark_tpu_torch.examples.resnet.bench_bn import time_ms
+
     from torch.nn.attention import sdpa_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' einsums in full f32
@@ -606,6 +626,8 @@ def phase_flash_causal(torch, F, fa):
     SDPA's forward and the backward pair's against SDPA's whole backward,
     both with ``is_causal=True``. This shows the kernels' design apart from
     the fence's skipped blocks."""
+    from tensorflowonspark_tpu_torch.examples.resnet.bench_bn import time_ms
+
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -869,6 +891,7 @@ def main():
     sys.path.insert(0, here)
     import torch.nn.functional as F
 
+    from tensorflowonspark_tpu_torch.examples.resnet import bench_bn
     from tensorflowonspark_tpu_torch.models import resnet, transformer
     from tensorflowonspark_tpu_torch.ops import flash_attention as fa
     from tensorflowonspark_tpu_torch.ops import fused_bn
@@ -884,43 +907,52 @@ def main():
           "cuda": torch.version.cuda, "triton": triton.__version__})
 
     t0 = time.perf_counter()
-    # nvcc builds the CUDA kernels while triton compiles the BN kernels
-    cuda_build = {}
+    # nvcc builds each CUDA source in a thread of its own while triton
+    # compiles the two elementwise BN kernels
+    cuda_builds = {"fused_bn": fused_bn.build, "flash_attention": fa.build}
+    built = {}
 
-    def build_cuda():
+    def build_cuda(name):
         t = time.perf_counter()
         try:
-            cuda_build["path"] = fa.build()
+            built[name] = {"library": cuda_builds[name]()}
         except Exception as e:  # re-raised below, in the main thread
-            cuda_build["error"] = e
-        cuda_build["seconds"] = time.perf_counter() - t
+            built[name] = {"error": e}
+        built[name]["seconds"] = time.perf_counter() - t
 
-    nvcc_thread = threading.Thread(target=build_cuda)
-    nvcc_thread.start()
+    nvcc_threads = [threading.Thread(target=build_cuda, args=(name,)) for name in cuda_builds]
+    for t in nvcc_threads:
+        t.start()
     for c in (64, 256):
         x = torch.randn(3136, c, device="cuda").to(torch.bfloat16)
         v = torch.ones(c, device="cuda")
-        mean, var = fused_bn.bn_stats(x)
+        mean, var = fused_bn.bn_stats_plain(x)
+        dg, db = fused_bn.bn_bwd_reduce_plain(x, x, mean, var, 1e-5)
         fused_bn.bn_normalize(x, mean, var, v, v, 1e-5)
-        dg, db = fused_bn.bn_bwd_reduce(x, x, mean, var, 1e-5)
         fused_bn.bn_bwd_dx(x, x, mean, var, v, dg, db, 1e-5)
     torch.cuda.synchronize()
-    nvcc_thread.join()
-    if "error" in cuda_build:
-        raise cuda_build["error"]
+    for t in nvcc_threads:
+        t.join()
+    for name in cuda_builds:
+        if "error" in built[name]:
+            raise built[name]["error"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):  # load and launch each kernel once
         x = torch.randn(8, 130, 64, device="cuda", generator=gen).to(dtype)
         _, lse = fa.flash_fwd(x, x, x, None, 0.125, True, 1)
         fa.flash_bwd_dq(x, x, x, None, x, lse, lse, 0.125, True, 1)
         fa.flash_bwd_dkv(x, x, x, None, x, lse, lse, 0.125, True, 1)
+        x = x.view(-1, 64)
+        mean, var = fused_bn.bn_stats(x)
+        fused_bn.bn_bwd_reduce(x, x, mean, var, 1e-5)
     torch.cuda.synchronize()
     emit({"phase": "build", "kernels": [t[0] for t in KERNEL_TABLE] + [t[0] for t in FLASH_TABLE],
           "seconds": time.perf_counter() - t0, "cache": os.environ.get("TRITON_CACHE_DIR"),
-          "cuda_seconds": cuda_build["seconds"], "cuda_library": cuda_build["path"],
-          "cuda_kernels": fa.kernel_resources()})
+          "cuda_seconds": {name: b["seconds"] for name, b in built.items()},
+          "cuda_libraries": {name: b["library"] for name, b in built.items()},
+          "cuda_kernels": fused_bn.kernel_resources() + fa.kernel_resources()})
 
-    shapes = bn_shapes(torch, fused_bn, resnet)
+    shapes = bench_bn.bn_shapes(torch, BATCH, IMAGE)
     if len(shapes) != 53:
         raise AssertionError("expected 53 BatchNorm layers, found {}".format(len(shapes)))
     totals = phase_kernel(torch, F, fused_bn, shapes)
@@ -936,19 +968,19 @@ def main():
     flash_launches = phase_slice_lm(torch, fa, data_dir, STEPS)
     phase_compare_lm(torch, fa, transformer, lm_batch)
     emit({"phase": "kernels", "kernels": [
-        {"name": name, "route": "triton", "source": SOURCE, "launched": launches[name] > 0}
-        for name, *_ in KERNEL_TABLE] + [
+        {"name": name, "route": route, "source": source, "launched": launches[name] > 0}
+        for name, _, _, _, route, source in KERNEL_TABLE] + [
         {"name": name, "route": "cuda", "source": FLASH_SOURCE, "launched": flash_launches[name] > 0}
         for name, *_ in FLASH_TABLE], "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
-        {"name": name, "route": "triton", "source": SOURCE, "replaces": replaces,
+        {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": totals[name]["max_abs_err"],
          "ms": totals[name]["ms"], "plain_ms": totals[name]["plain_ms"],
          "bound_ms": totals[name]["bound_ms"], "bound_by": totals[name]["bound_by"],
          "library_ms": totals[name]["library_ms"],
          "per": "ResNet-50 step, batch {}, {} px, bf16: sum over its 53 BatchNorm "
                 "layers".format(BATCH, IMAGE)}
-        for name, replaces, *_ in KERNEL_TABLE] + [
+        for name, replaces, _, _, route, source in KERNEL_TABLE] + [
         {"name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
          "launches": flash_launches[name], "max_abs_err": flash_totals[name]["max_abs_err"],
          "ms": flash_totals[name]["ms"], "plain_ms": flash_totals[name]["plain_ms"],

@@ -10,8 +10,8 @@ up, then:
   step time and images/s;
 * traces ``--traced`` more steps, ending in a sync, with ``torch.profiler``
   and reads from that one trace: the window's length, the device time of
-  the kernels by group (the port's Triton BN kernels, cuDNN convs, GEMMs,
-  other PyTorch kernels), the device's busy time (the union of the kernel
+  the kernels by group (the port's four BN kernels, each of them also on
+  its own, cuDNN convs, GEMMs, other PyTorch kernels), the device's busy time (the union of the kernel
   intervals) and so its idle share of the window, and the step's phases
   (the ``train_step.forward`` / ``.backward`` / ``.optimizer`` ranges of the
   step): host ms of each range, and device ms of the kernels launched under
@@ -32,7 +32,7 @@ import time
 
 #: kernel-name fragments of each group, matched in this order
 GROUPS = [
-    ("fused_bn_triton", ("stats_partial", "finish", "normalize", "bwd_reduce_partial", "bwd_dx")),
+    ("fused_bn", ("bn_stats_kernel", "bn_bwd_reduce_kernel", "normalize", "bwd_dx")),
     ("conv_cudnn", ("conv", "xmma", "cudnn", "implicit_gemm", "dgrad", "wgrad", "fprop", "nhwc",
                     "nchw")),
     ("gemm", ("gemm", "cublas", "cutlass")),
@@ -92,7 +92,7 @@ def read_trace(events, traced, groups=GROUPS):
     device_ms["train_step.backward"] = (
         kernel_ms - device_ms["train_step.forward"] - device_ms["train_step.optimizer"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {
+    out = {
         "traced_steps": traced, "window_ms_per_step": window_us / 1e3 / traced,
         "device_kernels_per_step": len(kernels) / traced,
         "device_kernel_ms_per_step": kernel_ms,
@@ -102,6 +102,11 @@ def read_trace(events, traced, groups=GROUPS):
         "device_ms_by_group": by_group,
         "top_kernels_ms_per_step": [[name[:80], ms] for name, ms in top],
     }
+    bn_frags = dict(groups).get("fused_bn")
+    if bn_frags:  # each of the port's BN kernels on its own
+        out["fused_bn_ms_per_step"] = {
+            frag: sum(ms for name, ms in by_name.items() if frag in name.lower()) for frag in bn_frags}
+    return out
 
 
 def profile(bn_impl, batch_size, steps, traced):
@@ -128,7 +133,7 @@ def profile(bn_impl, batch_size, steps, traced):
         "label": rng.integers(0, 1000, batch_size),
     })
 
-    for _ in range(3):  # warm-up: Triton builds, cuDNN heuristics, allocator
+    for _ in range(3):  # warm-up: Triton and nvcc builds, cuDNN heuristics, allocator
         state, _ = step(state, batch)
     torch.cuda.synchronize()
 

@@ -60,14 +60,14 @@ runtime's driver entry point (no ``-lcuda``).
 """
 
 import ctypes
-import hashlib
 import math
 import os
-import shutil
-import subprocess
+import re
 import threading
 
 import torch
+
+from tensorflowonspark_tpu_torch.ops import cuda_build
 
 #: the TPU kernels' finite masked-score sentinel (−inf would turn a fully
 #: masked block's running-max correction into NaN)
@@ -76,50 +76,17 @@ NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SOURCE = os.path.join(_ROOT, "tensorflowonspark_tpu_torch", "csrc", "flash_attention.cu")
-BUILD_DIR = os.path.join(_ROOT, "build", "cuda")
-NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = os.path.join(cuda_build.CSRC, "flash_attention.cu")
+BUILD_DIR = cuda_build.BUILD_DIR
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc():
-    for path in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-                 shutil.which("nvcc")):
-        if path and os.path.isfile(path):
-            return path
-    raise RuntimeError("flash attention kernels: nvcc not found (set CUDA_HOME)")
-
-
-def library_path(source=SOURCE, build_dir=BUILD_DIR):
-    """Where the build of ``source`` lives: ``build/cuda``, named by a hash
-    of the source and the flags, so a stale build is never loaded."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(build_dir, "flash_attention_{}.so".format(digest))
-
-
 def build(source=SOURCE, build_dir=BUILD_DIR):
-    """Compile the kernels if this source has no build yet (``nvcc`` writes
-    to a private name, renamed into place, so concurrent processes never
-    load a half-written library); returns the path of the library. The
-    ``-Xptxas -v`` report lands beside it (``.log``)."""
-    path = library_path(source, build_dir)
-    if os.path.isfile(path):
-        return path
-    os.makedirs(build_dir, exist_ok=True)
-    tmp = "{}.{}.tmp".format(path, os.getpid())
-    out = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", tmp, source],
-                         capture_output=True, text=True, timeout=600)
-    with open(path[:-3] + ".log", "w") as f:
-        f.write(out.stdout + out.stderr)
-    if out.returncode != 0:
-        raise RuntimeError("nvcc failed to build {}:\n{}".format(source, out.stderr[-4000:]))
-    os.replace(tmp, path)
-    return path
+    """Compile the kernels if this source has no build yet; returns the
+    path of the library (:func:`cuda_build.build`)."""
+    return cuda_build.build(source, build_dir)
 
 
 def bind(path):
@@ -147,32 +114,16 @@ def kernel_resources(log_path=None):
     ``-Xptxas -v`` log that :func:`build` writes beside the library:
     ``[{"kernel", "dtype", "head_dim", "registers", "spill_stores",
     "spill_loads"}, ...]``."""
-    import re
-
-    with open(log_path or library_path()[:-3] + ".log") as f:
-        text = f.read()
-    out, current = [], None
-    for line in text.splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", line)
-        if entry:
-            name = entry.group(1)
-            kernel = next((k for k in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                                       "flash_bwd_dkv_wgmma_kernel", "flash_fwd_kernel",
-                                       "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel") if k in name), name)
-            dim = re.search(r"I(?:f|13__nv_bfloat16)?Li(\d+)E", name)
-            current = {"kernel": kernel,
-                       "dtype": "float32" if re.search(r"IfLi\d+E", name) else "bfloat16",
-                       "head_dim": int(dim.group(1)) if dim else None}
-            out.append(current)
-            continue
-        if current is None:
-            continue
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if spill:
-            current["spill_stores"], current["spill_loads"] = map(int, spill.groups())
-        regs = re.search(r"Used (\d+) registers", line)
-        if regs:
-            current["registers"] = int(regs.group(1))
+    out = []
+    for entry in cuda_build.ptxas_report(log_path or cuda_build.library_path(SOURCE)[:-3] + ".log"):
+        name = entry.pop("entry")
+        kernel = next((k for k in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                                   "flash_bwd_dkv_wgmma_kernel", "flash_fwd_kernel",
+                                   "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel") if k in name), name)
+        dim = re.search(r"I(?:f|13__nv_bfloat16)?Li(\d+)E", name)
+        out.append(dict(entry, kernel=kernel,
+                        dtype="float32" if re.search(r"IfLi\d+E", name) else "bfloat16",
+                        head_dim=int(dim.group(1)) if dim else None))
     return out
 
 

@@ -1,130 +1,107 @@
-"""Training-mode BatchNorm as four Triton kernels for Hopper (+ autograd).
+"""Training-mode BatchNorm as four hand-written kernels for Hopper (+ autograd).
 
 The counterpart of the JAX package's ``ops/fused_bn.py``, which runs the
 same four passes as Pallas TPU kernels. Over an ``[R, C]`` activation
 (``R = N*H*W``, channels last, so an NHWC tensor's ``[R, C]`` view is free):
 
-==============  =======================================  ====================
-kernel           computes                                 replaces (JAX pkg)
-==============  =======================================  ====================
-``bn_stats``     Σx, Σx² in f32 in one read → mean, var   ``_stats_kernel``
-``bn_normalize`` y = (x−mean)·(rsqrt(var+eps)·γ) + β      ``_norm_kernel``
-``bn_bwd_reduce`` dβ = Σdy, dγ = Σdy·x̂                     ``_bwd_reduce_kernel``
-``bn_bwd_dx``    dx = (γ·inv/R)·(R·dy − dβ − x̂·dγ)         ``_bwd_dx_kernel``
-==============  =======================================  ====================
+==============  =======================================  ====================  ==========
+kernel           computes                                 replaces (JAX pkg)    route
+==============  =======================================  ====================  ==========
+``bn_stats``     Σx, Σx² in f32 in one read → mean, var   ``_stats_kernel``     CUDA C++
+``bn_normalize`` y = (x−mean)·(rsqrt(var+eps)·γ) + β      ``_norm_kernel``      Triton
+``bn_bwd_reduce`` dβ = Σdy, dγ = Σdy·x̂                     ``_bwd_reduce_kernel``  CUDA C++
+``bn_bwd_dx``    dx = (γ·inv/R)·(R·dy − dβ − x̂·dγ)         ``_bwd_dx_kernel``    Triton
+==============  =======================================  ====================  ==========
 
 **Bound.** None of the four multiplies matrices: each is a few flops per
 element streamed from device memory, so each is bound by the bytes it moves
 (H100 SXM: 3.35 TB/s). Per ``[R, C]`` bf16 activation: ``bn_stats`` reads
 2RC bytes, ``bn_normalize`` reads and writes 4RC, ``bn_bwd_reduce`` reads
 4RC, ``bn_bwd_dx`` reads 4RC and writes 2RC; the per-channel vectors are
-noise beside them. **Design.** Every kernel walks ``[BLOCK_R, BLOCK_C]``
-tiles of the row-major activation, so a warp reads whole 128-byte row
-segments (16-byte vector loads); the per-channel vectors are loaded once
-per tile. The TPU kernels carry their sums in VMEM along a sequential grid;
-Hopper's blocks run in no order, so the two reductions (``bn_stats``,
-``bn_bwd_reduce``) split the rows over enough blocks to fill the card, each
-writing one ``[C]`` f32 partial per split, and a second small launch adds
-the ``[S, C]`` partials in a fixed order — deterministic, no atomics — and
-forms mean/var with the reference's own ``E[x²] − mean²`` formula.
+noise beside them.
+
+**Design.** The two elementwise passes are Triton kernels over
+``[BLOCK_R, BLOCK_C]`` tiles of the row-major activation, so a warp reads
+whole 128-byte row segments (16-byte vector loads); the per-channel vectors
+are loaded once per tile. The TPU kernels carry the two reductions' sums in
+VMEM along a sequential grid; Hopper's blocks run in no order, so
+``bn_stats`` and ``bn_bwd_reduce`` are CUDA kernels (``csrc/fused_bn.cu``)
+of one launch each: CTAs own a strip of channels and a split of the rows
+(:func:`reduce_geometry` sizes the split count to the work), write one f64
+partial per channel, and the CTA that completes a strip (an ``atomicAdd``
+ticket after a ``__threadfence()``) adds the strip's partials in a fixed
+order (:func:`finish_plain` is its mirror) and forms the outputs — mean/var
+with the reference's own ``E[x²] − mean²`` formula. The partials and the
+per-strip counters live in a workspace cached per (device, stream); nothing
+syncs the host. The kernels are compiled by ``nvcc`` at the first CUDA
+launch into ``build/cuda`` and bound through ``ctypes``
+(:mod:`~tensorflowonspark_tpu_torch.ops.cuda_build`).
+
+**Correctly rounded sums.** The sums (Σx, Σx², Σdy·x̂, Σdy) are rounded to
+f32 once, from f64 sums of short f32 sums (the rows of one round of a
+thread's loads); the plain version of ``bn_stats`` sums in f64 and rounds
+the same way (its f64 copy of the input lives only in the forward: the
+gradient that ``bn_impl="flax"`` takes through it is the f32 formula, on
+the saved input), and both then apply the reference's f32 formula, so the
+two agree to the bit in nearly every channel. An f32 training step is
+sensitive to the last bits of a layer's statistics: two f32 summation
+orders of the same activation move a ResNet-50 step's gradients about 2e-4
+apart, so the only order both sides can share is the exact one.
 
 **No block rule.** The JAX package needs a power-of-two row block that
 divides R (``_pick_block_or_none``) because Pallas pads a ragged last block
 with garbage; :class:`FusedBatchNorm` there falls back to plain XLA math
-when none exists and ``fused_batch_norm`` raises. The Triton kernels mask
-the ragged tail, so this module runs the kernels at every R. The reference's
-fallback computes the same math as its kernels, so the outputs agree with
-both of its branches.
+when none exists and ``fused_batch_norm`` raises. These kernels mask the
+ragged tail, and an operand that is not 16-byte aligned takes the
+reductions' scalar path, so this module runs the kernels at every R and C.
+The reference's fallback computes the same math as its kernels, so the
+outputs agree with both of its branches.
 
 **Dispatch.** Each wrapper takes its plain PyTorch version (the ``*_plain``
 functions, the reference for tests and ``chip_smoke.py``) only when its
 input lies on the CPU; on a CUDA tensor it launches the kernel or raises,
 and counts the launch in its ``launches`` attribute. ``triton`` is imported
-and the kernels are compiled at the first CUDA launch, never at import.
+and its kernels compiled, and ``nvcc`` run, at the first CUDA launch, never
+at import.
 
 Statistics are per-process (per-replica BN, as the JAX package's fused
 path); ``mean``/``var`` are detached and the gradient flows through ``y``
 only, with the batch-statistics terms folded into ``dx``.
 """
 
+import collections
+import ctypes
+import functools
 import os
+import threading
 
 import torch
 from torch import nn
 
-#: elements per tile: 4096 bf16 = 8 KB per operand, 32 per thread at 4 warps
+from tensorflowonspark_tpu_torch.ops import cuda_build
+
+#: elements per tile of the Triton kernels: 4096 bf16 = 8 KB per operand,
+#: 32 per thread at 4 warps
 _TILE = 4096
-#: blocks the split-row reductions aim for: 4 per SM of an H100 (132 SMs)
-_TARGET_BLOCKS = 4 * 132
-#: the partials finisher's tile: splits added per step x channels per block
-_FINISH_S, _FINISH_C = 64, 64
+
+SOURCE = os.path.join(cuda_build.CSRC, "fused_bn.cu")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _kernels = None
+_lib = None
+_lib_lock = threading.Lock()
 
 
 def _build():
-    """Compile-on-first-use: import triton, define the four kernels and the
-    partials finisher, and cache them. The compiled binaries land in
+    """Compile-on-first-use: import triton, define the two elementwise
+    kernels, and cache them. The compiled binaries land in
     ``TRITON_CACHE_DIR`` (default: ``build/triton`` in the checkout)."""
     global _kernels
     if _kernels is not None:
         return _kernels
-    os.environ.setdefault(
-        "TRITON_CACHE_DIR",
-        os.path.join(
-            os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-            "build", "triton",
-        ),
-    )
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(cuda_build.ROOT, "build", "triton"))
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def stats_partial(x_ptr, psum_ptr, psq_ptr, R, C, rows_per_split,
-                      BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        # replaces _stats_kernel's sequential-grid accumulation: this block
-        # sums rows [r_begin, r_end) of BLOCK_C channels into one partial
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        r_begin = tl.program_id(1) * rows_per_split
-        r_end = tl.minimum(r_begin + rows_per_split, R)
-        acc_s = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
-        acc_q = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
-        for r0 in range(r_begin, r_end, BLOCK_R):
-            rows = r0 + tl.arange(0, BLOCK_R)
-            mask = (rows < r_end)[:, None] & cmask[None, :]
-            offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            acc_s += x
-            acc_q += x * x
-        out = tl.program_id(1) * C + cols
-        tl.store(psum_ptr + out, tl.sum(acc_s, axis=0), mask=cmask)
-        tl.store(psq_ptr + out, tl.sum(acc_q, axis=0), mask=cmask)
-
-    @triton.jit
-    def finish(p0_ptr, p1_ptr, out0_ptr, out1_ptr, S, C, n_rows,
-               STATS: tl.constexpr, BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
-        # adds the [S, C] partials, BLOCK_S splits a step, in a fixed order;
-        # STATS turns (Σx, Σx²) into (mean, biased var) exactly as
-        # _stats_kernel's _finish does
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        acc0 = tl.zeros((BLOCK_S, BLOCK_C), tl.float32)
-        acc1 = tl.zeros((BLOCK_S, BLOCK_C), tl.float32)
-        for s0 in range(0, S, BLOCK_S):
-            splits = s0 + tl.arange(0, BLOCK_S)
-            mask = (splits < S)[:, None] & cmask[None, :]
-            offs = splits[:, None] * C + cols[None, :]
-            acc0 += tl.load(p0_ptr + offs, mask=mask, other=0.0)
-            acc1 += tl.load(p1_ptr + offs, mask=mask, other=0.0)
-        a0 = tl.sum(acc0, axis=0)
-        a1 = tl.sum(acc1, axis=0)
-        if STATS:
-            mean = a0 / n_rows
-            a1 = tl.maximum(a1 / n_rows - mean * mean, 0.0)
-            a0 = mean
-        tl.store(out0_ptr + cols, a0, mask=cmask)
-        tl.store(out1_ptr + cols, a1, mask=cmask)
 
     @triton.jit
     def normalize(x_ptr, mean_ptr, var_ptr, gamma_ptr, beta_ptr, y_ptr, R, C, eps,
@@ -143,31 +120,6 @@ def _build():
         x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
         y = (x - mean[None, :]) * scale[None, :] + beta[None, :]
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    @triton.jit
-    def bwd_reduce_partial(x_ptr, dy_ptr, mean_ptr, var_ptr, pdb_ptr, pdg_ptr,
-                           R, C, rows_per_split, eps,
-                           BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        # replaces _bwd_reduce_kernel's sequential-grid accumulation
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        mean = tl.load(mean_ptr + cols, mask=cmask, other=0.0)
-        inv = tl.math.rsqrt(tl.load(var_ptr + cols, mask=cmask, other=1.0) + eps)
-        r_begin = tl.program_id(1) * rows_per_split
-        r_end = tl.minimum(r_begin + rows_per_split, R)
-        acc_db = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
-        acc_dg = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
-        for r0 in range(r_begin, r_end, BLOCK_R):
-            rows = r0 + tl.arange(0, BLOCK_R)
-            mask = (rows < r_end)[:, None] & cmask[None, :]
-            offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            acc_db += dy
-            acc_dg += dy * ((x - mean[None, :]) * inv[None, :])
-        out = tl.program_id(1) * C + cols
-        tl.store(pdb_ptr + out, tl.sum(acc_db, axis=0), mask=cmask)
-        tl.store(pdg_ptr + out, tl.sum(acc_dg, axis=0), mask=cmask)
 
     @triton.jit
     def bwd_dx(x_ptr, dy_ptr, mean_ptr, var_ptr, gamma_ptr, dgamma_ptr, dbeta_ptr, dx_ptr,
@@ -191,14 +143,47 @@ def _build():
         )
         tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
 
-    _kernels = {
-        "stats_partial": stats_partial,
-        "finish": finish,
-        "normalize": normalize,
-        "bwd_reduce_partial": bwd_reduce_partial,
-        "bwd_dx": bwd_dx,
-    }
+    _kernels = {"normalize": normalize, "bwd_dx": bwd_dx}
     return _kernels
+
+
+def build(source=SOURCE, build_dir=cuda_build.BUILD_DIR):
+    """Compile the two reduction kernels if this source has no build yet;
+    returns the path of the library (:func:`cuda_build.build`)."""
+    return cuda_build.build(source, build_dir)
+
+
+def bind(path):
+    """The reductions' C interface of the library at ``path`` (``ctypes``)."""
+    lib = ctypes.CDLL(path)
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tos_bn_stats.argtypes = [ptr] + [i32] * 8 + [ptr] * 5
+    lib.tos_bn_bwd_reduce.argtypes = [ptr] * 4 + [f32] + [i32] * 8 + [ptr] * 5
+    lib.tos_bn_stats.restype = lib.tos_bn_bwd_reduce.restype = i32
+    return lib
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = bind(build())
+    return _lib
+
+
+def kernel_resources(log_path=None):
+    """Registers and spill bytes of each instance of the two reduction
+    kernels, read from the ``-Xptxas -v`` log beside the library:
+    ``[{"kernel", "dtype", "vec", "registers", "spill_stores",
+    "spill_loads"}, ...]``."""
+    out = []
+    for entry in cuda_build.ptxas_report(log_path or cuda_build.library_path(SOURCE)[:-3] + ".log"):
+        name = entry.pop("entry")
+        kernel = next((k for k in ("bn_stats_kernel", "bn_bwd_reduce_kernel") if k in name), name)
+        dtype = ("bfloat16" if "__nv_bfloat16" in name else "float16" if "6__half" in name
+                 else "float32")
+        out.append(dict(entry, kernel=kernel, dtype=dtype, vec="Lb1E" in name))
+    return out
 
 
 # -- launch geometry ----------------------------------------------------------
@@ -209,19 +194,133 @@ def _cdiv(a, b):
 
 
 def _blocks(n_ch):
-    """(BLOCK_R, BLOCK_C): at most 128 channels a tile (a 256-byte bf16 row
-    segment), rows filling the rest of a ``_TILE``-element tile."""
+    """(BLOCK_R, BLOCK_C) of the Triton kernels: at most 128 channels a tile
+    (a 256-byte bf16 row segment), rows filling the rest of a
+    ``_TILE``-element tile."""
     block_c = min(128, max(16, 1 << (n_ch - 1).bit_length()))
     return _TILE // block_c, block_c
 
 
-def _splits(rows, n_ch, block_r, block_c):
-    """(S, rows_per_split) for the split-row reductions: about
-    ``_TARGET_BLOCKS`` blocks over the card, each split a whole number of
-    row tiles."""
-    want = max(1, min(_cdiv(rows, block_r), _cdiv(_TARGET_BLOCKS, _cdiv(n_ch, block_c))))
-    rows_per_split = _cdiv(_cdiv(rows, want), block_r) * block_r
-    return _cdiv(rows, rows_per_split), rows_per_split
+#: threads of a reduction CTA (``kThreads`` in the CUDA source)
+_THREADS = 256
+#: column lanes of a strip at most: 8 lanes of 16 bytes (one 128-byte row
+#: segment), or 32 lanes of one element on the scalar path. Narrow strips
+#: give wide layers many strips, each finished by its own CTA from few
+#: partials
+_VEC_LANES, _SCALAR_LANES = 8, 32
+#: input bytes a CTA reads at least: one round of its loads in flight
+#: (256 threads x 16 bytes x 8 loads, or x 4 loads of each of two inputs)
+_MIN_CTA_BYTES = 32 * 1024
+#: CTAs of a launch per SM at most: one wave at the kernels' occupancy
+_CTAS_PER_SM = 2
+#: the H100 SXM's SM count, for callers without a card at hand
+H100_SMS = 132
+
+Geometry = collections.namedtuple(
+    "Geometry", "vec per_thread lanes width strips splits rows_per_split runs")
+Geometry.__doc__ = """Launch geometry of a reduction over ``[R, C]``:
+``vec`` (16-byte loads) with ``per_thread`` channels a lane, ``lanes``
+column lanes of ``width`` channels a strip, ``strips`` x ``splits`` CTAs of
+``rows_per_split`` rows (the last split takes the rest), and the finisher's
+``runs`` of splits per strip."""
+
+
+@functools.lru_cache(maxsize=1024)
+def reduce_geometry(rows, n_ch, elem_size, n_inputs, vec, n_sms=H100_SMS):
+    """The grid of ``bn_stats`` (``n_inputs=1``) or ``bn_bwd_reduce`` (2)
+    over ``rows`` x ``n_ch`` elements of ``elem_size`` bytes. A lane reads 16
+    bytes of a row (``vec``) or one element; a strip is one 128-byte row
+    segment (``vec``) or 32 elements.
+    The split count follows the work: each CTA reads at least
+    ``_MIN_CTA_BYTES`` of input, and the whole grid is at most
+    ``_CTAS_PER_SM`` CTAs per SM, so small layers take few CTAs and the
+    largest fill the card in one wave."""
+    per = 16 // elem_size if vec else 1
+    lanes = min(_VEC_LANES if vec else _SCALAR_LANES, 1 << (_cdiv(n_ch, per) - 1).bit_length())
+    width = lanes * per
+    strips = _cdiv(n_ch, width)
+    strip_row_bytes = min(width, n_ch) * elem_size * n_inputs
+    want = max(1, min(rows * strip_row_bytes // _MIN_CTA_BYTES, _CTAS_PER_SM * n_sms // strips))
+    rows_per_split = _cdiv(rows, want)
+    splits = _cdiv(rows, rows_per_split)
+    # the finisher's threads load 2 f64 partials (vec, 16 bytes) or 1
+    runs = _THREADS * (2 if vec else 1) // width
+    return Geometry(vec, per, lanes, width, strips, splits, rows_per_split, runs)
+
+
+def _vector_path(*tensors):
+    """True when the reductions may take 16-byte loads: every operand's base
+    pointer and row pitch a multiple of 16 bytes."""
+    return all(t.data_ptr() % 16 == 0 and t.shape[1] * t.element_size() % 16 == 0 for t in tensors)
+
+
+def split_sums_plain(a, geom):
+    """The per-split sums of ``a`` (``[R, C]`` summands) that the CTAs of
+    ``geom`` write as partials: ``[splits, C]`` f64 (each split summed in
+    f64, as the CTA's compensated sums come out)."""
+    return torch.stack([a[s:s + geom.rows_per_split].double().sum(0)
+                        for s in range(0, a.shape[0], geom.rows_per_split)])
+
+
+def finish_plain(partials, geom):
+    """The finisher's fixed order over ``[splits, C]`` f64 partials (the
+    plain mirror of ``finish`` in the CUDA source): the splits cut into
+    ``geom.runs`` runs of ``ceil(splits / runs)``, each run added in split
+    order from zero, then the runs added in order; the caller rounds the
+    result to f32 once."""
+    splits = partials.shape[0]
+    per = _cdiv(splits, geom.runs)
+    total = None
+    for lo in range(0, per * geom.runs, per):
+        run = torch.zeros_like(partials[0])
+        for s in range(lo, min(splits, lo + per)):
+            run = run + partials[s]
+        total = run if total is None else total + run
+    return total
+
+
+class _Workspace:
+    """The reductions' partials (f64 ``[2, splits, C]``) and per-strip
+    counters on one stream, grown only when a launch needs more. The
+    counters are zeroed once, at allocation: each launch's finishing CTA
+    leaves its strip's counter at 0 again."""
+
+    def __init__(self, device):
+        self.n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+        self.partials = torch.empty(0, device=device, dtype=torch.float64)
+        self.counters = torch.zeros(0, device=device, dtype=torch.int32)
+
+    def reserve(self, geom, n_ch):
+        need = 2 * geom.splits * n_ch
+        if self.partials.numel() < need:
+            self.partials = torch.empty(need, device=self.partials.device, dtype=torch.float64)
+        if self.counters.numel() < geom.strips:
+            self.counters = torch.zeros(geom.strips, device=self.counters.device, dtype=torch.int32)
+        return self
+
+
+_workspaces = {}
+_workspaces_lock = threading.Lock()
+
+
+def _workspace(x2d, stream):
+    """The workspace of ``x2d``'s device and ``stream`` (a handle)."""
+    key = (x2d.device.index, stream)
+    with _workspaces_lock:
+        ws = _workspaces.get(key)
+        if ws is None:
+            ws = _workspaces[key] = _Workspace(x2d.device)
+    return ws
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(status, name):
+    if status != 0:
+        raise RuntimeError("{} kernel launch failed: {}".format(
+            name, "unsupported dtype or geometry" if status == -1 else "CUDA error {}".format(status)))
 
 
 def _check(x2d, *vecs, dy=None):
@@ -230,6 +329,8 @@ def _check(x2d, *vecs, dy=None):
     if x2d.dim() != 2 or not x2d.is_contiguous():
         raise ValueError("expected a contiguous [R, C] activation, got {} {}".format(
             tuple(x2d.shape), x2d.stride()))
+    if x2d.shape[0] < 1 or x2d.shape[1] < 1:
+        raise ValueError("expected at least one row and one channel, got {}".format(tuple(x2d.shape)))
     if x2d.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError("unsupported activation dtype {}".format(x2d.dtype))
     if dy is not None and (dy.shape != x2d.shape or dy.dtype != x2d.dtype
@@ -258,12 +359,41 @@ def _on_card(x2d):
 # -- plain versions (the reference for tests and chip_smoke.py) -------------
 
 
+def stats_from_sums(sum_x, sum_sq, n_rows):
+    """``(mean, biased var)`` from f32 ``[C]`` sums of x and x² by the
+    reference's formula in f32: ``mean = Σx/R``, ``var = max(Σx²/R −
+    mean², 0)``, with 1/R a factor rounded to f32 (what PyTorch's CUDA
+    division by a scalar does, spelled out so that the kernel and every
+    device round alike)."""
+    inv_n = 1.0 / n_rows
+    mean = sum_x * inv_n
+    return mean, torch.clamp_min(sum_sq * inv_n - mean * mean, 0.0)
+
+
+class _PlainStats(torch.autograd.Function):
+    """The statistics from f64 sums rounded once to f32, and their gradient
+    by the f32 formula ``dx = (g_mean + 2·g_var·(x − mean)) / R`` (none
+    through a clamped var), so that autograd keeps ``x2d`` and no f64 copy."""
+
+    @staticmethod
+    def forward(ctx, x2d):
+        xd = x2d.double()
+        sum_x, sum_sq = xd.sum(0).float(), xd.square().sum(0).float()
+        del xd
+        n_rows = float(x2d.shape[0])
+        mean, var = stats_from_sums(sum_x, sum_sq, n_rows)
+        ctx.save_for_backward(x2d, mean, sum_sq * (1.0 / n_rows) - mean * mean >= 0.0)
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        x2d, mean, live = ctx.saved_tensors
+        g_var = torch.where(live, g_var, 0.0)
+        return ((g_mean + 2.0 * g_var * (x2d.float() - mean)) / x2d.shape[0]).to(x2d.dtype)
+
+
 def bn_stats_plain(x2d):
-    xf = x2d.float()
-    n_rows = float(x2d.shape[0])
-    mean = xf.sum(0) / n_rows
-    var = torch.clamp_min(xf.square().sum(0) / n_rows - mean * mean, 0.0)
-    return mean, var
+    return _PlainStats.apply(x2d)
 
 
 def bn_normalize_plain(x2d, mean, var, gamma, beta, eps):
@@ -294,21 +424,19 @@ def bn_stats(x2d):
     if not _on_card(x2d):
         return bn_stats_plain(x2d)
     _check(x2d)
-    k = _build()
+    lib = _load()
     rows, n_ch = x2d.shape
-    block_r, block_c = _blocks(n_ch)
-    n_splits, rows_per_split = _splits(rows, n_ch, block_r, block_c)
-    psum = torch.empty((n_splits, n_ch), device=x2d.device, dtype=torch.float32)
-    psq = torch.empty_like(psum)
+    stream = _stream(x2d)
+    ws = _workspace(x2d, stream)
+    g = reduce_geometry(rows, n_ch, x2d.element_size(), 1, _vector_path(x2d), ws.n_sms)
+    ws.reserve(g, n_ch)
     mean = torch.empty(n_ch, device=x2d.device, dtype=torch.float32)
     var = torch.empty_like(mean)
-    k["stats_partial"][(_cdiv(n_ch, block_c), n_splits)](
-        x2d, psum, psq, rows, n_ch, rows_per_split, BLOCK_R=block_r, BLOCK_C=block_c,
-    )
-    k["finish"][(_cdiv(n_ch, _FINISH_C),)](
-        psum, psq, mean, var, n_splits, n_ch, float(rows), STATS=True,
-        BLOCK_S=_FINISH_S, BLOCK_C=_FINISH_C,
-    )
+    _raise_on(lib.tos_bn_stats(
+        x2d.data_ptr(), _DTYPES[x2d.dtype], int(g.vec), rows, n_ch, g.lanes, g.rows_per_split,
+        g.strips, g.splits, ws.partials.data_ptr(), ws.counters.data_ptr(), mean.data_ptr(),
+        var.data_ptr(), stream,
+    ), "bn_stats")
     bn_stats.launches += 1
     return mean, var
 
@@ -337,22 +465,19 @@ def bn_bwd_reduce(x2d, dy2d, mean, var, eps):
     if not _on_card(x2d):
         return bn_bwd_reduce_plain(x2d, dy2d, mean, var, eps)
     _check(x2d, mean, var, dy=dy2d)
-    k = _build()
+    lib = _load()
     rows, n_ch = x2d.shape
-    block_r, block_c = _blocks(n_ch)
-    n_splits, rows_per_split = _splits(rows, n_ch, block_r, block_c)
-    pdb = torch.empty((n_splits, n_ch), device=x2d.device, dtype=torch.float32)
-    pdg = torch.empty_like(pdb)
-    dbeta = torch.empty(n_ch, device=x2d.device, dtype=torch.float32)
-    dgamma = torch.empty_like(dbeta)
-    k["bwd_reduce_partial"][(_cdiv(n_ch, block_c), n_splits)](
-        x2d, dy2d, mean, var, pdb, pdg, rows, n_ch, rows_per_split, float(eps),
-        BLOCK_R=block_r, BLOCK_C=block_c,
-    )
-    k["finish"][(_cdiv(n_ch, _FINISH_C),)](
-        pdb, pdg, dbeta, dgamma, n_splits, n_ch, float(rows), STATS=False,
-        BLOCK_S=_FINISH_S, BLOCK_C=_FINISH_C,
-    )
+    stream = _stream(x2d)
+    ws = _workspace(x2d, stream)
+    g = reduce_geometry(rows, n_ch, x2d.element_size(), 2, _vector_path(x2d, dy2d), ws.n_sms)
+    ws.reserve(g, n_ch)
+    dgamma = torch.empty(n_ch, device=x2d.device, dtype=torch.float32)
+    dbeta = torch.empty_like(dgamma)
+    _raise_on(lib.tos_bn_bwd_reduce(
+        x2d.data_ptr(), dy2d.data_ptr(), mean.data_ptr(), var.data_ptr(), float(eps),
+        _DTYPES[x2d.dtype], int(g.vec), rows, n_ch, g.lanes, g.rows_per_split, g.strips, g.splits,
+        ws.partials.data_ptr(), ws.counters.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), stream,
+    ), "bn_bwd_reduce")
     bn_bwd_reduce.launches += 1
     return dgamma, dbeta
 
