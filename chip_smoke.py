@@ -27,6 +27,14 @@ and the script exits non-zero:
                   Lines are printed for the stem and a stage-3 shape, and one
                   ``kernel_odd`` line at 37 channels (the reductions' scalar
                   path).
+   ``kernel_split`` B1 and B3 in their split mode (the mode of more than
+                  one rank: f64 sums, an all-reduce, ``bn_finish``) at every
+                  BN shape, in a one-rank NCCL group of this process:
+                  bitwise equal to the single launch; the batch cut in two
+                  halves, their sums added and finished: within the
+                  per-channel tolerance above; ``bn_finish`` against
+                  ``bn_finish_plain`` on the same f64 sums, within it too.
+                  Split-mode ms per step beside the bound.
 4. ``kernel``     each flash-attention kernel against its plain version at
                   the LM slice's shape ([B·H=64, L=2048, D=64] bf16, causal,
                   with the packed segment layout of the slice's own corpus),
@@ -53,6 +61,16 @@ and the script exits non-zero:
                   steps. Per-step losses (finite), images/s over steps 2-5,
                   and each BN kernel's launch count read back from the
                   trainer's obs counters, which must be 53 per step.
+   ``slice_loop`` the same with ``--steps_per_loop 5``, 20 steps: four
+                  calls of the train loop (two eager warm-up steps and the
+                  capture in the first, then replays of one CUDA graph a
+                  step); each call's loss, images/s over calls 2 and 4, the
+                  wrappers' launches (53 for each warm-up step and 53 for
+                  the capture: a replay calls no wrapper), and call 3
+                  traced in the trainer with ``torch.profiler``
+                  (``--trace_call 3``): 53 device launches of each BN
+                  kernel for each of its 5 replayed steps, 5 graph
+                  launches, device busy ms and idle share.
 6. ``compare``    one ResNet-50 train step, BN kernels vs plain versions, in
                   float32 and bf16 with TF32 off, then a 1% dgamma fault
                   that the gradient limit must catch.
@@ -63,6 +81,12 @@ and the script exits non-zero:
                   packed text, 5 steps: losses (finite), tokens/s over steps
                   2-5, the packing efficiency, and each flash kernel's
                   launches, which must be 6 per step.
+   ``slice_lm_loop`` the same with ``--steps_per_loop 5``, 20 steps, as
+                  ``slice_loop``: tokens/s over calls 2 and 4, 6 wrapper
+                  launches for each warm-up step and the capture, and in
+                  the traced call 6 device launches of each flash kernel a
+                  replayed step, with the host ms of the call's fetch, its
+                  queueing and its sync.
 8. ``compare_lm`` one LM train step on the same weights (seed 0) and packed
                   batch through the kernels (``attention="flash"``) and
                   through a reference, with TF32 off: in float32 plain
@@ -71,10 +95,19 @@ and the script exits non-zero:
                   against stated limits; then, in each dtype, a 1% dk fault
                   in the dk/dv kernel's output that the gradient limit
                   must catch.
-9. ``kernels``    every kernel of the port and whether phases 5 and 7
-                  launched it.
+   ``compare_loop`` for each slice, 5 captured steps (the train loop)
+                  against 5 eager steps from the same weights on the same 5
+                  batches, cuDNN deterministic: every parameter, BN
+                  statistic and the last loss bitwise equal, after two eager
+                  runs are shown bitwise equal to each other.
+9. ``kernels``    every kernel of the port and whether the eager and the
+                  loop paths of phases 5 and 7 launched it, and the traced
+                  loop call ran it on the card.
 
-Then one JSON line with every kernel's measurements, the ``nvidia-smi``
+Then one JSON line with every kernel's measurements (``launches``: its
+wrapper's on the eager path; ``launches_loop_path``: its wrapper's on the
+loop path; ``device_launches_traced_loop_call``: the card's in the traced
+loop call), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script fails before printing anything.
 """
@@ -92,6 +125,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
 BATCH, IMAGE, STEPS = 64, 224, 5
+#: the loop paths: four calls of ``--steps_per_loop 5`` (the first holds
+#: the two eager warm-up steps and the capture), the third traced
+LOOP_STEPS, TRACE_CALL = 20, 3
 BF16_ULP = 2.0 ** -7  # bf16 keeps 8 significant bits
 #: f32 per-channel outputs of sums of up to 8e5 values, relative to the
 #: largest (floor 1): the kernels round each sum once from near-exact
@@ -281,15 +317,137 @@ def phase_kernel(torch, F, fused_bn, shapes):
     return totals
 
 
-def phase_slice(torch, fused_bn):
-    """The port's main path through the user's entry points."""
+def phase_kernel_split(torch, fused_bn, shapes):
+    """B1 and B3 in their split mode (the mode of more than one rank: f64
+    sums, an all-reduce, ``bn_finish``) at every BN shape of the step, in a
+    one-rank NCCL group of this process: equal bitwise to the single launch.
+    Then the batch cut in two halves, their sums added (the all-reduce's
+    arithmetic without a second card) and finished over all rows: within
+    the kernel phase's per-channel tolerance of the single launch on the
+    whole. Times the split mode (sums launch + finish launch, no
+    all-reduce) per step, beside the single launch's bound (the same bytes
+    moved, and 32 bytes a channel more)."""
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch import util
+    from tensorflowonspark_tpu_torch.examples.resnet.bench_bn import time_ms
+
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:{}".format(
+        util.find_free_port("127.0.0.1")), rank=0, world_size=1)
+    try:
+        if util.world_size() != 1:
+            raise AssertionError("a one-rank group must keep the single launches")
+        counts = {}
+        for shp in shapes:
+            counts[shp] = counts.get(shp, 0) + 1
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        eps = 1e-5
+        totals = {name: {"split_ms": 0.0, "bound_ms": 0.0, "max_abs_err_halves": 0.0, "shapes_bitwise": 0}
+                  for name in REDUCTIONS}
+        finish_ms = None
+        finish = {"max_abs_err": 0.0, "bitwise": 0, "cases": 0}
+        for (n, h, w, c), n_layers in sorted(counts.items()):
+            rows = n * h * w
+            x = (torch.randn(rows, c, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
+            dy = torch.randn(rows, c, device="cuda", generator=gen).to(torch.bfloat16)
+            mean, var = fused_bn.bn_stats(x)
+            cases = {
+                "bn_stats": ((mean, var), lambda a: fused_bn.bn_stats_sums(a), True, (x,)),
+                "bn_bwd_reduce": (fused_bn.bn_bwd_reduce(x, dy, mean, var, eps),
+                                  lambda a, b: fused_bn.bn_bwd_reduce_sums(a, b, mean, var, eps), False,
+                                  (x, dy)),
+            }
+            half = rows // 2
+            for name, (single, sums_fn, stats, args) in cases.items():
+                sums = sums_fn(*args)
+                dist.all_reduce(sums)
+                split = fused_bn.bn_finish(sums, rows, stats)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(split, single)):
+                    raise AssertionError("{} split at one rank differs from the single launch at "
+                                         "{}".format(name, (rows, c)))
+                halves = sums_fn(*(a[:half] for a in args)) + sums_fn(*(a[half:] for a in args))
+                got = fused_bn.bn_finish(halves, rows, stats)
+                err = max(float((g - r).abs().max()) for g, r in zip(got, single))
+                tol = REL_F32_SUM * max(1.0, max(float(r.abs().max()) for r in single))
+                if not err <= tol:
+                    raise AssertionError("{} from two halves at {}: max abs err {} > {}".format(
+                        name, (rows, c), err, tol))
+                # the finish kernel against its plain version on the same f64 sums
+                for finished, on in ((split, sums), (got, halves)):
+                    plain = fused_bn.bn_finish_plain(on, rows, stats)
+                    err_plain = max(float((g - r).abs().max()) for g, r in zip(finished, plain))
+                    tol_plain = REL_F32_SUM * max(1.0, max(float(r.abs().max()) for r in plain))
+                    if not err_plain <= tol_plain:
+                        raise AssertionError("bn_finish ({}) vs bn_finish_plain at {}: max abs err {} > "
+                                             "{}".format(name, (rows, c), err_plain, tol_plain))
+                    finish["max_abs_err"] = max(finish["max_abs_err"], err_plain)
+                    finish["bitwise"] += all(torch.equal(g, r) for g, r in zip(finished, plain))
+                    finish["cases"] += 1
+                ms = time_ms(torch, lambda: fused_bn.bn_finish(sums_fn(*args), rows, stats), flush)
+                tot = totals[name]
+                tot["split_ms"] += n_layers * ms
+                b_ms, _ = bound(name, rows, c, x.element_size())
+                tot["bound_ms"] += n_layers * (b_ms + 32 * c / HBM_BYTES_PER_S * 1e3)
+                tot["max_abs_err_halves"] = max(tot["max_abs_err_halves"], err)
+                tot["shapes_bitwise"] += 1
+            if (n, h, w, c) == (BATCH, 112, 112, 64):
+                stem_sums = fused_bn.bn_stats_sums(x)
+                finish_ms = time_ms(torch, lambda: fused_bn.bn_finish(stem_sums, rows, True), flush)
+            del x, dy
+        emit({"phase": "kernel_split", "world": dist.get_world_size(), "backend": "nccl",
+              "per": "ResNet-50 step, batch {}, {} px, bf16: sum over its 53 BatchNorm layers".format(
+                  BATCH, IMAGE),
+              "tolerance_halves": "{} x max(1, max |single|)".format(REL_F32_SUM),
+              "bn_finish_ms_at_stem": finish_ms,
+              "bn_finish_vs_plain": dict(finish, tolerance="{} x max(1, max |plain|)".format(REL_F32_SUM)),
+              **totals})
+        return totals
+    finally:
+        dist.destroy_process_group()
+
+
+def wrapper_calls(steps, steps_per_loop):
+    """How many steps' launches the kernel wrappers make in a run: every
+    step's eagerly; on the loop path (K > 1) the warm-up steps' and the
+    capture's, since a replay calls no wrapper."""
+    from tensorflowonspark_tpu_torch.train.strategy import _CapturedLoop
+
+    return steps if steps_per_loop == 1 else _CapturedLoop.WARMUP + 1
+
+
+def loop_trace(events, names, per_step, steps_per_loop):
+    """The readings of the loop call the trainer traced (``--trace_call``),
+    a call of replays only: the card ran ``per_step`` of each kernel in
+    ``names`` for each of its K steps, in K graph launches."""
+    traced = [e["device_trace"] for e in events if "device_trace" in e]
+    if len(traced) != 1:
+        raise AssertionError("expected one traced call, got {}".format(len(traced)))
+    trace = traced[0]
+    bad = {n: trace["launches"].get(n) for n in names if trace["launches"].get(n) != per_step * steps_per_loop}
+    if bad or trace["graph_launches"] != steps_per_loop:
+        raise AssertionError("traced loop call: device launches {} (want {} x {} each), graph launches {} "
+                             "(want {})".format(bad, per_step, steps_per_loop, trace["graph_launches"],
+                                                steps_per_loop))
+    return trace
+
+
+def phase_slice(torch, fused_bn, steps=STEPS, steps_per_loop=1):
+    """The port's main path through the user's entry points; with
+    ``steps_per_loop`` K > 1 its loop path (``--steps_per_loop K``: one
+    captured CUDA graph a step, replayed), whose call ``TRACE_CALL`` the
+    trainer traces. Returns each BN wrapper's launches in the run (53 a
+    step for :func:`wrapper_calls` steps) and, on the loop path, the traced
+    call's device launches of each BN kernel (53 a replayed step)."""
     from tensorflowonspark_tpu_torch import TFCluster, util
     from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
     from tensorflowonspark_tpu_torch.examples.resnet import resnet_spark
 
     args = resnet_spark.build_parser().parse_args([
         "--dataset", "imagenet", "--bn_impl", "pallas", "--batch_size", str(BATCH),
-        "--train_steps", str(STEPS), "--log_steps", "1",
+        "--train_steps", str(steps), "--log_steps", "1", "--steps_per_loop", str(steps_per_loop),
+        "--trace_call", str(TRACE_CALL if steps_per_loop > 1 else 0),
     ])
     # the counts the trainer reports start at 0 in its freshly spawned
     # process; this process's own counts are zeroed too
@@ -309,27 +467,36 @@ def phase_slice(torch, fused_bn):
     finally:
         sc.stop()
     wall = time.perf_counter() - t0
-    steps = sorted(
+    events = sorted(
         (e for e in metrics["events"] if e.get("span") == "train_step"), key=lambda e: e["step"]
     )
-    losses = [e.get("loss") for e in steps]
-    if len(steps) != STEPS or not all(isinstance(v, float) and math.isfinite(v) for v in losses):
-        raise AssertionError("expected {} finite step losses, got {}".format(STEPS, losses))
-    timed = [e["dur_s"] for e in steps[1:]]
+    losses = [e.get("loss") for e in events]
+    calls = steps // steps_per_loop
+    if len(events) != calls or not all(isinstance(v, float) and math.isfinite(v) for v in losses):
+        raise AssertionError("expected {} finite losses, got {}".format(calls, losses))
+    # past the first call (build, warm-up, capture), the traced call left out
+    timed = [e["dur_s"] for e in events[1:] if "device_trace" not in e]
     launches = {
         name: int(metrics["counters"].get("fused_bn_{}_launches_total".format(name), {}).get("value", 0))
         for name, *_ in KERNEL_TABLE
     }
-    want = 53 * STEPS
-    emit({"phase": "slice", "model": "resnet50", "dtype": "bfloat16", "bn_impl": "pallas",
-          "batch": BATCH, "image": IMAGE, "steps": STEPS, "losses": losses,
-          "step_s": [e["dur_s"] for e in steps],
-          "images_per_sec_steps_2_5": BATCH * len(timed) / sum(timed),
-          "launches": launches, "expected_launches": want, "wall_s": wall})
+    want = 53 * wrapper_calls(steps, steps_per_loop)
+    line = {"phase": "slice" if steps_per_loop == 1 else "slice_loop", "model": "resnet50",
+            "dtype": "bfloat16", "bn_impl": "pallas", "batch": BATCH, "image": IMAGE, "steps": steps,
+            "steps_per_loop": steps_per_loop, "logged_steps": [e["step"] for e in events],
+            "losses": losses, "call_s": [e["dur_s"] for e in events],
+            "images_per_sec_after_first_call": BATCH * steps_per_loop * len(timed) / sum(timed),
+            "launches": launches, "expected_launches": want, "wall_s": wall}
     bad = {k: v for k, v in launches.items() if v != want}
+    trace = None
+    if steps_per_loop > 1 and not bad:
+        trace = loop_trace(events, [name for name, *_ in KERNEL_TABLE], 53, steps_per_loop)
+        line.update(traced_call=TRACE_CALL, device_trace=trace)
+    emit(line)
     if bad:
-        raise AssertionError("kernel launches {} != 53 x {} steps".format(bad, STEPS))
-    return launches
+        raise AssertionError("kernel wrapper launches {} != 53 x {} steps".format(
+            bad, wrapper_calls(steps, steps_per_loop)))
+    return launches, trace and trace["launches"]
 
 
 def _train_grads(torch, fused_bn, resnet, dtype, impl, batch, loss_fn):
@@ -680,8 +847,12 @@ def phase_flash_causal(torch, F, fa):
     torch.cuda.empty_cache()
 
 
-def phase_slice_lm(torch, fa, data_dir, steps):
-    """The port's LM path through the user's entry points."""
+def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1):
+    """The port's LM path through the user's entry points; with
+    ``steps_per_loop`` K > 1 its loop path, traced as in :func:`phase_slice`.
+    Returns each flash wrapper's launches in the run (6 a step for
+    :func:`wrapper_calls` steps) and, on the loop path, the traced call's
+    device launches of each flash kernel (6 a replayed step)."""
     from tensorflowonspark_tpu_torch import TFCluster, util
     from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
     from tensorflowonspark_tpu_torch.examples.transformer import transformer_spark
@@ -691,7 +862,8 @@ def phase_slice_lm(torch, fa, data_dir, steps):
         "--n_layers", str(LM["n_layers"]), "--n_heads", str(LM["n_heads"]),
         "--d_ff", str(LM["d_ff"]), "--seq_len", str(LM_SEQ), "--batch_size", str(LM_BATCH),
         "--dtype", "bfloat16", "--tokenizer", "byte", "--train_steps", str(steps),
-        "--log_steps", "1", "--data_dir", data_dir,
+        "--log_steps", "1", "--data_dir", data_dir, "--steps_per_loop", str(steps_per_loop),
+        "--trace_call", str(TRACE_CALL if steps_per_loop > 1 else 0),
     ])
     fa.reset_launch_counts()  # the trainer's counts start at 0 in its fresh process
     t0 = time.perf_counter()
@@ -713,29 +885,37 @@ def phase_slice_lm(torch, fa, data_dir, steps):
         (e for e in metrics["events"] if e.get("span") == "train_step"), key=lambda e: e["step"]
     )
     losses = [e.get("loss") for e in events]
-    if len(events) != steps or not all(isinstance(v, float) and math.isfinite(v) for v in losses):
-        raise AssertionError("expected {} finite LM step losses, got {}".format(steps, losses))
-    timed = [e["dur_s"] for e in events[1:]]
+    calls = steps // steps_per_loop
+    if len(events) != calls or not all(isinstance(v, float) and math.isfinite(v) for v in losses):
+        raise AssertionError("expected {} finite LM losses, got {}".format(calls, losses))
+    # past the first call (build, warm-up, capture), the traced call left out
+    timed = [e["dur_s"] for e in events[1:] if "device_trace" not in e]
     launches = {
         name: int(metrics["counters"].get(
             "flash_attention_{}_launches_total".format(name[len("flash_"):]), {}).get("value", 0))
         for name, *_ in FLASH_TABLE
     }
-    want = LM["n_layers"] * steps
+    want = LM["n_layers"] * wrapper_calls(steps, steps_per_loop)
     efficiency = metrics["gauges"].get("text_pack_efficiency", {}).get("value")
-    emit({"phase": "slice_lm", "model": "transformer", "config": dict(LM, seq_len=LM_SEQ),
-          "dtype": "bfloat16", "batch": LM_BATCH, "steps": steps, "losses": losses,
-          "step_s": [e["dur_s"] for e in events],
-          "tokens_per_sec_steps_2_5": LM_BATCH * LM_SEQ * len(timed) / sum(timed),
-          "packing_efficiency": efficiency, "launches": launches,
-          "expected_launches": want, "wall_s": wall})
+    line = {"phase": "slice_lm" if steps_per_loop == 1 else "slice_lm_loop", "model": "transformer",
+            "config": dict(LM, seq_len=LM_SEQ), "dtype": "bfloat16", "batch": LM_BATCH, "steps": steps,
+            "steps_per_loop": steps_per_loop, "logged_steps": [e["step"] for e in events],
+            "losses": losses, "call_s": [e["dur_s"] for e in events],
+            "tokens_per_sec_after_first_call": LM_BATCH * LM_SEQ * steps_per_loop * len(timed) / sum(timed),
+            "packing_efficiency": efficiency, "launches": launches,
+            "expected_launches": want, "wall_s": wall}
     bad = {k: v for k, v in launches.items() if v != want}
+    trace = None
+    if steps_per_loop > 1 and not bad:
+        trace = loop_trace(events, [name for name, *_ in FLASH_TABLE], LM["n_layers"], steps_per_loop)
+        line.update(traced_call=TRACE_CALL, device_trace=trace)
+    emit(line)
     if bad:
-        raise AssertionError("flash kernel launches {} != {} x {} steps".format(
-            bad, LM["n_layers"], steps))
+        raise AssertionError("flash kernel wrapper launches {} != {} x {} steps".format(
+            bad, LM["n_layers"], wrapper_calls(steps, steps_per_loop)))
     if not (isinstance(efficiency, float) and 0 < efficiency <= 1):
         raise AssertionError("packing efficiency {} outside (0, 1]".format(efficiency))
-    return launches
+    return launches, trace and trace["launches"]
 
 
 def _lm_grads(torch, fa, transformer, dtype_name, impl, batch):
@@ -877,6 +1057,98 @@ def phase_compare_lm(torch, fa, transformer, host_batch):
         raise AssertionError("compare_lm failed: {} (f32 {}, bf16 {})".format(failed, f32, bf16))
 
 
+def _snapshot(torch, state):
+    return {k: v.detach().clone() for k, v in dict(state.params, **state.model_state).items()}
+
+
+def _mismatches(torch, a, b):
+    """Names of the tensors of snapshot ``a`` that are not bitwise equal
+    to ``b``'s."""
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def phase_compare_loop(torch, resnet, transformer, lm_host_batch, k=STEPS):
+    """For each slice, K captured steps (``compile_train_loop``: two eager
+    warm-up steps, the capture, replays) against K eager steps from the same
+    weights on the same K batches, with cuDNN deterministic: every
+    parameter and BN statistic, and the last step's loss, must be bitwise
+    equal. Two eager runs are held bitwise equal first, so that a mismatch
+    is the capture's, not a non-deterministic algorithm's. Peak memory of
+    each side beside."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch.examples.resnet import resnet_spark
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    strategy = SyncDataParallel("cuda")
+    rng = np.random.default_rng(7)
+    image_batches = [strategy.shard_batch({
+        "image": rng.standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32),
+        "label": rng.integers(0, 1000, BATCH)}) for _ in range(k)]
+    lm_batch = strategy.shard_batch(lm_host_batch)
+    lm_batches = [{key: torch.roll(v, shifts=i, dims=1) for key, v in lm_batch.items()} for i in range(k)]
+    args = resnet_spark.build_parser().parse_args(["--dataset", "imagenet", "--batch_size", str(BATCH)])
+
+    def resnet_run(loop):
+        optimizer = optim.sgd(resnet_spark.lr_schedule(args), momentum=0.9)
+        state = strategy.create_state(lambda: resnet.resnet50(
+            dtype=torch.bfloat16, bn_impl="pallas", generator=torch.Generator().manual_seed(0)), optimizer)
+        loss_fn = resnet.make_loss_fn(weight_decay=1e-4)
+        if loop:
+            return strategy.compile_train_loop(loss_fn, optimizer, k, mutable=True), state, image_batches
+        return strategy.compile_train_step(loss_fn, optimizer, mutable=True), state, image_batches
+
+    def lm_run(loop):
+        model = transformer.create_model(dtype="bfloat16", **LM)
+        optimizer = optim.adamw(3e-4)
+        state = strategy.create_state(transformer.make_init_fn(model), optimizer,
+                                      torch.Generator().manual_seed(0))
+        loss_fn = transformer.make_loss_fn(model)
+        if loop:
+            return strategy.compile_train_loop(loss_fn, optimizer, k, has_aux=True), state, lm_batches
+        return strategy.compile_train_step(loss_fn, optimizer, has_aux=True), state, lm_batches
+
+    try:
+        for name, build in (("resnet50", resnet_run), ("transformer", lm_run)):
+            runs = {}
+            for side in ("eager", "eager_again", "captured"):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                fn, state, batches = build(side == "captured")
+                t0 = time.perf_counter()
+                if side == "captured":
+                    state, metrics = fn(state, batches)
+                else:
+                    for b in batches:
+                        state, metrics = fn(state, b)
+                torch.cuda.synchronize()
+                runs[side] = (_snapshot(torch, state), metrics["loss"].clone(), time.perf_counter() - t0,
+                              torch.cuda.max_memory_allocated() / 1e9, state.step)
+                del fn, state, metrics
+            repeat = _mismatches(torch, runs["eager"][0], runs["eager_again"][0])
+            captured = _mismatches(torch, runs["eager"][0], runs["captured"][0])
+            loss_equal = torch.equal(runs["eager"][1], runs["captured"][1])
+            emit({"phase": "compare_loop", "model": name, "dtype": "bfloat16", "steps": k,
+                  "cudnn_deterministic": True, "tensors": len(runs["eager"][0]),
+                  "eager_repeat_mismatches": repeat, "captured_mismatches": captured,
+                  "loss_eager": float(runs["eager"][1]), "loss_captured": float(runs["captured"][1]),
+                  "loss_bitwise": loss_equal, "steps_after": runs["captured"][4],
+                  "seconds": {side: r[2] for side, r in runs.items()},
+                  "peak_memory_gb": {side: r[3] for side, r in runs.items()}})
+            if repeat:
+                raise AssertionError("{}: two eager runs differ in {} tensors: the comparison "
+                                     "cannot blame the capture".format(name, len(repeat)))
+            if captured or not loss_equal or runs["captured"][4] != k:
+                raise AssertionError("{}: the captured loop differs from the eager steps in {} "
+                                     "tensors (loss bitwise: {})".format(name, len(captured), loss_equal))
+            del runs
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        torch.cuda.empty_cache()
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -956,25 +1228,35 @@ def main():
     if len(shapes) != 53:
         raise AssertionError("expected 53 BatchNorm layers, found {}".format(len(shapes)))
     totals = phase_kernel(torch, F, fused_bn, shapes)
+    phase_kernel_split(torch, fused_bn, shapes)
     data_dir, lm_batch = lm_corpus(here)
     seg_slice = torch.as_tensor(lm_batch["segment_ids"][:, :-1]).cuda().contiguous()
     flash_totals = phase_flash_kernel(torch, F, fa, seg_slice)
     phase_flash_causal(torch, F, fa)
     del seg_slice
     torch.cuda.empty_cache()  # hand the trainer child the card's memory
-    launches = phase_slice(torch, fused_bn)
+    launches, _ = phase_slice(torch, fused_bn)
+    loop_launches, traced_launches = phase_slice(torch, fused_bn, LOOP_STEPS, STEPS)
     phase_compare(torch, fused_bn, resnet)
     torch.cuda.empty_cache()
-    flash_launches = phase_slice_lm(torch, fa, data_dir, STEPS)
+    flash_launches, _ = phase_slice_lm(torch, fa, data_dir, STEPS)
+    loop_flash_launches, traced_flash_launches = phase_slice_lm(torch, fa, data_dir, LOOP_STEPS, STEPS)
     phase_compare_lm(torch, fa, transformer, lm_batch)
+    torch.cuda.empty_cache()
+    phase_compare_loop(torch, resnet, transformer, lm_batch)
     emit({"phase": "kernels", "kernels": [
-        {"name": name, "route": route, "source": source, "launched": launches[name] > 0}
+        {"name": name, "route": route, "source": source,
+         "launched": launches[name] > 0 and loop_launches[name] > 0 and traced_launches[name] > 0}
         for name, _, _, _, route, source in KERNEL_TABLE] + [
-        {"name": name, "route": "cuda", "source": FLASH_SOURCE, "launched": flash_launches[name] > 0}
+        {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+         "launched": (flash_launches[name] > 0 and loop_flash_launches[name] > 0
+                      and traced_flash_launches[name] > 0)}
         for name, *_ in FLASH_TABLE], "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": totals[name]["max_abs_err"],
+         "launches": launches[name], "launches_loop_path": loop_launches[name],
+         "device_launches_traced_loop_call": traced_launches[name],
+         "max_abs_err": totals[name]["max_abs_err"],
          "ms": totals[name]["ms"], "plain_ms": totals[name]["plain_ms"],
          "bound_ms": totals[name]["bound_ms"], "bound_by": totals[name]["bound_by"],
          "library_ms": totals[name]["library_ms"],
@@ -982,7 +1264,9 @@ def main():
                 "layers".format(BATCH, IMAGE)}
         for name, replaces, _, _, route, source in KERNEL_TABLE] + [
         {"name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
-         "launches": flash_launches[name], "max_abs_err": flash_totals[name]["max_abs_err"],
+         "launches": flash_launches[name], "launches_loop_path": loop_flash_launches[name],
+         "device_launches_traced_loop_call": traced_flash_launches[name],
+         "max_abs_err": flash_totals[name]["max_abs_err"],
          "ms": flash_totals[name]["ms"], "plain_ms": flash_totals[name]["plain_ms"],
          "bound_ms": flash_totals[name]["bound_ms"], "bound_by": flash_totals[name]["bound_by"],
          "library_ms": flash_totals[name]["library_ms"],

@@ -58,16 +58,45 @@
 // sentinel after scaling (sentinel * log2 e would overflow to -inf) and
 // starts each row's max at it, so the max never reaches -inf and the
 // correction exp2(m_old - m_new) is never -inf - -inf = NaN.
+//
+// Host side of a launch, and CUDA graph capture: the wrappers launch on the
+// caller's stream and allocate nothing. A kernel's dynamic shared memory
+// limit is raised once per device and size (allow_smem), so a launch after
+// the first, inside a capture or not, makes no cudaFuncSetAttribute call.
+// The bf16 kernels' TMA tensor maps are encoded on the host for each launch
+// by the CUDA driver's cuTensorMapEncodeTiled, a host-only function of the
+// operands' addresses and shapes, and travel as __grid_constant__ kernel
+// parameters: a captured launch keeps them by value, and replays reuse the
+// same addresses.
 
 #include <cuda.h>  // CUtensorMap (types only: the encoder comes from the runtime's entry point)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 #include <cstdint>
 #include <type_traits>
 
 namespace {
+
+constexpr int kMaxDevices = 64;
+
+// Raises Kern's dynamic shared memory limit to smem on the current device
+// the first time a launch needs that much (the attribute persists, so later
+// launches, and launches under stream capture, skip the call).
+template <auto Kern>
+cudaError_t allow_smem(size_t smem) {
+  static std::atomic<size_t> allowed[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (allowed[dev].load() >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) allowed[dev].store(smem);
+  return err;
+}
 
 constexpr int kBlock = 64;     // rows of a q block and of a kv block
 constexpr int kThreads = 128;  // 4 warps
@@ -386,7 +415,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void
                int L, float scale, int causal, cudaStream_t stream) {
   const size_t smem = Plan<D>::bytes(3, 1, 1);
   auto kern = flash_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem<flash_fwd_kernel<T, D>>(smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, (L + kBlock - 1) / kBlock);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
@@ -400,7 +429,7 @@ int launch_dq(const void* q, const void* k, const void* v, const int* seg, const
               const float* delta, void* dq, int bh, int heads, int L, float scale, int causal, cudaStream_t stream) {
   const size_t smem = Plan<D>::bytes(4, 2, 1);
   auto kern = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem<flash_bwd_dq_kernel<T, D>>(smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, (L + kBlock - 1) / kBlock);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
@@ -415,7 +444,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const int* seg, cons
                cudaStream_t stream) {
   const size_t smem = Plan<D>::bytes(4, 2, 2);
   auto kern = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem<flash_bwd_dkv_kernel<T, D>>(smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, (L + kBlock - 1) / kBlock);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
@@ -1203,7 +1232,7 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, const int* seg
   const int n_blk = (L + kBlock - 1) / kBlock;
   const size_t smem = RingPlan<D, S, 1>::bytes(n_blk);
   auto kern = flash_fwd_wgmma_kernel<D, S>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem<flash_fwd_wgmma_kernel<D, S>>(smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(bh, n_blk), kThreads, smem, stream>>>(m[0], m[1], m[2], seg, static_cast<bf16*>(o), lse, L, heads,
                                                      scale, causal != 0);
@@ -1220,7 +1249,7 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v, const int* seg,
   const int n_blk = (L + kBlock - 1) / kBlock;
   const size_t smem = RingPlan<D, S, 2>::bytes(n_blk);
   auto kern = flash_bwd_dq_wgmma_kernel<D, S>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem<flash_bwd_dq_wgmma_kernel<D, S>>(smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(bh, n_blk), kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], seg, lse, delta,
                                                      static_cast<bf16*>(dq), L, heads, scale, causal != 0);
@@ -1237,7 +1266,7 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const int* seg
   const int n_blk = (L + kBlock - 1) / kBlock;
   const size_t smem = RingPlan<D, S, 2>::bytes(n_blk);
   auto kern = flash_bwd_dkv_wgmma_kernel<D, S>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem<flash_bwd_dkv_wgmma_kernel<D, S>>(smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(bh, n_blk), kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], seg, lse, delta,
                                                      static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, heads, scale,

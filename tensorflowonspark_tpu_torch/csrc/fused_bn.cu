@@ -52,6 +52,14 @@
 //   does not depend on which CTA finishes last.
 // * An operand whose base pointer or row pitch is not a multiple of 16 bytes
 //   takes the scalar path of the same kernel (one element a thread).
+// * Under data parallelism the statistics and their gradient are taken over
+//   the global batch (the JAX package's SPMD step computes them over the
+//   whole sharded batch). Then each kernel runs in its split mode: the
+//   finishing CTA writes the strip's f64 sums to a [2, C] buffer instead of
+//   rounding them, the caller all-reduces that buffer across ranks, and
+//   bn_finish_kernel rounds the global sums with the same code as the single
+//   launch's finisher (round_out), so at one rank a split launch and a single
+//   launch agree bitwise.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -212,14 +220,35 @@ __device__ bool cta_partials(double* a, double* b, const Place& pl, int lanes, i
   return last;
 }
 
+// One channel's outputs from its two f64 sums: each sum rounded to f32 once;
+// with stats, (sum x, sum x^2) then become (mean, biased var) by the
+// reference's f32 formula over rows rows. The single launch's finisher and
+// bn_finish_kernel (the split launch's) both end here, so the two round alike.
+__device__ __forceinline__ void round_out(double ta, double tb, bool stats, int rows, float* out0,
+                                          float* out1) {
+  const float sa = __double2float_rn(ta), sb = __double2float_rn(tb);
+  if (stats) {
+    // 1/R rounded to f32 from f64, as the plain version's scalar is
+    const float inv_n = __double2float_rn(1.0 / static_cast<double>(rows));
+    const float m = __fmul_rn(sa, inv_n);
+    *out0 = m;
+    *out1 = fmaxf(__fsub_rn(__fmul_rn(sb, inv_n), __fmul_rn(m, m)), 0.0f);
+  } else {
+    *out0 = sa;
+    *out1 = sb;
+  }
+}
+
 // The last CTA of a strip: the strip's f64 partials of both sums added in a
 // fixed order. Thread t takes unit t % units (kG channels) and the run of
 // splits number t / units; each run is added in split order, then the runs
 // in order. The sums are rounded to f32 once; kStats then turns (sum x,
-// sum x^2) into (mean, biased var) by the reference's f32 formula.
+// sum x^2) into (mean, biased var) by the reference's f32 formula. In the
+// split mode (sums not null) the f64 sums themselves go to sums [2, C], for
+// an all-reduce across ranks and bn_finish_kernel after it.
 template <int kG, bool kStats>
 __device__ void finish(const double* partials, unsigned* counters, int width, int ch, int rows,
-                       float* out0, float* out1) {
+                       float* out0, float* out1, double* sums) {
   __shared__ double fin[2][kThreads * kG];
   const int splits = gridDim.y;
   const int units = width / kG;
@@ -275,16 +304,11 @@ __device__ void finish(const double* partials, unsigned* counters, int width, in
         ta += fin[0][k * width + threadIdx.x];
         tb += fin[1][k * width + threadIdx.x];
       }
-      const float sa = __double2float_rn(ta), sb = __double2float_rn(tb);
-      if (kStats) {
-        // 1/R rounded to f32 from f64, as the plain version's scalar is
-        const float inv_n = __double2float_rn(1.0 / static_cast<double>(rows));
-        const float m = __fmul_rn(sa, inv_n);
-        out0[cc] = m;
-        out1[cc] = fmaxf(__fsub_rn(__fmul_rn(sb, inv_n), __fmul_rn(m, m)), 0.0f);
+      if (sums) {
+        sums[cc] = ta;
+        sums[static_cast<size_t>(ch) + cc] = tb;
       } else {
-        out0[cc] = sa;
-        out1[cc] = sb;
+        round_out(ta, tb, kStats, rows, out0 + cc, out1 + cc);
       }
     }
   }
@@ -295,7 +319,7 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     bn_stats_kernel(const T* __restrict__ x, int rows, int ch, int lanes, int rows_per_split,
                     double* __restrict__ partials, unsigned* __restrict__ counters,
-                    float* __restrict__ mean, float* __restrict__ var) {
+                    float* __restrict__ mean, float* __restrict__ var, double* __restrict__ sums) {
   using P = Path<T, kVec>;
   constexpr int kN = P::kN;
   constexpr int kUnroll = 8;
@@ -331,7 +355,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (cta_partials<kN>(s, q, pl, lanes, ch, partials, counters))
-    finish<kVec ? 2 : 1, true>(partials, counters, pl.width, ch, rows, mean, var);
+    finish<kVec ? 2 : 1, true>(partials, counters, pl.width, ch, rows, mean, var, sums);
 }
 
 template <typename T, bool kVec>
@@ -340,7 +364,8 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ mean, const float* __restrict__ var, float eps,
                          int rows, int ch, int lanes, int rows_per_split,
                          double* __restrict__ partials, unsigned* __restrict__ counters,
-                         float* __restrict__ dgamma, float* __restrict__ dbeta) {
+                         float* __restrict__ dgamma, float* __restrict__ dbeta,
+                         double* __restrict__ sums) {
   using P = Path<T, kVec>;
   constexpr int kN = P::kN;
   constexpr int kUnroll = 4;
@@ -387,7 +412,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (cta_partials<kN>(dg, db, pl, lanes, ch, partials, counters))
-    finish<kVec ? 2 : 1, false>(partials, counters, pl.width, ch, rows, dgamma, dbeta);
+    finish<kVec ? 2 : 1, false>(partials, counters, pl.width, ch, rows, dgamma, dbeta, sums);
 }
 
 // The host's geometry, checked so that no launch reads or writes out of
@@ -409,24 +434,25 @@ bool geometry_ok(const void* a, const void* b, int vec, int rows, int ch, int la
 
 template <typename T>
 int launch_stats(const void* x, int vec, int rows, int ch, int lanes, int rows_per_split, int strips,
-                 int splits, double* partials, unsigned* counters, float* mean, float* var,
+                 int splits, double* partials, unsigned* counters, float* mean, float* var, double* sums,
                  cudaStream_t st) {
   if (!geometry_ok<T>(x, x, vec, rows, ch, lanes, rows_per_split, strips, splits)) return -1;
   const dim3 grid(strips, splits);
   const T* xt = static_cast<const T*>(x);
   if (vec)
     bn_stats_kernel<T, true><<<grid, kThreads, 0, st>>>(xt, rows, ch, lanes, rows_per_split, partials,
-                                                        counters, mean, var);
+                                                        counters, mean, var, sums);
   else
     bn_stats_kernel<T, false><<<grid, kThreads, 0, st>>>(xt, rows, ch, lanes, rows_per_split, partials,
-                                                         counters, mean, var);
+                                                         counters, mean, var, sums);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_bwd_reduce(const void* x, const void* dy, const float* mean, const float* var, float eps,
                       int vec, int rows, int ch, int lanes, int rows_per_split, int strips, int splits,
-                      double* partials, unsigned* counters, float* dgamma, float* dbeta, cudaStream_t st) {
+                      double* partials, unsigned* counters, float* dgamma, float* dbeta, double* sums,
+                      cudaStream_t st) {
   if (!geometry_ok<T>(x, dy, vec, rows, ch, lanes, rows_per_split, strips, splits)) return -1;
   const dim3 grid(strips, splits);
   const T* xt = static_cast<const T*>(x);
@@ -434,35 +460,46 @@ int launch_bwd_reduce(const void* x, const void* dy, const float* mean, const fl
   if (vec)
     bn_bwd_reduce_kernel<T, true><<<grid, kThreads, 0, st>>>(xt, dyt, mean, var, eps, rows, ch, lanes,
                                                              rows_per_split, partials, counters, dgamma,
-                                                             dbeta);
+                                                             dbeta, sums);
   else
     bn_bwd_reduce_kernel<T, false><<<grid, kThreads, 0, st>>>(xt, dyt, mean, var, eps, rows, ch, lanes,
                                                               rows_per_split, partials, counters, dgamma,
-                                                              dbeta);
+                                                              dbeta, sums);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The split launch's finish: one thread a channel rounds the all-reduced
+// f64 sums [2, C] exactly as the single launch's finisher does (round_out).
+__global__ void __launch_bounds__(kThreads)
+    bn_finish_kernel(const double* __restrict__ sums, int ch, int rows, bool stats, float* __restrict__ out0,
+                     float* __restrict__ out1) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c < ch) round_out(sums[c], sums[static_cast<size_t>(ch) + c], stats, rows, out0 + c, out1 + c);
 }
 
 }  // namespace
 
 // The C interface (ctypes). dtype: 0 f32, 1 bf16, 2 f16. partials: f64
-// [2, splits, C]; counters: one per strip, 0 between calls. Returns 0, -1
-// for an unsupported dtype or geometry, or the CUDA error of the launch.
+// [2, splits, C]; counters: one per strip, 0 between calls. sums: null for
+// the single launch (f32 outputs), or f64 [2, C] for the split launch, whose
+// f32 outputs then come from tos_bn_finish after the all-reduce. Returns 0,
+// -1 for an unsupported dtype or geometry, or the CUDA error of the launch.
 extern "C" {
 
 int tos_bn_stats(const void* x, int dtype, int vec, int rows, int ch, int lanes, int rows_per_split,
                  int strips, int splits, double* partials, unsigned* counters, float* mean, float* var,
-                 void* stream) {
+                 double* sums, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return launch_stats<float>(x, vec, rows, ch, lanes, rows_per_split, strips, splits, partials, counters,
-                                 mean, var, st);
+                                 mean, var, sums, st);
     case 1:
       return launch_stats<bf16>(x, vec, rows, ch, lanes, rows_per_split, strips, splits, partials, counters,
-                                mean, var, st);
+                                mean, var, sums, st);
     case 2:
       return launch_stats<__half>(x, vec, rows, ch, lanes, rows_per_split, strips, splits, partials,
-                                  counters, mean, var, st);
+                                  counters, mean, var, sums, st);
     default:
       return -1;
   }
@@ -471,21 +508,30 @@ int tos_bn_stats(const void* x, int dtype, int vec, int rows, int ch, int lanes,
 int tos_bn_bwd_reduce(const void* x, const void* dy, const float* mean, const float* var, float eps,
                       int dtype, int vec, int rows, int ch, int lanes, int rows_per_split, int strips,
                       int splits, double* partials, unsigned* counters, float* dgamma, float* dbeta,
-                      void* stream) {
+                      double* sums, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return launch_bwd_reduce<float>(x, dy, mean, var, eps, vec, rows, ch, lanes, rows_per_split, strips,
-                                      splits, partials, counters, dgamma, dbeta, st);
+                                      splits, partials, counters, dgamma, dbeta, sums, st);
     case 1:
       return launch_bwd_reduce<bf16>(x, dy, mean, var, eps, vec, rows, ch, lanes, rows_per_split, strips,
-                                     splits, partials, counters, dgamma, dbeta, st);
+                                     splits, partials, counters, dgamma, dbeta, sums, st);
     case 2:
       return launch_bwd_reduce<__half>(x, dy, mean, var, eps, vec, rows, ch, lanes, rows_per_split, strips,
-                                       splits, partials, counters, dgamma, dbeta, st);
+                                       splits, partials, counters, dgamma, dbeta, sums, st);
     default:
       return -1;
   }
+}
+
+// The split launch's finish: sums f64 [2, C] (all-reduced) to f32 outputs;
+// stats 1 gives (mean, var) over rows rows, 0 the two sums rounded.
+int tos_bn_finish(const double* sums, int ch, int rows, int stats, float* out0, float* out1, void* stream) {
+  if (ch < 1 || rows < 1) return -1;
+  bn_finish_kernel<<<(ch + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      sums, ch, rows, stats != 0, out0, out1);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

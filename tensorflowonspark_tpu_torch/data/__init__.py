@@ -10,7 +10,6 @@ from tensorflowonspark_tpu_torch.data.loader import (  # noqa: F401
     ImagePipeline,
     device_prefetch,
     loop_prefetch,
-    packed_place,
     packed_prefetch,
     shard_files,
 )

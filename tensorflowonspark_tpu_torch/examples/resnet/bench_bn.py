@@ -15,12 +15,16 @@ time per call: a host clock over many calls queued while the card is kept
 busy.
 
 ``--baseline MODULE`` also loads another copy of ``ops/fused_bn.py`` (the
-same wrappers, e.g. an earlier commit's, copied under ``build/``) and times
-its wrappers in turns with the current ones (baseline, current, current,
-baseline, per round), so that both are read on one card in one process::
+same wrappers, e.g. an earlier commit's, copied under ``build/``), with
+``--baseline_source`` its own ``csrc/fused_bn.cu`` (default: this
+checkout's), and times its wrappers in turns with the current ones
+(baseline, current, current, baseline, per round), so that both are read on
+one card in one process; at every shape it also holds the two copies'
+outputs against each other bitwise (``bitwise_equal_baseline``), and exits
+non-zero after its last line if any differ::
 
     python -m tensorflowonspark_tpu_torch.examples.resnet.bench_bn \\
-        --baseline build/parent_bn/fused_bn.py
+        --baseline build/parent_bn/fused_bn.py --baseline_source build/parent_bn/fused_bn.cu
 
 Prints one JSON line per shape, one for the step, one for the host times,
 then the card's name and power limit. Needs a CUDA device.
@@ -125,6 +129,8 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--baseline", default=None, help="another ops/fused_bn.py to time in turns")
+    parser.add_argument("--baseline_source", default=None,
+                        help="the csrc/fused_bn.cu of --baseline (default: this checkout's)")
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--iters", type=int, default=7)
     args = parser.parse_args(argv)
@@ -137,6 +143,8 @@ def main(argv=None):
     impls = {"current": fused_bn}
     if args.baseline:
         impls["baseline"] = load_module(args.baseline)
+        if args.baseline_source:
+            impls["baseline"]._lib = impls["baseline"].bind(impls["baseline"].build(args.baseline_source))
     order = ["baseline", "current", "current", "baseline"] if args.baseline else ["current"]
 
     counts = {}
@@ -149,7 +157,7 @@ def main(argv=None):
     for kind in FLUSHES:
         step[kind].update({"library_stats": 0.0, "library_bwd_reduce": 0.0})
     step.update({"bound_stats": 0.0, "bound_bwd_reduce": 0.0})
-    host = {}
+    host, differ = {}, []
     for shape, n_layers in sorted(counts.items()):
         n, h, w, c = shape
         rows = n * h * w
@@ -182,6 +190,13 @@ def main(argv=None):
                         times[kind][name][impl].append(
                             time_ms(torch, calls[name][impl], flush, args.iters, kind))
         line = {"shape": [rows, c], "nhwc": list(shape), "layers": n_layers, "dtype": "bfloat16"}
+        if args.baseline:
+            line["bitwise_equal_baseline"] = {
+                name: all(torch.equal(a, b) for a, b in zip(calls[name]["current"](),
+                                                            calls[name]["baseline"]()))
+                for name in calls}
+            differ.extend("{} at {}".format(name, [rows, c])
+                          for name, same in line["bitwise_equal_baseline"].items() if not same)
         for name in calls:
             g = fused_bn.reduce_geometry(rows, c, 2, READS[name], fused_bn._vector_path(x, dy),
                                          fused_bn._workspace(x, fused_bn._stream(x)).n_sms)
@@ -211,6 +226,8 @@ def main(argv=None):
     print(json.dumps({"host_us_per_call": host, "at": [BATCH * 14 * 14, 256],
                       "calls": HOST_CALLS, "card": card}), flush=True)
     print(card, flush=True)
+    if differ:
+        raise SystemExit("bench_bn: outputs differ from the baseline's: {}".format(", ".join(differ)))
 
 
 if __name__ == "__main__":

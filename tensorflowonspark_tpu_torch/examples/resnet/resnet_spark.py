@@ -6,22 +6,32 @@ momentum 0.9 and the L2 term in the loss, on the reference's synthetic input
 path (one seeded random batch per worker, re-fed every step). Each node's
 trainer child runs on ``--platform`` (default ``gpu``: one CUDA device per
 process; ``gpu`` without a CUDA device raises). ``--bn_impl pallas`` runs
-every BatchNorm through the port's Triton kernels; ``flax`` is plain PyTorch
-math (single process only).
+every BatchNorm through the port's kernels; ``flax`` is plain PyTorch math.
+With more than one worker both take the statistics over the global batch.
 
 Usage (one executor, one H100)::
 
     python -m tensorflowonspark_tpu_torch.examples.resnet.resnet_spark \\
         --dataset imagenet --bn_impl pallas --batch_size 64 --train_steps 5
 
-Each logged step lands in the node's obs registry as a ``train_step`` span
-(step, loss, images/s) and the BN kernels' launches as
-``fused_bn_<kernel>_launches_total`` counters, so a driver reads them from
-``cluster.metrics()``.
+``--steps_per_loop K`` runs K steps a call through
+``SyncDataParallel.compile_train_loop``, as the JAX example does: on the
+card the step is captured once in a CUDA graph and replayed (the first two
+steps run eagerly as its warm-up); a tail shorter than K runs step by step.
+
+Each logged step (or loop of K steps) lands in the node's obs registry as a
+``train_step`` span (its last step, the steps it ran, loss, images/s) and
+the BN kernel wrappers' launches as ``fused_bn_<kernel>_launches_total``
+counters (eager launches and launches into a captured graph), so the Spark
+driver reads them from ``cluster.metrics()``. ``--trace_call N`` traces the
+N-th call with ``torch.profiler`` (``ops/kernel_trace.KernelTrace``): the
+device kernels of each wrapper (a replayed graph's too), graph launches,
+device busy ms and idle share, and the host ms in ``train.call`` /
+``train.sync``, printed and set on that call's span as ``device_trace``.
 
 Not yet ported, and refused with an error: ``--model_dir`` (checkpoints),
 ``--data_dir`` / ``--eval_dir`` (the real-data input plane),
-``--profile_steps``, ``--steps_per_loop`` > 1 and ``--auto_recover``.
+``--profile_steps`` and ``--auto_recover``.
 """
 
 import argparse
@@ -47,7 +57,6 @@ def refuse_unported(args):
         ("--data_dir", args.data_dir, "the real-data input plane"),
         ("--eval_dir", args.eval_dir, "the real-data input plane"),
         ("--profile_steps", args.profile_steps, "profiling"),
-        ("--steps_per_loop", (args.steps_per_loop or 1) > 1, "the fused train loop"),
         ("--auto_recover", args.auto_recover, "failure recovery"),
     ]
     for flag, value, what in unported:
@@ -59,14 +68,18 @@ def refuse_unported(args):
 
 
 def main_fun(args, ctx):
+    import contextlib
+    import json
     import time
 
     import numpy as np
     import torch
+    from torch.autograd.profiler import record_function
 
     from tensorflowonspark_tpu_torch import obs
     from tensorflowonspark_tpu_torch.models import resnet
     from tensorflowonspark_tpu_torch.ops import fused_bn
+    from tensorflowonspark_tpu_torch.ops.kernel_trace import KernelTrace
     from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
 
     refuse_unported(args)
@@ -86,6 +99,11 @@ def main_fun(args, ctx):
     )
     loss_fn = resnet.make_loss_fn(weight_decay=1e-4)
     step = strategy.compile_train_step(loss_fn, optimizer, mutable=True)
+    steps_per_loop = max(args.steps_per_loop or 1, 1)
+    loop = None
+    if steps_per_loop > 1:
+        # K steps a call: on the card one captured CUDA graph, replayed
+        loop = strategy.compile_train_loop(loss_fn, optimizer, steps_per_loop, mutable=True)
 
     rng = np.random.default_rng(ctx.executor_id)
     synthetic = strategy.shard_batch(
@@ -97,19 +115,31 @@ def main_fun(args, ctx):
 
     launches0 = fused_bn.launch_counts()
     t0, metrics = time.perf_counter(), {}
-    i = last_log = 0
+    i = last_log = calls = 0
     while i < args.train_steps:
-        with obs.span("train_step", step=i + 1) as sp:
-            state, metrics = step(state, synthetic)
-            i += 1
-            if i - last_log >= args.log_steps:
-                loss = float(metrics["loss"])  # waits for the device
-                dt = time.perf_counter() - t0
-                # avg_exp_per_second analogue (reference common.py:241-244)
-                ips = args.batch_size * (i - last_log) / dt
-                sp.set(loss=loss, images_per_sec=ips)
-                print("step {}: loss {:.3f} {:.1f} img/s".format(i, loss, ips))
-                last_log, t0 = i, time.perf_counter()
+        n = steps_per_loop if loop is not None and i + steps_per_loop <= args.train_steps else 1
+        calls += 1
+        traced = KernelTrace() if calls == args.trace_call else contextlib.nullcontext()
+        with obs.span("train_step", step=i + n, steps=n) as sp:
+            with traced as trace:
+                with record_function("train.call"):
+                    if n > 1:
+                        state, metrics = loop(state, [synthetic] * n)
+                    else:
+                        state, metrics = step(state, synthetic)
+                i += n
+                if i - last_log >= args.log_steps:
+                    with record_function("train.sync"):
+                        loss = float(metrics["loss"])  # waits for the device
+                    dt = time.perf_counter() - t0
+                    # avg_exp_per_second analogue (reference common.py:241-244)
+                    ips = args.batch_size * (i - last_log) / dt
+                    sp.set(loss=loss, images_per_sec=ips)
+                    print("step {}: loss {:.3f} {:.1f} img/s".format(i, loss, ips))
+                    last_log, t0 = i, time.perf_counter()
+            if trace is not None:
+                sp.set(device_trace=trace.readings)
+                print("device trace of call {}: {}".format(calls, json.dumps(trace.readings)))
     for name, n in fused_bn.launch_counts().items():
         obs.counter(
             "fused_bn_{}_launches_total".format(name),
@@ -123,8 +153,8 @@ def build_parser():
     parser = argparse.ArgumentParser()
     parser.add_argument("--batch_size", type=int, default=128)
     parser.add_argument("--bn_impl", choices=["flax", "pallas"], default="flax",
-                        help="BatchNorm: 'pallas' runs the port's Triton kernels, 'flax' "
-                             "plain PyTorch math (single process only)")
+                        help="BatchNorm: 'pallas' runs the port's kernels, 'flax' "
+                             "plain PyTorch math; both global over the workers")
     parser.add_argument("--cluster_size", type=int, default=None,
                         help="explicit cluster size (default: from the Spark conf/parallelism under Spark; 1 on the local backend)")
     parser.add_argument("--data_dir", default=None, help="TFRecord shard dir (not yet ported)")
@@ -134,11 +164,17 @@ def build_parser():
     parser.add_argument("--image_size", type=int, default=None,
                         help="override the dataset's native size (tests/CI)")
     parser.add_argument("--log_steps", type=int, default=20)
-    parser.add_argument("--steps_per_loop", type=int, default=1, help="not yet ported above 1")
+    parser.add_argument("--steps_per_loop", type=int, default=1,
+                        help="train steps a call of the train loop (on the card: one captured "
+                             "CUDA graph, replayed)")
     parser.add_argument("--model_dir", default=None, help="checkpoint dir (not yet ported)")
     parser.add_argument("--profile_steps", default=None, metavar="START[,STOP]",
                         help="not yet ported")
     parser.add_argument("--steps_per_epoch", type=int, default=390)
+    parser.add_argument("--trace_call", type=int, default=0, metavar="N",
+                        help="trace the N-th train call (1-based; 0: none) with torch.profiler and "
+                             "report what ran on the device (ops/kernel_trace.py); that call's span and "
+                             "the printed rate across it include the profiler's start and read-out")
     parser.add_argument("--train_steps", type=int, default=100)
     parser.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
                         help="device of each trainer: one CUDA device per process, or the CPU")

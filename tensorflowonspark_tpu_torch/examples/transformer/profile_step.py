@@ -14,7 +14,10 @@ then:
   attention CUDA kernels, GEMMs, other PyTorch kernels) and of each flash
   kernel, the device's busy time and idle share of the window, and the
   ``train_step.forward`` / ``.backward`` / ``.optimizer`` ranges (as the
-  ResNet profiler does).
+  ResNet profiler does);
+* with ``--steps_per_loop K``, the captured loop of K steps against K eager
+  steps in turns, ``--pairs`` times, traced on both sides (the ResNet
+  profiler's ``compare_captured``; the line's ``"loop"`` key).
 
 Prints one JSON line per ``--attention`` given (``flash``: the kernels;
 ``plain``: dense attention in f32)::
@@ -31,7 +34,7 @@ import subprocess
 import tempfile
 import time
 
-from tensorflowonspark_tpu_torch.examples.resnet.profile_step import read_trace
+from tensorflowonspark_tpu_torch.examples.resnet.profile_step import compare_captured, read_trace
 
 #: kernel-name fragments of the port's flash-attention kernels
 FLASH_KERNELS = ("flash_fwd_", "flash_bwd_dq_", "flash_bwd_dkv_")
@@ -59,7 +62,7 @@ def packed_batch(seq_len, batch_size, data_dir):
     return batch
 
 
-def profile(attention, host_batch, steps, traced):
+def profile(attention, host_batch, steps, traced, steps_per_loop=1, pairs=0):
     import torch
 
     from tensorflowonspark_tpu_torch.models import transformer
@@ -71,7 +74,8 @@ def profile(attention, host_batch, steps, traced):
     optimizer = optim.adamw(3e-4)
     state = strategy.create_state(transformer.make_init_fn(model), optimizer,
                                   torch.Generator().manual_seed(0))
-    step = strategy.compile_train_step(transformer.make_loss_fn(model), optimizer, has_aux=True)
+    loss_fn = transformer.make_loss_fn(model)
+    step = strategy.compile_train_step(loss_fn, optimizer, has_aux=True)
     batch = strategy.shard_batch(host_batch)
     tokens = batch["tokens"].shape[0] * (batch["tokens"].shape[1] - 1)
 
@@ -106,6 +110,10 @@ def profile(attention, host_batch, steps, traced):
                              if e.device_type == cuda and frag in e.name) / 1e3 / traced
         for frag in FLASH_KERNELS}
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if steps_per_loop > 1:
+        loop = strategy.compile_train_loop(loss_fn, optimizer, steps_per_loop, has_aux=True)
+        state, out["loop"] = compare_captured(step, loop, state, batch, steps_per_loop, pairs, traced,
+                                              GROUPS)
     return out
 
 
@@ -118,6 +126,9 @@ def main(argv=None):
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--traced", type=int, default=3)
+    parser.add_argument("--steps_per_loop", type=int, default=1,
+                        help="K > 1: also the captured loop of K steps, in turns with K eager steps")
+    parser.add_argument("--pairs", type=int, default=10, help="eager/captured pairs (with K > 1)")
     parser.add_argument("--data_dir", default=os.path.join(tempfile.gettempdir(), "tos_transformer_corpus"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -128,7 +139,7 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0]
     host_batch = packed_batch(args.seq_len, args.batch_size, args.data_dir)
     for attention in args.attention:
-        out = profile(attention, host_batch, args.steps, args.traced)
+        out = profile(attention, host_batch, args.steps, args.traced, args.steps_per_loop, args.pairs)
         out["card"] = card
         print(json.dumps(out), flush=True)
         torch.cuda.empty_cache()

@@ -18,15 +18,29 @@ Usage (one executor, one H100; the model's full width)::
         --seq_len 2048 --batch_size 8 --dtype bfloat16 --tokenizer byte \\
         --train_steps 5 --log_steps 1
 
-The kernels take head dims 64 and 128 (``d_model / n_heads``). Each logged
-step lands in the node's obs registry as a ``train_step`` span (step, loss,
-tokens/s) and the kernels' launches as
-``flash_attention_<kernel>_launches_total`` counters, so a driver reads them
-from ``cluster.metrics()``.
+The kernels take head dims 64 and 128 (``d_model / n_heads``).
+``--steps_per_loop K`` runs K steps a call through
+``SyncDataParallel.compile_train_loop``, as the JAX example does: on the
+card the step is captured once in a CUDA graph and replayed (the first two
+steps run eagerly as its warm-up). Batches are placed ahead through pinned
+buffers (``loop_prefetch`` windows for the loop, ``device_prefetch`` for
+the eager step); each call's successor is fetched after the call is queued
+and before its loss is read, so the host packs and places the next
+batches while the card trains. Each logged step (or loop of K steps) lands
+in the node's obs registry as a ``train_step`` span (its last step, the
+steps it ran, loss, tokens/s) and the kernel wrappers' launches as
+``flash_attention_<kernel>_launches_total`` counters (eager launches and
+launches into a captured graph), so the Spark driver reads them from
+``cluster.metrics()``. ``--trace_call N`` traces the N-th call with
+``torch.profiler`` (``ops/kernel_trace.KernelTrace``): the device kernels
+of each wrapper, graph launches, device busy ms and idle share, and the
+host ms in ``train.fetch`` / ``train.call`` / ``train.sync`` (and
+``loader.place``, the placement within the fetch), printed and
+set on that call's span as ``device_trace``.
 
 Not yet ported, and refused with an error: ``--moe_experts`` > 0,
 ``--mesh`` axes other than ``dp`` (tensor and sequence parallelism, ring
-attention), ``--remat``, ``--steps_per_loop`` > 1, ``--model_dir``
+attention), ``--remat``, ``--model_dir``
 (checkpoints), ``--slab_cache_dir`` (the packed-slab cache) and
 ``--pack_workers`` > 0 (the forked pack plane: the trainer child has CUDA up
 by the time the pipeline starts, and a process must not fork after that).
@@ -87,7 +101,6 @@ def refuse_unported(args):
         ("--moe_experts", args.moe_experts > 0, "mixture of experts"),
         ("--mesh " + ",".join(model_axes), model_axes, "model axes (tp/sp/ep, ring attention)"),
         ("--remat", args.remat, "rematerialization"),
-        ("--steps_per_loop", (args.steps_per_loop or 1) > 1, "the fused train loop"),
         ("--model_dir", args.model_dir, "checkpointing"),
         ("--pack_workers", (args.pack_workers or 0) > 0,
          "a pack plane built before the trainer touches CUDA"),
@@ -102,15 +115,20 @@ def refuse_unported(args):
 
 
 def main_fun(args, ctx):
+    import contextlib
+    import json
     import time
 
     import torch
+    from torch.autograd.profiler import record_function
 
     from tensorflowonspark_tpu_torch import obs
     from tensorflowonspark_tpu_torch import tfrecord as tfr
-    from tensorflowonspark_tpu_torch.data import TextPipeline, Tokenizer, shard_files
+    from tensorflowonspark_tpu_torch.data import (TextPipeline, Tokenizer, device_prefetch, loop_prefetch,
+                                                  shard_files)
     from tensorflowonspark_tpu_torch.models import transformer
     from tensorflowonspark_tpu_torch.ops import flash_attention
+    from tensorflowonspark_tpu_torch.ops.kernel_trace import KernelTrace
     from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
 
     refuse_unported(args)
@@ -125,7 +143,13 @@ def main_fun(args, ctx):
     state = strategy.create_state(
         transformer.make_init_fn(model), optimizer, torch.Generator().manual_seed(0)
     )
-    step = strategy.compile_train_step(transformer.make_loss_fn(model), optimizer, has_aux=True)
+    loss_fn = transformer.make_loss_fn(model)
+    step = strategy.compile_train_step(loss_fn, optimizer, has_aux=True)
+    steps_per_loop = max(args.steps_per_loop or 1, 1)
+    loop = None
+    if steps_per_loop > 1:
+        # K steps a call: on the card one captured CUDA graph, replayed
+        loop = strategy.compile_train_loop(loss_fn, optimizer, steps_per_loop, has_aux=True)
 
     # real corpus: per-worker TFRecord text shards → tokenize → FFD-pack
     # into [B, seq_len+1] (the +1 feeds the shift-by-one LM loss), with
@@ -156,21 +180,44 @@ def main_fun(args, ctx):
         seed=ctx.executor_id, epochs=None, max_bad_records=args.max_bad_records,
     )
     stream = iter(pipe)
+    # placed ahead through pinned buffers: whole windows of K for the loop,
+    # single batches for the eager step
+    feed = (loop_prefetch(stream, strategy, steps_per_loop) if loop is not None
+            else device_prefetch(stream, strategy))
 
     launches0 = flash_attention.launch_counts()
     t0, metrics = time.perf_counter(), {}
-    i = last_log = 0
+    i = last_log = calls = 0
+    with record_function("train.fetch"):
+        got = next(feed)
     while i < args.train_steps:
-        with obs.span("train_step", step=i + 1) as sp:
-            state, metrics = step(state, strategy.shard_batch(next(stream)))
-            i += 1
-            if i - last_log >= args.log_steps or i >= args.train_steps:
-                loss = float(metrics["loss"])  # waits for the device
-                dt = time.perf_counter() - t0
-                tps = args.batch_size * args.seq_len * (i - last_log) / dt
-                sp.set(loss=loss, tokens_per_sec=tps)
-                print("step {}: loss {:.3f} ({:.0f} tokens/s)".format(i, loss, tps))
-                last_log, t0 = i, time.perf_counter()
+        n = min(steps_per_loop, args.train_steps - i)
+        calls += 1
+        traced = KernelTrace() if calls == args.trace_call else contextlib.nullcontext()
+        with obs.span("train_step", step=i + n, steps=n) as sp:
+            with traced as trace:
+                with record_function("train.call"):
+                    if n > 1 and n == steps_per_loop:
+                        state, metrics = loop(state, got)
+                    else:  # the eager step, or a tail shorter than K step by step
+                        for batch in (got[:n] if loop is not None else [got]):
+                            state, metrics = step(state, batch)
+                i += n
+                if i < args.train_steps:
+                    with record_function("train.fetch"):
+                        got = next(feed)  # the next call's batches, placed while this one runs
+                if i - last_log >= args.log_steps or i >= args.train_steps:
+                    with record_function("train.sync"):
+                        loss = float(metrics["loss"])  # waits for the device
+                    dt = time.perf_counter() - t0
+                    tps = args.batch_size * args.seq_len * (i - last_log) / dt
+                    sp.set(loss=loss, tokens_per_sec=tps)
+                    print("step {}: loss {:.3f} ({:.0f} tokens/s)".format(i, loss, tps))
+                    last_log, t0 = i, time.perf_counter()
+            if trace is not None:
+                sp.set(device_trace=trace.readings)
+                print("device trace of call {}: {}".format(calls, json.dumps(trace.readings)))
+    feed.close()
     stream.close()  # stop the producer before teardown
     for name, n in flash_attention.launch_counts().items():
         obs.counter(
@@ -211,8 +258,14 @@ def build_parser():
     parser.add_argument("--seq_len", type=int, default=256)
     parser.add_argument("--slab_cache_dir", default=None,
                         help="packed-slab cache root (not yet ported)")
-    parser.add_argument("--steps_per_loop", type=int, default=1, help="not yet ported above 1")
+    parser.add_argument("--steps_per_loop", type=int, default=1,
+                        help="train steps a call of the train loop (on the card: one captured "
+                             "CUDA graph, replayed)")
     parser.add_argument("--tokenizer", default="byte", choices=("byte", "word"))
+    parser.add_argument("--trace_call", type=int, default=0, metavar="N",
+                        help="trace the N-th train call (1-based; 0: none) with torch.profiler and "
+                             "report what ran on the device (ops/kernel_trace.py); that call's span and "
+                             "the printed rate across it include the profiler's start and read-out")
     parser.add_argument("--train_steps", type=int, default=20)
     parser.add_argument("--vocab_size", type=int, default=1024)
     return parser

@@ -15,9 +15,10 @@ channels-last: a conv sees an NCHW *view* of channels-last memory (cuDNN
 takes it without a copy) and hands back the same, so BatchNorm's
 ``[N·H·W, C]`` view is free. Convolutions and the head matmul are PyTorch's
 (the JAX package leaves them to XLA); ``bn_impl="pallas"`` runs BatchNorm
-through the port's Triton kernels
+through the port's kernels
 (:class:`~tensorflowonspark_tpu_torch.ops.fused_bn.FusedBatchNorm`),
-``bn_impl="flax"`` through plain PyTorch math (single process only).
+``bn_impl="flax"`` through plain PyTorch math; under data parallelism both
+take the statistics over the global batch.
 """
 
 import math

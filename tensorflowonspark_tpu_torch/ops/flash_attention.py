@@ -52,7 +52,9 @@ gives.
 functions, the reference for tests and ``chip_smoke.py``) only when its
 input lies on the CPU; on a CUDA tensor it launches the kernel or raises
 (unsupported head dim or dtype, failed build, refused launch), and counts
-the launch in its ``launches`` attribute. The kernels are compiled with
+the launch in its ``launches`` attribute (under CUDA graph capture, the
+launch into the graph; a replay calls no wrapper, and
+``ops/kernel_trace.py`` counts its kernels from a trace). The kernels are compiled with
 ``nvcc`` at the first CUDA launch (never at import) into ``build/cuda`` in
 the checkout, keyed by a hash of the source and flags, and bound through
 ``ctypes``; the tensor maps of the TMA loads are encoded through the
@@ -317,6 +319,9 @@ def flash_bwd_dkv(q, k, v, seg, do, lse, delta, scale, causal, heads):
 KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 for _fn in KERNELS:
     _fn.launches = 0
+    #: the device kernels it launches (f32, bf16), as a profiler trace
+    #: names them (``ops/kernel_trace.py`` counts a replayed graph's by them)
+    _fn.kernel_names = (_fn.__name__ + "_kernel", _fn.__name__ + "_wgmma_kernel")
 
 
 def launch_counts():

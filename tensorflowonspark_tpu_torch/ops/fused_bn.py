@@ -60,13 +60,28 @@ outputs agree with both of its branches.
 **Dispatch.** Each wrapper takes its plain PyTorch version (the ``*_plain``
 functions, the reference for tests and ``chip_smoke.py``) only when its
 input lies on the CPU; on a CUDA tensor it launches the kernel or raises,
-and counts the launch in its ``launches`` attribute. ``triton`` is imported
+and counts the launch in its ``launches`` attribute (under CUDA graph
+capture, the launch into the graph; a replay calls no wrapper, and
+``ops/kernel_trace.py`` counts its kernels from a trace). ``triton`` is imported
 and its kernels compiled, and ``nvcc`` run, at the first CUDA launch, never
 at import.
 
-Statistics are per-process (per-replica BN, as the JAX package's fused
-path); ``mean``/``var`` are detached and the gradient flows through ``y``
-only, with the batch-statistics terms folded into ``dx``.
+**Global statistics under data parallelism.** In the JAX package the
+batch statistics of both BN modules are taken over the global batch: the
+SPMD train step sees the whole dp-sharded batch (``train/strategy.py:37-40``
+there), the Pallas kernels included. Here each process holds its shard, so
+when ``torch.distributed`` runs more than one rank both modules reduce
+across ranks: the kernels' split mode (:func:`bn_stats_sums`,
+:func:`bn_bwd_reduce_sums`: the finishing CTA writes the f64 sums ``[2, C]``
+instead of rounding them), one ``all_reduce`` of those sums, and
+:func:`bn_finish`, which rounds them as the single launch does; the plain
+path all-reduces its own f64 sums, and its gradient's ``g_mean``/``g_var``.
+The row count is the local one times the world (the ranks hold equal
+batches, as the reference's even dp sharding does), and enters ``dx`` too.
+With one rank the single launches run, as before.
+
+``mean``/``var`` are detached and the gradient flows through ``y`` only,
+with the batch-statistics terms folded into ``dx``.
 """
 
 import collections
@@ -78,6 +93,7 @@ import threading
 import torch
 from torch import nn
 
+from tensorflowonspark_tpu_torch import util
 from tensorflowonspark_tpu_torch.ops import cuda_build
 
 #: elements per tile of the Triton kernels: 4096 bf16 = 8 KB per operand,
@@ -157,9 +173,10 @@ def bind(path):
     """The reductions' C interface of the library at ``path`` (``ctypes``)."""
     lib = ctypes.CDLL(path)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tos_bn_stats.argtypes = [ptr] + [i32] * 8 + [ptr] * 5
-    lib.tos_bn_bwd_reduce.argtypes = [ptr] * 4 + [f32] + [i32] * 8 + [ptr] * 5
-    lib.tos_bn_stats.restype = lib.tos_bn_bwd_reduce.restype = i32
+    lib.tos_bn_stats.argtypes = [ptr] + [i32] * 8 + [ptr] * 6
+    lib.tos_bn_bwd_reduce.argtypes = [ptr] * 4 + [f32] + [i32] * 8 + [ptr] * 6
+    lib.tos_bn_finish.argtypes = [ptr] + [i32] * 3 + [ptr] * 3
+    lib.tos_bn_stats.restype = lib.tos_bn_bwd_reduce.restype = lib.tos_bn_finish.restype = i32
     return lib
 
 
@@ -179,7 +196,8 @@ def kernel_resources(log_path=None):
     out = []
     for entry in cuda_build.ptxas_report(log_path or cuda_build.library_path(SOURCE)[:-3] + ".log"):
         name = entry.pop("entry")
-        kernel = next((k for k in ("bn_stats_kernel", "bn_bwd_reduce_kernel") if k in name), name)
+        kernel = next((k for k in ("bn_stats_kernel", "bn_bwd_reduce_kernel", "bn_finish_kernel")
+                       if k in name), name)
         dtype = ("bfloat16" if "__nv_bfloat16" in name else "float16" if "6__half" in name
                  else "float32")
         out.append(dict(entry, kernel=kernel, dtype=dtype, vec="Lb1E" in name))
@@ -346,6 +364,14 @@ def _check(x2d, *vecs, dy=None):
                                                       v.dtype, v.device))
 
 
+def _all_reduce(t):
+    """Sum ``t`` over the ranks, in place."""
+    import torch.distributed as dist
+
+    dist.all_reduce(t)
+    return t
+
+
 def _on_card(x2d):
     """True when the kernel must launch; False for a CPU tensor (plain
     version). Any other device raises: there is no silent fallback."""
@@ -370,26 +396,49 @@ def stats_from_sums(sum_x, sum_sq, n_rows):
     return mean, torch.clamp_min(sum_sq * inv_n - mean * mean, 0.0)
 
 
+def bn_stats_sums_plain(x2d):
+    """``[Σx, Σx²]`` per channel as f64 ``[2, C]``: the split mode of
+    ``bn_stats``, summed in f64."""
+    xd = x2d.double()
+    return torch.stack([xd.sum(0), xd.square().sum(0)])
+
+
+def bn_finish_plain(sums, n_rows, stats):
+    """The split mode's finish on f64 ``[2, C]`` sums: each rounded to f32
+    once; with ``stats`` they become ``(mean, var)`` over ``n_rows``."""
+    a, b = sums.float()
+    return stats_from_sums(a, b, float(n_rows)) if stats else (a, b)
+
+
 class _PlainStats(torch.autograd.Function):
     """The statistics from f64 sums rounded once to f32, and their gradient
     by the f32 formula ``dx = (g_mean + 2·g_var·(x − mean)) / R`` (none
-    through a clamped var), so that autograd keeps ``x2d`` and no f64 copy."""
+    through a clamped var), so that autograd keeps ``x2d`` and no f64 copy.
+    With more than one rank the sums, and in the backward ``g_mean`` and
+    ``g_var``, are summed over the ranks and R is the global row count."""
 
     @staticmethod
     def forward(ctx, x2d):
-        xd = x2d.double()
-        sum_x, sum_sq = xd.sum(0).float(), xd.square().sum(0).float()
-        del xd
-        n_rows = float(x2d.shape[0])
-        mean, var = stats_from_sums(sum_x, sum_sq, n_rows)
+        world = util.world_size()
+        sums = bn_stats_sums_plain(x2d)
+        if world > 1:
+            _all_reduce(sums)
+        n_rows = x2d.shape[0] * world
+        mean, var = bn_finish_plain(sums, n_rows, True)
+        sum_sq = sums[1].float()
+        del sums
         ctx.save_for_backward(x2d, mean, sum_sq * (1.0 / n_rows) - mean * mean >= 0.0)
+        ctx.world = world
         return mean, var
 
     @staticmethod
     def backward(ctx, g_mean, g_var):
         x2d, mean, live = ctx.saved_tensors
         g_var = torch.where(live, g_var, 0.0)
-        return ((g_mean + 2.0 * g_var * (x2d.float() - mean)) / x2d.shape[0]).to(x2d.dtype)
+        if ctx.world > 1:
+            g_mean, g_var = _all_reduce(torch.stack([g_mean, g_var]))
+        n_rows = x2d.shape[0] * ctx.world
+        return ((g_mean + 2.0 * g_var * (x2d.float() - mean)) / n_rows).to(x2d.dtype)
 
 
 def bn_stats_plain(x2d):
@@ -407,8 +456,16 @@ def bn_bwd_reduce_plain(x2d, dy2d, mean, var, eps):
     return (dyf * xhat).sum(0), dyf.sum(0)
 
 
-def bn_bwd_dx_plain(x2d, dy2d, mean, var, gamma, dgamma, dbeta, eps):
-    n_rows = float(x2d.shape[0])
+def bn_bwd_reduce_sums_plain(x2d, dy2d, mean, var, eps):
+    """``[Σdy·x̂, Σdy]`` per channel as f64 ``[2, C]`` (the f32 products
+    summed in f64): the split mode of ``bn_bwd_reduce``."""
+    dyf = dy2d.float()
+    xhat = (x2d.float() - mean) * torch.rsqrt(var + eps)
+    return torch.stack([(dyf * xhat).double().sum(0), dyf.double().sum(0)])
+
+
+def bn_bwd_dx_plain(x2d, dy2d, mean, var, gamma, dgamma, dbeta, eps, n_rows=None):
+    n_rows = float(x2d.shape[0] if n_rows is None else n_rows)
     inv = torch.rsqrt(var + eps)
     xhat = (x2d.float() - mean) * inv
     dx = (gamma * inv / n_rows) * (n_rows * dy2d.float() - dbeta - xhat * dgamma)
@@ -418,11 +475,20 @@ def bn_bwd_dx_plain(x2d, dy2d, mean, var, gamma, dgamma, dbeta, eps):
 # -- kernel wrappers ----------------------------------------------------------
 
 
-def bn_stats(x2d):
-    """Per-channel batch mean and biased variance of ``x2d [R, C]`` as two
-    float32 ``[C]`` tensors (replaces ``_stats_kernel`` / ``_bn_stats``)."""
-    if not _on_card(x2d):
-        return bn_stats_plain(x2d)
+def _outputs(n_ch, device, split):
+    """A reduction's outputs: two f32 ``[C]`` tensors, or for its split mode
+    the f64 ``[2, C]`` sums (``(out0, out1, sums)``, unused ones None)."""
+    if split:
+        return None, None, torch.empty(2, n_ch, device=device, dtype=torch.float64)
+    out0 = torch.empty(n_ch, device=device, dtype=torch.float32)
+    return out0, torch.empty_like(out0), None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_stats(x2d, split):
     _check(x2d)
     lib = _load()
     rows, n_ch = x2d.shape
@@ -430,15 +496,51 @@ def bn_stats(x2d):
     ws = _workspace(x2d, stream)
     g = reduce_geometry(rows, n_ch, x2d.element_size(), 1, _vector_path(x2d), ws.n_sms)
     ws.reserve(g, n_ch)
-    mean = torch.empty(n_ch, device=x2d.device, dtype=torch.float32)
-    var = torch.empty_like(mean)
+    mean, var, sums = _outputs(n_ch, x2d.device, split)
     _raise_on(lib.tos_bn_stats(
         x2d.data_ptr(), _DTYPES[x2d.dtype], int(g.vec), rows, n_ch, g.lanes, g.rows_per_split,
-        g.strips, g.splits, ws.partials.data_ptr(), ws.counters.data_ptr(), mean.data_ptr(),
-        var.data_ptr(), stream,
+        g.strips, g.splits, ws.partials.data_ptr(), ws.counters.data_ptr(), _ptr(mean), _ptr(var),
+        _ptr(sums), stream,
     ), "bn_stats")
     bn_stats.launches += 1
-    return mean, var
+    return sums if split else (mean, var)
+
+
+def bn_stats(x2d):
+    """Per-channel batch mean and biased variance of ``x2d [R, C]`` as two
+    float32 ``[C]`` tensors (replaces ``_stats_kernel`` / ``_bn_stats``)."""
+    if not _on_card(x2d):
+        return bn_stats_plain(x2d)
+    return _launch_stats(x2d, False)
+
+
+def bn_stats_sums(x2d):
+    """The split mode of ``bn_stats``: ``[Σx, Σx²]`` per channel as f64
+    ``[2, C]``, for an all-reduce across ranks and :func:`bn_finish` after
+    it. Launches the ``bn_stats`` kernel (and counts in its ``launches``)."""
+    if not _on_card(x2d):
+        return bn_stats_sums_plain(x2d)
+    return _launch_stats(x2d, True)
+
+
+def bn_finish(sums, n_rows, stats):
+    """The split mode's finish: f64 ``[2, C]`` sums (all-reduced) to two f32
+    ``[C]`` tensors, rounded as the single launch's finisher rounds them:
+    ``(mean, var)`` over ``n_rows`` rows with ``stats``, else the two sums
+    (``(dgamma, dbeta)`` after :func:`bn_bwd_reduce_sums`)."""
+    if not _on_card(sums):
+        return bn_finish_plain(sums, n_rows, stats)
+    if sums.dim() != 2 or sums.shape[0] != 2 or sums.dtype != torch.float64 or not sums.is_contiguous():
+        raise ValueError("expected contiguous float64 [2, C] sums, got {} {}".format(
+            tuple(sums.shape), sums.dtype))
+    lib = _load()
+    n_ch = sums.shape[1]
+    out0 = torch.empty(n_ch, device=sums.device, dtype=torch.float32)
+    out1 = torch.empty_like(out0)
+    _raise_on(lib.tos_bn_finish(sums.data_ptr(), n_ch, int(n_rows), int(bool(stats)),
+                                out0.data_ptr(), out1.data_ptr(), _stream(sums)), "bn_finish")
+    bn_finish.launches += 1
+    return out0, out1
 
 
 def bn_normalize(x2d, mean, var, gamma, beta, eps):
@@ -459,11 +561,7 @@ def bn_normalize(x2d, mean, var, gamma, beta, eps):
     return y
 
 
-def bn_bwd_reduce(x2d, dy2d, mean, var, eps):
-    """``(dgamma, dbeta) = (Σ dy·x̂, Σ dy)`` per channel in float32, x̂
-    recomputed from the saved statistics (replaces ``_bwd_reduce_kernel``)."""
-    if not _on_card(x2d):
-        return bn_bwd_reduce_plain(x2d, dy2d, mean, var, eps)
+def _launch_bwd_reduce(x2d, dy2d, mean, var, eps, split):
     _check(x2d, mean, var, dy=dy2d)
     lib = _load()
     rows, n_ch = x2d.shape
@@ -471,29 +569,49 @@ def bn_bwd_reduce(x2d, dy2d, mean, var, eps):
     ws = _workspace(x2d, stream)
     g = reduce_geometry(rows, n_ch, x2d.element_size(), 2, _vector_path(x2d, dy2d), ws.n_sms)
     ws.reserve(g, n_ch)
-    dgamma = torch.empty(n_ch, device=x2d.device, dtype=torch.float32)
-    dbeta = torch.empty_like(dgamma)
+    dgamma, dbeta, sums = _outputs(n_ch, x2d.device, split)
     _raise_on(lib.tos_bn_bwd_reduce(
         x2d.data_ptr(), dy2d.data_ptr(), mean.data_ptr(), var.data_ptr(), float(eps),
         _DTYPES[x2d.dtype], int(g.vec), rows, n_ch, g.lanes, g.rows_per_split, g.strips, g.splits,
-        ws.partials.data_ptr(), ws.counters.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), stream,
+        ws.partials.data_ptr(), ws.counters.data_ptr(), _ptr(dgamma), _ptr(dbeta), _ptr(sums), stream,
     ), "bn_bwd_reduce")
     bn_bwd_reduce.launches += 1
-    return dgamma, dbeta
+    return sums if split else (dgamma, dbeta)
 
 
-def bn_bwd_dx(x2d, dy2d, mean, var, gamma, dgamma, dbeta, eps):
-    """``dx = (gamma·inv/R)·(R·dy − dbeta − x̂·dgamma)`` cast to ``x2d``'s
-    dtype (replaces ``_bwd_dx_kernel``)."""
+def bn_bwd_reduce(x2d, dy2d, mean, var, eps):
+    """``(dgamma, dbeta) = (Σ dy·x̂, Σ dy)`` per channel in float32, x̂
+    recomputed from the saved statistics (replaces ``_bwd_reduce_kernel``)."""
     if not _on_card(x2d):
-        return bn_bwd_dx_plain(x2d, dy2d, mean, var, gamma, dgamma, dbeta, eps)
+        return bn_bwd_reduce_plain(x2d, dy2d, mean, var, eps)
+    return _launch_bwd_reduce(x2d, dy2d, mean, var, eps, False)
+
+
+def bn_bwd_reduce_sums(x2d, dy2d, mean, var, eps):
+    """The split mode of ``bn_bwd_reduce``: ``[Σdy·x̂, Σdy]`` per channel as
+    f64 ``[2, C]``, for an all-reduce across ranks and :func:`bn_finish`
+    after it. Launches the ``bn_bwd_reduce`` kernel (and counts in its
+    ``launches``)."""
+    if not _on_card(x2d):
+        return bn_bwd_reduce_sums_plain(x2d, dy2d, mean, var, eps)
+    return _launch_bwd_reduce(x2d, dy2d, mean, var, eps, True)
+
+
+def bn_bwd_dx(x2d, dy2d, mean, var, gamma, dgamma, dbeta, eps, n_rows=None):
+    """``dx = (gamma·inv/N)·(N·dy − dbeta − x̂·dgamma)`` cast to ``x2d``'s
+    dtype (replaces ``_bwd_dx_kernel``). ``N`` is the row count of the
+    statistics: ``x2d``'s rows unless ``n_rows`` says otherwise (the
+    global batch's under data parallelism)."""
+    if not _on_card(x2d):
+        return bn_bwd_dx_plain(x2d, dy2d, mean, var, gamma, dgamma, dbeta, eps, n_rows)
     _check(x2d, mean, var, gamma, dgamma, dbeta, dy=dy2d)
     k = _build()
     rows, n_ch = x2d.shape
     block_r, block_c = _blocks(n_ch)
     dx = torch.empty_like(x2d)
     k["bwd_dx"][(_cdiv(rows, block_r), _cdiv(n_ch, block_c))](
-        x2d, dy2d, mean, var, gamma, dgamma, dbeta, dx, rows, n_ch, float(rows), float(eps),
+        x2d, dy2d, mean, var, gamma, dgamma, dbeta, dx, rows, n_ch,
+        float(rows if n_rows is None else n_rows), float(eps),
         BLOCK_R=block_r, BLOCK_C=block_c,
     )
     bn_bwd_dx.launches += 1
@@ -502,8 +620,18 @@ def bn_bwd_dx(x2d, dy2d, mean, var, gamma, dgamma, dbeta, eps):
 
 #: the four kernel wrappers of this module, in pass order
 KERNELS = (bn_stats, bn_normalize, bn_bwd_reduce, bn_bwd_dx)
-for _fn in KERNELS:
+#: every wrapper that counts its launches: the four, and the split mode's
+#: finish (launched only with more than one rank)
+COUNTED = KERNELS + (bn_finish,)
+for _fn in COUNTED:
     _fn.launches = 0
+#: the device kernel each wrapper launches, as a profiler trace names it
+#: (``ops/kernel_trace.py`` counts a replayed graph's launches by it)
+bn_stats.kernel_names = ("bn_stats_kernel",)
+bn_normalize.kernel_names = ("normalize",)
+bn_bwd_reduce.kernel_names = ("bn_bwd_reduce_kernel",)
+bn_bwd_dx.kernel_names = ("bwd_dx",)
+bn_finish.kernel_names = ("bn_finish_kernel",)
 
 
 def launch_counts():
@@ -512,7 +640,7 @@ def launch_counts():
 
 
 def reset_launch_counts():
-    for fn in KERNELS:
+    for fn in COUNTED:
         fn.launches = 0
 
 
@@ -522,14 +650,20 @@ def reset_launch_counts():
 class _FusedBN2d(torch.autograd.Function):
     """The JAX package's ``_fused_bn_2d`` custom VJP: forward = stats +
     normalize, backward = reduce + dx. ``mean``/``var`` are outputs without
-    a gradient; their dependence on ``x`` is folded into ``dx``."""
+    a gradient; their dependence on ``x`` is folded into ``dx``. With more
+    than one rank the two reductions run split, their sums all-reduced, and
+    ``dx`` takes the global row count (module docstring)."""
 
     @staticmethod
     def forward(ctx, x2d, gamma, beta, eps):
-        mean, var = bn_stats(x2d)
+        world = util.world_size()
+        if world == 1:
+            mean, var = bn_stats(x2d)
+        else:
+            mean, var = bn_finish(_all_reduce(bn_stats_sums(x2d)), x2d.shape[0] * world, True)
         y = bn_normalize(x2d, mean, var, gamma, beta, eps)
         ctx.save_for_backward(x2d, gamma, mean, var)
-        ctx.eps = eps
+        ctx.eps, ctx.world = eps, world
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -537,8 +671,18 @@ class _FusedBN2d(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x2d, gamma, mean, var = ctx.saved_tensors
         dy = dy.contiguous()
-        dgamma, dbeta = bn_bwd_reduce(x2d, dy, mean, var, ctx.eps)
-        dx = bn_bwd_dx(x2d, dy, mean, var, gamma, dgamma, dbeta, ctx.eps)
+        if ctx.world == 1:
+            dgamma, dbeta = bn_bwd_reduce(x2d, dy, mean, var, ctx.eps)
+            dx = bn_bwd_dx(x2d, dy, mean, var, gamma, dgamma, dbeta, ctx.eps)
+        else:
+            # dx takes the global sums; the parameters' gradient is this
+            # rank's share of them, which the strategy's average over the
+            # ranks turns back into the global batch's
+            n_rows = x2d.shape[0] * ctx.world
+            sums = _all_reduce(bn_bwd_reduce_sums(x2d, dy, mean, var, ctx.eps))
+            dgamma, dbeta = bn_finish(sums, n_rows, False)
+            dx = bn_bwd_dx(x2d, dy, mean, var, gamma, dgamma, dbeta, ctx.eps, n_rows)
+            dgamma, dbeta = dgamma / ctx.world, dbeta / ctx.world
         return dx, dgamma, dbeta, None
 
 
@@ -592,8 +736,8 @@ class _BatchNormBase(nn.Module):
 class FusedBatchNorm(_BatchNormBase):
     """``bn_impl="pallas"``: the training forward and backward run the four
     kernels (on a CUDA tensor; their plain versions on a CPU one).
-    Statistics are per-process: per-replica BN under data parallelism, as
-    the JAX package's fused module."""
+    Statistics are over the global batch under data parallelism, as the
+    JAX package's fused module computes them inside its SPMD step."""
 
     def _train_forward(self, x):
         return fused_batch_norm(x, self.weight, self.bias, self.eps)
@@ -602,17 +746,10 @@ class FusedBatchNorm(_BatchNormBase):
 class BatchNorm(_BatchNormBase):
     """``bn_impl="flax"``: plain PyTorch math, differentiated by autograd
     through the batch statistics (the kernels' plain versions, composed).
-    Single process only: the JAX package's flax BN is global sync-BN under
-    data parallelism, which this package does not have yet."""
+    Statistics are over the global batch under data parallelism, as the
+    JAX package's flax BN computes them inside its SPMD step."""
 
     def _train_forward(self, x):
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "bn_impl='flax' under data parallelism needs sync-BN, which is not "
-                "yet ported; use bn_impl='pallas' (per-replica statistics)"
-            )
         n_ch = x.shape[-1]
         x2d = x.reshape(-1, n_ch)
         mean, var = bn_stats_plain(x2d)

@@ -13,9 +13,33 @@ SGD differs in where the learning rate enters the schedule.)
 parameter (``mask=None``: norm scales and the embedding decay too), added
 to the Adam direction before the learning rate scales it. (torch.optim's
 AdamW defaults to a decay of 1e-2.)
+
+As in optax, the step count is an int32 array in the optimizer state, on
+the parameters' device, and everything derived from it — the learning
+rate, AdamW's bias corrections — is computed there in float32 from it, by
+schedules written in tensor ops. So an update never reads a number back to
+the host, and a step captured in a CUDA graph advances its own count and
+learning rate on every replay. Updates run as ``torch._foreach_*`` ops over
+all parameters at once (a few launches a step, not a few a parameter),
+each op in optax's order.
 """
 
 import torch
+
+
+def _count(params):
+    device = next(iter(params.values())).device if params else "cpu"
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _rate(learning_rate, count):
+    """``learning_rate(count)`` (or the constant) as a float32 tensor on the
+    count's device."""
+    value = learning_rate(count) if callable(learning_rate) else learning_rate
+    if isinstance(value, torch.Tensor):
+        return value.to(device=count.device, dtype=torch.float32)
+    # a fill, not a copy from the host: capturable
+    return torch.full((), value, dtype=torch.float32, device=count.device)
 
 
 class SGD:
@@ -29,22 +53,25 @@ class SGD:
     def init(self, params):
         """``params``: ``{name: tensor}``."""
         trace = {n: torch.zeros_like(p) for n, p in params.items()} if self.momentum else None
-        return {"count": 0, "trace": trace}
+        return {"count": _count(params), "trace": trace}
 
     def lr(self, count):
-        return float(self.learning_rate(count) if callable(self.learning_rate) else self.learning_rate)
+        """The learning rate at ``count`` (a tensor or an int), a float32
+        tensor."""
+        return _rate(self.learning_rate, torch.as_tensor(count))
 
     @torch.no_grad()
     def update(self, params, grads, state):
         step_size = -self.lr(state["count"])
-        for name, p in params.items():
-            g = grads[name]
-            if self.momentum:
-                t = state["trace"][name]
-                t.mul_(self.momentum).add_(g)
-                g = t
-            p.add_(g * step_size)
-        state["count"] += 1
+        names = list(params)
+        g = [grads[n] for n in names]
+        if self.momentum:
+            t = [state["trace"][n] for n in names]
+            torch._foreach_mul_(t, self.momentum)
+            torch._foreach_add_(t, g)
+            g = t
+        torch._foreach_add_([params[n] for n in names], torch._foreach_mul(g, step_size))
+        state["count"].add_(1)
 
 
 def sgd(learning_rate, momentum=None):
@@ -66,25 +93,41 @@ class AdamW:
 
     def init(self, params):
         """``params``: ``{name: tensor}``."""
-        return {"count": 0, "mu": {n: torch.zeros_like(p) for n, p in params.items()},
+        return {"count": _count(params), "mu": {n: torch.zeros_like(p) for n, p in params.items()},
                 "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
 
     def lr(self, count):
-        return float(self.learning_rate(count) if callable(self.learning_rate) else self.learning_rate)
+        """The learning rate at ``count`` (a tensor or an int), a float32
+        tensor."""
+        return _rate(self.learning_rate, torch.as_tensor(count))
 
     @torch.no_grad()
     def update(self, params, grads, state):
-        step_size = -self.lr(state["count"])
-        count = state["count"] + 1
-        bc1, bc2 = 1.0 - self.b1 ** count, 1.0 - self.b2 ** count
-        for name, p in params.items():
-            g = grads[name]
-            mu, nu = state["mu"][name], state["nu"][name]
-            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            direction = (mu / bc1) / (torch.sqrt(nu / bc2 + self.eps_root) + self.eps)
-            p.add_(direction + self.weight_decay * p, alpha=step_size)
-        state["count"] = count
+        count = state["count"]
+        step_size = -self.lr(count)
+        count.add_(1)
+        k = count.float()
+        bc1, bc2 = 1.0 - torch.pow(self.b1, k), 1.0 - torch.pow(self.b2, k)
+        names = list(params)
+        p = [params[n] for n in names]
+        g = [grads[n] for n in names]
+        mu = [state["mu"][n] for n in names]
+        nu = [state["nu"][n] for n in names]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - self.b1))
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - self.b2))
+        denom = torch._foreach_div(nu, bc2)
+        if self.eps_root:
+            torch._foreach_add_(denom, self.eps_root)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        update = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(update, denom)
+        if self.weight_decay:
+            torch._foreach_add_(update, torch._foreach_mul(p, self.weight_decay))
+        torch._foreach_mul_(update, step_size)
+        torch._foreach_add_(p, update)
 
 
 def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=1e-4):
@@ -92,27 +135,29 @@ def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=
 
 
 def linear_schedule(init_value, end_value, transition_steps, transition_begin=0):
-    """``optax.linear_schedule``."""
-    if transition_steps <= 0:
-        return lambda count: init_value
+    """``optax.linear_schedule``, in float32 tensor ops on ``count`` (a
+    tensor or an int; the result is a float32 tensor on its device)."""
 
     def schedule(count):
-        k = min(max(count - transition_begin, 0), transition_steps)
-        return (init_value - end_value) * (1 - k / transition_steps) + end_value
+        count = torch.as_tensor(count)
+        if transition_steps <= 0:
+            return torch.full((), init_value, dtype=torch.float32, device=count.device)
+        k = torch.clamp(count - transition_begin, 0, transition_steps).float()
+        return (init_value - end_value) * (1.0 - k / transition_steps) + end_value
 
     return schedule
 
 
 def piecewise_constant_schedule(init_value, boundaries_and_scales=None):
-    """``optax.piecewise_constant_schedule``: each scale applies from its
-    boundary step on."""
+    """``optax.piecewise_constant_schedule`` in float32 tensor ops: each
+    scale applies from its boundary step on."""
     items = sorted((boundaries_and_scales or {}).items())
 
     def schedule(count):
-        v = init_value
+        count = torch.as_tensor(count)
+        v = torch.full((), init_value, dtype=torch.float32, device=count.device)
         for boundary, scale in items:
-            if count >= boundary:
-                v *= scale
+            v = torch.where(count >= boundary, v * scale, v)
         return v
 
     return schedule

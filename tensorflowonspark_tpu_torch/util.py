@@ -206,6 +206,15 @@ def select_device(platform="gpu", index=0):
     return device
 
 
+def world_size():
+    """Ranks of the ``torch.distributed`` world: 1 when none is initialized."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
 def single_node_env(platform="gpu"):
     """Prepare a *single-node* trainer process and return its device.
 

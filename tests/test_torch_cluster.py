@@ -118,7 +118,9 @@ def test_transformer_spark_main_fun_trains_through_one_executor_cluster(tmp_path
 
 def test_two_executor_gloo_lm_keeps_params_bit_identical(tmp_path):
     """Rank 1 draws other initial weights; the broadcast from rank 0 and
-    the averaged gradients keep both replicas bit-identical."""
+    the averaged gradients keep both replicas bit-identical, and both ranks
+    report the global batch's loss (the mean of the ranks', as the JAX
+    package's SPMD step reports it)."""
     data_dir = str(tmp_path / "corpus")
     transformer_spark.make_text_corpus(data_dir, num_shards=2, records_per_shard=40)
     sc = LocalSparkContext(num_executors=2, task_timeout=120)
@@ -133,17 +135,60 @@ def test_two_executor_gloo_lm_keeps_params_bit_identical(tmp_path):
     ranks = [torch.load(tmp_path / "lm_rank{}.pt".format(r)) for r in (0, 1)]
     assert [r["world"] for r in ranks] == [2, 2]
     assert all(np.isfinite(r["losses"]).all() for r in ranks)
-    assert ranks[0]["losses"] != ranks[1]["losses"]  # each rank trains on its own shard
+    assert ranks[0]["losses"] == ranks[1]["losses"]  # each rank trains on its own shard
     for name, value in ranks[0]["params"].items():
         assert torch.equal(value, ranks[1]["params"][name]), name
 
 
 @pytest.mark.parametrize("flag", [["--moe_experts", "2"], ["--mesh", "dp=1,tp=2"], ["--remat"],
-                                  ["--steps_per_loop", "2"], ["--model_dir", "m"],
-                                  ["--pack_workers", "2"], ["--slab_cache_dir", "s"]])
+                                  ["--model_dir", "m"], ["--pack_workers", "2"],
+                                  ["--slab_cache_dir", "s"]])
 def test_unported_lm_options_are_refused(flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         transformer_spark.main(TINY_LM + flag)
+
+
+def _train_step_losses(main_fun, args, timeout=120):
+    """``{step: loss}`` of the ``train_step`` spans of a one-executor run."""
+    sc = LocalSparkContext(num_executors=1, task_timeout=timeout)
+    try:
+        cluster = TFCluster.run(sc, main_fun, args, 1, input_mode=TFCluster.InputMode.TENSORFLOW,
+                                env=CPU_ENV)
+        assert cluster.wait_for_completion(timeout=timeout)
+        metrics = cluster.metrics(include_driver=False)
+        cluster.shutdown()
+    finally:
+        sc.stop()
+    return {e["step"]: (e["loss"], e["steps"], e.get("device_trace"))
+            for e in metrics["events"] if e.get("span") == "train_step"}
+
+
+@pytest.mark.parametrize("example", ["resnet", "transformer"])
+def test_steps_per_loop_gives_the_eager_runs_losses(example, tmp_path):
+    """``--steps_per_loop 2`` through TFCluster.run: two loops of two steps,
+    whose losses (logged at steps 2 and 4) are the eager run's at the same
+    steps, bitwise (on the CPU the loop runs the eager step). The second
+    call is traced (``--trace_call 2``): its span carries the trace's
+    readings, no device kernel on the CPU, the host time of the call."""
+    if example == "resnet":
+        mod, argv = resnet_spark, list(TINY)
+    else:
+        data_dir = str(tmp_path / "corpus")
+        transformer_spark.make_text_corpus(data_dir, num_shards=2, records_per_shard=40)
+        mod, argv = transformer_spark, TINY_LM + ["--data_dir", data_dir]
+    argv[argv.index("--train_steps") + 1] = "4"
+    eager = _train_step_losses(mod.main_fun, mod.build_parser().parse_args(argv))
+    looped = _train_step_losses(mod.main_fun, mod.build_parser().parse_args(
+        argv + ["--steps_per_loop", "2", "--trace_call", "2"]))
+    assert sorted(eager) == [1, 2, 3, 4] and all(n == 1 and t is None for _, n, t in eager.values())
+    assert sorted(looped) == [2, 4] and all(n == 2 for _, n, _ in looped.values())
+    for step, (loss, _, _) in looped.items():
+        assert np.isfinite(loss) and loss == eager[step][0], (step, loss, eager[step])
+    assert looped[2][2] is None
+    trace = looped[4][2]
+    assert trace["kernels"] == 0 and trace["graph_launches"] == 0 and trace["idle_share"] == 1.0
+    assert set(trace["launches"].values()) == {0}
+    assert 0 < trace["host_ms"]["train.call"] <= trace["window_ms"]
 
 
 def test_resnet_spark_main_fun_trains_through_one_executor_cluster():
@@ -182,8 +227,8 @@ def test_two_executor_gloo_world_keeps_params_bit_identical(tmp_path):
     assert [r["world"] for r in ranks] == [2, 2] and ranks[0]["device"] == "cpu"
     for name, value in ranks[0]["params"].items():
         assert torch.equal(value, ranks[1]["params"][name]), name
-    # per-replica BN: each rank's statistics come from its own batch
-    assert not torch.equal(ranks[0]["running_mean"], ranks[1]["running_mean"])
+    # global BN: both ranks' statistics come from the global batch
+    assert torch.equal(ranks[0]["running_mean"], ranks[1]["running_mean"])
 
 
 def test_gpu_platform_without_cuda_fails_the_cluster():
@@ -201,8 +246,7 @@ def test_gpu_platform_without_cuda_fails_the_cluster():
 
 
 @pytest.mark.parametrize("flag", [["--model_dir", "m"], ["--data_dir", "d"], ["--eval_dir", "e"],
-                                  ["--profile_steps", "2,3"], ["--steps_per_loop", "4"],
-                                  ["--auto_recover", "1"]])
+                                  ["--profile_steps", "2,3"], ["--auto_recover", "1"]])
 def test_unported_options_are_refused(flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         resnet_spark.main(TINY + flag)
@@ -230,6 +274,14 @@ leaked = [m for m, v in sys.modules.items() if v is not None and (
     or m.startswith(("tensorflowonspark_tpu.", "jax.", "flax.", "optax.", "orbax.")))]
 assert not leaked, leaked
 assert len(names) >= 50, names
+# the train loop, its input placement and the split BN reductions
+from tensorflowonspark_tpu_torch.data.loader import PinnedPlacer, loop_prefetch, packed_prefetch
+from tensorflowonspark_tpu_torch.ops.fused_bn import bn_finish, bn_stats_sums, bn_bwd_reduce_sums
+from tensorflowonspark_tpu_torch.train.strategy import _CapturedLoop, run_steps, steps_per_worker
+from tensorflowonspark_tpu_torch.examples import sync_dp_check
+from tensorflowonspark_tpu_torch.examples.resnet import bench_bn, profile_step
+from tensorflowonspark_tpu_torch.ops.kernel_trace import KernelTrace, kernel_base
+from tensorflowonspark_tpu_torch.examples.transformer import profile_step as lm_profile_step
 print("imported", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))

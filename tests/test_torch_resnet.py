@@ -134,11 +134,76 @@ def test_same_padding_matches_xla(size, kernel, stride, pads):
     assert resnet._same_pads(size, kernel, stride) == pads
 
 
-def test_plain_bn_refuses_data_parallel_worlds(monkeypatch):
-    import torch.distributed as dist
+#: one rank of a gloo world: ``python -c TWO_RANKS rank port out``; the
+#: small CIFAR ResNet with ``bn_impl="flax"``, one SGD step on its half of
+#: a seeded batch of 8
+TWO_RANKS = r"""
+import sys
 
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    module = resnet.ResNet(**dict(SMALL["basic_cifar"], num_classes=10)).train()
-    with pytest.raises(NotImplementedError, match="sync-BN"):
-        module(torch.zeros(2, 8, 8, 3))
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from tensorflowonspark_tpu_torch.models import resnet
+from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
+
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port, rank=rank, world_size=2)
+rng = np.random.default_rng(0)
+batch = {"image": rng.standard_normal((8, 8, 8, 3)).astype(np.float32), "label": rng.integers(0, 10, 8)}
+strategy = SyncDataParallel("cpu")
+optimizer = optim.sgd(0.1, momentum=0.9)
+state = strategy.create_state(lambda: resnet.ResNet(
+    (1, 1), (8, 16), num_classes=10, bottleneck=False, stem="cifar", bn_impl="flax",
+    generator=torch.Generator().manual_seed(0)), optimizer)
+step = strategy.compile_train_step(resnet.make_loss_fn(weight_decay=1e-4), optimizer, mutable=True)
+state, metrics = step(state, strategy.shard_batch({k: v[4 * rank:4 * rank + 4] for k, v in batch.items()}))
+torch.save({"loss": float(metrics["loss"]), "buffers": {k: v.clone() for k, v in state.model_state.items()}}, out)
+dist.destroy_process_group()
+"""
+
+
+def test_plain_bn_runs_in_a_two_rank_world(tmp_path):
+    """``bn_impl="flax"`` under a two-rank gloo world: each rank trains on
+    its half of the batch, and both end with the running statistics of one
+    process on the whole batch (global sync-BN, as the JAX package's flax
+    BN under its SPMD step)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    outs = [str(tmp_path / "rank{}.pt".format(r)) for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", TWO_RANKS, str(r), str(port), outs[r]], cwd=repo,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), logs
+    ranks = [torch.load(o) for o in outs]
+
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.standard_normal((8, 8, 8, 3)).astype(np.float32), "label": rng.integers(0, 10, 8)}
+    strategy = SyncDataParallel("cpu")
+    optimizer = optim.sgd(0.1, momentum=0.9)
+    state = strategy.create_state(lambda: resnet.ResNet(
+        **dict(SMALL["basic_cifar"], num_classes=10), bn_impl="flax",
+        generator=torch.Generator().manual_seed(0)), optimizer)
+    step = strategy.compile_train_step(resnet.make_loss_fn(weight_decay=1e-4), optimizer, mutable=True)
+    state, metrics = step(state, strategy.shard_batch(batch))
+    assert ranks[0]["loss"] == ranks[1]["loss"]
+    np.testing.assert_allclose(ranks[0]["loss"], float(metrics["loss"]), atol=1e-5)
+    for name, value in state.model_state.items():
+        assert torch.equal(ranks[0]["buffers"][name], ranks[1]["buffers"][name]), name
+        np.testing.assert_allclose(ranks[0]["buffers"][name].numpy(), value.numpy(), atol=1e-5, err_msg=name)

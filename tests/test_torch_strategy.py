@@ -26,6 +26,7 @@ from tensorflowonspark_tpu.models import resnet as jax_resnet
 from tensorflowonspark_tpu_torch import convert
 from tensorflowonspark_tpu_torch.examples.resnet import profile_step, resnet_spark
 from tensorflowonspark_tpu_torch.models import resnet
+from tensorflowonspark_tpu_torch.ops import kernel_trace
 from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
 from tensorflowonspark_tpu_torch.train import strategy as strategy_mod
 
@@ -118,8 +119,6 @@ def test_unported_strategy_modes_raise():
         SyncDataParallel("cpu", fsdp=True)
     with pytest.raises(NotImplementedError):
         SyncDataParallel("cpu", tp=True)
-    with pytest.raises(NotImplementedError):
-        SyncDataParallel("cpu").compile_train_loop(None, None, 4)
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -161,7 +160,7 @@ def test_step_phases_read_from_a_trace():
     ([], 0.0), ([(0, 2), (1, 3)], 3.0), ([(5, 6), (0, 2)], 3.0), ([(0, 10), (2, 3), (4, 12)], 12.0),
 ])
 def test_union_of_kernel_intervals(intervals, want):
-    assert profile_step._union_us(intervals) == want
+    assert kernel_trace.union_us(intervals) == want
 
 
 def test_step_keyword_and_plain_loss_contract():
