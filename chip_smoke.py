@@ -71,7 +71,8 @@ and the script exits non-zero:
                   (``--trace_call 3``): 53 device launches of each BN
                   kernel for each of its 5 replayed steps, 5 graph
                   launches, device busy ms and idle share.
-6. ``compare``    one ResNet-50 train step, BN kernels vs plain versions, in
+6. ``compare``    one ResNet-50 train step, BN kernels vs their plain versions
+                  (``bn_impl="plain"``: statistics from f64 sums), in
                   float32 and bf16 with TF32 off, then a 1% dgamma fault
                   that the gradient limit must catch.
 7. ``slice_lm``   the port's LM path: ``TFCluster.run`` → the port's
@@ -100,14 +101,38 @@ and the script exits non-zero:
                   batches, cuDNN deterministic: every parameter, BN
                   statistic and the last loss bitwise equal, after two eager
                   runs are shown bitwise equal to each other.
-9. ``kernels``    every kernel of the port and whether the eager and the
-                  loop paths of phases 5 and 7 launched it, and the traced
-                  loop call ran it on the card.
+9. ``ckpt_engine`` ResNet-50 at the slice's shape in this process,
+                  ``compile_train_loop`` (K = 5) driven by ``run_steps``:
+                  runs with an ``AsyncCheckpointEngine`` (``keep=2``, a save
+                  every 10 steps) and runs without, alternating, 3 pairs,
+                  cuDNN deterministic. Step ms both ways, the training
+                  thread's ms a snapshot, the writer's seconds a commit,
+                  commits and supersedes; every committed checkpoint must
+                  equal, bitwise, a blocking copy of the engine-less twin's
+                  state at its step.
+10. ``recover``   the port's ResNet example at the slice's shape with
+                  ``--steps_per_loop 5 --checkpoint_steps 10
+                  --deterministic``, twice: run A uninterrupted through
+                  ``TFCluster.run``, run B through ``--auto_recover 1``
+                  (``TFCluster.run_with_recovery``) with the ``node.kill``
+                  chaos site killing the trainer once, mid-run, at a
+                  heartbeat placed from run A's timeline. One relaunch, the
+                  second life resumed from a checkpoint (step >= 10), both
+                  final checkpoints manifest-verified and B's bitwise equal
+                  to A's; checkpoint bytes, the blocking save's median
+                  seconds, restore seconds, seconds from the kill to the
+                  second life's first logged step, and both wall times, read
+                  from the runs' flight shards (``TOS_TRACE_DIR``).
+11. ``kernels``   every kernel of the port and whether the eager and the
+                  loop paths of phases 5 and 7 launched it, the traced loop
+                  call ran it on the card, and (the BN kernels) run A of the
+                  recover phase launched it.
 
 Then one JSON line with every kernel's measurements (``launches``: its
 wrapper's on the eager path; ``launches_loop_path``: its wrapper's on the
 loop path; ``device_launches_traced_loop_call``: the card's in the traced
-loop call), the ``nvidia-smi``
+loop call; ``launches_recover_path``: its wrapper's in the recover phase's
+run A), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script fails before printing anything.
 """
@@ -128,6 +153,16 @@ BATCH, IMAGE, STEPS = 64, 224, 5
 #: the loop paths: four calls of ``--steps_per_loop 5`` (the first holds
 #: the two eager warm-up steps and the capture), the third traced
 LOOP_STEPS, TRACE_CALL = 20, 3
+#: the recover phase: the example with a checkpoint every 10 steps (the
+#: newest 3 kept), a kill placed KILL_AT of the way from run A's first
+#: checkpoint to its last call, on a heartbeat of HEARTBEAT_S; run A must
+#: leave RECOVER_MIN_ROOM_S between the two. 300 steps leave ~19 s of room
+#: on an H100: run B's first life starts up to 3 s off run A's
+RECOVER_STEPS, RECOVER_EVERY, RECOVER_KEEP = 300, 10, 3
+HEARTBEAT_S, KILL_AT, RECOVER_MIN_ROOM_S = 0.25, 0.35, 6.0
+#: the ckpt_engine phase: 8 calls of K = 5 a run, a save every 2 calls (10
+#: steps), 3 pairs of runs with and without the engine
+CKPT_CALLS, CKPT_EVERY, CKPT_PAIRS = 8, 2, 3
 BF16_ULP = 2.0 ** -7  # bf16 keeps 8 significant bits
 #: f32 per-channel outputs of sums of up to 8e5 values, relative to the
 #: largest (floor 1): the kernels round each sum once from near-exact
@@ -542,7 +577,7 @@ def phase_compare(torch, fused_bn, resnet):
     for dtype_name, (tol, grad_tol) in limits.items():
         dtype = getattr(torch, dtype_name)
         lk, gk, nk = _train_grads(torch, fused_bn, resnet, dtype, "pallas", batch, loss_fn)
-        lp, gp, np_ = _train_grads(torch, fused_bn, resnet, dtype, "flax", batch, loss_fn)
+        lp, gp, np_ = _train_grads(torch, fused_bn, resnet, dtype, "plain", batch, loss_fn)
         if any(v != 53 for v in nk.values()) or any(np_.values()):
             raise AssertionError("kernel launches: kernels {} plain {}".format(nk, np_))
         grad_rel = float((gk - gp).norm() / gp.norm())
@@ -1149,6 +1184,325 @@ def phase_compare_loop(torch, resnet, transformer, lm_host_batch, k=STEPS):
         torch.cuda.empty_cache()
 
 
+def _state_host(torch, state):
+    """A blocking copy of a TrainState's checkpointed tensors, in the
+    layout of a checkpoint file's tree."""
+    torch.cuda.synchronize()
+    opt = state.opt_state
+    return {"step": state.step,
+            "params": {k: v.detach().cpu().clone() for k, v in state.params.items()},
+            "model_state": {k: v.detach().cpu().clone() for k, v in state.model_state.items()},
+            "opt_state": {"count": opt["count"].cpu().clone(),
+                          "trace": {k: v.cpu().clone() for k, v in opt["trace"].items()}}}
+
+
+def _tree_mismatches(torch, got, want, where=""):
+    """Paths where two checkpoint trees differ: keys, step, or any tensor
+    not bitwise equal."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [where or "/"]
+        return [m for k in sorted(want) for m in _tree_mismatches(torch, got[k], want[k], where + "/" + str(k))]
+    if isinstance(want, torch.Tensor):
+        ok = isinstance(got, torch.Tensor) and got.dtype == want.dtype and torch.equal(got, want)
+        return [] if ok else [where]
+    return [] if got == want else [where]
+
+
+def _count_tensors(torch, tree):
+    if isinstance(tree, dict):
+        return sum(_count_tensors(torch, v) for v in tree.values())
+    return int(isinstance(tree, torch.Tensor))
+
+
+def phase_ckpt_engine(torch, resnet, work):
+    """ResNet-50 at the slice's shape in this process, ``compile_train_loop``
+    with K = 5 driven by ``run_steps``: runs with an ``AsyncCheckpointEngine``
+    (``keep=2``, a save every ``CKPT_EVERY`` calls = every 10 steps) and runs
+    without one, alternating, ``CKPT_PAIRS`` pairs, cuDNN deterministic. Step
+    ms both ways after the first call (host clock from a sync after one call
+    to a sync after the next; in the engine runs the interval holds the
+    snapshot queued after the first), the training thread's ms in each
+    ``ckpt_snapshot`` span, the writer's seconds per commit, commits and
+    supersedes. The ordering check: every committed checkpoint — each one
+    hard-linked aside as soon as a sync sees it, before ``keep`` prunes it —
+    equals, bitwise, a blocking copy of the engine-less twin's state at the
+    same step (taken outside the timed intervals)."""
+    import shutil
+
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import ckpt, obs
+    from tensorflowonspark_tpu_torch.examples.resnet import resnet_spark
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel, checkpoint, optim
+    from tensorflowonspark_tpu_torch.train.strategy import run_steps
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    strategy = SyncDataParallel("cuda")
+    rng = np.random.default_rng(11)
+    windows = [[strategy.shard_batch({
+        "image": rng.standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32),
+        "label": rng.integers(0, 1000, BATCH)}) for _ in range(STEPS)] for _ in range(CKPT_CALLS)]
+    args = resnet_spark.build_parser().parse_args(["--dataset", "imagenet", "--batch_size", str(BATCH)])
+    loss_fn = resnet.make_loss_fn(weight_decay=1e-4)
+    counters = ("ckpt_commits_total", "ckpt_superseded_total", "ckpt_write_seconds_total")
+
+    def keep_aside(model_dir, aside):
+        """Hard-link every published checkpoint not yet kept aside (no data
+        is copied; a later prune leaves the links)."""
+        for name in os.listdir(model_dir):
+            src, dst = os.path.join(model_dir, name), os.path.join(aside, name)
+            if name.startswith("ckpt_") and not os.path.isdir(dst):
+                os.makedirs(dst + ".part")
+                for f in os.listdir(src):
+                    os.link(os.path.join(src, f), os.path.join(dst + ".part", f))
+                os.rename(dst + ".part", dst)
+
+    def run(model_dir):
+        optimizer = optim.sgd(resnet_spark.lr_schedule(args), momentum=0.9)
+        state = strategy.create_state(lambda: resnet.resnet50(
+            dtype=torch.bfloat16, bn_impl="pallas", generator=torch.Generator().manual_seed(0)), optimizer)
+        loop = strategy.compile_train_loop(loss_fn, optimizer, STEPS, mutable=True)
+        ends, starts, copies = [], [], {}
+        aside = model_dir and model_dir + "_committed"
+
+        def hook(s, call, metrics):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            if model_dir is None and call % CKPT_EVERY == 0:
+                copies[s.step] = _state_host(torch, s)
+            if aside:
+                keep_aside(model_dir, aside)
+            starts.append(time.perf_counter())
+
+        engine = None
+        if model_dir:
+            os.makedirs(aside)
+            engine = ckpt.AsyncCheckpointEngine(model_dir, keep=2, save_every_n=CKPT_EVERY)
+        before = {c: obs.counter(c).value for c in counters}
+        t0 = time.time()
+        run_steps(loop, state, windows, engine=engine, hooks=[hook])
+        if engine is not None:
+            engine.close()
+            keep_aside(model_dir, aside)
+        step_ms = [(b - a) / STEPS * 1e3 for a, b in zip(starts[:-1], ends[1:])][1:]  # after call 1
+        snaps = [e["dur_s"] * 1e3 for e in obs.get_registry().events()
+                 if e.get("span") == "ckpt_snapshot" and e["ts"] >= t0]
+        delta = {c: obs.counter(c).value - before[c] for c in counters}
+        return step_ms, snaps, delta, copies, aside
+
+    work = os.path.join(work, "engine")
+    try:
+        shutil.rmtree(work, ignore_errors=True)
+        sides = {"engine": [], "none": []}
+        twin = None
+        for pair in range(CKPT_PAIRS):
+            for side in (("engine", "none") if pair % 2 == 0 else ("none", "engine")):
+                model_dir = os.path.join(work, "engine_{}".format(pair)) if side == "engine" else None
+                torch.cuda.empty_cache()
+                step_ms, snaps, delta, copies, aside = run(model_dir)
+                sides[side].append({"step_ms": step_ms, "snapshot_ms": snaps, "counters": delta, "aside": aside})
+                if side == "none" and twin is None:
+                    twin = copies
+        checked, bad = [], []
+        for r in sides["engine"]:
+            for name in sorted(os.listdir(r["aside"])):
+                path = os.path.join(r["aside"], name)
+                ok, reason = ckpt.verify(path)
+                tree = checkpoint.restore_checkpoint(path)
+                want = twin.get(tree["step"])
+                diff = ["no twin copy"] if want is None else _tree_mismatches(torch, tree, want)
+                checked.append({"checkpoint": name, "step": tree["step"], "verify": reason,
+                                "mismatches": len(diff)})
+                if diff or not ok:
+                    bad.append((path, reason, diff[:5]))
+        commits = int(sum(r["counters"]["ckpt_commits_total"] for r in sides["engine"]))
+        per_side = {side: [v for r in runs for v in r["step_ms"]] for side, runs in sides.items()}
+        line = {
+            "phase": "ckpt_engine", "model": "resnet50", "dtype": "bfloat16", "bn_impl": "pallas",
+            "batch": BATCH, "steps_per_loop": STEPS, "calls": CKPT_CALLS, "pairs": CKPT_PAIRS,
+            "save_every_n_calls": CKPT_EVERY, "keep": 2, "cudnn_deterministic": True,
+            "step_ms": {side: [[round(v, 4) for v in r["step_ms"]] for r in runs] for side, runs in sides.items()},
+            "step_ms_median": {side: float(np.median(v)) for side, v in per_side.items()},
+            "snapshot_ms": [[round(v, 3) for v in r["snapshot_ms"]] for r in sides["engine"]],
+            "writer_s_per_commit": [r["counters"]["ckpt_write_seconds_total"] / max(1, r["counters"]["ckpt_commits_total"])
+                                    for r in sides["engine"]],
+            "commits": [r["counters"]["ckpt_commits_total"] for r in sides["engine"]],
+            "supersedes": [r["counters"]["ckpt_superseded_total"] for r in sides["engine"]],
+            "checked": checked, "tensors": _count_tensors(torch, twin[min(twin)]) if twin else 0,
+        }
+        emit(line)
+        if bad or not checked or len(checked) != commits:
+            raise AssertionError("ckpt_engine: {} of {} committed checkpoints ({} commits) differ from the "
+                                 "blocking copy at their step or fail verify: {}".format(
+                                     len(bad), len(checked), commits, bad))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        torch.cuda.empty_cache()
+
+
+def _trainer_lives(flight, root):
+    """``[(start wall time, records)]`` of the trainer children's flight
+    shards under ``root``, oldest first."""
+    lives = []
+    for shard in flight.list_shards(root):
+        records, _ = flight.read_shard(shard)
+        meta = [r for r in records if r.get("kind") == "meta"]
+        if meta and str(meta[0].get("proc", "")).startswith("trainer-"):
+            lives.append((meta[0]["wall"], records))
+    return sorted(lives, key=lambda life: life[0])
+
+
+def _spans(records, name):
+    return [r for r in records if r.get("kind") == "span" and r.get("name") == name]
+
+
+def phase_recover(torch, fused_bn, work):
+    """The port's ResNet example at the slice's shape (``--steps_per_loop 5
+    --checkpoint_steps 10``, cuDNN deterministic), twice. Run A
+    uninterrupted through ``TFCluster.run``; run B through the example's
+    ``--auto_recover 1`` (``TFCluster.run_with_recovery``) with a chaos plan
+    arming ``node.kill`` on executor 0, once-latched, at a heartbeat placed
+    from run A's own timeline (``KILL_AT`` of the way from its first
+    checkpoint to its last call). Both runs trace into flight shards
+    (``TOS_TRACE_DIR``): the kill, each life's ``ckpt_restore`` /
+    ``ckpt_save`` / ``train_step`` spans. Fails unless B relaunched once,
+    its second life resumed at a step >= ``RECOVER_EVERY``, both final
+    checkpoints pass ``manifest.verify``, and B's final checkpoint equals
+    A's bitwise, tensor for tensor, and in ``step``. Returns each BN
+    wrapper's launches in run A (its counts start at 0 in the fresh
+    trainer)."""
+    import shutil
+    import statistics
+
+    from tensorflowonspark_tpu_torch import TFCluster, chaos, util
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+    from tensorflowonspark_tpu_torch.ckpt import manifest
+    from tensorflowonspark_tpu_torch.examples.resnet import resnet_spark
+    from tensorflowonspark_tpu_torch.obs import flight
+    from tensorflowonspark_tpu_torch.train import checkpoint
+
+    def argv(model_dir):
+        return ["--dataset", "imagenet", "--bn_impl", "pallas", "--batch_size", str(BATCH),
+                "--train_steps", str(RECOVER_STEPS), "--log_steps", str(STEPS), "--steps_per_loop", str(STEPS),
+                "--checkpoint_steps", str(RECOVER_EVERY), "--keep_checkpoints", str(RECOVER_KEEP),
+                "--model_dir", model_dir, "--deterministic"]
+
+    dirs = {side: os.path.join(work, "recover_" + side) for side in ("a", "b")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    keys = ("TOS_HEARTBEAT_INTERVAL", "TOS_MONITOR_INTERVAL", flight.TRACE_DIR_ENV)
+    saved_env = {k: os.environ.get(k) for k in keys}
+    os.environ.update({"TOS_HEARTBEAT_INTERVAL": str(HEARTBEAT_S), "TOS_MONITOR_INTERVAL": "1"})
+    try:
+        # run A: uninterrupted
+        os.environ[flight.TRACE_DIR_ENV] = os.path.join(dirs["a"], "trace")
+        model_a = os.path.join(dirs["a"], "model")
+        fused_bn.reset_launch_counts()
+        t0 = time.perf_counter()
+        sc = LocalSparkContext(num_executors=1)
+        try:
+            cluster = TFCluster.run(sc, resnet_spark.main_fun, resnet_spark.build_parser().parse_args(argv(model_a)),
+                                    1, input_mode=TFCluster.InputMode.TENSORFLOW, master_node="chief",
+                                    env={util.ENV_PLATFORM: "gpu"})
+            if not cluster.wait_for_completion(timeout=900):
+                raise TimeoutError("run A did not finish within 900 s")
+            metrics = cluster.metrics(include_driver=False)
+            cluster.shutdown()
+        finally:
+            sc.stop()
+        wall_a = time.perf_counter() - t0
+        launches = {name: int(metrics["counters"].get("fused_bn_{}_launches_total".format(name), {}).get("value", 0))
+                    for name, *_ in KERNEL_TABLE}
+        lives_a = _trainer_lives(flight, os.path.join(dirs["a"], "trace"))
+        if len(lives_a) != 1:
+            raise AssertionError("run A: expected one trainer life, found {}".format(len(lives_a)))
+        start_a, recs_a = lives_a[0]
+        saves_a = _spans(recs_a, "ckpt_save")
+        calls_a = _spans(recs_a, "train_step")
+        first_save = min(r["ts"] + r["dur_s"] for r in saves_a)
+        last_call = max(r["ts"] for r in calls_a)
+        room = last_call - first_save
+        if room < RECOVER_MIN_ROOM_S:
+            raise AssertionError("run A leaves {:.2f} s between its first checkpoint and its last call, "
+                                 "too little to place the kill".format(room))
+        kill_into_life = first_save - start_a + KILL_AT * room
+        after_beats = int(math.ceil(kill_into_life / HEARTBEAT_S))
+
+        # run B: killed once, relaunched by run_with_recovery, resumed
+        os.environ[flight.TRACE_DIR_ENV] = os.path.join(dirs["b"], "trace")
+        model_b = os.path.join(dirs["b"], "model")
+        latch = os.path.join(dirs["b"], "killed.latch")
+        chaos.install(chaos.ChaosPlan(seed=0).site("node.kill", probability=1.0, max_count=1, victim=0,
+                                                   after_beats=after_beats, once_path=latch))
+        t0 = time.perf_counter()
+        sc = LocalSparkContext(num_executors=1)
+        try:
+            relaunches = resnet_spark.main(argv(model_b) + ["--auto_recover", "1"], sc=sc)
+        finally:
+            sc.stop()
+            chaos.uninstall()
+        wall_b = time.perf_counter() - t0
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    lives_b = _trainer_lives(flight, os.path.join(dirs["b"], "trace"))
+    kills = [r for _, recs in lives_b for r in _spans(recs, "chaos_fault")
+             if r.get("attrs", {}).get("site") == "node.kill"]
+    kill_ts = kills[0]["ts"] if len(kills) == 1 else None
+    second = [recs for start, recs in lives_b if kill_ts is not None and start > kill_ts]
+    restores = _spans(second[0], "ckpt_restore") if len(second) == 1 else []
+    resumed = restores[0]["attrs"].get("step") if restores else None
+    calls_b2 = sorted(_spans(second[0], "train_step"), key=lambda r: r["ts"]) if len(second) == 1 else []
+    final = "ckpt_{}".format(RECOVER_STEPS)
+    paths = {side: os.path.join(model, final) for side, model in (("a", model_a), ("b", model_b))}
+    verified = {side: manifest.verify(path) if os.path.isdir(path) else (False, "absent")
+                for side, path in paths.items()}
+    trees = {side: checkpoint.restore_checkpoint(path) for side, path in paths.items() if verified[side][0]}
+    diff = _tree_mismatches(torch, trees["b"], trees["a"]) if len(trees) == 2 else ["a final checkpoint is missing"]
+    saves_b = [r for _, recs in lives_b for r in _spans(recs, "ckpt_save")]
+    line = {
+        "phase": "recover", "model": "resnet50", "dtype": "bfloat16", "bn_impl": "pallas", "batch": BATCH,
+        "image": IMAGE, "steps": RECOVER_STEPS, "steps_per_loop": STEPS, "checkpoint_steps": RECOVER_EVERY,
+        "keep_checkpoints": RECOVER_KEEP, "cudnn_deterministic": True, "heartbeat_s": HEARTBEAT_S,
+        "kill_after_beats": after_beats, "kill_planned_s_into_life": kill_into_life,
+        "room_s": room, "relaunches": relaunches, "kills": len(kills), "lives": len(lives_b),
+        "resumed_at_step": resumed,
+        "checkpoint_bytes": sum(os.path.getsize(os.path.join(paths["a"], n)) for n in os.listdir(paths["a"]))
+        if os.path.isdir(paths["a"]) else None,
+        "save_s_median": {"a": statistics.median(r["dur_s"] for r in saves_a),
+                          "b": statistics.median(r["dur_s"] for r in saves_b) if saves_b else None},
+        "saves": {"a": len(saves_a), "b": len(saves_b)},
+        "restore_s": restores[0]["dur_s"] if restores else None,
+        "kill_to_first_step_s": (calls_b2[0]["ts"] + calls_b2[0]["dur_s"] - kill_ts) if calls_b2 else None,
+        "second_life_first_call_s": calls_b2[0]["dur_s"] if calls_b2 else None,
+        "wall_s": {"a": wall_a, "b": wall_b},
+        "manifest_verify": {side: v[1] for side, v in verified.items()},
+        "tensors": _count_tensors(torch, trees.get("a", {})), "final_mismatches": diff[:10],
+        "launches_run_a": launches,
+    }
+    emit(line)
+    if relaunches != 1 or len(kills) != 1 or len(second) != 1:
+        raise AssertionError("recover: {} relaunch(es), {} kill(s), {} life after the kill (want 1 each)".format(
+            relaunches, len(kills), len(second)))
+    if resumed is None or resumed < RECOVER_EVERY:
+        raise AssertionError("recover: the second life resumed at step {}, not from a checkpoint".format(resumed))
+    if not all(v[0] and v[1] == "verified" for v in verified.values()):
+        raise AssertionError("recover: final checkpoints fail verify: {}".format(verified))
+    if diff:
+        raise AssertionError("recover: the resumed run's final checkpoint differs from the uninterrupted "
+                             "run's in {} place(s): {}".format(len(diff), diff[:10]))
+    want = 53 * wrapper_calls(RECOVER_STEPS, STEPS)
+    if any(v != want for v in launches.values()):
+        raise AssertionError("recover: run A's BN wrapper launches {} != {}".format(launches, want))
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1244,9 +1598,13 @@ def main():
     phase_compare_lm(torch, fa, transformer, lm_batch)
     torch.cuda.empty_cache()
     phase_compare_loop(torch, resnet, transformer, lm_batch)
+    work = os.path.join(here, "build", "chip_smoke_ckpt")
+    phase_ckpt_engine(torch, resnet, work)
+    recover_launches = phase_recover(torch, fused_bn, work)
     emit({"phase": "kernels", "kernels": [
         {"name": name, "route": route, "source": source,
-         "launched": launches[name] > 0 and loop_launches[name] > 0 and traced_launches[name] > 0}
+         "launched": (launches[name] > 0 and loop_launches[name] > 0 and traced_launches[name] > 0
+                      and recover_launches[name] > 0)}
         for name, _, _, _, route, source in KERNEL_TABLE] + [
         {"name": name, "route": "cuda", "source": FLASH_SOURCE,
          "launched": (flash_launches[name] > 0 and loop_flash_launches[name] > 0
@@ -1256,6 +1614,7 @@ def main():
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": launches[name], "launches_loop_path": loop_launches[name],
          "device_launches_traced_loop_call": traced_launches[name],
+         "launches_recover_path": recover_launches[name],
          "max_abs_err": totals[name]["max_abs_err"],
          "ms": totals[name]["ms"], "plain_ms": totals[name]["plain_ms"],
          "bound_ms": totals[name]["bound_ms"], "bound_by": totals[name]["bound_by"],

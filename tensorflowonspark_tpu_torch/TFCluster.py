@@ -819,13 +819,85 @@ def run_with_recovery(
     feed_fn=None,
     **run_kwargs,
 ):
-    """Train with automatic failure recovery (the JAX package's recovery
-    ladder). Not yet ported: it resumes from checkpoints, and this package
-    has no checkpointing yet."""
-    raise NotImplementedError(
-        "run_with_recovery is not yet ported to tensorflowonspark_tpu_torch: "
-        "it needs checkpoint/resume, which comes in a later slice"
+    """Train with automatic failure recovery: run → detect (watchdog / launch
+    error / failed feed) → :meth:`TFCluster.abort` the survivors → relaunch →
+    ``map_fun`` resumes from its latest checkpoint.
+
+    The reference stopped at *detection* — on a node error the feed path
+    raised and the docs told the operator to resubmit the job (reference
+    TFCluster.py:178-183); the hard half (resuming the trajectory from the
+    latest checkpoint) was delegated to TF's ``load_weights_on_restart``.
+    Here the whole loop is driver-side: ``map_fun`` must pick up from
+    ``checkpoint.restore_latest(model_dir)`` when one exists — the
+    contract proven end-to-end in ``tests/test_resume.py`` — and this helper
+    supplies detection, deterministic teardown, and relaunch around it.
+    Resume prefers **manifest-verified** checkpoints: ``restore_latest``
+    cheap-checks each candidate against its ``MANIFEST.json`` (written last
+    and rename-published by the async engine,
+    :mod:`tensorflowonspark_tpu_torch.ckpt`), skipping torn or bitrotten newest
+    checkpoints with a logged reason instead of attempting doomed restores.
+    Under replicated data parallelism every rank holds the whole state, so a
+    relaunch at another worker count restores the same checkpoint.
+
+    Two input modes:
+
+    * ``InputMode.TENSORFLOW`` (the perf path: nodes read their own data) —
+      leave ``feed_fn`` unset; each attempt waits for worker completion.
+    * ``InputMode.SPARK`` — pass ``feed_fn(cluster)``, the caller's feed
+      loop (``cluster.train(...)`` calls). The feed RDD's lineage belongs to
+      the caller, so only the caller can re-feed: on a node death mid-feed
+      the feed task raises (feed timeout / watchdog), the attempt is
+      aborted, and ``feed_fn`` is re-invoked FROM THE START against the
+      relaunched cluster — ``map_fun`` resumes from its checkpoint and
+      trains on the re-fed stream (use closure state inside ``feed_fn`` for
+      partial re-feeds). After ``feed_fn`` returns, ``check_errors()``
+      catches failures that raced the feed's completion.
+
+    ``completion_timeout`` bounds each attempt's completion wait for the one
+    topology where no completion signal can reach the driver (NAT'd worker
+    channels + a parked ps/evaluator keeping the launch job alive — see
+    :meth:`TFCluster.wait_for_completion`); on expiry the attempt proceeds
+    straight to :meth:`TFCluster.shutdown`, whose Spark-task fallback can
+    reach NAT'd nodes. Leave ``None`` for reachable clusters — a legitimate
+    training run can take arbitrarily long.
+
+    The attempt loop itself is the **recovery ladder**
+    (:func:`tensorflowonspark_tpu_torch.elastic.run_ladder`): failures are
+    classified into a :class:`~tensorflowonspark_tpu_torch.elastic.FailureLedger`,
+    executors with repeated attributable losses are blacklisted (after a
+    preflight health probe), and the relaunch shrinks to the surviving
+    capacity — ``map_fun`` restoring the same checkpoint at the smaller
+    world size. Ladder knobs (``min_workers``,
+    ``blacklist_after``, ``window_secs``, ``preflight``, ``regrow``) pass
+    through ``**run_kwargs``; the defaults reproduce the historical
+    behaviour for single transient faults (one failure → full-size
+    relaunch).
+
+    Returns the number of relaunches performed (0 = clean first run).
+    """
+    mode = run_kwargs.get("input_mode", InputMode.SPARK)
+    if mode != InputMode.TENSORFLOW and feed_fn is None:
+        raise ValueError(
+            "run_with_recovery in SPARK mode needs feed_fn=<your feed loop>; "
+            "without a feed, use input_mode=InputMode.TENSORFLOW"
+        )
+    if mode == InputMode.TENSORFLOW and feed_fn is not None:
+        raise ValueError("feed_fn requires input_mode=InputMode.SPARK")
+    from tensorflowonspark_tpu_torch import elastic
+
+    result = elastic.run_ladder(
+        sc,
+        map_fun,
+        tf_args,
+        num_executors,
+        max_relaunches=max_relaunches,
+        poll_secs=poll_secs,
+        shutdown_timeout=shutdown_timeout,
+        completion_timeout=completion_timeout,
+        feed_fn=feed_fn,
+        **run_kwargs,
     )
+    return result.relaunches
 
 
 def build_cluster_template(num_executors, num_ps=0, master_node="chief", eval_node=False,

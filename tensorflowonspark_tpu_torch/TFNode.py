@@ -129,12 +129,12 @@ def start_cluster_server(ctx, num_gpus=1, rdma=False):
 
 
 def export_saved_model(*args, **kwargs):
-    """Reference TFNode.py:159 exported a TF1 SavedModel; the JAX package
-    exports through its checkpoint module. Not yet ported."""
-    raise NotImplementedError(
-        "export_saved_model is not yet ported to tensorflowonspark_tpu_torch: "
-        "checkpointing and export come in a later slice"
-    )
+    """Reference TFNode.py:159 exported a TF1 SavedModel; here the export is
+    a checkpoint (:func:`tensorflowonspark_tpu_torch.train.checkpoint.
+    export_saved_model`)."""
+    from tensorflowonspark_tpu_torch.train import checkpoint
+
+    return checkpoint.export_saved_model(*args, **kwargs)
 
 
 class DataFeed:

@@ -253,6 +253,7 @@ def _child_entry(fn, tf_args, ctx, cluster_meta, error_queue_spec):
             gpu_info.validate_against_runtime(torch.cuda.device_count())
         with obs_trace.span("node_main", job=ctx.job_name, task_index=ctx.task_index):
             fn(tf_args, ctx)
+        _drain_checkpoints()
         _destroy_process_group()
         publisher.stop()  # final flush: short runs publish at least once
         ctx.mgr.set("child_status", "done")
@@ -271,6 +272,9 @@ def _child_entry(fn, tf_args, ctx, cluster_meta, error_queue_spec):
             obs_flight.dump("child_failed:{}".format(type(child_exc).__name__))
         except Exception:
             pass
+        # land any in-flight async checkpoint BEFORE reporting the failure:
+        # the relaunched attempt resumes from the newest committed one
+        _drain_checkpoints()
         try:
             if publisher is not None:
                 publisher.stop()  # flush so the failed node's metrics survive
@@ -297,6 +301,29 @@ def _destroy_process_group():
         dist.destroy_process_group()
 
 
+#: seconds the exiting trainer child waits for in-flight async checkpoint
+#: commits to land (drain-on-exit: an accepted snapshot should become a
+#: resume point, not die with the process)
+CHECKPOINT_DRAIN_TIMEOUT = float(os.environ.get("TOS_CKPT_DRAIN_TIMEOUT", "120"))
+
+
+def _drain_checkpoints():
+    """Drain every live async checkpoint engine in this child — bounded and
+    best-effort: a wedged storage backend must not turn child exit into a
+    hang, and a drain failure must not mask the user fn's own outcome."""
+    try:
+        from tensorflowonspark_tpu_torch import ckpt
+
+        if not ckpt.drain_all(timeout=CHECKPOINT_DRAIN_TIMEOUT):
+            logger.warning(
+                "async checkpoint drain timed out after %ss on child exit: %s",
+                CHECKPOINT_DRAIN_TIMEOUT,
+                "; ".join(ckpt.busy_descriptions()) or "engine list changed",
+            )
+    except Exception:
+        logger.exception("async checkpoint drain failed on child exit")
+
+
 #: seconds between child heartbeats on the IPC channel (the driver-side
 #: monitor flags a node whose beat stops without a final child_status —
 #: e.g. a SIGKILLed jax child that could post no traceback)
@@ -308,8 +335,8 @@ HEARTBEAT_INTERVAL = float(os.environ.get("TOS_HEARTBEAT_INTERVAL", "2"))
 # A preemption *warning* (the platform's SIGTERM grace window, the
 # ``node.preempt`` chaos site, or the driver posting ``preempt`` on the
 # channel for a regrow restart) reaches the trainer child while it can still
-# act. The warned path turns an abrupt kill into a clean handoff: flush this
-# node's metrics, commit a
+# act. The warned path turns an abrupt kill into a clean handoff: land every
+# in-flight async checkpoint, flush this node's metrics, commit a
 # ``preempted`` parting status on the channel (the driver's watchdog turns
 # that into a durable registry ``leave``), and exit before the kill lands.
 # The recovery ladder classifies the resulting loss as a first-class
@@ -347,7 +374,7 @@ def _preempt_drain(source):
             return  # handler/heartbeat race: first caller owns the exit
         _preempt["fired"] = True
     logger.warning(
-        "preemption warning (%s): draining before the kill lands",
+        "preemption warning (%s): draining checkpoints before the kill lands",
         source,
     )
     try:
@@ -358,6 +385,7 @@ def _preempt_drain(source):
         )
     except Exception:
         pass
+    _drain_checkpoints()
     if _preempt["publisher"] is not None:
         try:  # flush so the drained node's metrics survive it
             _preempt["publisher"].stop()

@@ -1,0 +1,50 @@
+"""One audited control core for every estimate→decide→patience→apply loop.
+
+Three subsystems grew the same controller shape independently:
+:class:`~tensorflowonspark_tpu_torch.data.autotune.FeedAutotuner` (packed-window
+size K), :class:`~tensorflowonspark_tpu_torch.data.autotune.ReadaheadAutotuner`
+(shard read-ahead depth) and
+:class:`~tensorflowonspark_tpu_torch.data.decode_plane.DecodeAutotuner` (decode
+worker count). Each one estimates a signal, argues for a direction, applies
+**up-fast / down-slow hysteresis** (a stall is expensive *now*; releasing
+capacity can wait for proof), and moves its knob one rung at a time inside
+bounds. Hand-rolling that loop three times meant three slightly different
+streak bugs waiting to happen and zero shared observability.
+
+This package extracts the loop once:
+
+* :class:`~tensorflowonspark_tpu_torch.control.core.EwmaEstimator` — the
+  seed-on-first-observation EWMA every estimator here builds on.
+* :class:`~tensorflowonspark_tpu_torch.control.core.Controller` — the audited
+  move engine: an ordered ladder of values (explicit levels or an integer
+  range), ``up_patience``/``down_patience`` streaks, bound clamping, and a
+  ``control_decisions_total`` counter plus a ``control_decision`` span on
+  every applied move — so *why the knob moved* is visible in
+  ``TFCluster.metrics()`` and on the merged timeline.
+* :class:`~tensorflowonspark_tpu_torch.control.core.DeltaTicker` — the clocked
+  counter-delta gate (``check_every`` seconds between reads) the interval
+  tuners share.
+* :func:`~tensorflowonspark_tpu_torch.control.core.classify_stalls` — the
+  stall/throughput classification (previously ``bench.classify_stalls``,
+  which now re-exports it) shared by the per-process tuners and the
+  cluster scaler.
+* :class:`~tensorflowonspark_tpu_torch.control.scaler.ClusterScaler` — the
+  cluster-level member of the family: chooses the target world size for
+  the recovery ladder (:func:`~tensorflowonspark_tpu_torch.elastic.run_ladder`)
+  from capacity health plus the same stall classification, gating regrow
+  restarts behind ``grow_patience`` and publishing ``target_world_size``.
+
+All three per-process autotuners are rebased on this core with their
+behavior pinned by their pre-existing test suites (tests/test_autotune.py,
+tests/test_decode_plane.py) — the extraction is a refactor, not a policy
+change.
+"""
+
+from tensorflowonspark_tpu_torch.control.core import (  # noqa: F401
+    Controller,
+    DeltaTicker,
+    EwmaEstimator,
+    StallRule,
+    classify_stalls,
+)
+from tensorflowonspark_tpu_torch.control.scaler import ClusterScaler  # noqa: F401

@@ -1,0 +1,228 @@
+"""The shared estimate→decide→patience→apply machinery.
+
+Every controller in the tree follows the same discipline (see the package
+docstring): estimate from measurements, argue for a direction, move **up
+immediately** (by default) because a stall is costing throughput right now,
+move **down only after ``down_patience`` consecutive lower verdicts**
+because flapping a knob (recompiles, fork storms, cluster restarts) costs
+more than holding it one interval too long. :class:`Controller` is that
+discipline, once, with decisions counted and traced.
+"""
+
+import time
+
+from tensorflowonspark_tpu_torch import obs
+
+
+def classify_stalls(read_s, parse_s, emit_s, wait_s):
+    """Name the bottleneck the stall counters point at: the producer
+    blocking on a full prefetch queue at least as long as the consumer
+    starved means the consumer (device) is the gate (``device_bound``);
+    otherwise the input path is, split by which producer stage dominated —
+    ``decode_bound`` when parse time beats shard IO, ``io_bound`` when
+    reads do. Shared by ``bench.py`` (the BENCH JSON's ``classification``
+    field), the per-process autotuners' rationale, and the cluster scaler's
+    regrow gate."""
+    if emit_s >= wait_s:
+        return "device_bound"
+    return "decode_bound" if parse_s >= read_s else "io_bound"
+
+
+class EwmaEstimator:
+    """Seed-on-first-observation exponential moving average.
+
+    ``alpha`` weights the newest observation (0.3 default: responsive
+    within a handful of samples, yet one freak sample cannot swing a
+    decision by itself). ``value`` is None until the first observation —
+    the one-shot seeding contract every estimator in the family relies on
+    (:class:`~tensorflowonspark_tpu_torch.data.autotune.LinkEstimator` seeds its
+    fixed-cost and bandwidth terms exactly this way).
+    """
+
+    def __init__(self, alpha=0.3):
+        if not 0.0 < alpha <= 1.0:
+            raise ValueError("alpha must be in (0, 1]")
+        self.alpha = alpha
+        self.value = None
+
+    def observe(self, sample):
+        """Blend one sample in (first sample seeds directly); returns the
+        updated value."""
+        self.value = self.blend(self.value, sample)
+        return self.value
+
+    def blend(self, old, new):
+        """The pure EWMA step on explicit operands — for estimators that
+        keep several blended terms under one alpha."""
+        return new if old is None else (1.0 - self.alpha) * old + self.alpha * new
+
+
+class StallRule:
+    """The starvation verdict shared by the interval tuners: is the
+    consumer starving badly enough — for a cause this knob can fix — to
+    grow, or idle enough to shrink?
+
+    * wait share above ``starve_ratio`` AND the pressure this controller
+      owns dominated the interval → **+1** (grow).
+    * wait share below ``idle_ratio`` → **−1** (shrink candidate; the
+      :class:`Controller`'s down-patience decides when it actually lands).
+    * anything between → **0** (hold).
+    """
+
+    def __init__(self, starve_ratio=0.05, idle_ratio=0.01):
+        self.starve_ratio = float(starve_ratio)
+        self.idle_ratio = float(idle_ratio)
+
+    def want(self, wait_share, pressure_dominates):
+        if wait_share > self.starve_ratio and pressure_dominates:
+            return 1
+        if wait_share < self.idle_ratio:
+            return -1
+        return 0
+
+
+class Controller:
+    """The audited hysteresis move engine over an ordered value ladder.
+
+    The ladder is either an explicit ``levels`` tuple (the feed tuner's
+    power-of-two buckets) or the integer range ``[lo, hi]`` (worker
+    counts, depths, world sizes). :meth:`step` takes the current value and
+    a wanted direction (+1/0/−1) and returns the value the discipline
+    allows:
+
+    * **up**: after ``up_patience`` consecutive +1 verdicts (default 1 —
+      immediate, the up-fast half), one rung up, clamped at the top.
+    * **down**: after ``down_patience`` consecutive −1 verdicts
+      (hysteresis against mood flicker), one rung down. A −1 at the
+      bottom rung is a hold *and clears the streak* — pinned tuner
+      behavior: idle intervals at the floor don't accumulate credit
+      toward a move that can never happen.
+    * **hold** (0): clears both streaks.
+
+    Every applied move increments ``control_decisions_total`` and records
+    a ``control_decision`` span carrying the controller ``name`` and the
+    from/to values, so knob movement is auditable in the merged metrics
+    and on the trace timeline. Streak state is per-instance; the counter
+    is process-global like every obs metric.
+    """
+
+    def __init__(self, levels=None, lo=None, hi=None, up_patience=1,
+                 down_patience=2, name="controller"):
+        if levels is not None:
+            self.levels = tuple(sorted(set(levels)))
+            if not self.levels:
+                raise ValueError("levels must be non-empty")
+        else:
+            if lo is None or hi is None:
+                raise ValueError("give either levels or lo/hi bounds")
+            if int(hi) < int(lo):
+                raise ValueError("hi must be >= lo")
+            self.levels = None
+            self.lo, self.hi = int(lo), int(hi)
+        self.up_patience = max(1, int(up_patience))
+        self.down_patience = max(1, int(down_patience))
+        self.name = str(name)
+        self._up_streak = 0
+        self._down_streak = 0
+        self._decisions = obs.counter(
+            "control_decisions_total",
+            help="knob moves applied by control.Controller instances",
+        )
+
+    # -- ladder navigation ------------------------------------------------------
+
+    def floor(self):
+        return self.levels[0] if self.levels is not None else self.lo
+
+    def ceiling(self):
+        return self.levels[-1] if self.levels is not None else self.hi
+
+    def _rung(self, value, direction):
+        if self.levels is not None:
+            i = self.levels.index(value) + direction
+            return self.levels[max(0, min(len(self.levels) - 1, i))]
+        return max(self.lo, min(self.hi, int(value) + direction))
+
+    # -- the discipline ---------------------------------------------------------
+
+    def reset(self):
+        """Clear both patience streaks (a regime change — e.g. a cluster
+        relaunch — invalidates accumulated evidence)."""
+        self._up_streak = 0
+        self._down_streak = 0
+
+    def step(self, current, want):
+        """Apply one verdict; returns the new value (``current`` when the
+        discipline holds)."""
+        if want > 0:
+            self._down_streak = 0
+            if current >= self.ceiling():
+                self._up_streak = 0
+                return current
+            self._up_streak += 1
+            if self._up_streak < self.up_patience:
+                return current
+            self._up_streak = 0
+            return self._move(current, +1)
+        if want < 0:
+            self._up_streak = 0
+            if current <= self.floor():
+                self._down_streak = 0
+                return current
+            self._down_streak += 1
+            if self._down_streak < self.down_patience:
+                return current
+            self._down_streak = 0
+            return self._move(current, -1)
+        self.reset()
+        return current
+
+    def toward(self, current, recommended):
+        """Direction-from-target convenience: one :meth:`step` toward
+        ``recommended`` (the feed tuner's decide shape — the model argues
+        for a value, the discipline walks there one rung at a time)."""
+        want = (recommended > current) - (recommended < current)
+        return self.step(current, want)
+
+    def _move(self, current, direction):
+        new = self._rung(current, direction)
+        if new != current:
+            self._decisions.inc()
+            with obs.span(
+                "control_decision", controller=self.name,
+                from_value=current, to_value=new,
+            ):
+                pass  # marker span: the wall-clock point the knob moved
+        return new
+
+
+class DeltaTicker:
+    """The clocked counter-delta gate the interval tuners share.
+
+    ``read`` returns a tuple of cumulative counters; :meth:`tick` returns
+    ``(deltas, elapsed)`` at most every ``check_every`` seconds and None
+    between intervals. The first call only seeds the baseline (no verdict
+    from a window of unknown length), and ``read`` is not consulted at all
+    on sub-interval calls — counter reads can be snapshot-priced.
+    ``clock`` is injectable for deterministic tests.
+    """
+
+    def __init__(self, check_every, read, clock=None):
+        self.check_every = float(check_every)
+        self._read = read
+        self._clock = clock or time.monotonic
+        self._last_t = None
+        self._last = None
+
+    def tick(self):
+        now = self._clock()
+        if self._last_t is None:
+            self._last_t, self._last = now, self._read()
+            return None
+        elapsed = now - self._last_t
+        if elapsed < self.check_every:
+            return None
+        values = self._read()
+        deltas = tuple(v - p for v, p in zip(values, self._last))
+        self._last_t, self._last = now, values
+        return deltas, elapsed

@@ -29,9 +29,20 @@ device kernels of each wrapper (a replayed graph's too), graph launches,
 device busy ms and idle share, and the host ms in ``train.call`` /
 ``train.sync``, printed and set on that call's span as ``device_trace``.
 
-Not yet ported, and refused with an error: ``--model_dir`` (checkpoints),
-``--data_dir`` / ``--eval_dir`` (the real-data input plane),
-``--profile_steps`` and ``--auto_recover``.
+Checkpoints, as in the JAX example: with ``--model_dir`` a run resumes
+from the newest restorable checkpoint there (``checkpoint.restore_latest``,
+copied into the live state in place), saves every ``--checkpoint_steps``
+steps on loop-call boundaries and at the end, keeping the newest
+``--keep_checkpoints``; rank 0 saves (every rank holds the same state) and
+every rank restores. Saves and restores are ``ckpt_save`` / ``ckpt_restore``
+spans. ``--auto_recover N`` (with ``--model_dir`` and
+``--checkpoint_steps``) runs through ``TFCluster.run_with_recovery``: a lost
+node relaunches the cluster up to N times, and the trainer resumes from its
+checkpoint. ``--deterministic`` selects cuDNN's deterministic algorithms, so
+a resumed run equals an uninterrupted one bitwise.
+
+Not yet ported, and refused with an error: ``--data_dir`` / ``--eval_dir``
+(the real-data input plane) and ``--profile_steps``.
 """
 
 import argparse
@@ -53,11 +64,9 @@ def lr_schedule(args):
 def refuse_unported(args):
     """Raise for the options whose machinery is not yet ported."""
     unported = [
-        ("--model_dir", args.model_dir, "checkpointing"),
         ("--data_dir", args.data_dir, "the real-data input plane"),
         ("--eval_dir", args.eval_dir, "the real-data input plane"),
         ("--profile_steps", args.profile_steps, "profiling"),
-        ("--auto_recover", args.auto_recover, "failure recovery"),
     ]
     for flag, value, what in unported:
         if value:
@@ -70,6 +79,7 @@ def refuse_unported(args):
 def main_fun(args, ctx):
     import contextlib
     import json
+    import os
     import time
 
     import numpy as np
@@ -80,9 +90,11 @@ def main_fun(args, ctx):
     from tensorflowonspark_tpu_torch.models import resnet
     from tensorflowonspark_tpu_torch.ops import fused_bn
     from tensorflowonspark_tpu_torch.ops.kernel_trace import KernelTrace
-    from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel, checkpoint, optim
 
     refuse_unported(args)
+    if args.deterministic:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     ctx.initialize_distributed()
     strategy = SyncDataParallel(ctx.device)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
@@ -98,6 +110,21 @@ def main_fun(args, ctx):
         lambda: build(dtype=dtype, bn_impl=args.bn_impl, generator=generator), optimizer
     )
     loss_fn = resnet.make_loss_fn(weight_decay=1e-4)
+    # every rank holds the same state (global gradients and BN statistics):
+    # one saver, or several ranks would race on one directory; every rank
+    # restores
+    is_saver = ctx.process_id == 0
+    start_step = 0
+    if args.model_dir:
+        with obs.span("ckpt_restore") as sp:
+            # the crash→relaunch contract (TFCluster.run_with_recovery and
+            # job resubmission both land here): continue at the newest
+            # restorable checkpoint, copied into the live state in place
+            restored, latest = checkpoint.restore_latest(args.model_dir, target=state)
+            sp.set(path=latest, step=restored.step if latest else 0)
+        if latest:
+            start_step = state.step
+            print("resuming from {} at step {}".format(latest, start_step))
     step = strategy.compile_train_step(loss_fn, optimizer, mutable=True)
     steps_per_loop = max(args.steps_per_loop or 1, 1)
     loop = None
@@ -115,7 +142,8 @@ def main_fun(args, ctx):
 
     launches0 = fused_bn.launch_counts()
     t0, metrics = time.perf_counter(), {}
-    i = last_log = calls = 0
+    i = last_log = last_ckpt = start_step
+    calls = 0
     while i < args.train_steps:
         n = steps_per_loop if loop is not None and i + steps_per_loop <= args.train_steps else 1
         calls += 1
@@ -140,6 +168,14 @@ def main_fun(args, ctx):
             if trace is not None:
                 sp.set(device_trace=trace.readings)
                 print("device trace of call {}: {}".format(calls, json.dumps(trace.readings)))
+        if args.model_dir and args.checkpoint_steps and is_saver and i - last_ckpt >= args.checkpoint_steps:
+            with obs.span("ckpt_save", step=i):
+                checkpoint.save_checkpoint(os.path.join(args.model_dir, "ckpt_{}".format(i)), state)
+            last_ckpt = i
+            checkpoint.prune_checkpoints(args.model_dir, args.keep_checkpoints)
+    if metrics and args.model_dir and is_saver and last_ckpt < args.train_steps:
+        with obs.span("ckpt_save", step=i):
+            checkpoint.save_checkpoint(os.path.join(args.model_dir, "ckpt_{}".format(i)), state)
     for name, n in fused_bn.launch_counts().items():
         obs.counter(
             "fused_bn_{}_launches_total".format(name),
@@ -167,7 +203,14 @@ def build_parser():
     parser.add_argument("--steps_per_loop", type=int, default=1,
                         help="train steps a call of the train loop (on the card: one captured "
                              "CUDA graph, replayed)")
-    parser.add_argument("--model_dir", default=None, help="checkpoint dir (not yet ported)")
+    parser.add_argument("--model_dir", default=None,
+                        help="checkpoint dir: resume from its newest checkpoint, save into it")
+    parser.add_argument("--checkpoint_steps", type=int, default=0, metavar="N",
+                        help="checkpoint every N steps into --model_dir (0 = final checkpoint only)")
+    parser.add_argument("--keep_checkpoints", type=int, default=5, metavar="K",
+                        help="retain only the newest K periodic checkpoints")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="cuDNN deterministic algorithms: bitwise-reproducible runs")
     parser.add_argument("--profile_steps", default=None, metavar="START[,STOP]",
                         help="not yet ported")
     parser.add_argument("--steps_per_epoch", type=int, default=390)
@@ -179,13 +222,22 @@ def build_parser():
     parser.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
                         help="device of each trainer: one CUDA device per process, or the CPU")
     parser.add_argument("--auto_recover", type=int, default=0, metavar="N",
-                        help="not yet ported")
+                        help="relaunch the cluster up to N times on node failure, resuming from "
+                             "the latest checkpoint (pair with --model_dir + --checkpoint_steps; "
+                             "TFCluster.run_with_recovery)")
     return parser
 
 
 def main(argv=None, sc=None):
-    args = build_parser().parse_args(argv)
+    """Run the example; returns the relaunches ``--auto_recover`` made (0
+    without it)."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
     refuse_unported(args)
+    if args.auto_recover and not (args.model_dir and args.checkpoint_steps):
+        # without a mid-run checkpoint to resume from, every relaunch would
+        # silently restart at step 0 — refuse the misconfiguration up front
+        parser.error("--auto_recover requires --model_dir and --checkpoint_steps")
 
     from tensorflowonspark_tpu_torch import TFCluster, util
     from tensorflowonspark_tpu_torch.backends import get_spark_context
@@ -195,17 +247,26 @@ def main(argv=None, sc=None):
     sc, args.cluster_size, owned = get_spark_context(
         "resnet_spark", args.cluster_size, sc=sc, local_default=1
     )
+    env = {util.ENV_PLATFORM: args.platform}
+    relaunches = 0
     try:
-        cluster = TFCluster.run(
-            sc, main_fun, args, args.cluster_size,
-            input_mode=TFCluster.InputMode.TENSORFLOW, master_node="chief",
-            env={util.ENV_PLATFORM: args.platform},
-        )
-        cluster.shutdown()
-        print("resnet training complete")
+        if args.auto_recover:
+            relaunches = TFCluster.run_with_recovery(
+                sc, main_fun, args, args.cluster_size, max_relaunches=args.auto_recover,
+                input_mode=TFCluster.InputMode.TENSORFLOW, master_node="chief", env=env,
+            )
+            print("resnet training complete ({} relaunch(es))".format(relaunches))
+        else:
+            cluster = TFCluster.run(
+                sc, main_fun, args, args.cluster_size,
+                input_mode=TFCluster.InputMode.TENSORFLOW, master_node="chief", env=env,
+            )
+            cluster.shutdown()
+            print("resnet training complete")
     finally:
         if owned:
             sc.stop()
+    return relaunches
 
 
 if __name__ == "__main__":

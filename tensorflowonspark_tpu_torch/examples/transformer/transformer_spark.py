@@ -38,10 +38,14 @@ host ms in ``train.fetch`` / ``train.call`` / ``train.sync`` (and
 ``loader.place``, the placement within the fetch), printed and
 set on that call's span as ``device_trace``.
 
+With ``--model_dir`` a run resumes from the newest restorable checkpoint
+there (``checkpoint.restore_latest``, in place) and rank 0 saves the final
+state as ``ckpt_<train_steps>``, as the JAX example does; the text stream
+starts over on resume.
+
 Not yet ported, and refused with an error: ``--moe_experts`` > 0,
 ``--mesh`` axes other than ``dp`` (tensor and sequence parallelism, ring
-attention), ``--remat``, ``--model_dir``
-(checkpoints), ``--slab_cache_dir`` (the packed-slab cache) and
+attention), ``--remat``, ``--slab_cache_dir`` (the packed-slab cache) and
 ``--pack_workers`` > 0 (the forked pack plane: the trainer child has CUDA up
 by the time the pipeline starts, and a process must not fork after that).
 """
@@ -101,7 +105,6 @@ def refuse_unported(args):
         ("--moe_experts", args.moe_experts > 0, "mixture of experts"),
         ("--mesh " + ",".join(model_axes), model_axes, "model axes (tp/sp/ep, ring attention)"),
         ("--remat", args.remat, "rematerialization"),
-        ("--model_dir", args.model_dir, "checkpointing"),
         ("--pack_workers", (args.pack_workers or 0) > 0,
          "a pack plane built before the trainer touches CUDA"),
         ("--slab_cache_dir", args.slab_cache_dir, "the packed-slab cache"),
@@ -129,7 +132,7 @@ def main_fun(args, ctx):
     from tensorflowonspark_tpu_torch.models import transformer
     from tensorflowonspark_tpu_torch.ops import flash_attention
     from tensorflowonspark_tpu_torch.ops.kernel_trace import KernelTrace
-    from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel, checkpoint, optim
 
     refuse_unported(args)
     ctx.initialize_distributed()
@@ -144,6 +147,16 @@ def main_fun(args, ctx):
         transformer.make_init_fn(model), optimizer, torch.Generator().manual_seed(0)
     )
     loss_fn = transformer.make_loss_fn(model)
+    start_step = 0
+    if args.model_dir:
+        # resume contract (run_with_recovery / job resubmission): continue
+        # from the newest restorable checkpoint, copied into the state in place
+        with obs.span("ckpt_restore") as sp:
+            _, latest = checkpoint.restore_latest(args.model_dir, target=state)
+            sp.set(path=latest, step=state.step)
+        if latest:
+            start_step = state.step
+            print("resuming from {} at step {}".format(latest, start_step))
     step = strategy.compile_train_step(loss_fn, optimizer, has_aux=True)
     steps_per_loop = max(args.steps_per_loop or 1, 1)
     loop = None
@@ -187,7 +200,8 @@ def main_fun(args, ctx):
 
     launches0 = flash_attention.launch_counts()
     t0, metrics = time.perf_counter(), {}
-    i = last_log = calls = 0
+    i = last_log = start_step
+    calls = 0
     with record_function("train.fetch"):
         got = next(feed)
     while i < args.train_steps:
@@ -219,6 +233,10 @@ def main_fun(args, ctx):
                 print("device trace of call {}: {}".format(calls, json.dumps(trace.readings)))
     feed.close()
     stream.close()  # stop the producer before teardown
+    if args.model_dir and ctx.process_id == 0:  # every rank holds the same state
+        with obs.span("ckpt_save", step=args.train_steps):
+            checkpoint.save_checkpoint(
+                os.path.join(args.model_dir, "ckpt_{}".format(args.train_steps)), state)
     for name, n in flash_attention.launch_counts().items():
         obs.counter(
             "flash_attention_{}_launches_total".format(name[len("flash_"):]),
@@ -246,7 +264,8 @@ def build_parser():
     parser.add_argument("--max_bad_records", type=int, default=0)
     parser.add_argument("--mesh", default=None,
                         help="dp only (model axes are not yet ported); default: all-dp")
-    parser.add_argument("--model_dir", default=None, help="checkpoint dir (not yet ported)")
+    parser.add_argument("--model_dir", default=None,
+                        help="checkpoint dir: resume from its newest checkpoint, save the final state")
     parser.add_argument("--moe_experts", type=int, default=0, help="not yet ported above 0")
     parser.add_argument("--n_heads", type=int, default=8)
     parser.add_argument("--n_layers", type=int, default=2)

@@ -17,8 +17,11 @@ takes it without a copy) and hands back the same, so BatchNorm's
 (the JAX package leaves them to XLA); ``bn_impl="pallas"`` runs BatchNorm
 through the port's kernels
 (:class:`~tensorflowonspark_tpu_torch.ops.fused_bn.FusedBatchNorm`),
-``bn_impl="flax"`` through plain PyTorch math; under data parallelism both
-take the statistics over the global batch.
+``bn_impl="flax"`` through plain PyTorch math with f32 statistics, as the
+JAX package's flax BatchNorm; under data parallelism both take the
+statistics over the global batch. ``bn_impl="plain"`` is the kernels' plain
+versions composed, with f64 statistics: the yardstick the kernels' train
+step is held against.
 """
 
 import math
@@ -28,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tensorflowonspark_tpu_torch.models import register
-from tensorflowonspark_tpu_torch.ops.fused_bn import BatchNorm, FusedBatchNorm
+from tensorflowonspark_tpu_torch.ops.fused_bn import BatchNorm, FusedBatchNorm, PlainBatchNorm
 
 #: lecun_normal's truncated-normal correction: the std of a unit normal
 #: truncated to [-2, 2] (flax/jax ``variance_scaling`` constant)
@@ -40,8 +43,10 @@ def _norm(bn_impl, num_features, zero_init_scale=False):
         cls = FusedBatchNorm
     elif bn_impl == "flax":
         cls = BatchNorm
+    elif bn_impl == "plain":  # the checks' yardstick (f64 statistics)
+        cls = PlainBatchNorm
     else:
-        raise ValueError("bn_impl must be 'flax' or 'pallas', got {!r}".format(bn_impl))
+        raise ValueError("bn_impl must be 'flax', 'pallas' or 'plain', got {!r}".format(bn_impl))
     return cls(num_features, momentum=0.9, eps=1e-5, zero_init_scale=zero_init_scale)
 
 

@@ -45,6 +45,8 @@ tracing analogue of chaos-obs-coverage):
 ``h2d_transfer``           host→device transfer of a feed window
 ``step_compute``           one optimizer step (jit dispatch + wait)
 ``ckpt_snapshot``          checkpoint snapshot handoff to the async engine
+``ckpt_save``              a blocking checkpoint save (the ResNet and LM examples)
+``ckpt_restore``           a resume's restore of the newest checkpoint (the examples)
 ``comm_allreduce``         one bucketed all-reduce on the comm thread (retro)
 ``comm_window``            backprop window a bucket may hide under (retro)
 ``pipeline_stage``         one 1F1B stage op (fwd/bwd/fused loss) (retro)

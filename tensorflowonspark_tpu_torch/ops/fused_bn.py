@@ -40,13 +40,16 @@ launch into ``build/cuda`` and bound through ``ctypes``
 **Correctly rounded sums.** The sums (Σx, Σx², Σdy·x̂, Σdy) are rounded to
 f32 once, from f64 sums of short f32 sums (the rows of one round of a
 thread's loads); the plain version of ``bn_stats`` sums in f64 and rounds
-the same way (its f64 copy of the input lives only in the forward: the
-gradient that ``bn_impl="flax"`` takes through it is the f32 formula, on
-the saved input), and both then apply the reference's f32 formula, so the
-two agree to the bit in nearly every channel. An f32 training step is
-sensitive to the last bits of a layer's statistics: two f32 summation
-orders of the same activation move a ResNet-50 step's gradients about 2e-4
-apart, so the only order both sides can share is the exact one.
+the same way (its f64 copy of the input lives only in the forward: its
+gradient is the f32 formula, on the saved input), and both then apply the
+reference's f32 formula, so the two agree to the bit in nearly every
+channel. An f32 training step is sensitive to the last bits of a layer's
+statistics: two f32 summation orders of the same activation move a
+ResNet-50 step's gradients about 2e-4 apart, so the only order both sides
+can share is the exact one. That plain version is the checks' yardstick
+(``bn_impl="plain"``, :class:`PlainBatchNorm`); the ``bn_impl="flax"``
+training path sums in f32 (:func:`bn_stats_f32`), as the JAX package's
+flax BatchNorm does.
 
 **No block rule.** The JAX package needs a power-of-two row block that
 divides R (``_pick_block_or_none``) because Pallas pads a ragged last block
@@ -75,7 +78,8 @@ across ranks: the kernels' split mode (:func:`bn_stats_sums`,
 :func:`bn_bwd_reduce_sums`: the finishing CTA writes the f64 sums ``[2, C]``
 instead of rounding them), one ``all_reduce`` of those sums, and
 :func:`bn_finish`, which rounds them as the single launch does; the plain
-path all-reduces its own f64 sums, and its gradient's ``g_mean``/``g_var``.
+paths all-reduce their own sums (f64 for the yardstick, f32 for ``flax``),
+and their gradient's ``g_mean``/``g_var``.
 The row count is the local one times the world (the ranks hold equal
 batches, as the reference's even dp sharding does), and enters ``dx`` too.
 With one rank the single launches run, as before.
@@ -410,17 +414,27 @@ def bn_finish_plain(sums, n_rows, stats):
     return stats_from_sums(a, b, float(n_rows)) if stats else (a, b)
 
 
+def bn_stats_sums_f32(x2d):
+    """``[Σx, Σx²]`` per channel as f32 ``[2, C]``, summed in f32 as the
+    JAX package's flax BatchNorm reduces (``E[x]``, ``E[x²]`` of the input
+    promoted to f32)."""
+    xf = x2d.float()
+    return torch.stack([xf.sum(0), xf.square().sum(0)])
+
+
 class _PlainStats(torch.autograd.Function):
-    """The statistics from f64 sums rounded once to f32, and their gradient
-    by the f32 formula ``dx = (g_mean + 2·g_var·(x − mean)) / R`` (none
-    through a clamped var), so that autograd keeps ``x2d`` and no f64 copy.
-    With more than one rank the sums, and in the backward ``g_mean`` and
-    ``g_var``, are summed over the ranks and R is the global row count."""
+    """The statistics from sums rounded once to f32 — f64 sums with
+    ``exact`` (the checks' yardstick), else f32 sums (the flax training
+    path) — and their gradient by the f32 formula ``dx = (g_mean +
+    2·g_var·(x − mean)) / R`` (none through a clamped var), so that
+    autograd keeps ``x2d`` and no wider copy. With more than one rank the
+    sums, and in the backward ``g_mean`` and ``g_var``, are summed over the
+    ranks (in the sums' dtype) and R is the global row count."""
 
     @staticmethod
-    def forward(ctx, x2d):
+    def forward(ctx, x2d, exact):
         world = util.world_size()
-        sums = bn_stats_sums_plain(x2d)
+        sums = bn_stats_sums_plain(x2d) if exact else bn_stats_sums_f32(x2d)
         if world > 1:
             _all_reduce(sums)
         n_rows = x2d.shape[0] * world
@@ -438,11 +452,19 @@ class _PlainStats(torch.autograd.Function):
         if ctx.world > 1:
             g_mean, g_var = _all_reduce(torch.stack([g_mean, g_var]))
         n_rows = x2d.shape[0] * ctx.world
-        return ((g_mean + 2.0 * g_var * (x2d.float() - mean)) / n_rows).to(x2d.dtype)
+        return ((g_mean + 2.0 * g_var * (x2d.float() - mean)) / n_rows).to(x2d.dtype), None
 
 
 def bn_stats_plain(x2d):
-    return _PlainStats.apply(x2d)
+    """``bn_stats``' plain version, the yardstick of the checks: f64 sums,
+    each rounded once to f32 (differentiable)."""
+    return _PlainStats.apply(x2d, True)
+
+
+def bn_stats_f32(x2d):
+    """The flax BatchNorm's statistics: f32 sums, as the JAX package's
+    ``nn.BatchNorm`` computes them (differentiable)."""
+    return _PlainStats.apply(x2d, False)
 
 
 def bn_normalize_plain(x2d, mean, var, gamma, beta, eps):
@@ -745,13 +767,25 @@ class FusedBatchNorm(_BatchNormBase):
 
 class BatchNorm(_BatchNormBase):
     """``bn_impl="flax"``: plain PyTorch math, differentiated by autograd
-    through the batch statistics (the kernels' plain versions, composed).
-    Statistics are over the global batch under data parallelism, as the
-    JAX package's flax BN computes them inside its SPMD step."""
+    through the batch statistics, which are summed in f32 as the JAX
+    package's flax BatchNorm sums them (:func:`bn_stats_f32`). Statistics
+    are over the global batch under data parallelism (an f32 all-reduce),
+    as the JAX package's flax BN computes them inside its SPMD step."""
+
+    stats = staticmethod(bn_stats_f32)
 
     def _train_forward(self, x):
         n_ch = x.shape[-1]
         x2d = x.reshape(-1, n_ch)
-        mean, var = bn_stats_plain(x2d)
+        mean, var = self.stats(x2d)
         y2d = bn_normalize_plain(x2d, mean, var, self.weight, self.bias, self.eps)
         return y2d.reshape(x.shape), mean.detach(), var.detach()
+
+
+class PlainBatchNorm(BatchNorm):
+    """``bn_impl="plain"``: the four kernels' plain versions composed, with
+    the statistics from f64 sums (:func:`bn_stats_plain`): the yardstick a
+    train step through the kernels is held against. Not a training option
+    of the examples: f64 sums cost a step more than the f32 ones."""
+
+    stats = staticmethod(bn_stats_plain)

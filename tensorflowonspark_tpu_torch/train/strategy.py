@@ -388,44 +388,61 @@ def _all_reduce_mean(grads, metrics):
 
 
 def run_steps(step_fn, state, batches, engine=None, save_every_n=None, hooks=()):
-    """Drive a step (or loop) function over ``batches`` with per-step hooks.
-    Returns ``(state, last_metrics)``.
+    """Drive a step (or loop) function over ``batches`` with per-step hooks
+    and non-blocking checkpointing. Returns ``(state, last_metrics)``.
 
     Each step is two obs spans, ``step_fetch`` (the next batch) and
     ``step_compute`` (the step), with the global step as an attribute; each
     lands in the flight shard and in the ``{span}_seconds`` histogram.
     ``hooks`` are callables ``hook(state, global_step, metrics)`` run after
     every step (eval triggers, LR logging); the global step is counted on
-    the host from one initial read of ``state.step``.
+    the host from one initial read of ``state.step`` and advances one per
+    call of ``step_fn`` (a loop's call too, as in the JAX version).
 
-    ``engine`` (the JAX package's asynchronous checkpoint engine) is not yet
-    ported and raises; ``save_every_n`` is its cadence and is unused
-    without it.
+    The loop hook for the async checkpoint engine
+    (:class:`tensorflowonspark_tpu_torch.ckpt.AsyncCheckpointEngine`): every
+    ``save_every_n`` steps (default: the engine's own cadence) the state is
+    snapshotted to host in a ``ckpt_snapshot`` span — the only checkpoint
+    cost the training thread pays — and committed in the background; on
+    exit (including an exception unwinding through the loop) the engine is
+    **drained** so the final snapshot lands before the caller tears
+    anything down.
+
+    Safe by ordering: the step updates the state in place, and on the card
+    the snapshot's device-to-host copies are queued on the current stream,
+    the one the next step (or replayed graph) runs on, so they read this
+    step's state before the next step writes it; the writer waits for them
+    before it reads the host buffers.
     """
-    if engine is not None:
-        raise NotImplementedError(
-            "run_steps(engine=...) is not yet ported to tensorflowonspark_tpu_torch "
-            "(asynchronous checkpoints come in a later slice)")
-    del save_every_n
     from tensorflowonspark_tpu_torch import obs
 
     start = state.get("step", 0) if isinstance(state, dict) else getattr(state, "step", 0)
     start_step = int(start)
+    cadence = save_every_n if save_every_n is not None else (
+        engine.save_every_n if engine is not None else 0
+    )
     metrics = None
     it = iter(batches)
     i = 0
-    while True:
-        with obs.span("step_fetch", step=start_step + i + 1):
-            try:
-                batch = next(it)
-            except StopIteration:
-                break
-        with obs.span("step_compute", step=start_step + i + 1):
-            state, metrics = step_fn(state, batch)
-        global_step = start_step + i + 1
-        for hook in hooks:
-            hook(state, global_step, metrics)
-        i += 1
+    try:
+        while True:
+            with obs.span("step_fetch", step=start_step + i + 1):
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+            with obs.span("step_compute", step=start_step + i + 1):
+                state, metrics = step_fn(state, batch)
+            global_step = start_step + i + 1
+            for hook in hooks:
+                hook(state, global_step, metrics)
+            if engine is not None and cadence and global_step % cadence == 0:
+                with obs.span("ckpt_snapshot", step=global_step):
+                    engine.save(state, global_step)
+            i += 1
+    finally:
+        if engine is not None:
+            engine.drain()
     return state, metrics
 
 

@@ -141,11 +141,48 @@ def test_two_executor_gloo_lm_keeps_params_bit_identical(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--moe_experts", "2"], ["--mesh", "dp=1,tp=2"], ["--remat"],
-                                  ["--model_dir", "m"], ["--pack_workers", "2"],
-                                  ["--slab_cache_dir", "s"]])
+                                  ["--pack_workers", "2"], ["--slab_cache_dir", "s"]])
 def test_unported_lm_options_are_refused(flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         transformer_spark.main(TINY_LM + flag)
+
+
+def _run_events(main_fun, args, timeout=120):
+    """``(train_step spans, ckpt_restore spans)`` of a one-executor run."""
+    sc = LocalSparkContext(num_executors=1, task_timeout=timeout)
+    try:
+        cluster = TFCluster.run(sc, main_fun, args, 1, input_mode=TFCluster.InputMode.TENSORFLOW,
+                                env=CPU_ENV)
+        assert cluster.wait_for_completion(timeout=timeout)
+        events = cluster.metrics(include_driver=False)["events"]
+        cluster.shutdown()
+    finally:
+        sc.stop()
+    return ([e for e in sorted(events, key=lambda e: e.get("step", 0)) if e.get("span") == "train_step"],
+            [e for e in events if e.get("span") == "ckpt_restore"])
+
+
+def test_transformer_model_dir_saves_and_resumes(tmp_path):
+    """``--model_dir`` on the LM example: the final state is saved as
+    ``ckpt_<train_steps>``; a second run with more steps restores it and
+    trains only the rest."""
+    from tensorflowonspark_tpu_torch import ckpt
+    from tensorflowonspark_tpu_torch.train import checkpoint
+
+    data_dir, model_dir = str(tmp_path / "corpus"), str(tmp_path / "model")
+    transformer_spark.make_text_corpus(data_dir, num_shards=2, records_per_shard=40)
+    argv = TINY_LM + ["--data_dir", data_dir, "--model_dir", model_dir]
+    first, restores = _run_events(transformer_spark.main_fun, transformer_spark.build_parser().parse_args(argv))
+    assert [e["step"] for e in first] == [1, 2, 3] and restores[0]["path"] is None
+    assert sorted(os.listdir(model_dir)) == ["ckpt_3"]
+    argv[argv.index("--train_steps") + 1] = "5"
+    second, restores = _run_events(transformer_spark.main_fun, transformer_spark.build_parser().parse_args(argv))
+    assert [e["step"] for e in second] == [4, 5]
+    assert restores[0]["path"].endswith("ckpt_3") and restores[0]["step"] == 3
+    assert sorted(os.listdir(model_dir)) == ["ckpt_3", "ckpt_5"]
+    assert ckpt.verify(os.path.join(model_dir, "ckpt_5")) == (True, "verified")
+    tree = checkpoint.restore_checkpoint(os.path.join(model_dir, "ckpt_5"))
+    assert tree["step"] == 5 and int(tree["opt_state"]["count"]) == 5
 
 
 def _train_step_losses(main_fun, args, timeout=120):
@@ -245,16 +282,66 @@ def test_gpu_platform_without_cuda_fails_the_cluster():
         sc.stop()
 
 
-@pytest.mark.parametrize("flag", [["--model_dir", "m"], ["--data_dir", "d"], ["--eval_dir", "e"],
-                                  ["--profile_steps", "2,3"], ["--auto_recover", "1"]])
+@pytest.mark.parametrize("flag", [["--data_dir", "d"], ["--eval_dir", "e"], ["--profile_steps", "2,3"]])
 def test_unported_options_are_refused(flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         resnet_spark.main(TINY + flag)
 
 
-def test_run_with_recovery_is_refused():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TFCluster.run_with_recovery(None, fn_train_and_save, {}, 1)
+def test_resnet_model_dir_checkpoints_prunes_and_resumes(tmp_path):
+    """``--model_dir --checkpoint_steps 2 --keep_checkpoints 2`` on the
+    ResNet example: saves on loop-call boundaries, pruned to the newest
+    two, each manifest-verified; a second run with more steps restores the
+    newest (a ``ckpt_restore`` span) and trains only the rest, so its
+    ``train_step`` spans start past it."""
+    from tensorflowonspark_tpu_torch import ckpt
+    from tensorflowonspark_tpu_torch.train import checkpoint
+
+    model_dir = str(tmp_path / "model")
+    argv = list(TINY) + ["--model_dir", model_dir, "--checkpoint_steps", "2", "--keep_checkpoints", "2",
+                         "--steps_per_loop", "2"]
+    argv[argv.index("--train_steps") + 1] = "6"
+    first, restores = _run_events(resnet_spark.main_fun, resnet_spark.build_parser().parse_args(argv))
+    assert [e["step"] for e in first] == [2, 4, 6] and restores[0]["path"] is None
+    assert sorted(os.listdir(model_dir)) == ["ckpt_4", "ckpt_6"]
+    argv[argv.index("--train_steps") + 1] = "10"
+    second, restores = _run_events(resnet_spark.main_fun, resnet_spark.build_parser().parse_args(argv))
+    assert [e["step"] for e in second] == [8, 10]
+    assert restores[0]["path"].endswith("ckpt_6") and restores[0]["step"] == 6
+    assert sorted(os.listdir(model_dir)) == ["ckpt_10", "ckpt_8"]
+    for name in os.listdir(model_dir):
+        assert ckpt.verify(os.path.join(model_dir, name)) == (True, "verified")
+    tree = checkpoint.restore_checkpoint(os.path.join(model_dir, "ckpt_10"))
+    assert tree["step"] == 10 and int(tree["opt_state"]["count"]) == 10
+    assert tree["model_state"] and all(k.endswith(("running_mean", "running_var")) for k in tree["model_state"])
+
+
+def test_resnet_auto_recover_runs_through_run_with_recovery(tmp_path):
+    """``--auto_recover`` runs the example through
+    ``TFCluster.run_with_recovery`` (0 relaunches on a healthy run, the
+    final checkpoint written), and refuses to run without a checkpoint to
+    resume from."""
+    model_dir = str(tmp_path / "model")
+    sc = LocalSparkContext(num_executors=1, task_timeout=120)
+    try:
+        relaunches = resnet_spark.main(TINY + ["--auto_recover", "1", "--model_dir", model_dir,
+                                               "--checkpoint_steps", "2"], sc=sc)
+    finally:
+        sc.stop()
+    assert relaunches == 0 and sorted(os.listdir(model_dir)) == ["ckpt_2"]
+    with pytest.raises(SystemExit):
+        resnet_spark.main(TINY + ["--auto_recover", "1"])
+
+
+def test_run_with_recovery_checks_its_input_mode():
+    """``run_with_recovery`` runs (tests/test_torch_resume.py kills and
+    resumes a trainer through it); it checks the feed mode first, as the
+    JAX package's does."""
+    with pytest.raises(ValueError, match="feed_fn"):
+        TFCluster.run_with_recovery(None, fn_train_and_save, {}, 1, input_mode=TFCluster.InputMode.SPARK)
+    with pytest.raises(ValueError, match="InputMode.SPARK"):
+        TFCluster.run_with_recovery(None, fn_train_and_save, {}, 1, input_mode=TFCluster.InputMode.TENSORFLOW,
+                                    feed_fn=lambda cluster: None)
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
@@ -278,6 +365,10 @@ assert len(names) >= 50, names
 from tensorflowonspark_tpu_torch.data.loader import PinnedPlacer, loop_prefetch, packed_prefetch
 from tensorflowonspark_tpu_torch.ops.fused_bn import bn_finish, bn_stats_sums, bn_bwd_reduce_sums
 from tensorflowonspark_tpu_torch.train.strategy import _CapturedLoop, run_steps, steps_per_worker
+from tensorflowonspark_tpu_torch import ckpt, control, elastic
+from tensorflowonspark_tpu_torch.ckpt import AsyncCheckpointEngine, snapshot_to_host, verify
+from tensorflowonspark_tpu_torch.convert import convert_train_state
+from tensorflowonspark_tpu_torch.train import checkpoint
 from tensorflowonspark_tpu_torch.examples import sync_dp_check
 from tensorflowonspark_tpu_torch.examples.resnet import bench_bn, profile_step
 from tensorflowonspark_tpu_torch.ops.kernel_trace import KernelTrace, kernel_base

@@ -12,6 +12,8 @@ JAX version's ``lax.scan`` loop from the same converted weights on the same
 batches (float32).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -263,8 +265,7 @@ def test_run_steps_spans_and_hooks():
     """``run_steps`` over a loop: one ``step_fetch`` and one
     ``step_compute`` span a call (the global step as their attribute, and
     the ``{span}_seconds`` histograms), hooks see the global step from
-    ``state.step`` on, and the last metrics come back; the checkpoint
-    engine is refused until it is ported."""
+    ``state.step`` on, and the last metrics come back."""
     strategy = SyncDataParallel("cpu")
     optimizer = optim.sgd(0.1)
     state = strategy.create_state(lambda: torch.nn.Linear(2, 1, bias=False), optimizer)
@@ -279,8 +280,41 @@ def test_run_steps_spans_and_hooks():
     assert seen == [(11, 12), (12, 14), (13, 16)] and metrics["step"] == 16
     assert obs.histogram("step_compute_seconds").count == computed + 3
     assert obs.histogram("step_fetch_seconds").count == fetched + 4  # the last fetch ends the loop
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        strategy_mod.run_steps(loop, state, [], engine=object())
+
+
+def test_run_steps_checkpoints_a_loop_through_the_engine(tmp_path):
+    """``run_steps(engine=...)`` over a K=2 loop: the global step advances
+    one a call, so ``save_every_n=2`` snapshots every second call (every 4
+    train steps) in a ``ckpt_snapshot`` span; each commit holds the state
+    of its own call — the step, parameters, momentum and count — and the
+    engine is drained when the loop ends."""
+    from tensorflowonspark_tpu_torch import ckpt
+    from tensorflowonspark_tpu_torch.train import checkpoint
+
+    strategy = SyncDataParallel("cpu")
+    optimizer = optim.sgd(0.1, momentum=0.9)
+    torch.manual_seed(0)
+    state = strategy.create_state(lambda: torch.nn.Linear(2, 1), optimizer)
+    loop = strategy.compile_train_loop(lambda m, b: m(b["x"]).square().mean(), optimizer, 2)
+    batch = strategy.shard_batch({"x": np.ones((3, 2), np.float32)})
+    seen = {}
+    snapshots = obs.histogram("ckpt_snapshot_seconds").count
+    engine = ckpt.AsyncCheckpointEngine(str(tmp_path), save_every_n=2)
+    state, _ = strategy_mod.run_steps(
+        loop, state, [[batch, batch]] * 4, engine=engine,
+        hooks=[lambda s, step, m: seen.update({step: {k: v.detach().clone() for k, v in s.params.items()}})])
+    assert engine.saves_accepted == 2 and engine.pending_desc() is None  # drained
+    assert obs.histogram("ckpt_snapshot_seconds").count == snapshots + 2
+    names = sorted(os.listdir(tmp_path))
+    assert "ckpt_4" in names and set(names) <= {"ckpt_2", "ckpt_4"}
+    for name in names:
+        call = int(name.split("_")[1])
+        tree = checkpoint.restore_checkpoint(os.path.join(tmp_path, name))
+        assert tree["step"] == 2 * call and int(tree["opt_state"]["count"]) == 2 * call
+        for key, value in seen[call].items():
+            assert torch.equal(tree["params"][key], value)
+    assert torch.equal(tree["opt_state"]["trace"]["weight"], state.opt_state["trace"]["weight"])
+    engine.close()
 
 
 @pytest.mark.parametrize("args", [(60000, 64, 3), (10, 64, 3), (1281167, 256, 4), (50000, 128, 0),
