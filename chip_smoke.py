@@ -123,7 +123,37 @@ and the script exits non-zero:
                   seconds, restore seconds, seconds from the kill to the
                   second life's first logged step, and both wall times, read
                   from the runs' flight shards (``TOS_TRACE_DIR``).
-11. ``kernels``   every kernel of the port and whether the eager and the
+11. ``mnist_compare`` ``MnistMLP`` (784-512-10) and ``MnistCNN`` at full
+                  width, float32 with TF32 off: eval logits and one Adam step
+                  through ``SyncDataParallel`` on the card against the same
+                  on the CPU, from the same weights (seed 0) and 64 rows of
+                  the examples' data (``synthetic_mnist``): logits, loss,
+                  every gradient tensor and the parameters after the step
+                  (against their starting values), each within 1e-4
+                  relative; then a 1% fault in one gradient that the
+                  gradient limit must catch.
+12. ``slice_mnist`` the port's InputMode.SPARK path: ``mnist_spark.main``
+                  through ``TFCluster.run``, one executor and the card, one
+                  epoch of 60,000 synthetic rows (MNIST's train split) in 8
+                  partitions, batch 64, with ``--model_dir`` (a checkpoint
+                  every 250 steps) and ``--export_dir``: rows fed, rows the
+                  trainer took off the feed and trained on (the example's
+                  90% cap: 843 steps), the epoch's seconds (``cluster.train``)
+                  and images/s, first and last loss (finite, falling), the
+                  checkpoints and the bundle, and each kernel wrapper's
+                  launches in the trainer (0: MNIST runs none of them).
+13. ``pipeline_mnist`` ``mnist_pipeline.main`` on the card:
+                  ``TFEstimator.fit`` on 10,000 rows, then
+                  ``TFModel.transform`` of 2,048 rows in the executor; the
+                  predictions must equal, row for row, the bundle's
+                  ``predict_fn`` run in this process on the card, and every
+                  row must report the executor's predict ran on ``cuda:0``.
+14. ``parallel_mnist`` ``mnist_inference.main`` through TFParallel, one
+                  instance on the card, over ``slice_mnist``'s bundle: its
+                  part file must equal, row for row, the direct predict of
+                  the same 2,048 rows, and so give the same correct count.
+                  Each MNIST phase prints its seconds (``<phase>_seconds``).
+15. ``kernels``   every kernel of the port and whether the eager and the
                   loop paths of phases 5 and 7 launched it, the traced loop
                   call ran it on the card, and (the BN kernels) run A of the
                   recover phase launched it.
@@ -132,7 +162,8 @@ Then one JSON line with every kernel's measurements (``launches``: its
 wrapper's on the eager path; ``launches_loop_path``: its wrapper's on the
 loop path; ``device_launches_traced_loop_call``: the card's in the traced
 loop call; ``launches_recover_path``: its wrapper's in the recover phase's
-run A), the ``nvidia-smi``
+run A; ``launches_mnist_path``: its wrapper's in ``slice_mnist``'s
+trainer), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script fails before printing anything.
 """
@@ -1503,6 +1534,282 @@ def phase_recover(torch, fused_bn, work):
     return launches
 
 
+#: the MNIST phases: the example's batch, one epoch of MNIST's train split
+#: (synthetic rows) in 8 partitions, a checkpoint every MNIST_CKPT steps; the
+#: pipeline trains on MNIST_PIPELINE rows and transforms MNIST_TEST of them,
+#: TFParallel predicts MNIST_TEST rows of the inference example's own
+MNIST_BATCH, MNIST_EXAMPLES, MNIST_PARTITIONS, MNIST_CKPT = 64, 60000, 8, 250
+MNIST_PIPELINE, MNIST_TEST = 10000, 2048
+#: the device the MNIST phases run on, and report, on the card
+MNIST_DEVICE = "cuda:0"
+#: the card against the CPU, float32 with TF32 off: logits, loss, each
+#: gradient tensor and the parameters after one Adam step, each as
+#: ||card - cpu|| / ||cpu|| (all the parameters as one vector, against their
+#: starting values: the biases start at 0)
+MNIST_REL_TOL = 1e-4
+
+
+def timed(name, phase, *args):
+    """Run ``phase(*args)``, print its seconds as ``<name>_seconds``, return
+    its result."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    emit({"phase": name + "_seconds", "seconds": time.perf_counter() - t0})
+    return out
+
+
+def _mnist_run(torch, mnist, kind, device, batch, fault=None):
+    """One Adam step of an MNIST model (weights seed 0) through
+    ``SyncDataParallel`` on ``device``: eval logits before it, the loss,
+    each parameter's gradient and value after it (host tensors). The MLP
+    trains through the example's loss at dropout 0, the CNN (dropout fixed
+    at 0.5) through the eval-mode loss: the two devices' generators draw
+    different masks. ``fault`` (a parameter name) scales that gradient by
+    1.01 before the update."""
+    import torch.nn.functional as F
+
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
+
+    cfg = {"dropout_rate": 0.0} if kind == "mlp" else {}
+    model = mnist.create_model(kind, generator=torch.Generator().manual_seed(0), **cfg)
+    strategy = SyncDataParallel(device)
+    opt = optim.adam(1e-3)
+    if fault is not None:
+        real = opt.update
+
+        def update(params, grads, state):
+            grads[fault].mul_(1.01)
+            return real(params, grads, state)
+
+        opt.update = update
+    state = strategy.create_state(lambda: model, opt)
+    placed = strategy.shard_batch(batch)
+    with torch.no_grad():
+        logits = state.module(placed["image"]).cpu()
+    if kind == "mlp":
+        loss_fn = mnist.make_loss_fn(model)
+    else:
+        def loss_fn(module, b):
+            return F.cross_entropy(module(b["image"], train=False), b["label"].long()), {}
+    step = strategy.compile_train_step(loss_fn, opt, has_aux=True)
+    state, metrics = step(state, placed)
+    return {"logits": logits, "loss": float(metrics["loss"]),
+            "grads": {n: p.grad.detach().cpu() for n, p in state.module.named_parameters()},
+            "params": {n: p.detach().cpu() for n, p in state.module.named_parameters()}}
+
+
+def phase_mnist_compare(torch):
+    """``MnistMLP`` and ``MnistCNN`` at full width: logits and one Adam step
+    on the card against the same on the CPU, from the same weights and 64
+    rows of the examples' data, float32 with TF32 off, each within
+    ``MNIST_REL_TOL``; then a 1% fault in one gradient on the card, which
+    the gradient limit must catch (Adam's first step hardly moves with it:
+    g/(|g| + eps) is about sign(g))."""
+    from tensorflowonspark_tpu_torch.examples.mnist.mnist_data_setup import synthetic_mnist
+    from tensorflowonspark_tpu_torch.models import mnist
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images, labels = synthetic_mnist(MNIST_BATCH)
+    batch = {"image": images, "label": labels}
+    start = {kind: dict(mnist.create_model(kind, generator=torch.Generator().manual_seed(0)).named_parameters())
+             for kind in ("mlp", "cnn")}
+    for kind in ("mlp", "cnn"):
+        card = _mnist_run(torch, mnist, kind, MNIST_DEVICE, batch)
+        cpu = _mnist_run(torch, mnist, kind, "cpu", batch)
+        grad_rel = {n: _rel(card["grads"][n], g) for n, g in cpu["grads"].items()}
+        flat = lambda tree: torch.cat([tree[n].detach().flatten() for n in sorted(tree)])  # noqa: E731
+        param_rel = float((flat(card["params"]) - flat(cpu["params"])).norm() / flat(start[kind]).norm())
+        fault = max(cpu["grads"], key=lambda n: cpu["grads"][n].norm())
+        faulted = _mnist_run(torch, mnist, kind, MNIST_DEVICE, batch, fault=fault)
+        control = _rel(faulted["grads"][fault], cpu["grads"][fault])
+        line = {"phase": "mnist_compare", "model": kind, "dtype": "float32", "tf32": False,
+                "batch": MNIST_BATCH, "params": sum(p.numel() for p in cpu["params"].values()),
+                "logits_rel": _rel(card["logits"], cpu["logits"]),
+                "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+                "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+                "grad_rel_max": max(grad_rel.values()), "param_rel_to_start": param_rel,
+                "tolerance": MNIST_REL_TOL, "fault": "{} gradient x 1.01".format(fault),
+                "fault_grad_rel": control,
+                "fault_param_rel_to_start": float((flat(faulted["params"]) - flat(cpu["params"])).norm()
+                                                  / flat(start[kind]).norm()),
+                "seconds": time.perf_counter() - t0}
+        emit(line)
+        worst = max(line["logits_rel"], line["loss_rel"], line["grad_rel_max"], line["param_rel_to_start"])
+        if not (math.isfinite(card["loss"]) and worst <= MNIST_REL_TOL):
+            raise AssertionError("mnist_compare {}: card vs CPU {} beyond {}: {}".format(
+                kind, worst, MNIST_REL_TOL, line))
+        if not control > MNIST_REL_TOL:
+            raise AssertionError("mnist_compare {}: a 1% fault in {} reads {}, within the limit {}".format(
+                kind, fault, control, MNIST_REL_TOL))
+
+
+def phase_slice_mnist(torch, work):
+    """The port's InputMode.SPARK path: ``mnist_spark.main`` through
+    ``TFCluster.run`` on one executor and the card, one epoch of
+    ``MNIST_EXAMPLES`` synthetic rows in ``MNIST_PARTITIONS`` partitions,
+    batch ``MNIST_BATCH``, with ``--model_dir`` and ``--export_dir``. The
+    trainer stops at the example's 90% cap (``steps_per_worker``) and ends
+    the feed; the rows it took off the feed are the rows it trained on.
+    Returns the bundle's directory and each kernel wrapper's launches in
+    the trainer (the MNIST models call none)."""
+    import shutil
+
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+    from tensorflowonspark_tpu_torch.examples.mnist import mnist_spark
+    from tensorflowonspark_tpu_torch.train import steps_per_worker
+
+    model_dir, export_dir = os.path.join(work, "model"), os.path.join(work, "bundle")
+    for d in (model_dir, export_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    sc = LocalSparkContext(num_executors=1)
+    try:
+        out = mnist_spark.main([
+            "--cluster_size", "1", "--epochs", "1", "--num_examples", str(MNIST_EXAMPLES),
+            "--batch_size", str(MNIST_BATCH), "--num_partitions", str(MNIST_PARTITIONS),
+            "--checkpoint_steps", str(MNIST_CKPT), "--log_steps", "200",
+            "--model_dir", model_dir, "--export_dir", export_dir], sc=sc)
+    finally:
+        sc.stop()
+    wall = time.perf_counter() - t0
+    metrics = out["metrics"]
+    (span,) = [e for e in metrics["events"] if e.get("span") == "mnist_train"]
+    counters = {k: v["value"] for k, v in metrics["counters"].items()}
+    launches = {fn: int(counters.get(fn + "_launches_total", -1))
+                for fn in [t[0] for t in KERNEL_TABLE] + [t[0] for t in FLASH_TABLE]}
+    cap = steps_per_worker(MNIST_EXAMPLES, MNIST_BATCH, 1)
+    line = {"phase": "slice_mnist", "model": "mnist_mlp", "hidden": 512, "dtype": "float32",
+            "input_mode": "SPARK", "batch": MNIST_BATCH, "examples": MNIST_EXAMPLES, "epochs": 1,
+            "partitions": MNIST_PARTITIONS, "executors": 1, "device": span["device"],
+            "rows_fed": int(counters.get("feed_rows_total", 0)),
+            "feed_chunks": int(counters.get("feed_chunks_total", 0)),
+            "rows_taken_off_the_feed": int(counters.get("train_rows_total", 0)),
+            "rows_trained": span["steps"] * MNIST_BATCH, "steps": span["steps"], "step_cap": cap,
+            "epoch_s": out["train_s"], "epoch_images_per_sec": span["rows"] / out["train_s"],
+            "trainer_s": span["train_s"], "trainer_images_per_sec": span["images_per_sec"],
+            "trainer_host_s": {k: span[k] for k in ("feed_s", "batch_s", "step_s")},
+            "first_loss": span["first_loss"], "last_loss": span["last_loss"],
+            "checkpoints": sorted(os.listdir(model_dir)) if os.path.isdir(model_dir) else [],
+            "bundle": sorted(os.listdir(export_dir)) if os.path.isdir(export_dir) else [],
+            "launches": launches, "wall_s": wall}
+    emit(line)
+    want_ckpts = ["ckpt_{}".format(s) for s in range(MNIST_CKPT, cap + 1, MNIST_CKPT)]
+    if not (line["device"] == MNIST_DEVICE and span["steps"] == cap
+            and line["rows_taken_off_the_feed"] == line["rows_trained"] == span["rows"]
+            and line["rows_fed"] >= line["rows_trained"]):
+        raise AssertionError("slice_mnist: steps {} (cap {}), rows fed {}, taken {}, trained {} on {}".format(
+            span["steps"], cap, line["rows_fed"], line["rows_taken_off_the_feed"], line["rows_trained"],
+            line["device"]))
+    if not (math.isfinite(span["first_loss"]) and math.isfinite(span["last_loss"])
+            and span["last_loss"] < span["first_loss"]):
+        raise AssertionError("slice_mnist: loss {} -> {} is not finite and falling".format(
+            span["first_loss"], span["last_loss"]))
+    if line["checkpoints"] != sorted(want_ckpts) or line["bundle"] != ["predict_builder.pkl", "weights.npz"]:
+        raise AssertionError("slice_mnist: checkpoints {} (want {}), bundle {}".format(
+            line["checkpoints"], want_ckpts, line["bundle"]))
+    if any(launches.values()):
+        raise AssertionError("slice_mnist: kernel launches {} on the MNIST path".format(launches))
+    return export_dir, launches
+
+
+def _direct_predict(predict_fn, params, model_state, images, batch_size):
+    """The bundle's ``predict_fn`` in this process, in the batches of the
+    caller it is held against (a short last batch padded with its last row,
+    as ``TFModel.transform`` pads it)."""
+    import numpy as np
+
+    preds, devices = [], set()
+    for lo in range(0, len(images), batch_size):
+        chunk = images[lo:lo + batch_size].reshape(-1, 28 * 28)
+        n = len(chunk)
+        if n < batch_size:
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], batch_size - n, axis=0)])
+        out = predict_fn(params, model_state, {"image": chunk})
+        preds.extend(np.asarray(out["prediction"])[:n].tolist())
+        devices.update(np.asarray(out["device"]).tolist())
+    return preds, devices
+
+
+def phase_pipeline_mnist(torch, work):
+    """``mnist_pipeline.main`` on the card: ``TFEstimator.fit`` (one
+    executor, InputMode.SPARK) exports a bundle, then ``TFModel.transform``
+    predicts ``MNIST_TEST`` rows inside the executor, whose rows report the
+    device they ran on. The predictions must equal, row for row, the
+    bundle's ``predict_fn`` run in this process on the card."""
+    import shutil
+
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+    from tensorflowonspark_tpu_torch.examples.mnist import mnist_pipeline
+    from tensorflowonspark_tpu_torch.examples.mnist.mnist_data_setup import synthetic_mnist
+    from tensorflowonspark_tpu_torch.train import export
+
+    export_dir = os.path.join(work, "pipeline_bundle")
+    shutil.rmtree(export_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    sc = LocalSparkContext(num_executors=1)
+    try:
+        preds, labels, devices = mnist_pipeline.main([
+            "--cluster_size", "1", "--epochs", "1", "--num_examples", str(MNIST_PIPELINE),
+            "--batch_size", str(MNIST_BATCH), "--num_test", str(MNIST_TEST), "--export_dir", export_dir], sc=sc)
+    finally:
+        sc.stop()
+    wall = time.perf_counter() - t0
+    predict_fn, params, model_state = export.load_model(export_dir)  # on the card
+    images, _ = synthetic_mnist(MNIST_PIPELINE)
+    t1 = time.perf_counter()
+    direct, direct_devices = _direct_predict(predict_fn, params, model_state, images[:MNIST_TEST], MNIST_BATCH)
+    mismatches = sum(a != b for a, b in zip(preds, direct))
+    line = {"phase": "pipeline_mnist", "train_rows": MNIST_PIPELINE, "batch": MNIST_BATCH,
+            "transform_rows": len(preds), "executor_devices": sorted(set(devices)),
+            "direct_devices": sorted(direct_devices), "mismatches": mismatches,
+            "accuracy": sum(int(p == y) for p, y in zip(preds, labels)) / max(len(preds), 1),
+            "direct_predict_s": time.perf_counter() - t1, "wall_s": wall}
+    emit(line)
+    if len(preds) != MNIST_TEST or mismatches or set(devices) != {MNIST_DEVICE} or direct_devices != {MNIST_DEVICE}:
+        raise AssertionError("pipeline_mnist: {} rows, {} differ from the direct predict, executor devices {}, "
+                             "direct {}".format(len(preds), mismatches, set(devices), direct_devices))
+
+
+def phase_parallel_mnist(torch, bundle):
+    """``mnist_inference.main`` through TFParallel, one instance on the
+    card, over ``slice_mnist``'s bundle: its part file must give, row for
+    row, the predictions of the bundle's ``predict_fn`` run in this
+    process on the card, and so the same correct count."""
+    import shutil
+
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+    from tensorflowonspark_tpu_torch.examples.mnist import mnist_inference
+    from tensorflowonspark_tpu_torch.examples.mnist.mnist_data_setup import synthetic_mnist
+    from tensorflowonspark_tpu_torch.train import export
+
+    output = os.path.join(os.path.dirname(bundle), "parallel_out")
+    shutil.rmtree(output, ignore_errors=True)
+    batch_size = 256  # the example's default
+    t0 = time.perf_counter()
+    sc = LocalSparkContext(num_executors=1)
+    try:
+        done = mnist_inference.main(["--cluster_size", "1", "--num_examples", str(MNIST_TEST),
+                                     "--batch_size", str(batch_size), "--export_dir", bundle,
+                                     "--output", output], sc=sc)
+    finally:
+        sc.stop()
+    wall = time.perf_counter() - t0
+    pairs = mnist_inference.read_parts(output)
+    predict_fn, params, model_state = export.load_model(bundle)  # on the card
+    images, labels = synthetic_mnist(MNIST_TEST, seed=99)
+    direct, direct_devices = _direct_predict(predict_fn, params, model_state, images, batch_size)
+    line = {"phase": "parallel_mnist", "instances": len(done), "rows": len(pairs),
+            "correct": sum(int(y == p) for y, p in pairs),
+            "correct_direct": sum(int(y == p) for y, p in zip(labels.tolist(), direct)),
+            "mismatches": sum(a != b for a, b in zip(pairs, zip(labels.tolist(), direct))),
+            "direct_devices": sorted(direct_devices), "wall_s": wall}
+    emit(line)
+    if done != [0] or len(pairs) != MNIST_TEST or line["mismatches"] or line["correct"] != line["correct_direct"]:
+        raise AssertionError("parallel_mnist: {}".format(line))
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1601,6 +1908,11 @@ def main():
     work = os.path.join(here, "build", "chip_smoke_ckpt")
     phase_ckpt_engine(torch, resnet, work)
     recover_launches = phase_recover(torch, fused_bn, work)
+    mnist_work = os.path.join(here, "build", "chip_smoke_mnist")
+    timed("mnist_compare", phase_mnist_compare, torch)
+    bundle, mnist_launches = timed("slice_mnist", phase_slice_mnist, torch, mnist_work)
+    timed("pipeline_mnist", phase_pipeline_mnist, torch, mnist_work)
+    timed("parallel_mnist", phase_parallel_mnist, torch, bundle)
     emit({"phase": "kernels", "kernels": [
         {"name": name, "route": route, "source": source,
          "launched": (launches[name] > 0 and loop_launches[name] > 0 and traced_launches[name] > 0
@@ -1615,6 +1927,7 @@ def main():
          "launches": launches[name], "launches_loop_path": loop_launches[name],
          "device_launches_traced_loop_call": traced_launches[name],
          "launches_recover_path": recover_launches[name],
+         "launches_mnist_path": mnist_launches[name],
          "max_abs_err": totals[name]["max_abs_err"],
          "ms": totals[name]["ms"], "plain_ms": totals[name]["plain_ms"],
          "bound_ms": totals[name]["bound_ms"], "bound_by": totals[name]["bound_by"],
@@ -1625,6 +1938,7 @@ def main():
         {"name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
          "launches": flash_launches[name], "launches_loop_path": loop_flash_launches[name],
          "device_launches_traced_loop_call": traced_flash_launches[name],
+         "launches_mnist_path": mnist_launches[name],
          "max_abs_err": flash_totals[name]["max_abs_err"],
          "ms": flash_totals[name]["ms"], "plain_ms": flash_totals[name]["plain_ms"],
          "bound_ms": flash_totals[name]["bound_ms"], "bound_by": flash_totals[name]["bound_by"],

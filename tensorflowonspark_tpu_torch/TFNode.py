@@ -1,16 +1,17 @@
 """Helper API available to user ``main_fun(args, ctx)`` code on each node.
 
-Capability-parity with /root/reference/tensorflowonspark/TFNode.py: filesystem
+Capability-parity with the reference's TFNode.py: filesystem
 path normalization, cluster bootstrap, model export, and — the heart of
 ``InputMode.SPARK`` — the :class:`DataFeed` consumer that turns the executor's
-IPC queue into batches ready for ``jax.device_put`` / host infeed.
+IPC queue into host batches, which the trainer places on its device
+(``SyncDataParallel.shard_batch``).
 
-TPU-native differences:
+Differences from the reference:
 * ``start_cluster_server`` (TF1 grpc bootstrap, reference TFNode.py:67-129) is
-  replaced by ``ctx``-driven ``jax.distributed`` initialization performed by the
-  node runtime before ``main_fun`` runs; a stub remains for API familiarity.
+  replaced by ``ctx``-driven ``torch.distributed`` initialization
+  (``ctx.initialize_distributed()``); a stub remains for API familiarity.
 * ``DataFeed.next_batch`` can return columnar numpy arrays (``as_numpy=True``)
-  so a batch can go straight onto the chips without a Python-loop transpose.
+  so a batch can go onto the device without a Python-loop transpose.
 """
 
 import collections
@@ -138,7 +139,7 @@ def export_saved_model(*args, **kwargs):
 
 
 class DataFeed:
-    """Consumer side of ``InputMode.SPARK`` feeding, running inside the jax
+    """Consumer side of ``InputMode.SPARK`` feeding, running inside the trainer
     process; reads items the Spark feed tasks pushed through the executor IPC
     channel (reference TFNode.py:221-329).
 
@@ -192,7 +193,8 @@ class DataFeed:
         reference's one-round-trip-per-row loop, TFNode.py:243-288); a
         shared-memory chunk consumed by an ``as_numpy`` + ``input_mapping``
         consumer moves COLUMN SLICES, never Python rows — the near-zero-copy
-        path from feeder numpy straight to ``jax.device_put``.
+        path from feeder numpy to the device placement
+        (``SyncDataParallel.shard_batch``).
         """
         logger.debug("next_batch(%d)", batch_size)
         if chaos.active:

@@ -32,8 +32,6 @@ import uuid
 
 import cloudpickle
 
-from tensorflowonspark_tpu_torch import resilience
-
 logger = logging.getLogger(__name__)
 
 # Spawned (never forked): a LocalSparkContext is routinely created from a
@@ -251,36 +249,44 @@ class LocalStreamingContext:
         self._streams = []
         self._stop_ev = threading.Event()
         self._thread = None
-        self._busy = threading.Lock()  # held while a micro-batch is feeding
+        # micro-batches queued or feeding: one popped but not yet fed must
+        # still count for stop()'s graceful drain, or it feeds after the
+        # end-of-feed markers. (A lock held across the dequeue's wait would
+        # starve stop(): the ticker drops and retakes it every interval.)
+        self._pending = 0
+        self._drained = threading.Condition()
 
     def queueStream(self, rdds=None):
         stream = LocalDStream(self)
         self._streams.append(stream)
         for rdd in rdds or []:
-            self._queue.put(rdd)
+            self.feed(rdd)
         return stream
 
     def feed(self, rdd):
         """Push one more micro-batch into the stream."""
+        with self._drained:
+            self._pending += 1
         self._queue.put(rdd)
 
     def start(self):
         def _run():
             while not self._stop_ev.is_set():
-                # dequeue AND handle under one lock hold: a batch popped but
-                # not yet feeding must be invisible to stop()'s graceful
-                # drain, or it feeds after the end-of-feed markers
-                with self._busy:
-                    try:
-                        rdd = self._queue.get(timeout=self.batch_interval)
-                    except queue.Empty:
-                        continue
+                try:
+                    rdd = self._queue.get(timeout=self.batch_interval)
+                except queue.Empty:
+                    continue
+                try:
                     for stream in self._streams:
                         for handler in stream._handlers:
                             try:
                                 handler(rdd)
                             except Exception:
                                 logger.exception("streaming micro-batch handler failed")
+                finally:
+                    with self._drained:
+                        self._pending -= 1
+                        self._drained.notify_all()
 
         self._thread = threading.Thread(target=_run, name="tos-streaming", daemon=True)
         self._thread.start()
@@ -290,12 +296,8 @@ class LocalStreamingContext:
             # drain queued micro-batches AND wait out the in-flight handler —
             # queue emptiness alone would let shutdown's end-of-feed markers
             # cut off a batch that was dequeued but not yet fully fed
-            drain = resilience.Backoff(base=0.1, factor=1.0, max_delay=0.1, jitter=0.0)
-            for _ in drain.attempts(deadline=resilience.Deadline(60)):
-                if self._queue.empty():
-                    break
-            with self._busy:
-                pass
+            with self._drained:
+                self._drained.wait_for(lambda: self._pending == 0, timeout=60)
         self._stop_ev.set()
         if self._thread is not None:
             self._thread.join(timeout=30)

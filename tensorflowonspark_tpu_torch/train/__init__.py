@@ -3,7 +3,9 @@
 JAX package's commit protocol)."""
 
 from tensorflowonspark_tpu_torch.train import checkpoint  # noqa: F401
+from tensorflowonspark_tpu_torch.train.metrics import TimeHistory, build_stats  # noqa: F401
 from tensorflowonspark_tpu_torch.train.optim import (  # noqa: F401
+    adam,
     adamw,
     linear_schedule,
     piecewise_constant_schedule,

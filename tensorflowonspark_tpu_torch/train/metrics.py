@@ -1,0 +1,110 @@
+"""Step-timing and run-stats utilities.
+
+Copied from the JAX package's ``train/metrics.py``. Parity with the
+reference's measurement instrumentation, which lived as example code (its
+examples/resnet/common.py: ``TimeHistory`` callback :177, ``build_stats``
+:202-245 with its ``avg_exp_per_second`` formula :241-244); here it is a
+framework module any training loop can use.
+"""
+
+import logging
+import time
+
+from tensorflowonspark_tpu_torch import obs
+
+logger = logging.getLogger(__name__)
+
+
+class TimeHistory:
+    """Record per-log-interval throughput during a training loop.
+
+    The reference's Keras callback counted batches between ``on_batch_end``
+    hooks; a torch loop calls :meth:`batch_end` itself, after waiting for
+    the step's result on its device when honest timing matters (a CUDA
+    step only queues work)::
+
+        th = TimeHistory(batch_size, log_steps=20)
+        for batch in batches:
+            state, metrics = step(state, batch)
+            float(metrics["loss"])  # waits for the step on the loss's device
+            th.batch_end()
+
+    ``timestamps`` holds (first_step_time, last_step_time) per completed
+    interval — exactly what ``avg_exp_per_second`` needs.
+    """
+
+    def __init__(self, batch_size, log_steps=100):
+        self.batch_size = int(batch_size)
+        self.log_steps = int(log_steps)
+        self.global_steps = 0
+        self.timestamps = []  # [(interval_start, interval_end), ...]
+        self._interval_start = None
+        # publish into the process registry: the trainer child's SnapshotPublisher
+        # ships these to the driver's TFCluster.metrics() view
+        self._steps_c = obs.counter("train_steps_total", help="completed training steps")
+        self._rate_g = obs.gauge(
+            "train_examples_per_sec", help="throughput over the last completed log interval"
+        )
+
+    def batch_end(self):
+        now = time.time()
+        if self._interval_start is None:
+            self._interval_start = now
+        self.global_steps += 1
+        self._steps_c.inc()
+        if self.global_steps % self.log_steps == 0:
+            self.timestamps.append((self._interval_start, now))
+            # per-interval rate needs >=2 log points within the interval;
+            # log_steps=1 rates come from consecutive interval ends instead
+            if self.log_steps > 1 and now > self._interval_start:
+                rate = self.batch_size * (self.log_steps - 1) / (now - self._interval_start)
+                self._rate_g.set(rate)
+                logger.info("step %d: %.1f examples/sec", self.global_steps, rate)
+            elif self.log_steps == 1 and len(self.timestamps) >= 2:
+                prev_end = self.timestamps[-2][1]
+                if now > prev_end:
+                    rate = self.batch_size / (now - prev_end)
+                    self._rate_g.set(rate)
+                    logger.info("step %d: %.1f examples/sec", self.global_steps, rate)
+            self._interval_start = None
+
+    @property
+    def avg_examples_per_second(self):
+        """The reference's ``avg_exp_per_second`` (common.py:241-244):
+        ``batch_size * log_steps * (N-1) / (t_last - t_first)`` over all
+        completed intervals — steady-state throughput excluding the first
+        interval's compile/warmup skew."""
+        if len(self.timestamps) < 2:
+            return 0.0
+        first = self.timestamps[0][1]
+        last = self.timestamps[-1][1]
+        if last <= first:
+            return 0.0
+        return self.batch_size * self.log_steps * (len(self.timestamps) - 1) / (last - first)
+
+
+def build_stats(loss, metrics=None, time_history=None, eval_results=None):
+    """Assemble the end-of-run stats dict (reference ``build_stats``,
+    common.py:202-245): final loss, final training metrics, eval results,
+    and ``avg_exp_per_second``/``exp_per_second`` from a TimeHistory."""
+    stats = {}
+    if loss is not None:
+        stats["loss"] = float(loss)
+    for name, value in (metrics or {}).items():
+        try:
+            stats[name] = float(value)
+        except (TypeError, ValueError):
+            continue
+    if eval_results:
+        for name, value in eval_results.items():
+            try:
+                stats["eval_" + name] = float(value)
+            except (TypeError, ValueError):
+                continue  # non-scalar eval values are skipped like metrics
+    if time_history is not None:
+        stats["step_timestamp_log"] = list(time_history.timestamps)
+        stats["train_finish_time"] = (
+            time_history.timestamps[-1][1] if time_history.timestamps else None
+        )
+        stats["avg_exp_per_second"] = time_history.avg_examples_per_second
+    return stats

@@ -1,4 +1,4 @@
-"""``optax.sgd``, ``optax.adamw`` and the learning-rate schedules the ported
+"""``optax.sgd``, ``optax.adam``, ``optax.adamw`` and the learning-rate schedules the ported
 examples use, with optax's semantics, for :class:`~tensorflowonspark_tpu_torch.
 train.strategy.SyncDataParallel`.
 
@@ -12,7 +12,8 @@ SGD differs in where the learning rate enters the schedule.)
 0.999, eps 1e-8 outside the square root, and weight decay 1e-4 on EVERY
 parameter (``mask=None``: norm scales and the embedding decay too), added
 to the Adam direction before the learning rate scales it. (torch.optim's
-AdamW defaults to a decay of 1e-2.)
+AdamW defaults to a decay of 1e-2.) ``adam(lr)`` is ``optax.adam(lr)``: the
+same Adam direction with no decay term.
 
 As in optax, the step count is an int32 array in the optimizer state, on
 the parameters' device, and everything derived from it — the learning
@@ -132,6 +133,13 @@ class AdamW:
 
 def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=1e-4):
     return AdamW(learning_rate, b1, b2, eps, eps_root, weight_decay)
+
+
+def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0):
+    """``optax.adam``: ``optax.chain(scale_by_adam(b1, b2, eps, eps_root),
+    scale_by_learning_rate(lr))``, :class:`AdamW` without its decay term.
+    Its state (``count``, ``mu``, ``nu``) is AdamW's."""
+    return AdamW(learning_rate, b1, b2, eps, eps_root, weight_decay=0.0)
 
 
 def linear_schedule(init_value, end_value, transition_steps, transition_begin=0):

@@ -373,6 +373,12 @@ from tensorflowonspark_tpu_torch.examples import sync_dp_check
 from tensorflowonspark_tpu_torch.examples.resnet import bench_bn, profile_step
 from tensorflowonspark_tpu_torch.ops.kernel_trace import KernelTrace, kernel_base
 from tensorflowonspark_tpu_torch.examples.transformer import profile_step as lm_profile_step
+# the MNIST slice: model, export, metrics, the pipeline, dfutil, TFParallel
+from tensorflowonspark_tpu_torch import TFParallel, dfutil, pipeline
+from tensorflowonspark_tpu_torch.models.mnist import MnistCNN, MnistMLP, bundle_builder
+from tensorflowonspark_tpu_torch.train import TimeHistory, adam, build_stats, export
+from tensorflowonspark_tpu_torch.examples.mnist import (
+    mnist_data_setup, mnist_inference, mnist_pipeline, mnist_spark, mnist_spark_streaming, mnist_tf)
 print("imported", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))

@@ -45,6 +45,7 @@ def _t(x, requires_grad=False):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("segmented", [False, True])
 def test_forward_o_and_lse_match_pallas_interpret(block, causal, segmented):
+    launches = fa.launch_counts()  # process-wide: other files may share the worker
     q, k, v = _qkv(0)
     seg = _segments(B, L, SPANS) if segmented else None
     merge = lambda x: x.reshape(B * H, L, D)  # noqa: E731
@@ -57,7 +58,9 @@ def test_forward_o_and_lse_match_pallas_interpret(block, causal, segmented):
                           None if seg is None else _t(seg), 1 / math.sqrt(D), causal, H)
     np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=2e-5)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :, 0], atol=2e-5)
-    assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    # CPU tensors take the plain versions: no kernel launched in this test
+    assert fa.launch_counts() == launches
+    assert set(launches) == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
 
 
 @pytest.mark.parametrize("causal", [True, False])
