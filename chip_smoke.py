@@ -153,17 +153,53 @@ and the script exits non-zero:
                   part file must equal, row for row, the direct predict of
                   the same 2,048 rows, and so give the same correct count.
                   Each MNIST phase prints its seconds (``<phase>_seconds``).
-15. ``kernels``   every kernel of the port and whether the eager and the
+15. ``data_setup`` the real-data slice's shards through the port's
+                  ``resnet_data_setup.py``: 2,048 ImageNet-schema JPEG
+                  Examples of 256² random pixels at quality 90 in 8 shards,
+                  and 512 for eval; the native library's build (``g++`` at
+                  first use from ``csrc/tfrecord_io.cc``: libjpeg where the
+                  host has it, else the in-tree scalar decoder); 64 records
+                  through the native decoder and through PIL, train and
+                  eval parse: every pixel equal.
+   ``input_only`` the trainer's ``ImagePipeline`` on those shards with no
+                  training, in a spawned process: images/s over 31 batches
+                  of 64 (224 px, uint8) with the thread pool and the native
+                  decoder, the forked decode plane (usable cores − 2
+                  workers, at most 16), one epoch filling the slab cache
+                  (cold) and one served from it (warm).
+   ``slice_real`` the port's ResNet example through ``TFCluster.run`` on
+                  those shards, ResNet-50, bf16, ``bn_impl="pallas"``, batch
+                  64, 224 px, ``--steps_per_loop 5``, 60 steps, once a
+                  decode mode (threads; the decode plane with one worker
+                  killed by the ``data.decode_kill`` chaos site, respawned
+                  from the trainer with CUDA up; a warm slab cache): each
+                  call's loss (finite), images/s over calls 2 and later, the
+                  stall counters over calls 2 and later (the trainer sets
+                  them on each call's span) and ``classify_stalls``' verdict
+                  on them, native
+                  decodes (> 0), respawns (>= 1 in the plane leg), cache
+                  hits and the BN wrappers' launches (> 0).
+   ``eval_real``  top-1 of the threads leg's trained model over the 512
+                  eval images on rank 0 (``--eval_dir``): every image
+                  scored.
+   ``slice_lm_pack`` the LM slice's eager path with ``--pack_workers 2``
+                  for 10 steps: the flash wrappers' launches (6 a step) and
+                  the first 5 losses against ``slice_lm``'s (the same
+                  weights and packed stream), within 1e-3 relative.
+16. ``kernels``   every kernel of the port and whether the eager and the
                   loop paths of phases 5 and 7 launched it, the traced loop
-                  call ran it on the card, and (the BN kernels) run A of the
-                  recover phase launched it.
+                  call ran it on the card, (the BN kernels) run A of the
+                  recover phase and the real-data slice launched it, and
+                  (the flash kernels) the pack-plane LM leg did.
 
 Then one JSON line with every kernel's measurements (``launches``: its
 wrapper's on the eager path; ``launches_loop_path``: its wrapper's on the
 loop path; ``device_launches_traced_loop_call``: the card's in the traced
 loop call; ``launches_recover_path``: its wrapper's in the recover phase's
 run A; ``launches_mnist_path``: its wrapper's in ``slice_mnist``'s
-trainer), the ``nvidia-smi``
+trainer; ``launches_slice_real``: its wrapper's over the three
+``slice_real`` legs; ``launches_slice_lm_pack``: its wrapper's in
+``slice_lm_pack``), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script fails before printing anything.
 """
@@ -913,12 +949,14 @@ def phase_flash_causal(torch, F, fa):
     torch.cuda.empty_cache()
 
 
-def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1):
+def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1, pack_workers=0):
     """The port's LM path through the user's entry points; with
-    ``steps_per_loop`` K > 1 its loop path, traced as in :func:`phase_slice`.
-    Returns each flash wrapper's launches in the run (6 a step for
-    :func:`wrapper_calls` steps) and, on the loop path, the traced call's
-    device launches of each flash kernel (6 a replayed step)."""
+    ``steps_per_loop`` K > 1 its loop path, traced as in :func:`phase_slice`;
+    with ``pack_workers`` its text plane packing in forked workers
+    (``slice_lm_pack``). Returns each flash wrapper's launches in the run (6
+    a step for :func:`wrapper_calls` steps), on the loop path the traced
+    call's device launches of each flash kernel (6 a replayed step), and the
+    losses."""
     from tensorflowonspark_tpu_torch import TFCluster, util
     from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
     from tensorflowonspark_tpu_torch.examples.transformer import transformer_spark
@@ -930,6 +968,7 @@ def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1):
         "--dtype", "bfloat16", "--tokenizer", "byte", "--train_steps", str(steps),
         "--log_steps", "1", "--data_dir", data_dir, "--steps_per_loop", str(steps_per_loop),
         "--trace_call", str(TRACE_CALL if steps_per_loop > 1 else 0),
+        "--pack_workers", str(pack_workers),
     ])
     fa.reset_launch_counts()  # the trainer's counts start at 0 in its fresh process
     t0 = time.perf_counter()
@@ -963,13 +1002,17 @@ def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1):
     }
     want = LM["n_layers"] * wrapper_calls(steps, steps_per_loop)
     efficiency = metrics["gauges"].get("text_pack_efficiency", {}).get("value")
-    line = {"phase": "slice_lm" if steps_per_loop == 1 else "slice_lm_loop", "model": "transformer",
+    name = "slice_lm_pack" if pack_workers else "slice_lm" if steps_per_loop == 1 else "slice_lm_loop"
+    line = {"phase": name, "model": "transformer", "pack_workers": pack_workers,
             "config": dict(LM, seq_len=LM_SEQ), "dtype": "bfloat16", "batch": LM_BATCH, "steps": steps,
             "steps_per_loop": steps_per_loop, "logged_steps": [e["step"] for e in events],
             "losses": losses, "call_s": [e["dur_s"] for e in events],
             "tokens_per_sec_after_first_call": LM_BATCH * LM_SEQ * steps_per_loop * len(timed) / sum(timed),
             "packing_efficiency": efficiency, "launches": launches,
             "expected_launches": want, "wall_s": wall}
+    if pack_workers:
+        # the pack plane ran: its worker gauge was set (back at 0 after close)
+        line["pack_plane"] = "decode_workers" in metrics["gauges"]
     bad = {k: v for k, v in launches.items() if v != want}
     trace = None
     if steps_per_loop > 1 and not bad:
@@ -981,7 +1024,9 @@ def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1):
             bad, LM["n_layers"], wrapper_calls(steps, steps_per_loop)))
     if not (isinstance(efficiency, float) and 0 < efficiency <= 1):
         raise AssertionError("packing efficiency {} outside (0, 1]".format(efficiency))
-    return launches, trace and trace["launches"]
+    if pack_workers and not line["pack_plane"]:
+        raise AssertionError("slice_lm_pack: the pack plane did not run")
+    return launches, trace and trace["launches"], losses
 
 
 def _lm_grads(torch, fa, transformer, dtype_name, impl, batch):
@@ -1810,6 +1855,273 @@ def phase_parallel_mnist(torch, bundle):
         raise AssertionError("parallel_mnist: {}".format(line))
 
 
+#: the real-data slice: ImageNet-schema JPEG shards (uniform random pixels,
+#: PIL quality 90) written by the port's resnet_data_setup.py, and the
+#: train legs of ``--steps_per_loop 5`` over them, one a decode mode
+REAL_TRAIN, REAL_EVAL, REAL_SIZE, REAL_SHARDS = 2048, 512, 256, 8
+REAL_STEPS, REAL_THREADS = 60, 8
+#: records of the first train shard decoded natively and by PIL, train and
+#: eval parse each, in ``data_setup``: the pixels must be equal
+NATIVE_CHECK = 64
+#: the input-path-only legs: batches drawn from the pipeline with no
+#: training (timed after the first), in a spawned process
+INPUT_BATCHES = 32
+#: one decode worker killed in the decode-plane leg (the first round of the
+#: plane: the trainer has CUDA up by then, so the respawn forks from it)
+DECODE_KILL = {"seed": 0, "sites": {"data.decode_kill": {"probability": 1.0, "max_count": 1}}}
+#: the pack-plane leg of the LM: forked pack workers, eager steps
+LM_PACK_WORKERS, LM_PACK_STEPS = 2, 10
+
+
+def usable_cores():
+    return len(os.sched_getaffinity(0))
+
+
+def decode_plane_workers():
+    """The decode-plane leg's workers: the usable cores less two (the
+    trainer's own thread and the producer), at least 1, at most 16."""
+    return max(1, min(16, usable_cores() - 2))
+
+
+def phase_data_setup(work):
+    """Shards for the real-data slice through the port's data set-up tool:
+    ``REAL_TRAIN`` train and ``REAL_EVAL`` eval JPEG Examples of
+    ``REAL_SIZE``² pixels. Returns (train dir, eval dir)."""
+    import itertools
+    import shutil
+
+    import numpy as np
+    import PIL
+
+    from tensorflowonspark_tpu_torch import native_io
+    from tensorflowonspark_tpu_torch import tfrecord as tfr
+    from tensorflowonspark_tpu_torch.data import imagenet
+    from tensorflowonspark_tpu_torch.examples.resnet import resnet_data_setup
+
+    train_dir, eval_dir = os.path.join(work, "train"), os.path.join(work, "eval")
+    t0 = time.perf_counter()
+    for d, n, shards, seed in ((train_dir, REAL_TRAIN, REAL_SHARDS, 0), (eval_dir, REAL_EVAL, 2, 1)):
+        shutil.rmtree(d, ignore_errors=True)
+        resnet_data_setup.main(["--dataset", "imagenet", "--image_size", str(REAL_SIZE),
+                                "--num_examples", str(n), "--num_shards", str(shards),
+                                "--output", d, "--seed", str(seed)])
+    files = tfr.list_shards(train_dir)
+    # this host's native decoder against its PIL, record for record, on the
+    # trainer's parse (train crops and flips) and the eval parse
+    same = checked = 0
+    records = tfr.read_records(files[0])
+    for training in (True, False):
+        parse = imagenet.make_parse_fn(training, image_size=IMAGE, seed=0, raw_uint8=True)
+        for rec in itertools.islice(records, NATIVE_CHECK):
+            want, want_label = parse(rec)
+            out = np.empty_like(want)
+            label, used_native = parse.into(rec, out)
+            same += bool(used_native and label == want_label and np.array_equal(out, want))
+            checked += 1
+    line = {"phase": "data_setup", "train": REAL_TRAIN, "eval": REAL_EVAL, "image": REAL_SIZE,
+            "quality": 90, "train_shards": len(files), "eval_shards": len(tfr.list_shards(eval_dir)),
+            "train_bytes": sum(os.path.getsize(f) for f in files),
+            "native_build": native_io.build_info(), "pil": PIL.__version__,
+            "native_equals_pil": "{} of {}".format(same, checked), "seconds": time.perf_counter() - t0}
+    emit(line)
+    if line["train_shards"] != REAL_SHARDS or line["native_build"] is None or same != checked:
+        raise AssertionError("data_setup: {} shards, native build {}, native = PIL in {} of {}".format(
+            line["train_shards"], line["native_build"], same, checked))
+    return train_dir, eval_dir
+
+
+def _input_rate(here, train_dir, env, batches, epochs):
+    """The input path alone (no training), in a fresh spawned process: the
+    trainer's pipeline on the same shards, decode mode from ``env``;
+    images/s over the batches after the first, and the stall counters."""
+    sys.path.insert(0, here)
+    os.environ.update(env)
+    from tensorflowonspark_tpu_torch import obs
+    from tensorflowonspark_tpu_torch import tfrecord as tfr
+    from tensorflowonspark_tpu_torch.data import ImagePipeline, imagenet
+
+    parse = imagenet.make_parse_fn(True, image_size=IMAGE, seed=0, raw_uint8=True)
+    stream = iter(ImagePipeline(tfr.list_shards(train_dir), parse, BATCH, seed=0, epochs=epochs,
+                                num_threads=REAL_THREADS))
+    next(stream)
+    t0, n = time.perf_counter(), 0
+    if epochs:  # the rest of the pass
+        for _ in stream:
+            n += 1
+    else:
+        for _ in range(batches - 1):
+            next(stream)
+            n += 1
+    seconds = time.perf_counter() - t0
+    stream.close()
+    counters = {k: v["value"] for k, v in obs.snapshot()["counters"].items()}
+    return {"images_per_sec": BATCH * n / seconds, "batches_timed": n, "seconds": seconds,
+            "decode_native_total": counters.get("decode_native_total", 0),
+            "decode_cache_hits_total": counters.get("decode_cache_hits_total", 0),
+            "data_producer_parse_seconds_total": counters.get("data_producer_parse_seconds_total", 0)}
+
+
+def _input_rate_child(conn, *args):
+    import traceback
+
+    try:
+        conn.send(("ok", _input_rate(*args)))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+
+
+def input_rate(here, train_dir, env, batches=INPUT_BATCHES, epochs=None):
+    """:func:`_input_rate` in a spawned process of its own (not a pool's
+    daemon: the decode plane forks children)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_input_rate_child, args=(send, here, train_dir, env, batches, epochs))
+    proc.start()
+    send.close()
+    try:
+        status, out = recv.recv()
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+    if status != "ok":
+        raise RuntimeError("input_only leg {} failed:\n{}".format(env, out))
+    return out
+
+
+def _stall_readings(first, last):
+    """The input plane's stall seconds between two train_step spans (calls 1
+    and the last: the steady state, past the build and the capture) and
+    ``classify_stalls``' verdict on them."""
+    from tensorflowonspark_tpu_torch.control.core import classify_stalls
+    from tensorflowonspark_tpu_torch.examples.resnet.resnet_spark import STALL_COUNTERS
+
+    d = {name: last[name] - first[name] for name in STALL_COUNTERS}
+    return dict(d, classify_stalls=classify_stalls(*(d[name] for name in STALL_COUNTERS)))
+
+
+def phase_slice_real(torch, fused_bn, train_dir, eval_dir, mode, env, eval_leg=False):
+    """One leg of the real-data slice: the port's ResNet example through
+    ``TFCluster.run``, ResNet-50, bf16, ``bn_impl="pallas"``, batch 64, 224
+    px, ``--steps_per_loop 5`` for ``REAL_STEPS`` steps on the JPEG shards,
+    the decode mode set through the cluster's env lane. Images/s over calls
+    2 and later, the stall counters and their verdict, the native decodes,
+    the decode plane's respawns and each BN wrapper's launches; with
+    ``eval_leg`` also ``--eval_dir`` (top-1 over every eval image, rank 0)."""
+    from tensorflowonspark_tpu_torch import TFCluster, util
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+    from tensorflowonspark_tpu_torch.examples.resnet import resnet_spark
+
+    argv = ["--dataset", "imagenet", "--bn_impl", "pallas", "--batch_size", str(BATCH),
+            "--train_steps", str(REAL_STEPS), "--log_steps", str(STEPS), "--steps_per_loop", str(STEPS),
+            "--data_dir", train_dir, "--data_threads", str(REAL_THREADS), "--image_size", str(IMAGE)]
+    if eval_leg:
+        argv += ["--eval_dir", eval_dir]
+    args = resnet_spark.build_parser().parse_args(argv)
+    fused_bn.reset_launch_counts()
+    t0 = time.perf_counter()
+    sc = LocalSparkContext(num_executors=1)
+    try:
+        cluster = TFCluster.run(
+            sc, resnet_spark.main_fun, args, 1,
+            input_mode=TFCluster.InputMode.TENSORFLOW, master_node="chief",
+            env=dict(env, **{util.ENV_PLATFORM: "gpu"}),
+        )
+        if not cluster.wait_for_completion(timeout=600):
+            raise TimeoutError("the trainer did not finish within 600 s")
+        metrics = cluster.metrics(include_driver=False)
+        cluster.shutdown()
+    finally:
+        sc.stop()
+    wall = time.perf_counter() - t0
+    events = sorted(
+        (e for e in metrics["events"] if e.get("span") == "train_step"), key=lambda e: e["step"]
+    )
+    losses = [e.get("loss") for e in events]
+    counters = {k: v["value"] for k, v in metrics["counters"].items()}
+    launches = {name: int(counters.get("fused_bn_{}_launches_total".format(name), 0))
+                for name, *_ in KERNEL_TABLE}
+    timed_calls = [e["dur_s"] for e in events[1:]]
+    line = {"phase": "slice_real", "mode": mode, "env": env, "model": "resnet50", "dtype": "bfloat16",
+            "bn_impl": "pallas", "batch": BATCH, "image": IMAGE, "steps": REAL_STEPS,
+            "steps_per_loop": STEPS, "data_threads": REAL_THREADS, "usable_cores": usable_cores(),
+            "losses": losses, "call_s": [e["dur_s"] for e in events],
+            "images_per_sec_after_first_call": BATCH * STEPS * len(timed_calls) / sum(timed_calls),
+            "decode_native_total": int(counters.get("decode_native_total", 0)),
+            "decode_worker_restarts_total": int(counters.get("decode_worker_restarts_total", 0)),
+            "decode_cache_hits_total": int(counters.get("decode_cache_hits_total", 0)),
+            "records_skipped": int(counters.get("data_records_skipped_total", 0)),
+            "launches": launches, "wall_s": wall}
+    line["after_first_call"] = _stall_readings(events[0], events[-1])
+    line["whole_run_classify_stalls"] = _stall_readings({k: 0.0 for k in events[-1]}, events[-1])[
+        "classify_stalls"]
+    evals = [e for e in metrics["events"] if e.get("span") == "eval"]
+    if eval_leg:
+        line["eval"] = {k: evals[0].get(k) for k in ("examples", "correct", "accuracy", "dur_s")} if evals else None
+    emit(line)
+    calls = REAL_STEPS // STEPS
+    if len(events) != calls or not all(isinstance(v, float) and math.isfinite(v) for v in losses):
+        raise AssertionError("slice_real {}: expected {} finite losses, got {}".format(mode, calls, losses))
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError("slice_real {}: BN kernel launches {}".format(mode, launches))
+    if line["records_skipped"]:
+        raise AssertionError("slice_real {}: {} records skipped".format(mode, line["records_skipped"]))
+    return line
+
+
+def phase_real(torch, fused_bn, here, work):
+    """``data_setup``, the input path alone in each decode mode, then
+    ``slice_real`` in each (threads with the native decoder; the forked
+    decode plane, one worker killed; a warm slab cache) and ``eval_real``.
+    Returns each BN wrapper's launches summed over the three legs."""
+    from tensorflowonspark_tpu_torch import native_io
+
+    train_dir, eval_dir = phase_data_setup(work)
+    cache_dir = os.path.join(work, "slab_cache")
+    workers = decode_plane_workers()
+    modes = {"threads": {"TOS_DECODE_WORKERS": "0"},
+             "decode_plane": {"TOS_DECODE_WORKERS": str(workers)},
+             "cache_warm": {"TOS_DECODE_WORKERS": "0", "TOS_SLAB_CACHE_DIR": cache_dir}}
+    inputs = {mode: input_rate(here, train_dir, env) for mode, env in modes.items() if mode != "cache_warm"}
+    # one epoch with the cache on fills it (cold), the next pass reads it
+    inputs["cache_cold"] = input_rate(here, train_dir, modes["cache_warm"], epochs=1)
+    inputs["cache_warm"] = input_rate(here, train_dir, modes["cache_warm"])
+    emit({"phase": "input_only", "batch": BATCH, "image": IMAGE, "batches": INPUT_BATCHES,
+          "usable_cores": usable_cores(), "decode_plane_workers": workers, "legs": inputs})
+    if not inputs["threads"]["decode_native_total"] or inputs["cache_warm"]["decode_cache_hits_total"] < BATCH:
+        raise AssertionError("input_only: native decodes {}, warm cache hits {}".format(
+            inputs["threads"]["decode_native_total"], inputs["cache_warm"]["decode_cache_hits_total"]))
+    lines = {}
+    for mode, env in modes.items():
+        if mode == "decode_plane":
+            env = dict(env, TOS_CHAOS_PLAN=json.dumps(DECODE_KILL))
+        lines[mode] = phase_slice_real(torch, fused_bn, train_dir, eval_dir, mode, env,
+                                       eval_leg=mode == "threads")
+    if not (lines["threads"]["decode_native_total"] > 0 and lines["decode_plane"]["decode_native_total"] > 0):
+        raise AssertionError("slice_real: the native decoder did not run")
+    if lines["decode_plane"]["decode_worker_restarts_total"] < 1:
+        raise AssertionError("slice_real: no decode worker respawned after the kill")
+    if lines["cache_warm"]["decode_cache_hits_total"] < BATCH:
+        raise AssertionError("slice_real: the warm cache served {} rows".format(
+            lines["cache_warm"]["decode_cache_hits_total"]))
+    ev = lines["threads"]["eval"]
+    emit({"phase": "eval_real", "eval": ev})
+    if not (ev and ev["examples"] == REAL_EVAL and 0.0 <= ev["accuracy"] <= 1.0):
+        raise AssertionError("eval_real: {}".format(ev))
+    emit({"phase": "slice_real_summary", "native_build": native_io.build_info(),
+          "usable_cores": usable_cores(), "decode_plane_workers": workers,
+          "images_per_sec": {m: v["images_per_sec_after_first_call"] for m, v in lines.items()},
+          "input_only_images_per_sec": {m: v["images_per_sec"] for m, v in inputs.items()},
+          "classify_stalls": {m: v["after_first_call"]["classify_stalls"] for m, v in lines.items()},
+          "data_consumer_wait_seconds_total": {
+              m: v["after_first_call"]["data_consumer_wait_seconds_total"] for m, v in lines.items()},
+          "data_producer_parse_seconds_total": {
+              m: v["after_first_call"]["data_producer_parse_seconds_total"] for m, v in lines.items()}})
+    return {name: sum(line["launches"][name] for line in lines.values()) for name, *_ in KERNEL_TABLE}
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1900,8 +2212,8 @@ def main():
     loop_launches, traced_launches = phase_slice(torch, fused_bn, LOOP_STEPS, STEPS)
     phase_compare(torch, fused_bn, resnet)
     torch.cuda.empty_cache()
-    flash_launches, _ = phase_slice_lm(torch, fa, data_dir, STEPS)
-    loop_flash_launches, traced_flash_launches = phase_slice_lm(torch, fa, data_dir, LOOP_STEPS, STEPS)
+    flash_launches, _, lm_losses = phase_slice_lm(torch, fa, data_dir, STEPS)
+    loop_flash_launches, traced_flash_launches, _ = phase_slice_lm(torch, fa, data_dir, LOOP_STEPS, STEPS)
     phase_compare_lm(torch, fa, transformer, lm_batch)
     torch.cuda.empty_cache()
     phase_compare_loop(torch, resnet, transformer, lm_batch)
@@ -1913,14 +2225,24 @@ def main():
     bundle, mnist_launches = timed("slice_mnist", phase_slice_mnist, torch, mnist_work)
     timed("pipeline_mnist", phase_pipeline_mnist, torch, mnist_work)
     timed("parallel_mnist", phase_parallel_mnist, torch, bundle)
+    real_launches = timed("real", phase_real, torch, fused_bn, here, os.path.join(here, "build", "chip_smoke_real"))
+    pack_launches, _, pack_losses = timed("slice_lm_pack", phase_slice_lm, torch, fa, data_dir, LM_PACK_STEPS, 1,
+                                          LM_PACK_WORKERS)
+    # the same weights on the same packed stream: the eager steps the thread
+    # packer fed (slice_lm) and those the pack plane fed
+    gap = max(abs(a - b) / abs(b) for a, b in zip(pack_losses, lm_losses))
+    emit({"phase": "slice_lm_pack_vs_slice_lm", "losses": pack_losses[:len(lm_losses)],
+          "slice_lm_losses": lm_losses, "max_rel_gap": gap})
+    if gap > 1e-3:
+        raise AssertionError("slice_lm_pack: losses {} against slice_lm's {}".format(pack_losses, lm_losses))
     emit({"phase": "kernels", "kernels": [
         {"name": name, "route": route, "source": source,
          "launched": (launches[name] > 0 and loop_launches[name] > 0 and traced_launches[name] > 0
-                      and recover_launches[name] > 0)}
+                      and recover_launches[name] > 0 and real_launches[name] > 0)}
         for name, _, _, _, route, source in KERNEL_TABLE] + [
         {"name": name, "route": "cuda", "source": FLASH_SOURCE,
          "launched": (flash_launches[name] > 0 and loop_flash_launches[name] > 0
-                      and traced_flash_launches[name] > 0)}
+                      and traced_flash_launches[name] > 0 and pack_launches[name] > 0)}
         for name, *_ in FLASH_TABLE], "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -1928,6 +2250,7 @@ def main():
          "device_launches_traced_loop_call": traced_launches[name],
          "launches_recover_path": recover_launches[name],
          "launches_mnist_path": mnist_launches[name],
+         "launches_slice_real": real_launches[name],
          "max_abs_err": totals[name]["max_abs_err"],
          "ms": totals[name]["ms"], "plain_ms": totals[name]["plain_ms"],
          "bound_ms": totals[name]["bound_ms"], "bound_by": totals[name]["bound_by"],
@@ -1939,6 +2262,7 @@ def main():
          "launches": flash_launches[name], "launches_loop_path": loop_flash_launches[name],
          "device_launches_traced_loop_call": traced_flash_launches[name],
          "launches_mnist_path": mnist_launches[name],
+         "launches_slice_lm_pack": pack_launches[name],
          "max_abs_err": flash_totals[name]["max_abs_err"],
          "ms": flash_totals[name]["ms"], "plain_ms": flash_totals[name]["plain_ms"],
          "bound_ms": flash_totals[name]["bound_ms"], "bound_by": flash_totals[name]["bound_by"],

@@ -18,12 +18,12 @@ three-stage pipeline so IO, decode and the device never wait on each other:
 3. **Zero-copy batch assembly** — parse workers decode records straight
    into slots of a preallocated ``[B,H,W,C]`` batch buffer (no per-batch
    ``np.stack`` copy). With ``recycle_buffers=True`` the buffers circulate
-   through a fixed pool instead of being reallocated per batch.
-
-The port runs this pipeline on local (or fsspec) shards with the thread
-pools above. The JAX package's forked decode plane, decoded-slab cache,
-read-ahead autotuner, remote shard stores and prefetch staging are not yet
-ported: their options are refused (they come with the image-plane slice).
+   through a fixed pool instead of being reallocated per batch. With
+   ``decode_workers > 0`` the parse stage moves off the GIL entirely: a
+   :class:`~tensorflowonspark_tpu_torch.data.decode_plane.DecodePlane` of worker
+   *processes* decodes records straight into shared-memory batch slabs and
+   the pool becomes a cross-process slab free list — same slot-assignment
+   algorithm, same byte-identical stream, different place the decode runs.
 
 Stall accounting: the producer and consumer publish
 ``data_producer_read_seconds_total`` / ``data_producer_parse_seconds_total``
@@ -35,15 +35,19 @@ the consumer never waits).
 """
 
 import collections
+import contextlib
 import logging
 import os
 import queue
 import threading
 import time
+import weakref
+import zlib
 
 import numpy as np
 
 from tensorflowonspark_tpu_torch import chaos, obs, resilience
+from tensorflowonspark_tpu_torch.data import autotune, decode_plane, slab_cache
 from tensorflowonspark_tpu_torch.store import base as store_base
 
 logger = logging.getLogger(__name__)
@@ -129,19 +133,69 @@ def _chunks_of(records, chunk_records):
         yield records[i : i + chunk_records]
 
 
-def _shard_chunk_iter(path, verify_crc, chunk_records):
+def _staged_or_cold(staged, path, store, verify_crc, chunk_records):
+    """Chunks of ``path`` from its staged local copy, falling back to the
+    cold remote read if the local copy fails before its first chunk — the
+    window where the capacity bound may have evicted the staged directory
+    between ``stager.fetch`` and the open. After the first chunk the file
+    handle pins the bytes (POSIX unlink semantics), so a mid-stream error
+    is a real one and surfaces."""
+    try:
+        it = _shard_chunk_iter(staged, verify_crc, chunk_records)
+        first = next(it, None)
+    except (OSError, IOError):
+        logger.warning(
+            "staged copy of %s unreadable (evicted or torn); reading cold", path
+        )
+        yield from _shard_chunk_iter(path, verify_crc, chunk_records, store=store)
+        return
+    if first is None:
+        return
+    yield first
+    yield from it
+
+
+def _shard_chunk_iter(path, verify_crc, chunk_records, store=None, stager=None):
     """Iterator of record-lists for one shard. ``chunk_records > 0``
-    streams chunks through the Python codec (local files and fsspec URIs);
-    ``chunk_records <= 0`` is the bulk path — the whole shard as a single
-    chunk."""
-    from tensorflowonspark_tpu_torch import tfrecord
+    streams chunks (native ``tfr_stream_next`` for local files, the Python
+    codec for fsspec URIs or a stale prebuilt library); ``chunk_records
+    <= 0`` is the bulk path — the whole shard as a single chunk.
+
+    Remote shards (``store`` handles the path) are served from the staged
+    local copy when the prefetch ``stager`` has one (the read then falls
+    through to the native local fast path below), or stream *cold* through
+    the store's ranged chunk reads — same chunks, same bytes, either way.
+    A staged copy that fails before its first chunk (evicted by the
+    capacity bound between ``fetch`` and open, or corrupt on disk) falls
+    back to the cold remote read — serve cold, never garbage."""
+    from tensorflowonspark_tpu_torch import native_io, tfrecord
 
     if path.startswith("file://"):
         path = path[len("file://"):]
+    if store is not None and store.handles(path):
+        staged = stager.fetch(path) if stager is not None else None
+        if staged is not None:
+            store_base.note_backend("{} staged".format(store.fingerprint()))
+            return _staged_or_cold(
+                staged, path, store, verify_crc, chunk_records
+            )
+        elif chunk_records > 0:
+            return store.read_records_chunked(
+                path, chunk_records=chunk_records, verify_crc=verify_crc
+            )
+        else:
+            return iter([store.read_records(path, verify_crc=verify_crc)])
+    local = not tfrecord.is_uri(path)
     if chunk_records > 0:
+        if local and native_io.stream_available():
+            return native_io.read_records_chunked(
+                path, chunk_records=chunk_records, verify_crc=verify_crc
+            )
         return tfrecord.read_records_chunked(
             path, chunk_records=chunk_records, verify_crc=verify_crc
         )
+    if local and native_io.available():
+        return iter([native_io.read_records(path, verify_crc=verify_crc)])
     return iter([list(tfrecord.read_records(path, verify_crc=verify_crc))])
 
 
@@ -204,7 +258,11 @@ class ImagePipeline:
 
     - ``readahead`` — how many shards the reader executor fetches ahead of
       the parse stage (default env ``TOS_DATA_READAHEAD`` or 2; 0 reads
-      shards inline, no IO/parse overlap).
+      shards inline, no IO/parse overlap). ``"auto"`` lets a
+      :class:`~tensorflowonspark_tpu_torch.data.autotune.ReadaheadAutotuner`
+      steer the depth at runtime from the stall counters: deepen while the
+      interval is io_bound and the consumer starves, shallow when the
+      pipeline is comfortably ahead (published as ``readahead_depth``).
     - ``chunk_records`` — records per streamed chunk (default env
       ``TOS_DATA_CHUNK_RECORDS`` or 1024; 0 bulk-loads whole shards).
     - ``shuffle_buffer`` — bounded streaming shuffle window (the
@@ -222,11 +280,38 @@ class ImagePipeline:
       pool instead of being reallocated. The yielded batch is then only
       valid until the *next* ``next()``; leave False (default) if batches
       are retained (e.g. ``list(pipe)``).
-    - ``decode_workers``, ``slab_cache_dir``, ``store``, ``prefetch`` and
-      ``readahead="auto"`` (the JAX package's forked decode plane,
-      decoded-slab cache, remote shard stores, staging tier and read-ahead
-      autotuner) are not yet ported: anything but their defaults raises
-      ``NotImplementedError``, as do ``http(s)://`` shard lists.
+    - ``decode_workers`` — run the parse stage in worker *processes*
+      decoding straight into shared-memory slabs (GIL-free; see
+      :mod:`~tensorflowonspark_tpu_torch.data.decode_plane`). Default env
+      ``TOS_DECODE_WORKERS`` or 0 = today's in-process thread pool;
+      ``"auto"`` self-sizes from the parse/wait stall counters. Requires a
+      fork start method, an importable/fork-inheritable ``parse_fn``
+      (module-level factories like ``imagenet.make_parse_fn`` qualify) and
+      ``multiprocessing.shared_memory`` — otherwise the thread pool is used
+      with a warning. The delivered batch stream is byte-identical across
+      thread and process modes.
+    - ``slab_cache_dir`` — root for the cross-epoch decoded-slab cache
+      (default env ``TOS_SLAB_CACHE_DIR``; unset = off). Decoded rows are
+      persisted keyed by record crc32 under the ``parse_fn.cache_key``
+      decode-parameter fingerprint, so epoch ≥ 2 — and an elastic relaunch
+      over the same shards — fills slots from a memory map instead of
+      decoding (see :mod:`~tensorflowonspark_tpu_torch.data.slab_cache`). Only
+      active when the ``parse_fn`` exposes ``cache_key``; the stream stays
+      byte-identical with the cache on, off, cold or warm.
+    - ``store`` — an explicit
+      :class:`~tensorflowonspark_tpu_torch.store.base.ShardStore` the shard paths
+      live in. ``http(s)://`` shard lists auto-detect an
+      :class:`~tensorflowonspark_tpu_torch.store.http.HTTPStore`; ``gs://`` /
+      ``s3://`` corpora pass one explicitly with the matching endpoint
+      adapter. The record stream is byte-identical to reading the same
+      corpus from local disk.
+    - ``prefetch`` — remote-shard staging window (default env
+      ``TOS_STORE_PREFETCH`` or ``"auto"``): shards are downloaded to
+      executor-local disk (``TOS_PREFETCH_DIR``) ahead of the reader and
+      served through the native local fast path; ``"auto"`` lets the
+      read-ahead autotuner steer the window from the stall counters
+      (``store_prefetch_depth``); ``0`` streams cold through ranged remote
+      reads. Only meaningful with a remote ``store``.
 
     ``max_bad_records`` is the poisoned-input budget: records whose
     ``parse_fn`` raises are skipped (counted in
@@ -264,23 +349,21 @@ class ImagePipeline:
         if not files:
             raise ValueError("no input files")
         self.files = list(files)
-        unported = [
-            ("decode_workers", decode_workers not in (None, 0), "the forked decode plane"),
-            ("slab_cache_dir", slab_cache_dir is not None, "the decoded-slab cache"),
-            ("store", store is not None, "remote shard stores"),
-            ("prefetch", prefetch is not None, "remote prefetch staging"),
-            ("readahead='auto'", str(readahead).strip().lower() == "auto",
-             "the read-ahead autotuner"),
-            ("http(s):// shards",
-             any(str(f).startswith(("http://", "https://")) for f in self.files),
-             "remote shard stores"),
-        ]
-        for what, given, machinery in unported:
-            if given:
-                raise NotImplementedError(
-                    "{} is not yet ported to tensorflowonspark_tpu_torch ({} comes with "
-                    "the image-plane slice)".format(what, machinery)
-                )
+        # remote shard source: explicit store=, or auto-detected for
+        # http(s):// shard lists (gs://, s3:// need an explicit store with
+        # the matching endpoint adapter — never silently unauthenticated;
+        # other URI schemes keep today's fsspec route)
+        if store is None and any(
+            str(f).startswith(("http://", "https://")) for f in self.files
+        ):
+            from tensorflowonspark_tpu_torch.store.http import resolve_store
+
+            store = resolve_store(self.files)
+        self.store = store
+        #: remote prefetch window (``TOS_STORE_PREFETCH`` default: "auto" =
+        #: stall-steered staging to local disk; "0" streams cold)
+        self.prefetch = prefetch
+        self._stager = None  # built per-iteration, after the plane forks
         self.parse_fn = parse_fn
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -298,7 +381,15 @@ class ImagePipeline:
         self.max_bad_records = int(max_bad_records)
         if readahead is None:
             readahead = os.environ.get("TOS_DATA_READAHEAD", "2")
-        self.readahead = max(0, int(readahead))
+        self.readahead_auto = str(readahead).strip().lower() == "auto"
+        if self.readahead_auto:
+            # stall-steered: the reader pool is sized to the ceiling; the
+            # live depth starts shallow and the ReadaheadAutotuner moves it
+            self.readahead = autotune.DEFAULT_MAX_READAHEAD
+            self._ra_depth = [min(2, self.readahead)]
+        else:
+            self.readahead = max(0, int(readahead))
+            self._ra_depth = [self.readahead]
         if chunk_records is None:
             chunk_records = int(os.environ.get("TOS_DATA_CHUNK_RECORDS", "1024"))
         self.chunk_records = max(0, int(chunk_records))
@@ -309,6 +400,8 @@ class ImagePipeline:
             )
         self.cache = cache
         self.recycle_buffers = bool(recycle_buffers)
+        self.decode_workers = decode_workers
+        self.slab_cache_dir = slab_cache.resolve_dir(slab_cache_dir)
         # raw cache: path -> [record bytes], marked complete only after a
         # full clean read; decoded cache: (path, record index) -> _Decoded
         self._raw_cache = {}
@@ -333,7 +426,10 @@ class ImagePipeline:
                         "chaos: injected shard read failure for {}".format(path)
                     )
                 time.sleep(spec.get("delay_s", 0.05))
-        return _shard_chunk_iter(path, self.verify_crc, chunk_records)
+        return _shard_chunk_iter(
+            path, self.verify_crc, chunk_records,
+            store=self.store, stager=self._stager,
+        )
 
     def _decorate(self, path, base, records):
         """Swap records for decoded-cache hits / cache-keyed raw records.
@@ -385,9 +481,9 @@ class ImagePipeline:
         try:
             for chunk in self._shard_chunks_sync(path, read_c):
                 if chaos.active:
-                    # a slow shard source: per-chunk latency inside the
+                    # a remote store gone slow: per-chunk latency inside the
                     # reader task, charged to read time so the stall
-                    # classifier sees io_bound
+                    # classifier (and the readahead autotuner) sees io_bound
                     t0 = time.monotonic()
                     if chaos.delay("data.readahead_stall"):
                         read_c.inc(time.monotonic() - t0)
@@ -409,7 +505,9 @@ class ImagePipeline:
         ahead = [0]
 
         def _top_up():
-            while ahead[0] < len(order) and len(inflight) < self.readahead:
+            # the live depth (not self.readahead): with readahead="auto"
+            # the ReadaheadAutotuner moves it inside [1, self.readahead]
+            while ahead[0] < len(order) and len(inflight) < self._ra_depth[0]:
                 idx = ahead[0]
                 ahead[0] += 1
                 path = order[idx]
@@ -455,6 +553,10 @@ class ImagePipeline:
             order = list(self.files)
             if self.shuffle:
                 order_rng.shuffle(order)
+            if self._stager is not None:
+                # the staging tier warms its window in this epoch's visit
+                # order — the same order the reader executor will drain
+                self._stager.plan(order)
             records = (
                 rec
                 for chunk in self._epoch_chunks(reader_pool, order, stop, abort, read_c)
@@ -466,14 +568,44 @@ class ImagePipeline:
             for rec in records:
                 yield rec
             if on_epoch_end is not None:
-                # epoch boundary (shuffle buffer drained): the text plane's
-                # packer flushes its window here, in the producer thread
+                # epoch boundary (shuffle buffer drained): the slab-cache
+                # commit hook runs here, in the producer thread
                 on_epoch_end()
             epoch += 1
 
     # -- stage 3: zero-copy batch assembly --------------------------------------
 
     def __iter__(self):
+        """The batch stream. The decode plane (``decode_workers > 0``) forks
+        its workers here, when ``iter()`` is called, not at the first
+        ``next()``: a trainer takes its iterator before it touches CUDA, so
+        the workers never start from a process with a CUDA context."""
+        plane = None
+        workers, auto = decode_plane.resolve_workers(self.decode_workers)
+        if workers > 0:
+            if decode_plane.available():
+                tuner = (
+                    decode_plane.DecodeAutotuner(
+                        max_workers=max(workers, os.cpu_count() or 1)
+                    )
+                    if auto
+                    else None
+                )
+                plane = decode_plane.DecodePlane(self.parse_fn, workers, autotuner=tuner)
+            else:
+                logger.warning(
+                    "decode_workers=%s requested but fork/shared_memory is "
+                    "unavailable here; falling back to the thread parse pool",
+                    workers,
+                )
+        batches = self._batches(plane)
+        if plane is not None:
+            # a stream dropped before its first next() never runs its
+            # finally: the plane goes down with the generator instead
+            weakref.finalize(batches, plane.close)
+        return batches
+
+    def _batches(self, plane):
         from concurrent.futures import ThreadPoolExecutor
 
         B = self.batch_size
@@ -524,13 +656,33 @@ class ImagePipeline:
             help="records decoded by the native JPEG path (no PIL)",
         )
 
+        # the remote staging tier, rebuilt per iteration: its download pool
+        # spawns threads only on first submit (inside the producer thread),
+        # so constructing it here — after the plane forked — is fork-safe
+        stager = None
+        if self.store is not None:
+            from tensorflowonspark_tpu_torch.store import staging as store_staging
+
+            stager = store_staging.resolve_stager(self.store, prefetch=self.prefetch)
+        self._stager = stager
+
         reader_pool = (
             ThreadPoolExecutor(self.readahead, thread_name_prefix="tos-data-reader")
             if self.readahead > 0
             else None
         )
-        # the native fast path: only sound when the parse_fn advertises
-        # into-slot decode
+        ra_tuner = None
+        if reader_pool is not None and self.readahead_auto:
+            ra_tuner = autotune.ReadaheadAutotuner(max_depth=self.readahead)
+            ra_tuner.publish(self._ra_depth[0])
+
+        # cross-epoch decoded-slab cache: constructed lazily once bootstrap
+        # fixes the batch geometry (cache_box[0] stays None when off)
+        cache_box = [None]
+        cache_key = getattr(self.parse_fn, "cache_key", None)
+        cache_root = self.slab_cache_dir if cache_key is not None else None
+        # the thread-mode native fast path (process mode binds it in the
+        # worker): only sound when the parse_fn advertises into-slab decode
         into = getattr(self.parse_fn, "into", None)
 
         def _final_put(item):
@@ -544,14 +696,19 @@ class ImagePipeline:
                     continue
 
         def _new_pair():
+            # process mode mints a shared-memory slab (the view circulates
+            # exactly like a plain buffer pair); thread mode a heap buffer
+            if plane is not None:
+                return plane.new_slab(B, img_meta["shape"], img_meta["dtype"])
             return (
                 np.empty((B,) + img_meta["shape"], img_meta["dtype"]),
                 np.empty((B,), np.int32),
             )
 
         def _acquire():
-            # buffers are pooled only when recycling was asked for
-            if not self.recycle_buffers:
+            # slabs are ALWAYS pooled (workers hold attachments by name);
+            # plain buffers only when recycling was asked for
+            if plane is None and not self.recycle_buffers:
                 return _new_pair()
             try:
                 return free_q.get_nowait()
@@ -562,13 +719,18 @@ class ImagePipeline:
                 return _new_pair()
             # pool exhausted: one timed-get path (no spin) until a buffer
             # comes back or the consumer departs
+            t0 = time.monotonic()
             while True:
                 if stop.is_set():
                     raise _Stopped()
                 try:
-                    return free_q.get(timeout=0.1)
+                    pair = free_q.get(timeout=0.1)
+                    break
                 except queue.Empty:
                     continue
+            if plane is not None:
+                plane.note_slab_wait(time.monotonic() - t0)
+            return pair
 
         def producer():
             bad = []  # parse errors absorbed so far (within budget)
@@ -591,6 +753,13 @@ class ImagePipeline:
                     return img, lbl
                 except Exception as e:
                     return _ParseError(e)
+
+            def _rec_bytes(el):
+                """Raw record bytes of a stream element (None for a
+                decoded-cache hit — nothing left to key or decode)."""
+                if isinstance(el, _Decoded):
+                    return None
+                return el.rec if isinstance(el, _Keyed) else el
 
             def _parse_slot(el, slot):
                 """Pool worker: decode ``el`` straight into buffer slot
@@ -651,8 +820,124 @@ class ImagePipeline:
                 free_slots = list(range(B))
 
             def _emit_full():
-                _emit(images, labels)
+                # a full batch goes out; in non-recycle process mode the
+                # slab view is copied out and returned to the pool at once
+                # (the consumer only recycles when recycle_buffers is set)
+                if plane is not None and not self.recycle_buffers:
+                    _emit(np.array(images), labels.copy())
+                    free_q.put((images, labels))
+                else:
+                    _emit(images, labels)
                 _next_buffers()
+
+            def _slab_hit(el, slot):
+                """Serve ``el`` from the cross-epoch slab cache if it can:
+                the cached row is written into the slot parent-side (the
+                hit leases the slot without touching a worker or a pool
+                thread). Returns the record's crc (a miss, to be staged
+                after decode), True (served), or None (cache off /
+                already-decoded element)."""
+                cache = cache_box[0]
+                rec = _rec_bytes(el)
+                if cache is None or rec is None:
+                    return None
+                crc = zlib.crc32(rec)
+                hit = cache.lookup(crc)
+                if hit is None:
+                    return crc
+                images[slot] = hit[0]
+                labels[slot] = hit[1]
+                if isinstance(el, _Keyed):
+                    self._decoded[el.key] = _Decoded(
+                        np.array(images[slot]), int(labels[slot])
+                    )
+                return True
+
+            def _plane_round(els, slots):
+                """Decode one round on the process plane: cache hits are
+                written inline (already-decoded pixels never cross a
+                process), raw records lease slab slots to the workers, and
+                keyed slots flow back into the decoded cache *via the
+                slab* — no pickle on the result path."""
+                results = []
+                tasks = []
+                keyed = {}
+                crcs = {}  # slot -> record crc for slab-cache misses
+                for el, slot in zip(els, slots):
+                    if isinstance(el, _Decoded):
+                        try:
+                            images[slot] = el.image
+                            labels[slot] = el.label
+                        except Exception as e:  # shape/dtype mismatch
+                            results.append((slot, _ParseError(e)))
+                        continue
+                    try:
+                        served = _slab_hit(el, slot)
+                    except Exception as e:  # cached-row geometry mismatch
+                        results.append((slot, _ParseError(e)))
+                        continue
+                    if served is True:
+                        continue
+                    if served is not None:
+                        crcs[slot] = served
+                    rec, key = el, None
+                    if isinstance(el, _Keyed):
+                        rec, key = el.rec, el.key
+                    if key is not None:
+                        keyed[slot] = key
+                    tasks.append((slot, rec))
+                try:
+                    failures = plane.run_round(
+                        images, labels, tasks, should_stop=stop.is_set
+                    )
+                except decode_plane.Stopped:
+                    raise _Stopped()
+                failed = set()
+                for slot, err in failures:
+                    failed.add(slot)
+                    results.append((slot, _ParseError(err)))
+                for slot, key in keyed.items():
+                    if slot not in failed:
+                        self._decoded[key] = _Decoded(
+                            np.array(images[slot]), int(labels[slot])
+                        )
+                if cache_box[0] is not None:
+                    for slot, crc in crcs.items():
+                        if slot not in failed:
+                            cache_box[0].put(crc, images[slot], labels[slot])
+                plane.autotune_tick()
+                return results
+
+            def _thread_round(els, slots):
+                """Decode one round on the in-process pool: slab-cache hits
+                are written inline by the producer (the cache is
+                single-threaded by contract), misses fan out to the pool
+                and their freshly decoded rows are staged back."""
+                results = []
+                run_els = []
+                run_slots = []
+                crcs = {}
+                for el, slot in zip(els, slots):
+                    try:
+                        served = _slab_hit(el, slot)
+                    except Exception as e:  # cached-row geometry mismatch
+                        results.append((slot, _ParseError(e)))
+                        continue
+                    if served is True:
+                        continue
+                    if served is not None:
+                        crcs[slot] = served
+                    run_els.append(el)
+                    run_slots.append(slot)
+                results.extend(
+                    r for r in pool.map(_parse_slot, run_els, run_slots) if r is not None
+                )
+                if cache_box[0] is not None and crcs:
+                    failed = {slot for slot, _ in results}
+                    for slot, crc in crcs.items():
+                        if slot not in failed:
+                            cache_box[0].put(crc, images[slot], labels[slot])
+                return results
 
             def _round():
                 # parse all pending records into the lowest free slots;
@@ -663,8 +948,15 @@ class ImagePipeline:
                     return
                 slots = free_slots[: len(pending)]
                 t0 = time.monotonic()
-                results = [r for r in pool.map(_parse_slot, pending, slots) if r is not None]
+                if plane is not None:
+                    results = _plane_round(pending, slots)
+                else:
+                    results = _thread_round(pending, slots)
                 parse_c.inc(time.monotonic() - t0)
+                if ra_tuner is not None:
+                    target = ra_tuner.tick(self._ra_depth[0])
+                    if target is not None:
+                        self._ra_depth[0] = target
                 pending = []
                 holes = []
                 for slot, perr in results:
@@ -686,16 +978,46 @@ class ImagePipeline:
                 img = np.asarray(p[0])
                 img_meta["shape"] = img.shape
                 img_meta["dtype"] = np.float32 if img.dtype == np.float64 else img.dtype
+                if cache_root is not None:
+                    # geometry is now known: open (or create) the decoded-
+                    # slab cache scoped by the decode-parameter fingerprint
+                    try:
+                        cache_box[0] = slab_cache.SlabCache(
+                            cache_root, cache_key, img_meta["shape"], img_meta["dtype"]
+                        )
+                    except Exception as e:
+                        logger.warning("decoded-slab cache disabled: %s", e)
                 _next_buffers()
                 images[0] = img
                 labels[0] = p[1]
                 free_slots = free_slots[1:]
+                rec = _rec_bytes(el)
+                if cache_box[0] is not None and rec is not None:
+                    cache_box[0].put(zlib.crc32(rec), images[0], labels[0])
                 if not free_slots:
                     _emit_full()
 
+            def _epoch_end():
+                # flush the epoch's tail round so its rows make this commit
+                # (slot assignment is unchanged: the same records land in
+                # the same lowest free slots, just one round earlier), then
+                # seal the staged generation — epoch >= 2 reads it back
+                _round()
+                if cache_box[0] is not None:
+                    cache_box[0].commit()
+
             try:
-                with ThreadPoolExecutor(self.num_threads) as pool:
-                    for rec in self._record_stream(reader_pool, stop, abort, read_c):
+                # with a decode plane the parse happens out of process; the
+                # in-process pool (and its threads) never spawns
+                pool_cm = (
+                    contextlib.nullcontext()
+                    if plane is not None
+                    else ThreadPoolExecutor(self.num_threads)
+                )
+                with pool_cm as pool:
+                    for rec in self._record_stream(
+                        reader_pool, stop, abort, read_c, on_epoch_end=_epoch_end
+                    ):
                         if stop.is_set():
                             return
                         # poison is rolled here, in the producer thread, so
@@ -726,10 +1048,17 @@ class ImagePipeline:
                 _final_put(e)
                 return
             finally:
+                if cache_box[0] is not None:
+                    # uncommitted staging is discarded (the commit contract:
+                    # a generation exists fully or not at all)
+                    cache_box[0].close()
                 _final_put(_END)
                 abort.set()
                 if reader_pool is not None:
                     reader_pool.shutdown(wait=False, cancel_futures=True)
+                if stager is not None:
+                    self._stager = None
+                    stager.close()
 
         thread = threading.Thread(target=producer, name="tos-data-producer", daemon=True)
         thread.start()
@@ -763,6 +1092,12 @@ class ImagePipeline:
             # torn down when a half-consumed generator is GC'd at exit)
             while not out_q.empty():
                 out_q.get_nowait()
+            if plane is not None:
+                # the producer observes stop within one poll interval; only
+                # after it is out of the lease protocol is the plane torn
+                # down (workers drained, slab pool unlinked)
+                thread.join(timeout=10.0)
+                plane.close()
 
 
 class PinnedPlacer:

@@ -22,16 +22,22 @@ Each emitted batch is ``{"tokens", "segment_ids", "positions"}``, all
 
 Packing runs producer-side as a *plan* (lengths only, via the tokenizer's
 cheap validating :meth:`~tensorflowonspark_tpu_torch.data.tokenizer.Tokenizer.
-token_length`), then the plan's rows are tokenized on the in-process thread
-pool. Because the plan, the budget accounting, and the zeroing all happen
-in the producer thread, the delivered ``[B, L]`` stream is
-**byte-identical** across readahead/chunk knobs and thread counts — and to
-the JAX package's stream on the same corpus and seed.
+token_length`), then the plan's cache misses are tokenized either on the
+in-process thread pool or — with ``pack_workers > 0`` — in the decode
+plane's forked workers writing straight into shared-memory slabs under the
+slot-lease protocol (:mod:`~tensorflowonspark_tpu_torch.data.decode_plane`; the
+payload is the pack plan, one lease per packed row). Because the plan, the
+budget accounting, and the zeroing all happen in the producer thread, the
+delivered ``[B, L]`` stream is **byte-identical** across ``pack_workers``
+settings, readahead/chunk knobs, and packed-slab cache states (cold, warm,
+off) — the same determinism contract the image plane enforces.
 
-The JAX package's forked pack workers (``pack_workers > 0``) and its
-packed-slab cache (``slab_cache_dir``) are not yet ported: both raise
-``NotImplementedError`` (the pack plane forks, and the trainer has CUDA up
-before its pipeline starts; both come with the image-plane slice).
+The packed-slab cache (:mod:`~tensorflowonspark_tpu_torch.data.slab_cache`) is
+reused with per-*sequence* geometry ``(L,) int32``: rows are keyed by
+record crc32 under the tokenizer-config fingerprint (kind, vocab, field,
+``L`` — truncation depends on the bin capacity), the row label is the
+effective token count, and epoch >= 2 (or a warm relaunch) serves token
+ids from a memory map instead of re-tokenizing.
 
 Chaos sites native to this stage: ``data.tokenize_error`` poisons a
 record's bytes producer-side so the tokenizer rejects it (charged against
@@ -44,10 +50,13 @@ import logging
 import queue
 import threading
 import time
+import weakref
+import zlib
 
 import numpy as np
 
 from tensorflowonspark_tpu_torch import chaos, obs
+from tensorflowonspark_tpu_torch.data import decode_plane, slab_cache
 from tensorflowonspark_tpu_torch.data import tokenizer as tokenizer_mod
 from tensorflowonspark_tpu_torch.data.loader import ImagePipeline, _Stopped
 
@@ -93,17 +102,16 @@ class TextPipeline(ImagePipeline):
     - ``tokenizer`` + ``seq_len`` replace ``parse_fn`` (the pack-plane
       parse fn is built internally via :func:`~tensorflowonspark_tpu_torch.data.
       tokenizer.make_pack_fn`);
-    - ``pack_workers`` is the text plane's ``decode_workers``: only 0 (or
-      None), the thread pool, is ported;
+    - ``pack_workers`` is the text plane's ``decode_workers`` (0 = thread
+      pool, ``"auto"``/N = forked slab workers);
     - ``pack_ahead`` sizes the packing window: records accumulate until
       roughly ``pack_ahead * B * L`` tokens are pending, then the window
       is FFD-packed — deeper windows pack tighter, at more producer
       buffering (leftover part-full bins carry their sequences into the
       next window, so nothing is dropped mid-stream);
     - ``cache="decoded"`` and ``recycle_buffers`` are not supported (the
-      decoded-pair cache is image-geometry machinery);
-    - ``slab_cache_dir``, ``store`` and ``prefetch`` are refused as in the
-      loader (not yet ported).
+      decoded-pair cache is image-geometry machinery; packed rows already
+      have the packed-slab cache).
 
     ``max_bad_records`` budgets records the tokenizer rejects (malformed
     UTF-8, empty text, missing Example feature) exactly like undecodable
@@ -141,12 +149,7 @@ class TextPipeline(ImagePipeline):
         if cache == "decoded":
             raise ValueError(
                 "cache='decoded' is image-plane machinery; the text plane's "
-                "cross-epoch cache is the packed-slab cache, not yet ported"
-            )
-        if pack_workers not in (None, 0):
-            raise NotImplementedError(
-                "pack_workers > 0 is not yet ported to tensorflowonspark_tpu_torch "
-                "(forked pack workers come with the image-plane slice)"
+                "cross-epoch cache is the packed-slab cache (slab_cache_dir)"
             )
         seq_len = int(seq_len)
         if seq_len < 4:
@@ -167,6 +170,7 @@ class TextPipeline(ImagePipeline):
             chunk_records=chunk_records,
             shuffle_buffer=shuffle_buffer,
             cache=cache,
+            decode_workers=pack_workers,
             slab_cache_dir=slab_cache_dir,
             store=store,
             prefetch=prefetch,
@@ -178,6 +182,29 @@ class TextPipeline(ImagePipeline):
     # -- stage 3: pack assembly ---------------------------------------------
 
     def __iter__(self):
+        """The packed stream. The pack plane (``pack_workers > 0``) forks
+        its workers here, when ``iter()`` is called, not at the first
+        ``next()``: a trainer takes its iterator before it touches CUDA, so
+        the workers never start from a process with a CUDA context."""
+        plane = None
+        workers, _auto = decode_plane.resolve_workers(self.decode_workers)
+        if workers > 0:
+            if decode_plane.available():
+                plane = decode_plane.DecodePlane(self.parse_fn, workers)
+            else:
+                logger.warning(
+                    "pack_workers=%s requested but fork/shared_memory is "
+                    "unavailable here; falling back to the thread pack pool",
+                    workers,
+                )
+        batches = self._batches(plane)
+        if plane is not None:
+            # a stream dropped before its first next() never runs its
+            # finally: the plane goes down with the generator instead
+            weakref.finalize(batches, plane.close)
+        return batches
+
+    def _batches(self, plane):
         from concurrent.futures import ThreadPoolExecutor
 
         B, L = self.batch_size, self.seq_len
@@ -185,6 +212,9 @@ class TextPipeline(ImagePipeline):
         stop = threading.Event()  # consumer departed
         abort = threading.Event()  # producer died: unblocks reader threads
         _END = object()
+        free_q = queue.Queue()  # recycled slab pairs (process mode only)
+        pool_cap = max(1, self.prefetch_batches) + 2
+        alloc_count = [0]
 
         produced_c = obs.counter(
             "data_batches_produced_total", help="batches parsed by the input pipeline"
@@ -234,7 +264,7 @@ class TextPipeline(ImagePipeline):
         stall_c = obs.counter(
             "text_pack_stall_seconds_total",
             help="seconds the packer stalled inside the pack stage "
-            "(injected data.pack_stall faults)",
+            "(slab-pool waits and injected data.pack_stall faults)",
         )
         eff_g = obs.gauge(
             "text_pack_efficiency",
@@ -249,6 +279,17 @@ class TextPipeline(ImagePipeline):
             if self.readahead > 0
             else None
         )
+
+        # packed-row geometry is static — unlike images no bootstrap record
+        # is needed to size the cache or the buffers
+        cache_box = [None]
+        if self.slab_cache_dir is not None:
+            try:
+                cache_box[0] = slab_cache.SlabCache(
+                    self.slab_cache_dir, self.parse_fn.cache_key, (L,), np.int32
+                )
+            except Exception as e:
+                logger.warning("packed-slab cache disabled: %s", e)
         into = self.parse_fn.into
 
         def _final_put(item):
@@ -260,6 +301,37 @@ class TextPipeline(ImagePipeline):
                     return
                 except queue.Full:
                     continue
+
+        def _acquire():
+            # slabs are pooled (workers hold attachments by name); thread
+            # mode emits fresh heap buffers, nothing to recycle
+            if plane is None:
+                return np.zeros((B, 3, L), np.int32), np.empty((B,), np.int32)
+            try:
+                pair = free_q.get_nowait()
+            except queue.Empty:
+                pair = None
+            if pair is None:
+                if alloc_count[0] < pool_cap:
+                    alloc_count[0] += 1
+                    pair = plane.new_slab(B, (3, L), np.int32)
+                else:
+                    # pool exhausted: timed-get until a slab returns or the
+                    # consumer departs — this is a genuine pack stall
+                    t0 = time.monotonic()
+                    while True:
+                        if stop.is_set():
+                            raise _Stopped()
+                        try:
+                            pair = free_q.get(timeout=0.1)
+                            break
+                        except queue.Empty:
+                            continue
+                    waited = time.monotonic() - t0
+                    plane.note_slab_wait(waited)
+                    stall_c.inc(waited)
+            pair[0][...] = 0  # zero tokens/segments/positions: pad baseline
+            return pair
 
         def producer():
             bad = []  # tokenize errors absorbed so far (within budget)
@@ -295,26 +367,74 @@ class TextPipeline(ImagePipeline):
                 produced_c.inc()
                 depth_g.set(out_q.qsize())
 
+            def _cache_hit(rec, eff_len):
+                """Serve a sequence's token ids from the packed-slab cache:
+                returns (ids, None) on a hit, (None, crc) on a miss to be
+                staged after tokenizing, (None, None) when the cache is
+                off."""
+                cache = cache_box[0]
+                if cache is None:
+                    return None, None
+                crc = zlib.crc32(rec)
+                hit = cache.lookup(crc)
+                if hit is None:
+                    return None, crc
+                row, lbl = hit
+                if int(lbl) != eff_len:  # stale geometry guard; re-tokenize
+                    return None, crc
+                return row[:eff_len], None
+
             def _fill_and_emit(bins):
-                """Assemble one batch from packed bins: a zeroed buffer, each
-                row tokenized by the thread pool at its planned offsets."""
+                """Assemble one batch from packed bins: zeroed buffer, cache
+                hits written parent-side, misses tokenized by the pack
+                plane (one slot lease per row, the plan as payload) or the
+                thread pool, fresh rows staged back into the cache."""
                 rows = len(bins)
-                buf = np.zeros((B, 3, L), np.int32)
+                buf, labels = _acquire()
                 t0 = time.monotonic()
                 if chaos.active:
                     tc = time.monotonic()
                     if chaos.delay("data.pack_stall"):
                         stall_c.inc(time.monotonic() - tc)
-                plans = []  # (slot, plan tuple) for each row
+                plans = []  # (slot, plan tuple) for rows with cache misses
+                puts = []  # (crc, slot, offset, eff_len) staged after the round
                 for slot, entries in enumerate(bins):
                     offset = 0
                     plan = []
                     for seg_id, (rec, eff_len) in enumerate(entries, start=1):
-                        plan.append((offset, seg_id, eff_len, rec))
+                        ids, crc = _cache_hit(rec, eff_len)
+                        if ids is not None:
+                            tokenizer_mod.write_segment(buf[slot], offset, seg_id, ids)
+                        else:
+                            plan.append((offset, seg_id, eff_len, rec))
+                            if crc is not None:
+                                puts.append((crc, slot, offset, eff_len))
                         offset += eff_len
+                    labels[slot] = len(entries)
                     if plan:
                         plans.append((slot, tuple(plan)))
-                list(pool.map(lambda sp: into(sp[1], buf[sp[0]]), plans))
+                if plane is not None:
+                    if plans:
+                        try:
+                            failures = plane.run_round(
+                                buf, labels, plans, should_stop=stop.is_set
+                            )
+                        except decode_plane.Stopped:
+                            raise _Stopped()
+                        if failures:
+                            # token_length already validated every record —
+                            # a worker-side encode failure is a real bug,
+                            # not a budget event
+                            raise failures[0][1]
+                else:
+                    list(pool.map(lambda sp: into(sp[1], buf[sp[0]]), plans))
+                cache = cache_box[0]
+                if cache is not None:
+                    padded = np.zeros((L,), np.int32)
+                    for crc, slot, offset, eff_len in puts:
+                        padded[...] = 0
+                        padded[:eff_len] = buf[slot, 0, offset : offset + eff_len]
+                        cache.put(crc, padded, eff_len)
                 parse_c.inc(time.monotonic() - t0)
                 n_tokens = sum(n for entries in bins for _, n in entries)
                 tokens_c.inc(n_tokens)
@@ -324,7 +444,13 @@ class TextPipeline(ImagePipeline):
                 eff = emitted_tokens[0] / emitted_slots[0]
                 eff_g.set(eff)
                 pad_g.set(1.0 - eff)
-                out = buf[:rows]
+                if plane is not None:
+                    # slab views are copied out and the slab returns to the
+                    # pool at once (yielded batches are retainable)
+                    out = np.array(buf[:rows])
+                    free_q.put((buf, labels))
+                else:
+                    out = buf[:rows]
                 _emit(
                     {
                         "tokens": out[:, 0],
@@ -356,12 +482,21 @@ class TextPipeline(ImagePipeline):
                     window_tokens = sum(n for _, n in window)
 
             def _epoch_end():
-                # pack the epoch's tail into full batches; part-full
-                # leftover bins carry across the epoch boundary
+                # pack the epoch's tail into full batches, then seal the
+                # staged cache generation — epoch >= 2 reads it back.
+                # Part-full leftover bins carry across the epoch boundary
+                # (their rows join the next epoch's first commit).
                 _flush(final=False)
+                if cache_box[0] is not None:
+                    cache_box[0].commit()
 
             try:
-                with ThreadPoolExecutor(self.num_threads) as pool:
+                pool_cm = (
+                    ThreadPoolExecutor(self.num_threads)
+                    if plane is None
+                    else _NullPool()
+                )
+                with pool_cm as pool:
                     for rec in self._record_stream(
                         reader_pool, stop, abort, read_c, on_epoch_end=_epoch_end
                     ):
@@ -395,6 +530,10 @@ class TextPipeline(ImagePipeline):
                 _final_put(e)
                 return
             finally:
+                if cache_box[0] is not None:
+                    # commit the stream tail's staged rows, then release
+                    cache_box[0].commit()
+                    cache_box[0].close()
                 _final_put(_END)
                 abort.set()
                 if reader_pool is not None:
@@ -421,3 +560,24 @@ class TextPipeline(ImagePipeline):
             # torn down when a half-consumed generator is GC'd at exit)
             while not out_q.empty():
                 out_q.get_nowait()
+            if plane is not None:
+                # the producer observes stop within one poll interval; only
+                # after it is out of the lease protocol is the plane torn
+                # down (workers drained, slab pool unlinked)
+                thread.join(timeout=10.0)
+                plane.close()
+
+
+class _NullPool:
+    """Context stand-in for the thread pool when the pack plane owns the
+    parse stage (mirrors the loader's nullcontext use, but typed so the
+    ``pool`` name always exists)."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def map(self, fn, items):
+        return [fn(it) for it in items]

@@ -15,8 +15,8 @@ things from a tokenizer, and nothing else:
    forked pack worker, warm cache run), so the delivered ``[B, L]`` stream
    is byte-identical across worker counts and cache states.
 3. a **config fingerprint** — :attr:`Tokenizer.cache_key` scopes the
-   JAX package's packed-slab cache (not yet ported) so a vocab or kind
-   change can never serve stale token rows.
+   packed-slab cache (:mod:`~tensorflowonspark_tpu_torch.data.slab_cache`) so a
+   vocab or kind change can never serve stale token rows.
 
 Two tokenizer kinds cover the subsystem without pulling in a vocab file
 dependency (the container has none):

@@ -129,12 +129,14 @@ def main_fun(args, ctx):
                last_loss=losses[-1] if losses else None, train_s=seconds,
                images_per_sec=rows / seconds if seconds else None, device=str(ctx.device),
                rank=ctx.process_id, params_sha256=digest, **host)
+        # inside the span: a reader that waits for the span (await_trainers)
+        # must find the counters in the same published snapshot
+        for fn in kernel_trace.counted_wrappers():
+            obs.counter("{}_launches_total".format(fn.__name__),
+                        help="launches of the {} kernel by the training loop".format(fn.__name__)
+                        ).inc(fn.launches - launches0[fn.__name__])
     if not feed.should_stop():
         feed.terminate()
-    for fn in kernel_trace.counted_wrappers():
-        obs.counter("{}_launches_total".format(fn.__name__),
-                    help="launches of the {} kernel by the training loop".format(fn.__name__)
-                    ).inc(fn.launches - launches0[fn.__name__])
     print("trained {} steps on {} rows".format(steps - start_step, rows))
 
     if args.export_dir and ctx.job_name in ("chief", "master"):

@@ -2,8 +2,23 @@
 
 ``--dataset imagenet`` trains ResNet-50 v1.5 (base LR 0.1·bs/256 with a
 linear warmup), ``--dataset cifar`` ResNet-56 (piecewise LR), both with SGD
-momentum 0.9 and the L2 term in the loss, on the reference's synthetic input
-path (one seeded random batch per worker, re-fed every step). Each node's
+momentum 0.9 and the L2 term in the loss. Input, as in the JAX example:
+
+* ``--data_dir <tfrecords>`` — real data: the worker's share of the TFRecord
+  shards (``shard_files``) through the port's
+  :class:`~tensorflowonspark_tpu_torch.data.ImagePipeline` (the native
+  reader and JPEG decoder, a thread pool of ``--data_threads``, or the
+  forked decode plane with ``TOS_DECODE_WORKERS``; the decoded-slab cache
+  with ``TOS_SLAB_CACHE_DIR``), placed ahead through pinned buffers. ImageNet
+  batches ship as uint8 and are normalized on the card. The pipeline's
+  iterator is taken before the trainer touches CUDA, so the decode plane
+  forks from a process without a CUDA context. A worker with no shard fails
+  at once. Shards come from ``resnet_data_setup.py``.
+* otherwise the reference's synthetic path (one seeded random batch per
+  worker, re-fed every step).
+
+``--eval_dir`` scores top-1 after training on the first worker, over all
+eval shards, with no collective and the short last batch kept. Each node's
 trainer child runs on ``--platform`` (default ``gpu``: one CUDA device per
 process; ``gpu`` without a CUDA device raises). ``--bn_impl pallas`` runs
 every BatchNorm through the port's kernels; ``flax`` is plain PyTorch math.
@@ -20,7 +35,8 @@ card the step is captured once in a CUDA graph and replayed (the first two
 steps run eagerly as its warm-up); a tail shorter than K runs step by step.
 
 Each logged step (or loop of K steps) lands in the node's obs registry as a
-``train_step`` span (its last step, the steps it ran, loss, images/s) and
+``train_step`` span (its last step, the steps it ran, loss, images/s; on
+real data also the input plane's stall counters so far) and
 the BN kernel wrappers' launches as ``fused_bn_<kernel>_launches_total``
 counters (eager launches and launches into a captured graph), so the Spark
 driver reads them from ``cluster.metrics()``. ``--trace_call N`` traces the
@@ -41,11 +57,17 @@ node relaunches the cluster up to N times, and the trainer resumes from its
 checkpoint. ``--deterministic`` selects cuDNN's deterministic algorithms, so
 a resumed run equals an uninterrupted one bitwise.
 
-Not yet ported, and refused with an error: ``--data_dir`` / ``--eval_dir``
-(the real-data input plane) and ``--profile_steps``.
+``--profile_steps START[,STOP]`` traces that step range with
+``torch.profiler`` into ``<model_dir or .>/profile/trace.json`` (a Chrome
+trace); it cannot be combined with ``--trace_call``.
 """
 
 import argparse
+
+#: the input plane's stall accounting, set on each train_step span of a
+#: real-data run (cumulative seconds)
+STALL_COUNTERS = ("data_producer_read_seconds_total", "data_producer_parse_seconds_total",
+                  "data_producer_emit_seconds_total", "data_consumer_wait_seconds_total")
 
 
 def lr_schedule(args):
@@ -61,22 +83,39 @@ def lr_schedule(args):
     return optim.linear_schedule(0.0, base, warmup)
 
 
-def refuse_unported(args):
-    """Raise for the options whose machinery is not yet ported."""
-    unported = [
-        ("--data_dir", args.data_dir, "the real-data input plane"),
-        ("--eval_dir", args.eval_dir, "the real-data input plane"),
-        ("--profile_steps", args.profile_steps, "profiling"),
-    ]
-    for flag, value, what in unported:
-        if value:
-            raise NotImplementedError(
-                "{} is not yet ported to tensorflowonspark_tpu_torch ({} comes in a "
-                "later slice)".format(flag, what)
-            )
+def _image_pipeline(args, ctx, image_size, feed_uint8, training):
+    """The worker's train stream (its share of ``--data_dir``, endless,
+    shuffled) or the eval stream (every ``--eval_dir`` shard once, in
+    order, the short last batch kept), as an iterator: the decode plane, if
+    one is asked for, has forked when this returns."""
+    from tensorflowonspark_tpu_torch import tfrecord as tfr
+    from tensorflowonspark_tpu_torch.data import ImagePipeline, cifar, imagenet, shard_files
+
+    seed = ctx.executor_id if training else 0
+    if args.dataset == "cifar":
+        parse = cifar.make_parse_fn(training, seed=seed)
+    else:
+        parse = imagenet.make_parse_fn(training, image_size=image_size, label_offset=args.label_offset,
+                                       seed=seed, raw_uint8=feed_uint8)
+    if not training:
+        files = tfr.list_shards(args.eval_dir)
+        return iter(ImagePipeline(files, parse, args.batch_size, shuffle=False, epochs=1,
+                                  drop_remainder=False, num_threads=args.data_threads))
+    all_files = tfr.list_shards(args.data_dir)
+    files = shard_files(all_files, ctx.num_workers, ctx.executor_id)
+    if not files:
+        # fail loudly NOW: a worker with no data would sit out the
+        # collective train steps and hang the whole world at step 1
+        raise RuntimeError(
+            "worker {} got 0 of {} shard files in {} — distributed training needs at least "
+            "num_workers ({}) shard files".format(ctx.executor_id, len(all_files), args.data_dir,
+                                                  ctx.num_workers))
+    return iter(ImagePipeline(files, parse, args.batch_size, seed=ctx.executor_id, epochs=None,
+                              num_threads=args.data_threads))
 
 
 def main_fun(args, ctx):
+    import collections
     import contextlib
     import json
     import os
@@ -87,29 +126,41 @@ def main_fun(args, ctx):
     from torch.autograd.profiler import record_function
 
     from tensorflowonspark_tpu_torch import obs
+    from tensorflowonspark_tpu_torch.data import device_prefetch, imagenet, loop_prefetch
     from tensorflowonspark_tpu_torch.models import resnet
     from tensorflowonspark_tpu_torch.ops import fused_bn
     from tensorflowonspark_tpu_torch.ops.kernel_trace import KernelTrace
     from tensorflowonspark_tpu_torch.train import SyncDataParallel, checkpoint, optim
 
-    refuse_unported(args)
-    if args.deterministic:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    ctx.initialize_distributed()
-    strategy = SyncDataParallel(ctx.device)
-    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     if args.dataset == "cifar":
         build, image_size, classes = resnet.resnet56, 32, 10
     else:
         build, image_size, classes = resnet.resnet50, 224, 1000
     if args.image_size:
         image_size = args.image_size
+    use_real = bool(args.data_dir)
+    # imagenet real data feeds raw uint8 (a quarter of the host→device
+    # bytes); the mean subtraction runs on the card
+    feed_uint8 = use_real and args.dataset == "imagenet"
+    # the input streams first: a decode plane forks its workers as its
+    # iterator is taken, and this process has no CUDA context yet
+    stream = _image_pipeline(args, ctx, image_size, feed_uint8, True) if use_real else None
+    eval_stream = None
+    if args.eval_dir and ctx.executor_id == 0:
+        eval_stream = _image_pipeline(args, ctx, image_size, feed_uint8, False)
+
+    if args.deterministic:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    ctx.initialize_distributed()
+    strategy = SyncDataParallel(ctx.device)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     optimizer = optim.sgd(lr_schedule(args), momentum=0.9)
     generator = torch.Generator().manual_seed(0)  # the reference's PRNGKey(0)
     state = strategy.create_state(
         lambda: build(dtype=dtype, bn_impl=args.bn_impl, generator=generator), optimizer
     )
-    loss_fn = resnet.make_loss_fn(weight_decay=1e-4)
+    normalize = imagenet.device_normalize if feed_uint8 else None
+    loss_fn = resnet.make_loss_fn(weight_decay=1e-4, normalize=normalize)
     # every rank holds the same state (global gradients and BN statistics):
     # one saver, or several ranks would race on one directory; every rank
     # restores
@@ -132,30 +183,74 @@ def main_fun(args, ctx):
         # K steps a call: on the card one captured CUDA graph, replayed
         loop = strategy.compile_train_loop(loss_fn, optimizer, steps_per_loop, mutable=True)
 
-    rng = np.random.default_rng(ctx.executor_id)
-    synthetic = strategy.shard_batch(
-        {
-            "image": rng.standard_normal((args.batch_size, image_size, image_size, 3)).astype(np.float32),
-            "label": rng.integers(0, classes, args.batch_size),
-        }
-    )
+    if use_real:
+        # placed ahead through pinned buffers: windows of K for the loop,
+        # single batches for the eager step
+        feed = (loop_prefetch(stream, strategy, steps_per_loop) if loop is not None
+                else ([b] for b in device_prefetch(stream, strategy)))
+    else:
+        rng = np.random.default_rng(ctx.executor_id)
+        synthetic = strategy.shard_batch(
+            {
+                "image": rng.standard_normal((args.batch_size, image_size, image_size, 3)).astype(np.float32),
+                "label": rng.integers(0, classes, args.batch_size),
+            }
+        )
+        feed = iter(lambda: [synthetic], None)  # repeat forever
+    pending = collections.deque()
+
+    def take(i):
+        """The batches of the call that starts at step ``i``: a loop's K,
+        or one for an eager step (and for each step of a tail shorter than
+        K)."""
+        n = steps_per_loop if loop is not None and i + steps_per_loop <= args.train_steps else 1
+        while len(pending) < n:
+            pending.extend(next(feed))
+        return [pending.popleft() for _ in range(n)]
+
+    profile_range, profiler, trace_dir = None, None, None
+    if args.profile_steps:
+        # reference: --profile_steps -> profiler callback over a step range
+        # (common.py:192-197); here torch.profiler traces the same range
+        lo, _, hi = args.profile_steps.partition(",")
+        profile_range = (int(lo), int(hi or lo))
+        trace_dir = os.path.join(args.model_dir or ".", "profile")
+
+    def stop_profiler():
+        if strategy.device.type == "cuda":
+            torch.cuda.synchronize()
+        profiler.stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        print("profiler trace written to {}".format(trace_dir))
 
     launches0 = fused_bn.launch_counts()
     t0, metrics = time.perf_counter(), {}
     i = last_log = last_ckpt = start_step
     calls = 0
+    with record_function("train.fetch"):
+        got = take(i) if i < args.train_steps else []
     while i < args.train_steps:
-        n = steps_per_loop if loop is not None and i + steps_per_loop <= args.train_steps else 1
+        if profile_range and profiler is None and i >= profile_range[0]:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if strategy.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.start()
+        n = len(got)
         calls += 1
         traced = KernelTrace() if calls == args.trace_call else contextlib.nullcontext()
         with obs.span("train_step", step=i + n, steps=n) as sp:
             with traced as trace:
                 with record_function("train.call"):
                     if n > 1:
-                        state, metrics = loop(state, [synthetic] * n)
+                        state, metrics = loop(state, got)
                     else:
-                        state, metrics = step(state, synthetic)
+                        state, metrics = step(state, got[0])
                 i += n
+                if i < args.train_steps:
+                    with record_function("train.fetch"):
+                        got = take(i)  # the next call's batches, placed while this one runs
                 if i - last_log >= args.log_steps:
                     with record_function("train.sync"):
                         loss = float(metrics["loss"])  # waits for the device
@@ -168,11 +263,24 @@ def main_fun(args, ctx):
             if trace is not None:
                 sp.set(device_trace=trace.readings)
                 print("device trace of call {}: {}".format(calls, json.dumps(trace.readings)))
+            if stream is not None:
+                # the input plane's stall counters so far: deltas between two
+                # calls' spans classify an interval (past the first call's
+                # build and capture, during which the producer only waits)
+                sp.set(**{name: obs.counter(name).value for name in STALL_COUNTERS})
+        if profiler is not None and profile_range and i >= profile_range[1]:
+            stop_profiler()
+            profile_range = None  # captured once; never re-trigger
         if args.model_dir and args.checkpoint_steps and is_saver and i - last_ckpt >= args.checkpoint_steps:
             with obs.span("ckpt_save", step=i):
                 checkpoint.save_checkpoint(os.path.join(args.model_dir, "ckpt_{}".format(i)), state)
             last_ckpt = i
             checkpoint.prune_checkpoints(args.model_dir, args.keep_checkpoints)
+    if profiler is not None and profile_range:
+        stop_profiler()  # a stop boundary past train_steps still flushes the trace
+    if stream is not None:
+        feed.close()
+        stream.close()  # stop the producer (and the decode plane) before teardown
     if metrics and args.model_dir and is_saver and last_ckpt < args.train_steps:
         with obs.span("ckpt_save", step=i):
             checkpoint.save_checkpoint(os.path.join(args.model_dir, "ckpt_{}".format(i)), state)
@@ -184,6 +292,24 @@ def main_fun(args, ctx):
     if metrics:
         print("final loss {:.3f}".format(float(metrics["loss"])))
 
+    if eval_stream is not None:
+        # the reference's per-run top-1 eval (resnet_imagenet_main.py):
+        # aspect-preserving resize + central crop, no augmentation, on the
+        # first worker only, over ALL eval shards: eval must not enter
+        # collectives, and must score every example
+        eval_fn = resnet.make_eval_fn(normalize=normalize)
+        state.module.eval()
+        correct = total = 0
+        with obs.span("eval") as sp:
+            for b in eval_stream:
+                c, n = eval_fn(state.module, state.model_state, strategy.shard_batch(b))
+                correct += int(c)
+                total += int(n)
+            state.module.train()
+            if total:
+                sp.set(correct=correct, examples=total, accuracy=correct / total)
+                print("eval accuracy {:.4f} ({} examples)".format(correct / total, total))
+
 
 def build_parser():
     parser = argparse.ArgumentParser()
@@ -193,12 +319,18 @@ def build_parser():
                              "plain PyTorch math; both global over the workers")
     parser.add_argument("--cluster_size", type=int, default=None,
                         help="explicit cluster size (default: from the Spark conf/parallelism under Spark; 1 on the local backend)")
-    parser.add_argument("--data_dir", default=None, help="TFRecord shard dir (not yet ported)")
+    parser.add_argument("--data_dir", default=None, help="TFRecord shard dir (real-data mode)")
+    parser.add_argument("--data_threads", type=int, default=8,
+                        help="decode threads of the input pipeline (TOS_DECODE_WORKERS > 0 forks "
+                             "decode processes instead)")
     parser.add_argument("--dataset", choices=["cifar", "imagenet"], default="cifar")
-    parser.add_argument("--eval_dir", default=None, help="eval shard dir (not yet ported)")
+    parser.add_argument("--eval_dir", default=None,
+                        help="TFRecord shard dir for post-training top-1 eval")
     parser.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16")
     parser.add_argument("--image_size", type=int, default=None,
                         help="override the dataset's native size (tests/CI)")
+    parser.add_argument("--label_offset", type=int, default=0,
+                        help="-1 for 1-based ImageNet labels")
     parser.add_argument("--log_steps", type=int, default=20)
     parser.add_argument("--steps_per_loop", type=int, default=1,
                         help="train steps a call of the train loop (on the card: one captured "
@@ -212,7 +344,8 @@ def build_parser():
     parser.add_argument("--deterministic", action="store_true",
                         help="cuDNN deterministic algorithms: bitwise-reproducible runs")
     parser.add_argument("--profile_steps", default=None, metavar="START[,STOP]",
-                        help="not yet ported")
+                        help="trace this step range with torch.profiler into <model_dir or .>/profile "
+                             "(reference --profile_steps, common.py:192-197)")
     parser.add_argument("--steps_per_epoch", type=int, default=390)
     parser.add_argument("--trace_call", type=int, default=0, metavar="N",
                         help="trace the N-th train call (1-based; 0: none) with torch.profiler and "
@@ -233,7 +366,8 @@ def main(argv=None, sc=None):
     without it)."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(args)
+    if args.profile_steps and args.trace_call:
+        parser.error("--profile_steps and --trace_call both run torch.profiler: pick one")
     if args.auto_recover and not (args.model_dir and args.checkpoint_steps):
         # without a mid-run checkpoint to resume from, every relaunch would
         # silently restart at step 0 — refuse the misconfiguration up front

@@ -43,11 +43,15 @@ there (``checkpoint.restore_latest``, in place) and rank 0 saves the final
 state as ``ckpt_<train_steps>``, as the JAX example does; the text stream
 starts over on resume.
 
+``--pack_workers N`` packs in N forked workers writing into shared-memory
+slabs (the text plane's decode plane), and ``--slab_cache_dir`` serves
+epoch >= 2 from the packed-slab cache; the pipeline's iterator is taken
+before the trainer touches CUDA, so the workers fork from a process without
+a CUDA context. The stream is byte-identical in every mode.
+
 Not yet ported, and refused with an error: ``--moe_experts`` > 0,
 ``--mesh`` axes other than ``dp`` (tensor and sequence parallelism, ring
-attention), ``--remat``, ``--slab_cache_dir`` (the packed-slab cache) and
-``--pack_workers`` > 0 (the forked pack plane: the trainer child has CUDA up
-by the time the pipeline starts, and a process must not fork after that).
+attention) and ``--remat``.
 """
 
 import argparse
@@ -105,9 +109,6 @@ def refuse_unported(args):
         ("--moe_experts", args.moe_experts > 0, "mixture of experts"),
         ("--mesh " + ",".join(model_axes), model_axes, "model axes (tp/sp/ep, ring attention)"),
         ("--remat", args.remat, "rematerialization"),
-        ("--pack_workers", (args.pack_workers or 0) > 0,
-         "a pack plane built before the trainer touches CUDA"),
-        ("--slab_cache_dir", args.slab_cache_dir, "the packed-slab cache"),
     ]
     for flag, value, what in unported:
         if value:
@@ -135,6 +136,38 @@ def main_fun(args, ctx):
     from tensorflowonspark_tpu_torch.train import SyncDataParallel, checkpoint, optim
 
     refuse_unported(args)
+    # real corpus: per-worker TFRecord text shards → tokenize → FFD-pack
+    # into [B, seq_len+1] (the +1 feeds the shift-by-one LM loss), with
+    # segment_ids/positions fencing packed sequences in the attention mask
+    all_files = tfr.list_shards(args.data_dir)
+    files = shard_files(all_files, ctx.num_workers, ctx.executor_id)
+    if not files:
+        # fail loudly NOW: a worker with no data would sit out the
+        # collective train steps and hang the whole world at step 1
+        raise RuntimeError(
+            "worker {} got 0 of {} shard files in {} — distributed training "
+            "needs at least num_workers ({}) shard files".format(
+                ctx.executor_id, len(all_files), args.data_dir, ctx.num_workers
+            )
+        )
+    tokenizer = Tokenizer(
+        kind=args.tokenizer,
+        vocab_size=args.vocab_size if args.tokenizer == "word" else None,
+    )
+    if tokenizer.vocab_size > args.vocab_size:
+        raise ValueError(
+            "model vocab_size {} smaller than tokenizer vocab {}".format(
+                args.vocab_size, tokenizer.vocab_size
+            )
+        )
+    pipe = TextPipeline(
+        files, tokenizer, seq_len=args.seq_len + 1, batch_size=args.batch_size,
+        seed=ctx.executor_id, epochs=None, max_bad_records=args.max_bad_records,
+        pack_workers=args.pack_workers, slab_cache_dir=args.slab_cache_dir,
+    )
+    # taken before the trainer touches CUDA: a pack plane forks its workers
+    # here, from a process without a CUDA context
+    stream = iter(pipe)
     ctx.initialize_distributed()
     strategy = SyncDataParallel(ctx.device)
     model = transformer.create_model(
@@ -164,35 +197,6 @@ def main_fun(args, ctx):
         # K steps a call: on the card one captured CUDA graph, replayed
         loop = strategy.compile_train_loop(loss_fn, optimizer, steps_per_loop, has_aux=True)
 
-    # real corpus: per-worker TFRecord text shards → tokenize → FFD-pack
-    # into [B, seq_len+1] (the +1 feeds the shift-by-one LM loss), with
-    # segment_ids/positions fencing packed sequences in the attention mask
-    all_files = tfr.list_shards(args.data_dir)
-    files = shard_files(all_files, ctx.num_workers, ctx.executor_id)
-    if not files:
-        # fail loudly NOW: a worker with no data would sit out the
-        # collective train steps and hang the whole world at step 1
-        raise RuntimeError(
-            "worker {} got 0 of {} shard files in {} — distributed training "
-            "needs at least num_workers ({}) shard files".format(
-                ctx.executor_id, len(all_files), args.data_dir, ctx.num_workers
-            )
-        )
-    tokenizer = Tokenizer(
-        kind=args.tokenizer,
-        vocab_size=args.vocab_size if args.tokenizer == "word" else None,
-    )
-    if tokenizer.vocab_size > args.vocab_size:
-        raise ValueError(
-            "model vocab_size {} smaller than tokenizer vocab {}".format(
-                args.vocab_size, tokenizer.vocab_size
-            )
-        )
-    pipe = TextPipeline(
-        files, tokenizer, seq_len=args.seq_len + 1, batch_size=args.batch_size,
-        seed=ctx.executor_id, epochs=None, max_bad_records=args.max_bad_records,
-    )
-    stream = iter(pipe)
     # placed ahead through pinned buffers: whole windows of K for the loop,
     # single batches for the eager step
     feed = (loop_prefetch(stream, strategy, steps_per_loop) if loop is not None
@@ -270,13 +274,15 @@ def build_parser():
     parser.add_argument("--n_heads", type=int, default=8)
     parser.add_argument("--n_layers", type=int, default=2)
     parser.add_argument("--pack_workers", type=int, default=0,
-                        help="0 = in-process thread packing (forked pack workers are not yet ported)")
+                        help="0 = in-process thread packing; N > 0 forks N pack workers writing into "
+                             "shared-memory slabs (forked before the trainer touches CUDA)")
     parser.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
                         help="device of each trainer: one CUDA device per process, or the CPU")
     parser.add_argument("--remat", action="store_true", help="not yet ported")
     parser.add_argument("--seq_len", type=int, default=256)
     parser.add_argument("--slab_cache_dir", default=None,
-                        help="packed-slab cache root (not yet ported)")
+                        help="packed-slab cache root: epoch >= 2 (or a warm relaunch) serves token "
+                             "ids from it instead of re-tokenizing")
     parser.add_argument("--steps_per_loop", type=int, default=1,
                         help="train steps a call of the train loop (on the card: one captured "
                              "CUDA graph, replayed)")

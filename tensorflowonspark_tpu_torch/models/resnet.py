@@ -267,7 +267,7 @@ def make_loss_fn(model=None, weight_decay=1e-4, label_smoothing=0.0, normalize=N
 
     def loss_fn(module, model_state, batch):
         logits = _apply(module, model_state, _images(batch, normalize))
-        labels = batch["label"]
+        labels = batch["label"].long()  # the input pipeline's labels are int32
         loss = F.cross_entropy(logits, labels, label_smoothing=label_smoothing)
         if weight_decay:
             l2 = sum(p.square().sum() for p in module.parameters() if p.dim() > 1)

@@ -17,10 +17,10 @@ exposed to the loader, generalized off the local filesystem:
 - ``fingerprint()`` — a short backend id (recorded by bench runs so a
   measured number names the store it was measured against).
 
-Concrete store in the port:
-:class:`~tensorflowonspark_tpu_torch.store.local.LocalStore` (the local
-filesystem). The JAX package's remote stores (HTTP, GCS, S3) and their
-prefetch staging tier come with the image-plane slice.
+Concrete stores: :class:`~tensorflowonspark_tpu_torch.store.local.LocalStore`
+(today's filesystem path, native fast path preserved) and
+:class:`~tensorflowonspark_tpu_torch.store.http.HTTPStore` (range-GET chunked
+reads; GCS/S3 ride the same code path via endpoint adapters).
 """
 
 import threading

@@ -19,11 +19,11 @@ copy both now delegate to:
   are never retried — the stream position is gone and corrupt bytes don't
   heal — exactly the contract both former copies enforced separately.
 
-Leaf module: imports nothing from the package, so ``tfrecord`` and the
-stores can build on it without an import cycle. The crc32c comes
-from ``google_crc32c`` where it is installed and from a table-driven Python
-version otherwise (a GPU host need not have the package; the records the
-port writes there are small).
+Leaf module: imports nothing from the package at import time, so
+``tfrecord``, ``native_io`` and the stores can build on it without an import
+cycle. The crc32c comes from ``google_crc32c`` where it is installed, else
+from the port's native library (a GPU host need not have the package), else
+from a table-driven Python version.
 """
 
 import struct
@@ -59,8 +59,27 @@ def crc32c(data):
     return crc ^ 0xFFFFFFFF
 
 
+_native_masked = []  # [native_io.masked_crc32c or None] once looked up
+
+
+def _native_masked_crc():
+    """The native library's masked crc32c where ``google_crc32c`` is
+    missing and the port's library builds (the Python loop reads a few MB/s:
+    too slow for image shards). Imported late: ``native_io`` builds on this
+    module."""
+    if not _native_masked:
+        from tensorflowonspark_tpu_torch import native_io
+
+        _native_masked.append(native_io.masked_crc32c if native_io.available() else None)
+    return _native_masked[0]
+
+
 def masked_crc(data):
     """Masked crc32c of ``data`` (tensorflow record_writer.h masking)."""
+    if google_crc32c is None:
+        native = _native_masked_crc()
+        if native is not None:
+            return native(data)
     crc = crc32c(data)
     return ((((crc >> 15) | (crc << 17)) + _MASK_DELTA) & 0xFFFFFFFF)
 
@@ -103,7 +122,8 @@ class ChunkReader:
     ``read_chunk(max_records)`` returns up to ``max_records`` record
     payloads as a list — an empty list means clean EOF. ``close()``
     releases the underlying handle; it must be idempotent. Concrete
-    reader in the port: :class:`FramedChunkReader` over any byte source.
+    readers: the native stream (``native_io``), :class:`FramedChunkReader`
+    over any byte source, and the remote stores' ranged readers.
     """
 
     def read_chunk(self, max_records):

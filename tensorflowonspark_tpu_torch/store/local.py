@@ -1,8 +1,11 @@
 """``LocalStore`` — the filesystem shard source behind the store ABI.
 
-``open`` hands back the shared Python framing reader
-(:mod:`~tensorflowonspark_tpu_torch.store.framing`); the JAX package's
-native streaming reader comes with the image-plane slice.
+Wraps today's local read path without changing it: ``open`` hands back the
+native streaming reader (``csrc/tfrecord_io.cc`` ``tfr_stream_next``)
+when the library carries the streaming API, and the shared Python framing
+(:mod:`~tensorflowonspark_tpu_torch.store.framing`) otherwise — the same
+native-fast-path-with-portable-fallback split the loader always made,
+now expressed once behind ``ShardStore``.
 """
 
 import os
@@ -21,8 +24,9 @@ def strip_file_scheme(path):
 class LocalStore(base.ShardStore):
     """Shard source for executor-local (or mounted) filesystem paths."""
 
-    #: opens are retried by the loader (``SHARD_READ_RETRY``); the store
-    #: itself adds no second retry layer on the local path
+    #: opens are retried by the callers that always did (the loader's
+    #: ``SHARD_READ_RETRY``, ``native_io.READ_RETRY``); the store itself
+    #: adds no second retry layer on the local path
     retry = None
 
     def handles(self, path):
@@ -43,7 +47,11 @@ class LocalStore(base.ShardStore):
         return {"size": int(st.st_size), "mtime": float(st.st_mtime)}
 
     def open(self, path, verify_crc=True):
+        from tensorflowonspark_tpu_torch import native_io
+
         path = strip_file_scheme(path)
+        if native_io.stream_available():
+            return native_io.open_chunk_reader(path, verify_crc=verify_crc)
         return framing.FramedChunkReader(
             open(path, "rb"), path, verify_crc=verify_crc
         )

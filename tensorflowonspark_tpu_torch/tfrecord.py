@@ -8,9 +8,10 @@ and a minimal protobuf codec for the fixed ``Example`` schema — so the TPU
 framework reads/writes the interchange format without a TensorFlow or JVM
 dependency.
 
-The JAX package binds a C++ twin of the read path
-(``native/tfrecord_io.cc``); the port reads through this module's portable
-codec only, and the native reader comes with the image-plane slice.
+The bulk-ingest hot path has a C++ twin in ``csrc/tfrecord_io.cc`` (one
+FFI call loads+verifies a whole shard), bound via
+:mod:`tensorflowonspark_tpu_torch.native_io`; this module is the portable codec
+and the write path.
 
 Remote filesystems: paths with a URI scheme (``gs://``, ``hdfs://``,
 ``s3://``, ``memory://``, ``file://``) are routed through fsspec — the
@@ -83,8 +84,8 @@ def rename(src, dst):
 
 # -- TFRecord framing ----------------------------------------------------------
 # The read-side framing loop lives in store/framing.py (one copy shared with
-# the shard stores); this module keeps the write path and the open_file
-# routing that covers fsspec URIs.
+# native_io and the remote stores); this module keeps the write path and the
+# open_file routing that covers fsspec URIs.
 
 _MASK_DELTA = framing._MASK_DELTA
 _masked_crc = framing.masked_crc
@@ -119,8 +120,10 @@ def read_records(path, verify_crc=True):
 
 def read_records_chunked(path, chunk_records=1024, verify_crc=True):
     """Yield lists of up to ``chunk_records`` raw records — the streaming
-    twin of :func:`read_records`: the loader's chunked path (this one also
-    covers fsspec URIs)."""
+    twin of :func:`read_records`, shaped like
+    :func:`tensorflowonspark_tpu_torch.native_io.read_records_chunked` so the
+    loader's chunked path works identically with either codec (this one also
+    covers fsspec URIs, which the native reader cannot open)."""
     return framing.iter_chunks(
         lambda: framing.FramedChunkReader(
             open_file(path, "rb"), path, verify_crc=verify_crc

@@ -140,8 +140,7 @@ def test_two_executor_gloo_lm_keeps_params_bit_identical(tmp_path):
         assert torch.equal(value, ranks[1]["params"][name]), name
 
 
-@pytest.mark.parametrize("flag", [["--moe_experts", "2"], ["--mesh", "dp=1,tp=2"], ["--remat"],
-                                  ["--pack_workers", "2"], ["--slab_cache_dir", "s"]])
+@pytest.mark.parametrize("flag", [["--moe_experts", "2"], ["--mesh", "dp=1,tp=2"], ["--remat"]])
 def test_unported_lm_options_are_refused(flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         transformer_spark.main(TINY_LM + flag)
@@ -282,12 +281,6 @@ def test_gpu_platform_without_cuda_fails_the_cluster():
         sc.stop()
 
 
-@pytest.mark.parametrize("flag", [["--data_dir", "d"], ["--eval_dir", "e"], ["--profile_steps", "2,3"]])
-def test_unported_options_are_refused(flag):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        resnet_spark.main(TINY + flag)
-
-
 def test_resnet_model_dir_checkpoints_prunes_and_resumes(tmp_path):
     """``--model_dir --checkpoint_steps 2 --keep_checkpoints 2`` on the
     ResNet example: saves on loop-call boundaries, pruned to the newest
@@ -379,6 +372,16 @@ from tensorflowonspark_tpu_torch.models.mnist import MnistCNN, MnistMLP, bundle_
 from tensorflowonspark_tpu_torch.train import TimeHistory, adam, build_stats, export
 from tensorflowonspark_tpu_torch.examples.mnist import (
     mnist_data_setup, mnist_inference, mnist_pipeline, mnist_spark, mnist_spark_streaming, mnist_tf)
+# the image real-data plane: native IO, parsing, the decode plane, the slab
+# cache, the autotuners, the remote stores and staging
+from tensorflowonspark_tpu_torch import native_io
+from tensorflowonspark_tpu_torch.data import (AutotunedWindow, DecodeAutotuner, DecodePlane, FeedAutotuner,
+    LinkEstimator, autotuned_prefetch, cifar, imagenet)
+from tensorflowonspark_tpu_torch.data.autotune import ReadaheadAutotuner
+from tensorflowonspark_tpu_torch.data.slab_cache import SlabCache
+from tensorflowonspark_tpu_torch.store import HTTPStore, resolve_store, staging
+from tensorflowonspark_tpu_torch.examples.resnet import resnet_data_setup
+assert imagenet.make_parse_fn and native_io.jpg_decode_window
 print("imported", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))

@@ -94,25 +94,77 @@ def test_python_crc32c_writes_the_same_shards(tmp_path, monkeypatch):
 
     want = transformer_spark.make_text_corpus(str(tmp_path / "lib"), num_shards=1, records_per_shard=30)
     monkeypatch.setattr(framing, "google_crc32c", None)
+    monkeypatch.setattr(framing, "_native_masked", [None])  # the Python loop, not the native library
     assert framing.crc32c(b"123456789") == 0xE3069283  # the CRC-32C check value
     got = transformer_spark.make_text_corpus(str(tmp_path / "py"), num_shards=1, records_per_shard=30)
     with open(got[0], "rb") as fg, open(want[0], "rb") as fw:
         assert fg.read() == fw.read()
 
 
-@pytest.mark.parametrize("make", [
-    lambda f: TextPipeline(f, Tokenizer(kind="byte"), 65, 2, pack_workers=2),
-    lambda f: TextPipeline(f, Tokenizer(kind="byte"), 65, 2, slab_cache_dir="c"),
-    lambda f: ImagePipeline(f, None, 2, decode_workers=2),
-    lambda f: ImagePipeline(f, None, 2, store=object()),
-    lambda f: ImagePipeline(f, None, 2, prefetch="2"),
-    lambda f: ImagePipeline(f, None, 2, readahead="auto"),
-    lambda f: ImagePipeline(["http://host/part-00000"], None, 2),
-], ids=["pack_workers", "slab_cache", "decode_workers", "store", "prefetch", "readahead_auto",
-        "http_shards"])
-def test_unported_pipeline_options_are_refused(tmp_path, make):
-    """The forked pack/decode plane, the slab cache, remote stores, staging
-    and the read-ahead autotuner are not in the port yet: asking for them
-    raises instead of running something else."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make(_corpus(tmp_path, n=6, shards=1))
+def _image_corpus(tmp_path, n=12):
+    from tensorflowonspark_tpu.data import imagenet as jax_imagenet
+
+    rng = np.random.default_rng(0)
+    os.makedirs(tmp_path / "img")
+    path = str(tmp_path / "img" / "part-00000")
+    with tfrecord.TFRecordWriter(path) as w:
+        for i in range(n):
+            w.write(jax_imagenet.encode_example(rng.integers(0, 256, (30, 34, 3), dtype=np.uint8), i))
+    return [path]
+
+
+def _image_parses():
+    from tensorflowonspark_tpu.data import imagenet as jax_imagenet
+    from tensorflowonspark_tpu_torch.data import imagenet
+
+    kw = dict(image_size=16, seed=2, raw_uint8=True)
+    return imagenet.make_parse_fn(True, **kw), jax_imagenet.make_parse_fn(True, **kw)
+
+
+def _image_stream(pipe):
+    return [(np.asarray(b["image"]).tobytes(), np.asarray(b["label"]).tobytes()) for b in pipe]
+
+
+@pytest.mark.parametrize("option", ["pack_workers", "slab_cache", "decode_workers", "store", "prefetch",
+                                    "readahead_auto", "http_shards"])
+def test_lifted_pipeline_options_run(tmp_path, monkeypatch, option):
+    """The options the port refused until the image-plane slice run now and
+    deliver the JAX package's stream: the forked pack and decode planes, the
+    packed-slab cache, an explicit store, prefetch staging, the read-ahead
+    autotuner and ``http://`` shards (served in process, loopback only)."""
+    from tensorflowonspark_tpu.data import ImagePipeline as JImagePipeline
+    from tensorflowonspark_tpu_torch.store import HTTPStore, LocalStore, staging
+    from torch_plane_util import serve_dir
+
+    monkeypatch.delenv("TOS_DECODE_WORKERS", raising=False)
+    monkeypatch.setenv(staging.DIR_ENV, str(tmp_path / "prefetch"))
+    if option in ("pack_workers", "slab_cache"):
+        files = _corpus(tmp_path, n=30, shards=2)
+        common = dict(seq_len=65, batch_size=2, seed=1, epochs=1)
+        want = _rows(JTextPipeline(files, JTokenizer(kind="byte"), **common))
+        extra = {"pack_workers": 2} if option == "pack_workers" else {"slab_cache_dir": str(tmp_path / "c")}
+        for _ in range(1 if option == "pack_workers" else 2):  # the cache cold, then warm
+            got = _rows(TextPipeline(files, Tokenizer(kind="byte"), **common, **extra))
+            assert len(got) == len(want) > 0
+            for g, w in zip(got, want):
+                for k in KEYS:
+                    assert np.array_equal(g[k], w[k]), k
+        return
+    files = _image_corpus(tmp_path)
+    parse, jparse = _image_parses()
+    common = dict(batch_size=4, seed=2, epochs=1)
+    want = _image_stream(JImagePipeline(files, jparse, decode_workers=0, **common))
+    if option in ("decode_workers", "readahead_auto"):
+        kw = {"decode_workers": 2} if option == "decode_workers" else {"readahead": "auto"}
+        assert _image_stream(ImagePipeline(files, parse, **kw, **common)) == want
+        return
+    with serve_dir(tmp_path) as root:
+        urls = [root + "/img/part-00000"]
+        if option == "store":
+            pipe = ImagePipeline(files, parse, store=LocalStore(), **common)
+        elif option == "prefetch":
+            pipe = ImagePipeline(urls, parse, store=HTTPStore(), prefetch="2", **common)
+        else:
+            pipe = ImagePipeline(urls, parse, **common)
+            assert isinstance(pipe.store, HTTPStore)
+        assert _image_stream(pipe) == want
