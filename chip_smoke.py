@@ -186,11 +186,55 @@ and the script exits non-zero:
                   for 10 steps: the flash wrappers' launches (6 a step) and
                   the first 5 losses against ``slice_lm``'s (the same
                   weights and packed stream), within 1e-3 relative.
-16. ``kernels``   every kernel of the port and whether the eager and the
+16. ``serve``     the serving plane: the port's ``InferenceServer`` on a
+                  ResNet-50 bundle (bf16, 224 px, 1,000 classes, random
+                  weights from a seeded generator, eval mode; replies
+                  ``prediction`` and f32 ``logits``); 8 clients x 12
+                  requests x 16 uint8 rows on the binary lane, a server a
+                  leg with coalescing on (``TOS_SERVING_COALESCE_ROWS=1024``)
+                  and off (``=1``) in turns, 3 rounds: rows/s, p50 and p99
+                  ms a leg; every reply's logits against a direct
+                  ``predict_fn`` call on the same rows on the card
+                  (||got - want|| / ||want|| <= 2^-8 a reply, shown to catch
+                  a 1% fault; max abs error and bitwise or not, a leg),
+                  predictions equal to the direct argmax wherever its top
+                  two logits differ by more than 2^-6 of the largest;
+                  ``max_memory_allocated``.
+   ``serve_lm``   the LM at ``TransformerConfig``'s defaults (bf16,
+                  attention "auto") behind the server: 4 clients x 6
+                  requests of 1-2 packed rows [n, 2048] of the slice's
+                  corpus, replying ``logits_last`` [n, 32000] f32; the
+                  dispatches coalesce several requests; the flash forward's
+                  wrapper launches at least 6 times a dispatch; every reply
+                  against the same weights with attention "plain" on the
+                  card (the head in f32 at the last position; as a norm
+                  within 2^-6 and in scale within 2^-9, the second shown to
+                  catch an output 1% off); p50 and p99 ms.
+   ``infer_cli``  ``python -m tensorflowonspark_tpu_torch.serving infer`` on
+                  the 512 eval images of ``data_setup`` (decoded by the eval
+                  parse into float-feature shards: the CLI feeds numeric
+                  features only), once with ``--export_dir`` on the ResNet-50
+                  bundle and once with ``--server`` against a running
+                  server: 512 predictions each, equal to each other and to a
+                  direct predict of the same images; seconds of each run.
+   ``serving_mesh`` in a fresh interpreter that never sets up CUDA: a
+                  process-mode ``ServingMesh`` of 3 forked replicas on the
+                  card over a ``ModelPointer``, 3 load threads through
+                  ``mesh.router()``; one replica killed mid-load (relaunched,
+                  seconds from the kill to its first answered request, 0
+                  router errors); 3 new generations published and swapped in
+                  under load (replies after the settle window all the new
+                  generation's; each replica's ``memory_allocated`` after the
+                  third swap within one model's parameter bytes of that
+                  after the first); with CUDA up, a process-mode mesh
+                  refuses to fork; the ``mesh`` CLI with ``--metrics_port``
+                  (``serving_replicas_active 2``, ``info()["mesh"]``).
+17. ``kernels``   every kernel of the port and whether the eager and the
                   loop paths of phases 5 and 7 launched it, the traced loop
                   call ran it on the card, (the BN kernels) run A of the
                   recover phase and the real-data slice launched it, and
-                  (the flash kernels) the pack-plane LM leg did.
+                  (the flash kernels) the pack-plane LM leg did, and (the
+                  flash forward) the LM server did.
 
 Then one JSON line with every kernel's measurements (``launches``: its
 wrapper's on the eager path; ``launches_loop_path``: its wrapper's on the
@@ -199,7 +243,8 @@ loop call; ``launches_recover_path``: its wrapper's in the recover phase's
 run A; ``launches_mnist_path``: its wrapper's in ``slice_mnist``'s
 trainer; ``launches_slice_real``: its wrapper's over the three
 ``slice_real`` legs; ``launches_slice_lm_pack``: its wrapper's in
-``slice_lm_pack``), the ``nvidia-smi``
+``slice_lm_pack``; ``launches_serving``: the flash forward's wrapper's over
+``serve_lm``'s traffic), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script fails before printing anything.
 """
@@ -2122,6 +2167,664 @@ def phase_real(torch, fused_bn, here, work):
     return {name: sum(line["launches"][name] for line in lines.values()) for name, *_ in KERNEL_TABLE}
 
 
+# -- the serving plane ---------------------------------------------------------
+
+#: ``serve``: ResNet-50 (bf16, 224 px, 1,000 classes) behind the port's
+#: InferenceServer; clients x requests x rows of uint8 images on the binary
+#: lane, coalescing on (1,024 rows) and off (1) in turns, rounds of both
+SERVE_MODEL, SERVE_IMAGE = "resnet50", 224
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_ROWS, SERVE_ROUNDS = 8, 12, 16, 3
+#: a reply's logits against a direct predict of the same rows on the card,
+#: as a norm: ||got - want|| / ||want|| <= SERVE_TOL, per reply. A dispatch
+#: of another batch size may take another cuDNN / cuBLAS algorithm, and the
+#: logits come out of a bf16 head: a coalesced reply reads one bf16 ulp off
+#: here and there (0.0625 at a logit of 8, 0.8% of it). A 1% fault reads
+#: 1e-2 > SERVE_TOL
+SERVE_TOL = 2.0 ** -8
+#: a reply's prediction must equal the direct argmax wherever the direct
+#: top two logits differ by more than SERVE_GAP * max|want| (about two bf16
+#: ulps of the largest logit): a tie within one ulp flips when one logit
+#: moves by one ulp
+SERVE_GAP = 2.0 ** -6
+#: ``serve_lm``: the LM at TransformerConfig's defaults (bf16, attention
+#: "auto": the flash kernels on the card); clients x requests of 1-2 rows
+SERVE_LM_CLIENTS, SERVE_LM_REQUESTS = 4, 6
+#: a reply's ``logits_last`` against the same bundle built with attention
+#: "plain" on the card. The blocks keep their residual stream in bf16: one
+#: attention output a rounding apart flips bf16 roundings downstream, and the
+#: logits read 0.8% apart as a norm (the head runs in f32, so they are not
+#: rounded at the end). Held two ways: ||got - plain|| / ||plain|| <=
+#: SERVE_LM_NORM_TOL, and the scale of got along plain, |<got, plain> /
+#: <plain, plain> - 1| <= SERVE_LM_SCALE_TOL (the flips are unbiased and
+#: nearly orthogonal to the logits; an output 1% off reads 1e-2 there)
+SERVE_LM_NORM_TOL, SERVE_LM_SCALE_TOL = 2.0 ** -6, 2.0 ** -9
+#: ``infer_cli``: rows a batch of the batch-inference CLI
+INFER_BATCH = 64
+#: ``serving_mesh``: process-mode replicas on the one card, load threads,
+#: published generations after the first, the settle window after a swap
+MESH_REPLICAS, MESH_LOAD_THREADS, MESH_GENERATIONS, MESH_SETTLE_S = 3, 3, 3, 2.0
+MESH_ROWS = 4
+#: the device the serving phases' servers report, on the card
+SERVE_DEVICE = "cuda:0"
+
+
+def build_resnet_predict(device=None, model="resnet50", image=224, report=False):
+    """``predict_builder`` of the serving phases' ResNet bundle: the port's
+    ``resnet`` ``model`` in bf16, eval mode, built on ``device`` (default:
+    the card, raising without one). ``predict(params, model_state,
+    arrays)`` takes ``image``, uint8 ``[n, image, image, 3]`` (or the same
+    values flattened, as the batch CLI feeds a float feature), and returns
+    ``prediction`` (class ids) and ``logits`` (f32) as tensors on the
+    device. With ``report`` it also returns, row by row, the generation in
+    ``model_state``, the serving process's pid and its
+    ``torch.cuda.memory_allocated`` before the forward."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import util
+    from tensorflowonspark_tpu_torch.data import imagenet
+    from tensorflowonspark_tpu_torch.models import resnet
+
+    device = torch.device(device) if device is not None else util.select_device("gpu")
+    with device:  # initialise the (replaced) weights where they will live
+        module = getattr(resnet, model)(dtype=torch.bfloat16).eval()
+    loaded = {}
+
+    @torch.no_grad()
+    def predict(params, model_state, arrays):
+        if loaded.get("params") is not params:
+            module.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in params.items()})
+            loaded["params"] = params
+        allocated = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+        x = np.asarray(arrays["image"]).astype(np.uint8, copy=False).reshape(-1, image, image, 3)
+        logits = module(imagenet.device_normalize(torch.from_numpy(np.array(x)).to(device)))
+        out = {"prediction": logits.argmax(-1), "logits": logits}
+        if report:
+            n = len(x)
+            out["generation"] = np.full(n, int(np.asarray(model_state["generation"]).ravel()[0]))
+            out["pid"] = np.full(n, os.getpid())
+            out["cuda_allocated"] = np.full(n, allocated)
+        return out
+
+    return predict
+
+
+def resnet_bundle_builder(**kw):
+    import functools
+
+    return functools.partial(build_resnet_predict, model=SERVE_MODEL, image=SERVE_IMAGE, **kw)
+
+
+def resnet_serve_weights(seed=0):
+    """The serving ResNet's weights on the host, from a seeded
+    ``torch.Generator``: flax's initialisers, then every BatchNorm's scale,
+    bias and running statistics drawn too (a zero-initialised residual
+    scale would leave its branch out of the forward)."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import resnet
+
+    gen = torch.Generator().manual_seed(seed)
+    module = getattr(resnet, SERVE_MODEL)(dtype=torch.bfloat16, generator=gen)
+    with torch.no_grad():
+        for m in module.modules():
+            if getattr(m, "running_var", None) is not None:
+                m.weight.uniform_(0.2, 1.0, generator=gen)
+                m.bias.uniform_(-0.1, 0.1, generator=gen)
+                m.running_mean.uniform_(-0.2, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+    return {k: v.numpy() for k, v in module.state_dict().items()}
+
+
+def serve_images(rng, n):
+    """uint8 images that differ image to image: a colour per image plus
+    pixel noise (noise alone averages out to one class for every image)."""
+    import numpy as np
+
+    base = rng.integers(0, 256, (n, 1, 1, 3))
+    noise = rng.integers(-48, 49, (n, SERVE_IMAGE, SERVE_IMAGE, 3))
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def _percentiles(lat_s):
+    import numpy as np
+
+    ms = np.asarray(lat_s) * 1e3
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def _drive(address, requests, clients):
+    """``requests[c]``: client ``c``'s request dicts, sent in order over one
+    ``InferenceClient`` each, all clients at once. Returns (replies by
+    (client, i), latencies in seconds, wall seconds, errors)."""
+    from tensorflowonspark_tpu_torch.serving import InferenceClient
+
+    replies, lat, errors = {}, [], []
+    lock = threading.Lock()
+    start = threading.Barrier(clients + 1)
+
+    def client(c):
+        cl = InferenceClient(address, timeout=300)
+        try:
+            start.wait()
+            for i, req in enumerate(requests[c]):
+                t = time.perf_counter()
+                out = cl.predict_binary(**req)
+                with lock:
+                    lat.append(time.perf_counter() - t)
+                    replies[(c, i)] = out
+        except Exception as e:  # reported and failed by the caller
+            with lock:
+                errors.append("{}: {}".format(type(e).__name__, e))
+        finally:
+            cl.close()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    return replies, lat, time.perf_counter() - t0, errors
+
+
+def _logit_error(got, want):
+    """max |got - want| over a reply, and ||got - want|| / ||want||."""
+    import numpy as np
+
+    diff = got.astype(np.float64) - want
+    return float(np.abs(diff).max()), float(np.linalg.norm(diff) / max(np.linalg.norm(want), 1e-30))
+
+
+def phase_serve(torch, work):
+    """The port's ``InferenceServer`` on a ResNet-50 bundle, a server a leg
+    started with ``TOS_SERVING_COALESCE_ROWS`` set (1,024: coalescing on;
+    1: off), coalescing on and off in turns. Every reply is held against a
+    direct ``predict_fn`` call on the same rows on the card. Returns the
+    bundle dir."""
+    import shutil
+
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.train import export
+
+    bundle = os.path.join(work, "resnet50_bundle")
+    shutil.rmtree(bundle, ignore_errors=True)
+    export.export_model(bundle, resnet_bundle_builder(), resnet_serve_weights(0))
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    requests = [[{"image": serve_images(rng, SERVE_ROWS)} for _ in range(SERVE_REQUESTS)]
+                for _ in range(SERVE_CLIENTS)]
+    predict_fn, params, model_state, _ = serving.load_bundle(bundle)
+    # the direct predict of each request's rows, on the card
+    want = {(c, i): serving._to_numpy(predict_fn(params, model_state, req)["logits"])
+            for c, reqs in enumerate(requests) for i, req in enumerate(reqs)}
+    del predict_fn, params, model_state
+    legs, worst, fault_caught, pred_bad, pred_checked, devices = [], 0.0, None, 0, 0, set()
+    old_rows = os.environ.get("TOS_SERVING_COALESCE_ROWS")
+    try:
+        for rnd in range(SERVE_ROUNDS):
+            for coalesce in (True, False):
+                os.environ["TOS_SERVING_COALESCE_ROWS"] = "1024" if coalesce else "1"
+                server = serving.InferenceServer(bundle, host="127.0.0.1", port=0)
+                devices.add(str(server.device))
+                try:
+                    replies, lat, wall, errors = _drive(server.start(), requests, SERVE_CLIENTS)
+                finally:
+                    server.stop()
+                if errors or len(replies) != SERVE_CLIENTS * SERVE_REQUESTS:
+                    raise AssertionError("serve: {} replies, errors {}".format(len(replies), errors[:3]))
+                leg_err, leg_rel, leg_bitwise = 0.0, 0.0, True
+                for key, out in replies.items():
+                    got, ref = out["logits"], want[key]
+                    err, rel = _logit_error(got, ref)
+                    leg_err, leg_rel, worst = max(leg_err, err), max(leg_rel, rel), max(worst, rel)
+                    leg_bitwise = leg_bitwise and bool(np.array_equal(got, ref))
+                    top2 = np.sort(ref, axis=-1)[:, -2:]
+                    clear = (top2[:, 1] - top2[:, 0]) > SERVE_GAP * np.abs(ref).max()
+                    pred_checked += int(clear.sum())
+                    pred_bad += int((out["prediction"][clear] != ref.argmax(-1)[clear]).sum())
+                    if fault_caught is None:
+                        fault_caught = _logit_error(ref * 1.01, ref)[1] > SERVE_TOL
+                p50, p99 = _percentiles(lat)
+                legs.append({"round": rnd, "coalesce": coalesce, "rows_per_s": SERVE_CLIENTS * SERVE_REQUESTS
+                             * SERVE_ROWS / wall, "p50_ms": p50, "p99_ms": p99, "wall_s": wall,
+                             "max_abs_err": leg_err, "max_rel_norm_err": leg_rel, "bitwise": leg_bitwise})
+    finally:
+        if old_rows is None:
+            os.environ.pop("TOS_SERVING_COALESCE_ROWS", None)
+        else:
+            os.environ["TOS_SERVING_COALESCE_ROWS"] = old_rows
+    line = {"phase": "serve", "model": SERVE_MODEL, "image": SERVE_IMAGE, "dtype": "bfloat16",
+            "clients": SERVE_CLIENTS, "requests_per_client": SERVE_REQUESTS, "rows": SERVE_ROWS,
+            "legs": legs, "max_rel_norm_err": worst, "tol": SERVE_TOL, "argmax_gap": SERVE_GAP,
+            "fault_1pct_caught": fault_caught, "predictions_checked": pred_checked,
+            "predictions_differ": pred_bad, "server_devices": sorted(devices),
+            "classes_seen": len({int(w.argmax(-1)[j]) for w in want.values() for j in range(len(w))}),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(line)
+    if worst > SERVE_TOL or not fault_caught or pred_bad or devices != {SERVE_DEVICE}:
+        raise AssertionError("serve: {}".format(line))
+    return bundle
+
+
+def build_lm_predict(device=None, attention="auto", **cfg):
+    """``predict_builder`` of the serving LM bundle: the port's transformer
+    (``TransformerConfig(**cfg)``, its ``attention``) on ``device`` (default:
+    the card). ``predict`` takes ``tokens`` and ``segment_ids`` ``[n, L]``
+    int32 (packed rows; positions restart at each segment), runs the
+    embedding and the blocks in the model's dtype, and returns
+    ``logits_last``, f32 ``[n, vocab]``: the final RMSNorm and the vocab
+    projection at each row's last position only, in f32 (a bf16 head would
+    round every logit to 2^-8 of itself); and ``dispatch``, the number of
+    this call, row by row."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import util
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    device = torch.device(device) if device is not None else util.select_device("gpu")
+    with device:
+        module = transformer.create_model(attention=attention, **cfg).eval()
+    loaded, calls = {}, itertools.count(1)
+
+    @torch.no_grad()
+    def predict(params, model_state, arrays):
+        if loaded.get("params") is not params:
+            module.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in params.items()})
+            loaded["params"] = params
+        tokens = torch.from_numpy(np.array(arrays["tokens"], np.int64)).to(device)
+        seg = torch.from_numpy(np.array(arrays["segment_ids"], np.int32)).to(device)
+        idx = torch.arange(seg.shape[1], device=device).expand(seg.shape)
+        first = seg != seg.roll(1, 1)
+        first[:, 0] = True
+        positions = idx - torch.cummax(torch.where(first, idx, 0), 1).values
+        x = torch.nn.functional.embedding(tokens, module.embed.weight).to(module.cfg.compute_dtype)
+        for i in range(module.cfg.n_layers):
+            x = getattr(module, "layer_{}".format(i))(x, positions, seg)
+        h = x[:, -1].float()
+        h = h * torch.rsqrt(h.square().mean(-1, keepdim=True) + module.ln_f.eps) * module.ln_f.weight
+        logits_last = torch.nn.functional.linear(h, module.lm_head.weight)
+        return {"logits_last": logits_last, "dispatch": np.full(len(h), next(calls))}
+
+    return predict
+
+
+def lm_serve_weights(seed=0):
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    gen = torch.Generator().manual_seed(seed)
+    module = transformer.create_model(generator=gen, **LM)
+    return {k: v.numpy() for k, v in module.state_dict().items()}
+
+
+def phase_serve_lm(torch, fa, lm_batch, work):
+    """The port's ``InferenceServer`` on the LM bundle (bf16, attention
+    "auto"): clients send 1-2 packed rows of the slice's corpus each, so the
+    predictor coalesces dispatches of several rows. The flash forward's
+    wrapper must launch at least 6 times a dispatch; every reply is held
+    against the same weights with attention "plain" on the card. Returns
+    the flash wrappers' launches over the traffic."""
+    import functools
+    import shutil
+
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.train import export
+
+    weights = lm_serve_weights(0)
+    bundles = {}
+    for attention in ("auto", "plain"):
+        bundles[attention] = os.path.join(work, "lm_bundle_" + attention)
+        shutil.rmtree(bundles[attention], ignore_errors=True)
+        export.export_model(bundles[attention], functools.partial(
+            build_lm_predict, attention=attention, dtype="bfloat16", max_seq_len=LM_SEQ, **LM), weights)
+    tokens = np.asarray(lm_batch["tokens"][:, :-1], np.int32)
+    seg = np.asarray(lm_batch["segment_ids"][:, :-1], np.int32)
+    rng = np.random.default_rng(1)
+    requests, row = [], 0
+    for _ in range(SERVE_LM_CLIENTS):
+        reqs = []
+        for _ in range(SERVE_LM_REQUESTS):
+            n = int(rng.integers(1, 3))
+            rows = [(row + j) % len(tokens) for j in range(n)]
+            row += n
+            reqs.append({"tokens": tokens[rows], "segment_ids": seg[rows]})
+        requests.append(reqs)
+    server = serving.InferenceServer(bundles["auto"], host="127.0.0.1", port=0)
+    address = server.start()
+    try:
+        # the first dispatch of each size builds nothing new for the flash
+        # kernel (built in ``build``); warm the cuBLAS handles once
+        _drive(address, [[requests[0][0]]], 1)
+        fa.reset_launch_counts()
+        replies, lat, wall, errors = _drive(address, requests, SERVE_LM_CLIENTS)
+        launches = fa.launch_counts()
+    finally:
+        server.stop()
+    if errors or len(replies) != SERVE_LM_CLIENTS * SERVE_LM_REQUESTS:
+        raise AssertionError("serve_lm: {} replies, errors {}".format(len(replies), errors[:3]))
+    per_dispatch = {}  # dispatch number -> the requests it served
+    for out in replies.values():
+        d = int(out["dispatch"][0])
+        per_dispatch[d] = per_dispatch.get(d, 0) + 1
+    dispatches = set(per_dispatch)
+    plain_fn, params, model_state, _ = serving.load_bundle(bundles["plain"])
+
+    def held(got, want):
+        """(||got - want|| / ||want||, |<got, want> / <want, want> - 1|)."""
+        return (float(np.linalg.norm(got - want) / np.linalg.norm(want)),
+                abs(float(np.vdot(got, want) / np.vdot(want, want)) - 1.0))
+
+    worst, worst_scale, fault = 0.0, 0.0, None
+    for key, out in replies.items():
+        req = requests[key[0]][key[1]]
+        want = serving._to_numpy(plain_fn(params, model_state, req)["logits_last"]).astype(np.float64)
+        got = out["logits_last"].astype(np.float64)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError("serve_lm: reply {} shape {} finite {}".format(key, got.shape, np.isfinite(got).all()))
+        rel, scale = held(got, want)
+        worst, worst_scale = max(worst, rel), max(worst_scale, scale)
+        if fault is None:
+            fault = held(want * 1.01, want)
+    p50, p99 = _percentiles(lat)
+    rows = [len(out["logits_last"]) for out in replies.values()]
+    line = {"phase": "serve_lm", "config": dict(LM, seq=LM_SEQ, dtype="bfloat16", attention="auto"),
+            "clients": SERVE_LM_CLIENTS, "requests_per_client": SERVE_LM_REQUESTS, "rows": sum(rows),
+            "dispatches": len(dispatches), "coalesced_dispatches": sum(n > 1 for n in per_dispatch.values()),
+            "flash_launches": launches, "p50_ms": p50, "p99_ms": p99,
+            "rows_per_s": sum(rows) / wall, "max_rel_norm_err_vs_plain": worst, "norm_tol": SERVE_LM_NORM_TOL,
+            "max_scale_err_vs_plain": worst_scale, "scale_tol": SERVE_LM_SCALE_TOL,
+            "fault_1pct_reads": fault, "fault_1pct_caught": fault is not None and (
+                fault[0] > SERVE_LM_NORM_TOL or fault[1] > SERVE_LM_SCALE_TOL)}
+    emit(line)
+    if (launches["flash_fwd"] < len(dispatches) * LM["n_layers"] or worst > SERVE_LM_NORM_TOL
+            or worst_scale > SERVE_LM_SCALE_TOL
+            or not line["fault_1pct_caught"] or not line["coalesced_dispatches"]):
+        raise AssertionError("serve_lm: {}".format(line))
+    return launches
+
+
+def phase_infer_cli(torch, here, bundle, eval_dir, work):
+    """``python -m tensorflowonspark_tpu_torch.serving infer`` on the
+    real-data slice's 512 eval images: the CLI feeds numeric features only
+    (bytes features are not model inputs, as in the JAX package), so the
+    eval shards' JPEGs are decoded (the eval parse: 224 px centre crop)
+    into float-feature shards, one a source shard. Run once in-process
+    (``--export_dir``) and once against a running server (``--server``):
+    both must write 512 predictions, equal to each other and to a direct
+    predict of the same decoded images."""
+    import shutil
+
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch import tfrecord as tfr
+    from tensorflowonspark_tpu_torch.data import imagenet
+
+    feats = os.path.join(work, "infer_records")
+    shutil.rmtree(feats, ignore_errors=True)
+    os.makedirs(feats)
+    parse = imagenet.make_parse_fn(False, image_size=SERVE_IMAGE, raw_uint8=True)
+    shards = []
+    for src in tfr.list_shards(eval_dir):
+        images = np.stack([parse(rec)[0] for rec in tfr.read_records(src)])
+        shards.append(images)
+        with tfr.TFRecordWriter(os.path.join(feats, os.path.basename(src))) as w:
+            for img in images:
+                w.write(tfr.encode_example({"image": img.reshape(-1).astype(np.float32).tolist()}))
+    predict_fn, params, model_state, _ = serving.load_bundle(bundle)
+    direct = []
+    for images in shards:  # the CLI's batches: per shard, INFER_BATCH rows
+        for lo in range(0, len(images), INFER_BATCH):
+            out = predict_fn(params, model_state, {"image": images[lo:lo + INFER_BATCH]})
+            direct.extend(serving._to_numpy(out["prediction"]).tolist())
+
+    def run(out_dir, *source):
+        shutil.rmtree(out_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "tensorflowonspark_tpu_torch.serving", "infer", "--tfrecords", feats,
+             "--output", out_dir, "--batch_size", str(INFER_BATCH), "--input_mapping", "image=image",
+             "--output_mapping", "prediction=prediction"] + list(source),
+            cwd=here, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if done.returncode != 0:
+            raise AssertionError("infer_cli {}: exit {}: {}".format(source, done.returncode, done.stderr[-3000:]))
+        preds = []
+        for name in sorted(os.listdir(out_dir)):
+            with open(os.path.join(out_dir, name)) as f:
+                preds.extend(json.loads(line)["prediction"] for line in f)
+        return preds, seconds
+
+    local, local_s = run(os.path.join(work, "infer_out_local"), "--export_dir", bundle)
+    server = serving.InferenceServer(bundle, host="127.0.0.1", port=0)
+    host, port = server.start()
+    try:
+        remote, remote_s = run(os.path.join(work, "infer_out_server"), "--server", "127.0.0.1:{}".format(port))
+    finally:
+        server.stop()
+    line = {"phase": "infer_cli", "records": sum(len(s) for s in shards), "batch": INFER_BATCH,
+            "export_dir_predictions": len(local), "server_predictions": len(remote),
+            "export_dir_equals_server": local == remote, "export_dir_equals_direct": local == direct,
+            "export_dir_s": local_s, "server_s": remote_s, "classes_seen": len(set(direct))}
+    emit(line)
+    if not (len(local) == len(remote) == len(direct) == REAL_EVAL and local == remote == direct):
+        raise AssertionError("infer_cli: {}".format(line))
+
+
+def _scrape(port):
+    import urllib.request
+
+    with urllib.request.urlopen("http://127.0.0.1:{}/metrics".format(port), timeout=5) as resp:
+        return resp.read().decode("utf-8")
+
+
+def mesh_child(work):
+    """The ``serving_mesh`` phase's body, in a process that never sets up
+    CUDA (``python3 -c 'import chip_smoke; chip_smoke.mesh_child(...)'``):
+    a process-mode ``ServingMesh`` of ``MESH_REPLICAS`` forked replicas on
+    the one card over a ``ModelPointer``, load threads through
+    ``mesh.router()`` for the whole phase; a replica killed mid-load and
+    relaunched; ``MESH_GENERATIONS`` new generations published and swapped
+    in under load; then the fork refusal with CUDA up; then the ``mesh``
+    CLI with ``--metrics_port``. Prints one JSON line; raises on a
+    failed check."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import obs, serving, util
+    from tensorflowonspark_tpu_torch.serving_mesh import ModelPointer, ServingMesh
+
+    if torch.cuda.is_initialized():
+        raise AssertionError("serving_mesh: the mesh parent has CUDA up")
+    root = os.path.join(work, "pointer")
+    shutil.rmtree(root, ignore_errors=True)
+    ptr = ModelPointer(root)
+    weights = resnet_serve_weights(0)
+    param_bytes = sum(v.nbytes for v in weights.values())
+
+    def generation(g):  # the head moved a little each generation
+        w = dict(weights)
+        w["head.weight"] = weights["head.weight"] * np.float32(1.0 + 0.05 * g)
+        return w
+
+    builder = resnet_bundle_builder(report=True)
+    ptr.publish(builder, generation(0), model_state={"generation": np.array([0])})
+    counter = lambda name: obs.snapshot()["counters"].get(name, {}).get("value", 0)  # noqa: E731
+    mesh = ServingMesh(root, replicas=MESH_REPLICAS, mode="process", monitor_interval=0.5,
+                       lease_ttl=2.0, swap_poll=0.2)
+    t0 = time.perf_counter()
+    mesh.start()
+    start_s = time.perf_counter() - t0
+    router = mesh.router(deadline=60.0)
+    image = serve_images(np.random.default_rng(5), MESH_ROWS)
+    log, errors, stop = [], [], threading.Event()
+    lock = threading.Lock()
+
+    def load():
+        while not stop.is_set():
+            try:
+                out = router.predict_binary(image=image)
+                with lock:
+                    log.append((time.perf_counter(), int(out["generation"][0]), int(out["pid"][0]),
+                                int(out["cuda_allocated"][0])))
+            except Exception as e:  # every client-visible failure fails the phase
+                with lock:
+                    errors.append("{}: {}".format(type(e).__name__, e))
+            time.sleep(0.01)
+
+    threads = [threading.Thread(target=load) for _ in range(MESH_LOAD_THREADS)]
+    line = {"phase": "serving_mesh", "replicas": MESH_REPLICAS, "load_threads": MESH_LOAD_THREADS,
+            "start_s": start_s, "param_bytes": param_bytes, "parent_cuda_initialized": False}
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.time() + 60
+        while time.time() < deadline and mesh._beats.get(0, 0) < 1:
+            time.sleep(0.05)
+        relaunches = counter("serving_replica_relaunches_total")
+        time.sleep(1.0)
+        with mesh._lock:
+            old_pids = {rec.proc.pid for rec in mesh._replicas.values()}
+        t_kill = time.perf_counter()
+        mesh.kill_replica(0)
+        deadline = time.time() + 120
+        while time.time() < deadline and not (counter("serving_replica_relaunches_total") - relaunches >= 1
+                                               and len(mesh.endpoints()) == MESH_REPLICAS):
+            time.sleep(0.1)
+        with mesh._lock:
+            new_pid = mesh._replicas[0].proc.pid
+        deadline = time.time() + 60
+        first = None
+        while time.time() < deadline and first is None:
+            with lock:
+                first = next((t for t, _, pid, _ in log if pid == new_pid and t > t_kill), None)
+            time.sleep(0.05)
+        line.update(relaunches=counter("serving_replica_relaunches_total") - relaunches,
+                    endpoints_after_relaunch=len(mesh.endpoints()), relaunched_pid_new=new_pid not in old_pids,
+                    kill_to_first_answer_s=None if first is None else first - t_kill,
+                    errors_after_kill=len(errors))
+        swaps = []
+        for g in range(1, MESH_GENERATIONS + 1):
+            t_pub = time.perf_counter()
+            ptr.publish(builder, generation(g), model_state={"generation": np.array([g])})
+            deadline = time.time() + 120
+            flipped = None
+            while time.time() < deadline and flipped is None:
+                with lock:
+                    seen = {pid for t, gen, pid, _ in log if t > t_pub and gen == g}
+                if len(seen) >= MESH_REPLICAS:
+                    flipped = time.perf_counter() - t_pub
+                time.sleep(0.05)
+            t_settled = time.perf_counter() + MESH_SETTLE_S
+            time.sleep(MESH_SETTLE_S + 1.0)
+            with lock:
+                after = [(gen, pid, mem) for t, gen, pid, mem in log if t > t_settled]
+            memory = {}
+            for gen, pid, mem in after:
+                memory[pid] = mem  # the newest reading of each replica
+            swaps.append({"generation": g, "all_replicas_flipped_s": flipped, "replies_after_settle": len(after),
+                          "generations_after_settle": sorted({gen for gen, _, _ in after}),
+                          "cuda_allocated_by_pid": memory})
+        line["swaps"] = swaps
+        growth = {pid: swaps[-1]["cuda_allocated_by_pid"][pid] - swaps[0]["cuda_allocated_by_pid"][pid]
+                  for pid in swaps[-1]["cuda_allocated_by_pid"] if pid in swaps[0]["cuda_allocated_by_pid"]}
+        line["cuda_allocated_growth_swap1_to_swap3"] = growth
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        router.close()
+        mesh.stop()
+    line["router_errors"] = len(errors)
+    line["errors_sample"] = errors[:3]
+    # the fork rule: with CUDA up in the parent, a process-mode mesh refuses
+    torch.cuda.init()
+    refused = None
+    try:
+        ServingMesh(root, replicas=1, mode="process").start()
+    except RuntimeError as e:
+        refused = str(e)
+    line["fork_with_cuda_refused"] = refused
+    # the CLI: a routed mesh of 2 (thread-mode) replicas with a metrics endpoint
+    port, metrics_port = util.find_free_port(), util.find_free_port()
+    line["cli"] = {}
+    cli_log = open(os.path.join(work, "mesh_cli.log"), "w")
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "tensorflowonspark_tpu_torch.serving", "mesh", "--export_dir", root,
+         "--replicas", "2", "--host", "127.0.0.1", "--port", str(port), "--metrics_port", str(metrics_port)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=cli_log, stderr=subprocess.STDOUT)
+    try:
+        body, deadline = "", time.time() + 180
+        while time.time() < deadline and "serving_replicas_active 2" not in body:
+            try:
+                body = _scrape(metrics_port)
+            except OSError:
+                pass
+            time.sleep(0.5)
+        client = serving.InferenceClient(("127.0.0.1", port), timeout=120)
+        try:
+            info = client.info()
+            cli_gen = int(client.predict_binary(image=image)["generation"][0])
+        finally:
+            client.close()
+        line["cli"].update(replicas_active_2="serving_replicas_active 2" in body, info_mesh=info.get("mesh"),
+                           generation=cli_gen)
+    finally:
+        cli.send_signal(signal.SIGINT)
+        try:
+            cli.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            cli.kill()
+            cli.wait()
+        cli_log.close()
+    line["cli"]["exit"] = cli.returncode
+    print(json.dumps(line), flush=True)
+    bad = []
+    if line["router_errors"]:
+        bad.append("router errors")
+    if (line["relaunches"] < 1 or line["endpoints_after_relaunch"] != MESH_REPLICAS
+            or line["kill_to_first_answer_s"] is None):
+        bad.append("relaunch")
+    for s in line["swaps"]:
+        if s["all_replicas_flipped_s"] is None or s["generations_after_settle"] != [s["generation"]]:
+            bad.append("swap {}".format(s["generation"]))
+    if len(growth) != MESH_REPLICAS or max(growth.values()) > param_bytes:
+        bad.append("replica memory grew past one model's bytes: {}".format(growth))
+    if not refused or "CUDA" not in refused:
+        bad.append("fork with CUDA up was not refused")
+    if not (line["cli"].get("replicas_active_2") and line["cli"].get("info_mesh") is True):
+        bad.append("mesh CLI")
+    if bad:
+        raise AssertionError("serving_mesh: {}".format("; ".join(bad)))
+
+
+def phase_serving_mesh(here, work):
+    """``mesh_child`` in a fresh interpreter (this process has CUDA up, and
+    the mesh parent must not); relays its line."""
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.mesh_child({!r})".format(work)],
+                          cwd=here, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in done.stdout.splitlines() if ln.startswith('{"phase": "serving_mesh"')]
+    if lines:
+        print(lines[-1], flush=True)
+    if done.returncode != 0 or not lines:
+        raise AssertionError("serving_mesh: exit {}: {}".format(done.returncode, done.stderr[-4000:]))
+    emit({"phase": "serving_mesh_seconds", "seconds": time.perf_counter() - t0})
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2235,6 +2938,15 @@ def main():
           "slice_lm_losses": lm_losses, "max_rel_gap": gap})
     if gap > 1e-3:
         raise AssertionError("slice_lm_pack: losses {} against slice_lm's {}".format(pack_losses, lm_losses))
+    serve_work = os.path.join(here, "build", "chip_smoke_serve")
+    os.makedirs(serve_work, exist_ok=True)
+    torch.cuda.empty_cache()
+    bundle = timed("serve", phase_serve, torch, serve_work)
+    serve_launches = timed("serve_lm", phase_serve_lm, torch, fa, lm_batch, serve_work)
+    timed("infer_cli", phase_infer_cli, torch, here, bundle,
+          os.path.join(here, "build", "chip_smoke_real", "eval"), serve_work)
+    torch.cuda.empty_cache()
+    phase_serving_mesh(here, serve_work)
     emit({"phase": "kernels", "kernels": [
         {"name": name, "route": route, "source": source,
          "launched": (launches[name] > 0 and loop_launches[name] > 0 and traced_launches[name] > 0
@@ -2242,7 +2954,8 @@ def main():
         for name, _, _, _, route, source in KERNEL_TABLE] + [
         {"name": name, "route": "cuda", "source": FLASH_SOURCE,
          "launched": (flash_launches[name] > 0 and loop_flash_launches[name] > 0
-                      and traced_flash_launches[name] > 0 and pack_launches[name] > 0)}
+                      and traced_flash_launches[name] > 0 and pack_launches[name] > 0
+                      and (name != "flash_fwd" or serve_launches[name] > 0))}
         for name, *_ in FLASH_TABLE], "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -2263,6 +2976,7 @@ def main():
          "device_launches_traced_loop_call": traced_flash_launches[name],
          "launches_mnist_path": mnist_launches[name],
          "launches_slice_lm_pack": pack_launches[name],
+         **({"launches_serving": serve_launches[name]} if name == "flash_fwd" else {}),
          "max_abs_err": flash_totals[name]["max_abs_err"],
          "ms": flash_totals[name]["ms"], "plain_ms": flash_totals[name]["plain_ms"],
          "bound_ms": flash_totals[name]["bound_ms"], "bound_by": flash_totals[name]["bound_by"],

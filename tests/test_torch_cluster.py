@@ -382,6 +382,11 @@ from tensorflowonspark_tpu_torch.data.slab_cache import SlabCache
 from tensorflowonspark_tpu_torch.store import HTTPStore, resolve_store, staging
 from tensorflowonspark_tpu_torch.examples.resnet import resnet_data_setup
 assert imagenet.make_parse_fn and native_io.jpg_decode_window
+# the serving plane: the server, the batch CLI, the mesh and its exporter
+from tensorflowonspark_tpu_torch.serving import InferenceClient, InferenceServer, load_bundle, run_batch_inference
+from tensorflowonspark_tpu_torch.serving_mesh import MeshFrontend, ModelPointer, ReplicaRouter, ServingMesh
+from tensorflowonspark_tpu_torch.obs.exporter import MetricsHTTPServer, histogram_quantile, render_prometheus
+from tensorflowonspark_tpu_torch.obs.tracemerge import merge_directory
 print("imported", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
