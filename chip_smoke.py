@@ -229,7 +229,36 @@ and the script exits non-zero:
                   after the first); with CUDA up, a process-mode mesh
                   refuses to fork; the ``mesh`` CLI with ``--metrics_port``
                   (``serving_replicas_active 2``, ``info()["mesh"]``).
-17. ``kernels``   every kernel of the port and whether the eager and the
+17. ``seg_compare`` the segmentation U-Net at the JAX model's full width
+                  (3 classes, 32 base filters, depth 4), 128 px, float32
+                  with TF32 off, weights from a seeded generator: eval
+                  logits and one Adam step on 8 images of
+                  ``synthetic_shapes(seed=0)`` on the card against the same
+                  on the CPU, as ``mnist_compare`` holds them (1e-4
+                  relative), and a 1% fault in the largest gradient that the
+                  gradient limit must catch.
+   ``slice_seg``  BASELINE config 5: the port's ``segmentation_spark.main``,
+                  ``TFCluster.run`` on one executor and the card, 30 eager
+                  steps of batch 64 at 128 px (the setting of the TensorFlow
+                  image-segmentation tutorial the reference example
+                  converts), Adam 1e-3, with ``--export_dir``; then
+                  ``TFParallel.run`` with 2 instances sharing the card
+                  (``--instances_per_card 2``) over 64 images: images/s over
+                  steps 6-30, the first and last 5 losses (finite; the last
+                  lower), the final pixel accuracy, peak
+                  ``max_memory_allocated``, each kernel wrapper's launches in
+                  the trainer (0: the U-Net's convs and GroupNorm are
+                  cuDNN's and PyTorch's) and each instance's device
+                  (``cuda:0``); each instance's masks bitwise equal to the
+                  bundle's ``predict_fn`` run here on the card on the same
+                  shard in one batch (cuDNN picks its algorithm by batch
+                  size).
+   ``estimator_mnist`` ``mnist_estimator.main`` with ``--cluster_size 2``
+                  (the chief and the evaluator, both on the card), one epoch
+                  of 2,048 rows: at least one eval record; the last from the
+                  last checkpoint, its accuracy equal to a direct evaluation
+                  of that checkpoint on the card; seconds.
+18. ``kernels``   every kernel of the port and whether the eager and the
                   loop paths of phases 5 and 7 launched it, the traced loop
                   call ran it on the card, (the BN kernels) run A of the
                   recover phase and the real-data slice launched it, and
@@ -244,7 +273,8 @@ run A; ``launches_mnist_path``: its wrapper's in ``slice_mnist``'s
 trainer; ``launches_slice_real``: its wrapper's over the three
 ``slice_real`` legs; ``launches_slice_lm_pack``: its wrapper's in
 ``slice_lm_pack``; ``launches_serving``: the flash forward's wrapper's over
-``serve_lm``'s traffic), the ``nvidia-smi``
+``serve_lm``'s traffic; ``launches_segmentation``: its wrapper's in
+``slice_seg``'s trainer), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script fails before printing anything.
 """
@@ -1658,10 +1688,24 @@ def _mnist_run(torch, mnist, kind, device, batch, fault=None):
     1.01 before the update."""
     import torch.nn.functional as F
 
-    from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
-
     cfg = {"dropout_rate": 0.0} if kind == "mlp" else {}
     model = mnist.create_model(kind, generator=torch.Generator().manual_seed(0), **cfg)
+    if kind == "mlp":
+        loss_fn = mnist.make_loss_fn(model)
+    else:
+        def loss_fn(module, b):
+            return F.cross_entropy(module(b["image"], train=False), b["label"].long()), {}
+    return _adam_step(torch, model, loss_fn, device, batch, fault)
+
+
+def _adam_step(torch, model, loss_fn, device, batch, fault=None):
+    """One Adam 1e-3 step of ``model`` (``loss_fn`` with aux metrics)
+    through ``SyncDataParallel`` on ``device``: eval logits before it, the
+    loss, each parameter's gradient and value after it (host tensors).
+    ``fault`` (a parameter name) scales that gradient by 1.01 before the
+    update."""
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
+
     strategy = SyncDataParallel(device)
     opt = optim.adam(1e-3)
     if fault is not None:
@@ -1676,11 +1720,6 @@ def _mnist_run(torch, mnist, kind, device, batch, fault=None):
     placed = strategy.shard_batch(batch)
     with torch.no_grad():
         logits = state.module(placed["image"]).cpu()
-    if kind == "mlp":
-        loss_fn = mnist.make_loss_fn(model)
-    else:
-        def loss_fn(module, b):
-            return F.cross_entropy(module(b["image"], train=False), b["label"].long()), {}
     step = strategy.compile_train_step(loss_fn, opt, has_aux=True)
     state, metrics = step(state, placed)
     return {"logits": logits, "loss": float(metrics["loss"]),
@@ -1706,33 +1745,48 @@ def phase_mnist_compare(torch):
     start = {kind: dict(mnist.create_model(kind, generator=torch.Generator().manual_seed(0)).named_parameters())
              for kind in ("mlp", "cnn")}
     for kind in ("mlp", "cnn"):
-        card = _mnist_run(torch, mnist, kind, MNIST_DEVICE, batch)
-        cpu = _mnist_run(torch, mnist, kind, "cpu", batch)
-        grad_rel = {n: _rel(card["grads"][n], g) for n, g in cpu["grads"].items()}
-        flat = lambda tree: torch.cat([tree[n].detach().flatten() for n in sorted(tree)])  # noqa: E731
-        param_rel = float((flat(card["params"]) - flat(cpu["params"])).norm() / flat(start[kind]).norm())
-        fault = max(cpu["grads"], key=lambda n: cpu["grads"][n].norm())
-        faulted = _mnist_run(torch, mnist, kind, MNIST_DEVICE, batch, fault=fault)
-        control = _rel(faulted["grads"][fault], cpu["grads"][fault])
+        line = _card_vs_cpu(torch, lambda device, fault=None: _mnist_run(torch, mnist, kind, device, batch, fault),
+                            start[kind])
         line = {"phase": "mnist_compare", "model": kind, "dtype": "float32", "tf32": False,
-                "batch": MNIST_BATCH, "params": sum(p.numel() for p in cpu["params"].values()),
-                "logits_rel": _rel(card["logits"], cpu["logits"]),
-                "loss_card": card["loss"], "loss_cpu": cpu["loss"],
-                "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
-                "grad_rel_max": max(grad_rel.values()), "param_rel_to_start": param_rel,
-                "tolerance": MNIST_REL_TOL, "fault": "{} gradient x 1.01".format(fault),
-                "fault_grad_rel": control,
-                "fault_param_rel_to_start": float((flat(faulted["params"]) - flat(cpu["params"])).norm()
-                                                  / flat(start[kind]).norm()),
-                "seconds": time.perf_counter() - t0}
-        emit(line)
-        worst = max(line["logits_rel"], line["loss_rel"], line["grad_rel_max"], line["param_rel_to_start"])
-        if not (math.isfinite(card["loss"]) and worst <= MNIST_REL_TOL):
-            raise AssertionError("mnist_compare {}: card vs CPU {} beyond {}: {}".format(
-                kind, worst, MNIST_REL_TOL, line))
-        if not control > MNIST_REL_TOL:
-            raise AssertionError("mnist_compare {}: a 1% fault in {} reads {}, within the limit {}".format(
-                kind, fault, control, MNIST_REL_TOL))
+                "batch": MNIST_BATCH, **line, "seconds": time.perf_counter() - t0}
+        _check_card_vs_cpu(line)
+
+
+def _card_vs_cpu(torch, run, start):
+    """``run(device, fault=None)`` (one Adam step, :func:`_adam_step`'s
+    result) on the card and on the CPU, then on the card with a 1% fault
+    in the CPU's largest gradient: each difference as ``||card - cpu|| /
+    ||cpu||`` (all the parameters as one vector, against their values in
+    ``start``: biases start at 0)."""
+    card = run(MNIST_DEVICE)
+    cpu = run("cpu")
+    grad_rel = {n: _rel(card["grads"][n], g) for n, g in cpu["grads"].items()}
+    flat = lambda tree: torch.cat([tree[n].detach().flatten() for n in sorted(tree)])  # noqa: E731
+    fault = max(cpu["grads"], key=lambda n: cpu["grads"][n].norm())
+    faulted = run(MNIST_DEVICE, fault=fault)
+    return {"params": sum(p.numel() for p in cpu["params"].values()),
+            "logits_rel": _rel(card["logits"], cpu["logits"]),
+            "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+            "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+            "grad_rel_max": max(grad_rel.values()),
+            "param_rel_to_start": float((flat(card["params"]) - flat(cpu["params"])).norm() / flat(start).norm()),
+            "tolerance": MNIST_REL_TOL, "fault": "{} gradient x 1.01".format(fault),
+            "fault_grad_rel": _rel(faulted["grads"][fault], cpu["grads"][fault]),
+            "fault_param_rel_to_start": float((flat(faulted["params"]) - flat(cpu["params"])).norm()
+                                              / flat(start).norm())}
+
+
+def _check_card_vs_cpu(line):
+    """Print ``line`` (:func:`_card_vs_cpu`'s readings); fail unless the
+    card is within ``MNIST_REL_TOL`` of the CPU and the fault is not."""
+    emit(line)
+    name = "{} {}".format(line["phase"], line["model"])
+    worst = max(line["logits_rel"], line["loss_rel"], line["grad_rel_max"], line["param_rel_to_start"])
+    if not (math.isfinite(line["loss_card"]) and worst <= MNIST_REL_TOL):
+        raise AssertionError("{}: card vs CPU {} beyond {}: {}".format(name, worst, MNIST_REL_TOL, line))
+    if not line["fault_grad_rel"] > MNIST_REL_TOL:
+        raise AssertionError("{}: a 1% fault in {} reads {}, within the limit {}".format(
+            name, line["fault"], line["fault_grad_rel"], MNIST_REL_TOL))
 
 
 def phase_slice_mnist(torch, work):
@@ -2825,6 +2879,157 @@ def phase_serving_mesh(here, work):
     emit({"phase": "serving_mesh_seconds", "seconds": time.perf_counter() - t0})
 
 
+#: the segmentation slice (BASELINE config 5): the JAX U-Net's full width,
+#: the TensorFlow "Image segmentation" tutorial's batch and image size
+SEG = dict(num_classes=3, base_filters=32, depth=4)
+SEG_IMAGE, SEG_BATCH, SEG_STEPS = 128, 64, 30
+#: images/s over steps SEG_TIMED_FROM..SEG_STEPS (the first ones set up cuDNN)
+SEG_TIMED_FROM = 6
+#: seg_compare's batch; the inference leg's instances and images in all
+SEG_COMPARE_BATCH, SEG_INSTANCES, SEG_INFER = 8, 2, 64
+#: estimator_mnist: the example's defaults (2,048 rows, batch 64, a
+#: checkpoint every 10 steps), a chief and the evaluator, one epoch
+ESTIMATOR_CLUSTER = 2
+
+
+def phase_seg_compare(torch):
+    """The U-Net at the JAX model's full width, 128 px, float32 with TF32
+    off, weights from a seeded generator: eval logits and one Adam step of
+    the example's loss on 8 images of ``synthetic_shapes(seed=0)``, on the
+    card against the same on the CPU, within ``MNIST_REL_TOL`` each; a 1%
+    fault in the largest gradient must read beyond it."""
+    from tensorflowonspark_tpu_torch.examples.segmentation.segmentation_spark import synthetic_shapes
+    from tensorflowonspark_tpu_torch.models import segmentation
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images, masks = synthetic_shapes(SEG_COMPARE_BATCH, SEG_IMAGE, seed=0)
+    batch = {"image": images, "mask": masks}
+
+    def run(device, fault=None):
+        model = segmentation.create_model(**SEG, generator=torch.Generator().manual_seed(0))
+        return _adam_step(torch, model, segmentation.make_loss_fn(model), device, batch, fault)
+
+    start = dict(segmentation.create_model(**SEG, generator=torch.Generator().manual_seed(0)).named_parameters())
+    line = _card_vs_cpu(torch, run, start)
+    _check_card_vs_cpu({"phase": "seg_compare", "model": "unet", **SEG, "image": SEG_IMAGE, "dtype": "float32",
+                        "tf32": False, "batch": SEG_COMPARE_BATCH, **line, "seconds": time.perf_counter() - t0})
+
+
+def phase_slice_seg(torch, work):
+    """The port's segmentation example (BASELINE config 5) through its
+    ``main``: ``TFCluster.run`` on one executor trains the full-width U-Net
+    for ``SEG_STEPS`` eager steps (batch 64, 128 px, Adam 1e-3) and exports
+    a bundle; ``TFParallel.run`` then starts ``SEG_INSTANCES`` instances on
+    the card, each segmenting its shard of images. Reads images/s over the
+    steps from ``SEG_TIMED_FROM``, the first and last 5 losses (the last
+    must be lower), the final pixel accuracy, peak device memory and each
+    kernel wrapper's launches in the trainer (0: the U-Net calls none);
+    each instance's masks must equal, bitwise, the bundle's ``predict_fn``
+    run here on the card on the same shard in one batch, as the instance
+    ran it. Returns the launches."""
+    import shutil
+
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+    from tensorflowonspark_tpu_torch.examples.segmentation import segmentation_spark
+    from tensorflowonspark_tpu_torch.train import export
+
+    export_dir = os.path.join(work, "seg_bundle")
+    shutil.rmtree(export_dir, ignore_errors=True)
+    argv = ["--cluster_size", "1", "--base_filters", str(SEG["base_filters"]), "--depth", str(SEG["depth"]),
+            "--image_size", str(SEG_IMAGE), "--batch_size", str(SEG_BATCH), "--train_steps", str(SEG_STEPS),
+            "--log_steps", "1", "--export_dir", export_dir, "--inference_count", str(SEG_INFER),
+            "--inference_instances", str(SEG_INSTANCES), "--instances_per_card", str(SEG_INSTANCES)]
+    t0 = time.perf_counter()
+    sc = LocalSparkContext(num_executors=SEG_INSTANCES)
+    try:
+        out = segmentation_spark.main(argv, sc=sc)
+    finally:
+        sc.stop()
+    wall = time.perf_counter() - t0
+    metrics = out["metrics"]
+    steps = sorted((e for e in metrics["events"] if e.get("span") == "train_step"), key=lambda e: e["step"])
+    (summary,) = [e for e in metrics["events"] if e.get("span") == "seg_train"]
+    losses = [e.get("loss") for e in steps]
+    timed = [e["dur_s"] for e in steps if e["step"] >= SEG_TIMED_FROM]
+    counters = {k: v["value"] for k, v in metrics["counters"].items()}
+    launches = {fn: int(counters.get(fn + "_launches_total", -1))
+                for fn in [t[0] for t in KERNEL_TABLE] + [t[0] for t in FLASH_TABLE]}
+
+    args = segmentation_spark.build_parser().parse_args(argv)
+    # the instances' processes run with PyTorch's default, TF32 convs
+    torch.backends.cudnn.allow_tf32 = True
+    predict_fn, params, model_state = export.load_model(export_dir)  # on the card
+    instances = []
+    for i in range(SEG_INSTANCES):
+        images, masks = segmentation_spark.inference_shard(args, i, SEG_INSTANCES)
+        direct = predict_fn(params, model_state, {"image": images})
+        with np.load(os.path.join(export_dir, "inference-{}.npz".format(i))) as got:
+            mask, devices = got["mask"], sorted(set(got["device"].tolist()))
+        instances.append({"instance": i, "images": len(images), "devices": devices,
+                          "direct_devices": sorted(set(direct["device"].tolist())),
+                          "pixel_accuracy": float(np.mean(mask == masks)),
+                          "bitwise_equal_direct": bool(mask.shape == direct["mask"].shape
+                                                       and np.array_equal(mask, direct["mask"]))})
+    line = {"phase": "slice_seg", "model": "unet", **SEG, "image": SEG_IMAGE, "batch": SEG_BATCH,
+            "dtype": "float32", "tf32_convs": True, "optimizer": "adam 1e-3", "steps": len(steps),
+            "device": summary["device"], "losses": losses, "step_s": [e["dur_s"] for e in steps],
+            "images_per_sec_steps_{}_{}".format(SEG_TIMED_FROM, SEG_STEPS): SEG_BATCH * len(timed) / sum(timed),
+            "step_ms_median": 1e3 * sorted(timed)[len(timed) // 2],
+            "first5_loss": losses[:5], "last5_loss": losses[-5:],
+            "final_pixel_accuracy": summary.get("pixel_accuracy"),
+            "peak_memory_bytes": summary["peak_memory_bytes"], "launches": launches,
+            "inference": instances, "inference_done": out["inference"], "wall_s": wall}
+    emit(line)
+    if len(steps) != SEG_STEPS or not all(isinstance(v, float) and math.isfinite(v) for v in losses):
+        raise AssertionError("slice_seg: expected {} finite losses, got {}".format(SEG_STEPS, losses))
+    if not sum(losses[-5:]) < sum(losses[:5]):
+        raise AssertionError("slice_seg: the loss did not fall: {} -> {}".format(losses[:5], losses[-5:]))
+    if line["device"] != MNIST_DEVICE or any(launches.values()):
+        raise AssertionError("slice_seg: trained on {}, kernel launches {}".format(line["device"], launches))
+    if sorted(out["inference"]) != list(range(SEG_INSTANCES)) or not all(
+            r["bitwise_equal_direct"] and r["devices"] == r["direct_devices"] == [MNIST_DEVICE] for r in instances):
+        raise AssertionError("slice_seg: inference {}".format(instances))
+    return launches
+
+
+def phase_estimator_mnist(torch, work):
+    """``mnist_estimator.main`` on the card: a chief trains the MLP from the
+    feed (one epoch of the example's 2,048 rows) and checkpoints, the
+    evaluator (``eval_node=True``) evaluates each new checkpoint on its own
+    ``ctx.device``. At least one eval record; the last must come from the
+    last checkpoint and its accuracy equal a direct evaluation of that
+    checkpoint here on the card."""
+    import shutil
+
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+    from tensorflowonspark_tpu_torch.examples.mnist import mnist_estimator
+    from tensorflowonspark_tpu_torch.train import checkpoint
+
+    model_dir = os.path.join(work, "estimator")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    sc = LocalSparkContext(num_executors=ESTIMATOR_CLUSTER)
+    try:
+        records = mnist_estimator.main(["--cluster_size", str(ESTIMATOR_CLUSTER), "--epochs", "1",
+                                        "--model_dir", model_dir], sc=sc)
+    finally:
+        sc.stop()
+    wall = time.perf_counter() - t0
+    latest = checkpoint.latest_checkpoint(model_dir)
+    direct = mnist_estimator.evaluate(latest, MNIST_DEVICE, 256) if latest else None
+    line = {"phase": "estimator_mnist", "cluster": ESTIMATOR_CLUSTER, "records": records,
+            "latest_checkpoint": latest and os.path.basename(latest), "direct_accuracy": direct,
+            "seconds": wall}
+    emit(line)
+    if not (records and records[-1]["checkpoint"] == line["latest_checkpoint"]
+            and records[-1]["accuracy"] == direct and all(r["device"] == MNIST_DEVICE for r in records)):
+        raise AssertionError("estimator_mnist: {}".format(line))
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2947,6 +3152,12 @@ def main():
           os.path.join(here, "build", "chip_smoke_real", "eval"), serve_work)
     torch.cuda.empty_cache()
     phase_serving_mesh(here, serve_work)
+    seg_work = os.path.join(here, "build", "chip_smoke_seg")
+    os.makedirs(seg_work, exist_ok=True)
+    timed("seg_compare", phase_seg_compare, torch)
+    torch.cuda.empty_cache()
+    seg_launches = timed("slice_seg", phase_slice_seg, torch, seg_work)
+    timed("estimator_mnist", phase_estimator_mnist, torch, seg_work)
     emit({"phase": "kernels", "kernels": [
         {"name": name, "route": route, "source": source,
          "launched": (launches[name] > 0 and loop_launches[name] > 0 and traced_launches[name] > 0
@@ -2964,6 +3175,7 @@ def main():
          "launches_recover_path": recover_launches[name],
          "launches_mnist_path": mnist_launches[name],
          "launches_slice_real": real_launches[name],
+         "launches_segmentation": seg_launches[name],
          "max_abs_err": totals[name]["max_abs_err"],
          "ms": totals[name]["ms"], "plain_ms": totals[name]["plain_ms"],
          "bound_ms": totals[name]["bound_ms"], "bound_by": totals[name]["bound_by"],
@@ -2976,6 +3188,7 @@ def main():
          "device_launches_traced_loop_call": traced_flash_launches[name],
          "launches_mnist_path": mnist_launches[name],
          "launches_slice_lm_pack": pack_launches[name],
+         "launches_segmentation": seg_launches[name],
          **({"launches_serving": serve_launches[name]} if name == "flash_fwd" else {}),
          "max_abs_err": flash_totals[name]["max_abs_err"],
          "ms": flash_totals[name]["ms"], "plain_ms": flash_totals[name]["plain_ms"],

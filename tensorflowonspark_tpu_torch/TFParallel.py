@@ -11,6 +11,11 @@ of the host's cards (``CUDA_VISIBLE_DEVICES``), so the executor never
 touches CUDA and the cards free up when the task ends. The platform rides
 the env lane as ``TOS_PLATFORM`` (``gpu`` by default, ``cpu`` hides every
 card); the user function takes its device from ``ctx.device``.
+
+A TPU chip takes one process, so the JAX version refuses more instances on
+a host than chips. A CUDA card takes several: ``instances_per_card`` (1 by
+default, the JAX version's rule) lets that many instances share each card,
+instance ``i`` of a host on card ``i mod cards`` once they outnumber them.
 """
 
 import logging
@@ -23,11 +28,12 @@ logger = logging.getLogger(__name__)
 
 
 class _ParallelTask:
-    def __init__(self, fn, tf_args, num_executors, env=None):
+    def __init__(self, fn, tf_args, num_executors, env=None, instances_per_card=1):
         self.fn = fn
         self.tf_args = tf_args
         self.num_executors = num_executors
         self.env = dict(env or {})
+        self.instances_per_card = instances_per_card
 
     def __call__(self, iterator):
         executor_id = None
@@ -51,14 +57,18 @@ class _ParallelTask:
         n_chips = gpu_info.detect_local_chips()
         if n_chips and self.env.get(util.ENV_PLATFORM) != "cpu":
             local_rank, num_local = self._local_placement(executor_id)
-            if num_local > n_chips:
+            if num_local > n_chips * self.instances_per_card:
                 raise RuntimeError(
-                    "{} TFParallel instances on this host but only {} cards — "
-                    "reduce num_executors or instances per host".format(num_local, n_chips)
+                    "{} TFParallel instances on this host but only {} cards for {} instance(s) "
+                    "each — reduce num_executors or instances per host".format(
+                        num_local, n_chips, self.instances_per_card)
                 )
-            per = n_chips // num_local
-            start = local_rank * per
-            chip_ids = list(range(start, start + per))
+            if num_local > n_chips:
+                chip_ids = [local_rank % n_chips]
+            else:
+                per = n_chips // num_local
+                start = local_rank * per
+                chip_ids = list(range(start, start + per))
 
         def _entry():
             try:
@@ -107,12 +117,15 @@ class _ParallelTask:
             return executor_id, self.num_executors
 
 
-def run(sc, map_fn, tf_args, num_executors, env=None):
+def run(sc, map_fn, tf_args, num_executors, env=None, instances_per_card=1):
     """Run ``map_fn(tf_args, ctx)`` as ``num_executors`` independent instances
-    (reference TFParallel.run, TFParallel.py:17). Returns the executor ids
-    that completed."""
+    (reference TFParallel.run, TFParallel.py:17), at most
+    ``instances_per_card`` of them on each card of a host. Returns the
+    executor ids that completed."""
+    if instances_per_card < 1:
+        raise ValueError("instances_per_card must be at least 1, got {}".format(instances_per_card))
     kwargs = {"pin_to_executors": True} if getattr(sc, "PIN_SUPPORTED", False) else {}
     rdd = sc.parallelize(range(num_executors), num_executors, **kwargs)
     if hasattr(rdd, "barrier"):  # real Spark: barrier execution mode
         rdd = rdd.barrier()
-    return rdd.mapPartitions(_ParallelTask(map_fn, tf_args, num_executors, env)).collect()
+    return rdd.mapPartitions(_ParallelTask(map_fn, tf_args, num_executors, env, instances_per_card)).collect()

@@ -340,7 +340,15 @@ HEARTBEAT_INTERVAL = float(os.environ.get("TOS_HEARTBEAT_INTERVAL", "2"))
 # ``preempted`` parting status on the channel (the driver's watchdog turns
 # that into a durable registry ``leave``), and exit before the kill lands.
 # The recovery ladder classifies the resulting loss as a first-class
-# ``preemption``: no blacklist entry, no restart-budget charge.
+# ``preemption``: no blacklist entry, no restart-budget charge. A parked
+# ps/evaluator role that its executor releases at the driver's shutdown gets
+# the same SIGTERM, but the executor marks the release on the channel first
+# (:data:`RELEASED_KEY`): that child commits ``released``, which the watchdog
+# takes as a clean leave and not as a preemption to report.
+
+#: channel key an executor sets before it terminates the child of a parked
+#: role it is releasing
+RELEASED_KEY = "released"
 
 _preempt_lock = threading.Lock()
 _preempt = {
@@ -373,9 +381,15 @@ def _preempt_drain(source):
         if _preempt["fired"]:
             return  # handler/heartbeat race: first caller owns the exit
         _preempt["fired"] = True
+    released = False
+    if _preempt["mgr"] is not None:
+        try:
+            released = bool(_preempt["mgr"].get(RELEASED_KEY))
+        except Exception:
+            pass
     logger.warning(
-        "preemption warning (%s): draining checkpoints before the kill lands",
-        source,
+        "%s (%s): draining checkpoints before the kill lands",
+        "released by the executor" if released else "preemption warning", source,
     )
     try:
         obs_tracing.event(
@@ -393,7 +407,7 @@ def _preempt_drain(source):
             pass
     if _preempt["mgr"] is not None:
         try:  # the parting commit the watchdog journals as a durable leave
-            _preempt["mgr"].set("child_status", "preempted")
+            _preempt["mgr"].set("child_status", "released" if released else "preempted")
         except Exception:
             pass
     try:
@@ -681,6 +695,8 @@ class _NodeLaunchTask:
                 control.task_done()
                 if msg is None:
                     break
+            # the driver's release, not a preemption (see RELEASED_KEY)
+            mgr.set(RELEASED_KEY, True)
             child.terminate()
             child.join(timeout=10)
             mgr.set("state", "stopped")

@@ -38,7 +38,7 @@ def create_dataframe(sc, rows, columns, num_partitions=None):
 
 
 def get_spark_context(app_name, num_executors=None, task_timeout=600, sc=None,
-                      local_default=1):
+                      local_default=1, min_local_executors=1):
     """The examples' context factory: a REAL ``pyspark.SparkContext`` when
     the program is running under Spark, the bundled local backend otherwise.
     Returns ``(sc, num_executors, owned)`` — ``owned`` False when the
@@ -63,6 +63,11 @@ def get_spark_context(app_name, num_executors=None, task_timeout=600, sc=None,
     clusters don't set ``instances``), else ``local_default``; the local
     backend uses ``local_default``. The same resolution applies to an
     injected ``sc``.
+
+    A local pool this creates holds at least ``min_local_executors``
+    executors, more than the cluster size where a later job needs them (a
+    TFParallel leg of more instances than the cluster has nodes pins one to
+    each executor); the returned count stays the cluster size.
     """
     import logging
     import os
@@ -106,7 +111,7 @@ def get_spark_context(app_name, num_executors=None, task_timeout=600, sc=None,
     from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
 
     n = num_executors or local_default
-    return LocalSparkContext(num_executors=n, task_timeout=task_timeout), n, True
+    return LocalSparkContext(num_executors=max(n, min_local_executors), task_timeout=task_timeout), n, True
 
 
 def _resolve_executor_count(sc, num_executors, local_default, logger):

@@ -6,12 +6,18 @@ name) and returns the tensors the port's module of the same architecture
 loads, name for name:
 
 * conv ``kernel`` HWIO → ``weight`` OIHW;
+* ConvTranspose ``kernel`` (the U-Net's ``up<d>`` layers) ``[kh, kw, in,
+  out]`` → ``weight`` ``[in, out, kh, kw]``, flipped in both spatial axes:
+  flax's ``nn.ConvTranspose`` (``transpose_kernel=False``) runs its kernel
+  over the stride-dilated input as it is, where ``ConvTranspose2d``, the
+  gradient of a conv, runs it flipped;
 * Dense ``kernel`` ``[in, out]`` → ``weight`` ``[out, in]``;
 * attention ``q``/``k``/``v`` ``kernel`` ``[d_model, H, D]`` → ``weight``
   ``[H·D, d_model]``, ``o`` ``kernel`` ``[H, D, d_model]`` → ``weight``
   ``[d_model, H·D]``;
 * Embed ``embedding`` ``[vocab, d_model]`` → ``weight`` (as it is);
-* BatchNorm and RMSNorm ``scale`` / ``bias`` → ``weight`` / ``bias``;
+* BatchNorm, GroupNorm and RMSNorm ``scale`` / ``bias`` → ``weight`` /
+  ``bias``;
 * ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``.
 
 Any key left unmatched on either side raises, as does a shape mismatch:
@@ -23,9 +29,13 @@ a silently partial load would train a different model.
 checkpointed by the JAX package continues in the port.
 """
 
+import re
+
 import numpy as np
 import torch
 
+#: module names of flax ``nn.ConvTranspose`` layers (the U-Net's upsamplers)
+_CONV_TRANSPOSE = re.compile(r"up\d+$")
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
@@ -45,7 +55,9 @@ def _convert_leaf(collection, path, value):
         raise KeyError("no port counterpart for {}/{}".format(collection, "/".join(path)))
     arr = np.asarray(value, dtype=np.float32)
     if leaf == "kernel":
-        if arr.ndim == 4:  # HWIO -> OIHW
+        if arr.ndim == 4 and _CONV_TRANSPOSE.match(path[-2]):  # [kh, kw, in, out] -> [in, out, kh, kw]
+            arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        elif arr.ndim == 4:  # HWIO -> OIHW
             arr = arr.transpose(3, 2, 0, 1)
         elif arr.ndim == 2:  # [in, out] -> [out, in]
             arr = arr.T

@@ -4,7 +4,8 @@ of ``examples/mnist/mnist_spark_streaming.py``.
 Micro-batches ("waves") flow into the synchronous feed plane, and the
 training loop blocks in ``next_batch`` between waves. Stop either from the
 driver (``--num_waves`` exhausted → ``cluster.shutdown(ssc)``) or
-externally with ``examples/utils/stop_cluster.py <host> <port>`` (the
+externally with ``python -m
+tensorflowonspark_tpu_torch.examples.utils.stop_cluster <host> <port>`` (the
 server address is printed at startup). The waves come through the local
 backend's ``LocalStreamingContext`` (its ``feed()`` pushes them one by
 one).
@@ -82,7 +83,8 @@ def main(argv=None):
             input_mode=TFCluster.InputMode.SPARK, master_node="chief",
             env={util.ENV_PLATFORM: args.platform},
         )
-        print("control plane at {}:{} (stop with examples/utils/stop_cluster.py)".format(
+        print("control plane at {}:{} (stop with python -m "
+              "tensorflowonspark_tpu_torch.examples.utils.stop_cluster <host> <port>)".format(
             *cluster.cluster_meta["server_addr"]))
         stream = ssc.queueStream()
         cluster.train(stream)  # registers the micro-batch feed

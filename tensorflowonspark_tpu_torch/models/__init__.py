@@ -7,6 +7,8 @@ zoo:
   (ImageNet), ResNet-56 (CIFAR) and ResNet-18.
 * :mod:`~tensorflowonspark_tpu_torch.models.transformer` — the decoder-only
   transformer LM (no mixture of experts yet).
+* :mod:`~tensorflowonspark_tpu_torch.models.segmentation` — the U-Net of the
+  segmentation example.
 """
 
 _REGISTRY = {}
@@ -22,11 +24,11 @@ def register(name):
 
 def get_model(name, **cfg):
     """Construct a registered model by name (e.g. 'mnist_mlp', 'resnet50',
-    'resnet56')."""
+    'resnet56', 'unet')."""
     if name not in _REGISTRY:
         # import lazily so get_model('resnet50') works without the caller
         # importing the module first
-        from tensorflowonspark_tpu_torch.models import mnist, resnet, transformer  # noqa: F401
+        from tensorflowonspark_tpu_torch.models import mnist, resnet, segmentation, transformer  # noqa: F401
     if name not in _REGISTRY:
         raise KeyError("unknown model {!r}; known: {}".format(name, sorted(_REGISTRY)))
     return _REGISTRY[name](**cfg)

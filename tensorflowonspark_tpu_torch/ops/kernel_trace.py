@@ -18,12 +18,19 @@ in named ``record_function`` ranges (a trainer's ``train.fetch``,
 
 import collections
 import re
+import time
 
 import torch
 
 #: the ``record_function`` ranges of a trainer's call that a trace times
 CALL_RANGES = ("train.fetch", "train.call", "train.sync", "loader.place")
 _WINDOW = "kernel_trace.window"
+#: host seconds the profiler runs before the traced block starts and after
+#: it ends, outside the block's window range. Without the lead, the first
+#: milliseconds of device work after the profiler starts were sometimes
+#: missing from the trace (on an H100, the first replay's first BN layers'
+#: forward kernels; ``examples/resnet/trace_check.py`` counts them)
+GUARD_S = 0.1
 
 
 def kernel_base(name):
@@ -76,8 +83,9 @@ def read_events(events, ranges=CALL_RANGES):
 
 class KernelTrace:
     """``with KernelTrace() as trace: ...`` traces the block with
-    ``torch.profiler`` (the host, and the card when there is one), ends it
-    with a device sync, and leaves :func:`read_events`' readings in
+    ``torch.profiler`` (the host, and the card when there is one; on the
+    card the profiler runs :data:`GUARD_S` before and after the block), ends
+    it with a device sync, and leaves :func:`read_events`' readings in
     ``trace.readings``: ``launches`` (``{wrapper name: device kernels}``),
     ``kernels``, ``graph_launches``, ``busy_ms``, ``window_ms``,
     ``idle_share`` and ``host_ms`` (``{range: ms}`` of ``ranges``)."""
@@ -93,6 +101,8 @@ class KernelTrace:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         self._prof = torch.profiler.profile(activities=activities)
         self._prof.__enter__()
+        if self._cuda:
+            time.sleep(GUARD_S)
         self._window = torch.profiler.record_function(_WINDOW)
         self._window.__enter__()
         return self
@@ -103,6 +113,8 @@ class KernelTrace:
                 torch.cuda.synchronize()
         finally:
             self._window.__exit__(exc_type, exc, tb)
+            if self._cuda:
+                time.sleep(GUARD_S)
             self._prof.__exit__(exc_type, exc, tb)
         if exc_type is None:
             self.readings = read_events(self._prof.events(), self.ranges)

@@ -28,13 +28,16 @@ from tensorflowonspark_tpu_torch.marker import Marker
 logger = logging.getLogger(__name__)
 
 #: /dev/shm name prefix for feed segments (diagnosable leaks: a crashed
-#: consumer leaves ``tosfeed_*`` files behind; see ``unlink_leaked``)
-NAME_PREFIX = "tosfeed_"
+#: consumer leaves ``tostfeed_*`` files behind; see ``unlink_leaked``). The
+#: port's prefixes are its own: the JAX package's ``unlink_leaked`` sweeps
+#: ``tosfeed_*`` / ``tosslab_*`` on the same host, and with a zero age (as its
+#: tests call it) it would unlink the port's in-flight chunks
+NAME_PREFIX = "tostfeed_"
 
 #: /dev/shm name prefix for decode-plane batch slabs (long-lived pooled
-#: segments owned by the creating pipeline, unlike the one-shot ``tosfeed_``
-#: chunks that die at materialize)
-SLAB_PREFIX = "tosslab_"
+#: segments owned by the creating pipeline, unlike the one-shot
+#: ``tostfeed_`` chunks that die at materialize)
+SLAB_PREFIX = "tostslab_"
 
 
 def _unregister_from_tracker(name):
@@ -249,7 +252,7 @@ class SlabSegment:
 
     @classmethod
     def create(cls, nbytes):
-        """Allocate a fresh ``tosslab_`` segment of ``nbytes`` (creator
+        """Allocate a fresh ``tostslab_`` segment of ``nbytes`` (creator
         side). Raises whatever ``shared_memory`` raises when the platform
         has no usable shm — callers fall back to in-process buffers."""
         from multiprocessing import shared_memory
@@ -320,7 +323,7 @@ class SlabSegment:
 
 
 def unlink_leaked(max_age_secs=86400):
-    """Best-effort cleanup of ``tosfeed_*`` / ``tosslab_*`` segments left by
+    """Best-effort cleanup of ``tostfeed_*`` / ``tostslab_*`` segments left by
     crashed consumers (called from executor shutdown). Only touches segments
     older than ``max_age_secs`` to avoid racing in-flight chunks — the
     default is deliberately a full day (in-flight backlogs are bounded by

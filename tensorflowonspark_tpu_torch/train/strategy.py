@@ -104,7 +104,7 @@ class SyncDataParallel:
                     dist.broadcast(t, src=0)
         return TrainState(0, module, optimizer.init(dict(module.named_parameters())))
 
-    def compile_train_step(self, loss_fn, optimizer, has_aux=False, mutable=False):
+    def compile_train_step(self, loss_fn, optimizer, has_aux=False, mutable=False, donate=True):
         """``step(state, batch) -> (state, metrics)``.
 
         * ``mutable=False``: ``loss_fn(module, batch) -> loss`` or
@@ -121,7 +121,14 @@ class SyncDataParallel:
         batch's, when each rank's loss averages as many terms). The step's
         phases are profiler ranges (``train_step.forward``, ``.backward``,
         ``.optimizer``).
+
+        ``donate`` (``True``, ``False``, ``"state"`` or ``"batches"``; any
+        other value raises ``ValueError``) is accepted for the JAX version's
+        signature, as :meth:`compile_train_loop` accepts it: the state is
+        updated in place whatever its value, and the batch is never
+        consumed.
         """
+        _check_donate(donate)
         body = _train_body(loss_fn, optimizer, has_aux, mutable)
         wants_step = _wants_step(loss_fn)
 
@@ -162,8 +169,7 @@ class SyncDataParallel:
         """
         if int(num_steps) < 1:
             raise ValueError("num_steps must be at least 1, got {}".format(num_steps))
-        if donate not in (True, False, "state", "batches"):
-            raise ValueError("donate must be True, False, 'state' or 'batches', got {!r}".format(donate))
+        _check_donate(donate)
         if self.device.type == "cuda":
             return _CapturedLoop(_train_body(loss_fn, optimizer, has_aux, mutable),
                                  _wants_step(loss_fn), int(num_steps), packed, self.device)
@@ -188,6 +194,13 @@ class SyncDataParallel:
         *args)`` as :meth:`compile_eval_step` runs it; the predictions stay
         on this process's device."""
         return _inference(apply_fn)
+
+
+def _check_donate(donate):
+    """The JAX version's values of ``donate`` (it donates the state's
+    buffers, the batches' or both to XLA); anything else raises."""
+    if donate not in (True, False, "state", "batches"):
+        raise ValueError("donate must be True, False, 'state' or 'batches', got {!r}".format(donate))
 
 
 def _inference(fn):

@@ -387,6 +387,14 @@ from tensorflowonspark_tpu_torch.serving import InferenceClient, InferenceServer
 from tensorflowonspark_tpu_torch.serving_mesh import MeshFrontend, ModelPointer, ReplicaRouter, ServingMesh
 from tensorflowonspark_tpu_torch.obs.exporter import MetricsHTTPServer, histogram_quantile, render_prometheus
 from tensorflowonspark_tpu_torch.obs.tracemerge import merge_directory
+# the segmentation slice and its leftovers: the U-Net, compat, the estimator's
+# evaluator role, stop_cluster
+from tensorflowonspark_tpu_torch import compat
+from tensorflowonspark_tpu_torch.models.segmentation import UNet, bundle_builder as seg_bundle_builder
+from tensorflowonspark_tpu_torch.examples.segmentation import segmentation_spark
+from tensorflowonspark_tpu_torch.examples.mnist import mnist_estimator
+from tensorflowonspark_tpu_torch.examples.utils import stop_cluster
+assert "tensorflowonspark_tpu_torch.examples.segmentation.segmentation_spark" in names
 print("imported", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))

@@ -410,6 +410,39 @@ class TestTFParallel:
         with pytest.raises(RuntimeError, match="only 1 cards"):
             TFParallel.run(_Ctx(), fn, {}, 2, env={util.ENV_PLATFORM: "gpu"})
 
+    @pytest.mark.parametrize("cards,per_card,want", [
+        (1, 2, ["0", "0"]), (2, 2, ["0", "1"]), (4, 1, ["0,1", "2,3"]), (3, 2, ["0", "1", "2", "0"])])
+    def test_instances_per_card_shares_the_cards(self, tmp_path, monkeypatch, cards, per_card, want):
+        """CUDA cards take several processes: with ``instances_per_card``
+        the instances of a host share its cards round robin once they
+        outnumber them, and split them as before otherwise."""
+        from tensorflowonspark_tpu_torch import TFParallel, gpu_info
+
+        def fn(args, ctx):
+            with open("{}/cards-{}".format(args["dir"], ctx.executor_id), "w") as f:
+                f.write(os.environ["CUDA_VISIBLE_DEVICES"])
+
+        n = len(want)
+
+        class _Ctx:  # run the tasks in this process, as executors would
+            def parallelize(self, data, n, **_kw):
+                return self
+
+            def mapPartitions(self, task):
+                self.task = task
+                return self
+
+            def collect(self):
+                return [r for i in range(n) for r in self.task(iter([i]))]
+
+        monkeypatch.setenv(gpu_info.ENV_DEVICE_COUNT, str(cards))
+        done = TFParallel.run(_Ctx(), fn, {"dir": str(tmp_path)}, n, env={util.ENV_PLATFORM: "gpu"},
+                              instances_per_card=per_card)
+        assert done == list(range(n))
+        assert [open(tmp_path / "cards-{}".format(i)).read() for i in range(n)] == want
+        with pytest.raises(ValueError, match="instances_per_card"):
+            TFParallel.run(_Ctx(), fn, {}, 1, instances_per_card=0)
+
 
 class TestRemoteFS:
     def test_tfrecord_roundtrip_memory_fs(self):
@@ -508,3 +541,20 @@ def test_mnist_bundle_predicts_on_the_cpu_and_refuses_the_card_without_one(tmp_p
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             export.load_model(out)  # the card by default: never the CPU
+
+
+def test_feed_segments_are_outside_the_jax_packages_sweep():
+    """The JAX package's ``shm.unlink_leaked`` sweeps its ``tosfeed_*`` /
+    ``tosslab_*`` segments host-wide (its tests call it with a zero age,
+    beside the port's clusters in other workers); the port's segments carry
+    prefixes neither side's sweep matches, so an in-flight port chunk is
+    never unlinked by it."""
+    from tensorflowonspark_tpu import shm as jax_shm
+    from tensorflowonspark_tpu_torch import shm
+
+    port, jax = (shm.NAME_PREFIX, shm.SLAB_PREFIX), (jax_shm.NAME_PREFIX, jax_shm.SLAB_PREFIX)
+    assert not any(p.startswith(jax) for p in port) and not any(j.startswith(port) for j in jax)
+    chunk = shm.ShmChunk.from_rows([([1.0, 2.0], 3), ([4.0, 5.0], 6)])
+    assert chunk.name.startswith(shm.NAME_PREFIX) and chunk.name in os.listdir("/dev/shm")
+    assert [(list(f), int(y)) for f, y in chunk.rows()] == [([1.0, 2.0], 3), ([4.0, 5.0], 6)]
+    assert chunk.name not in os.listdir("/dev/shm")

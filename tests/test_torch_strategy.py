@@ -183,3 +183,37 @@ def test_step_keyword_and_plain_loss_contract():
         state, metrics = step(state, batch)
     assert seen == [0, 1] and metrics["step"] == 2 and "out" in metrics
     assert not torch.equal(w0, state.module.weight)
+
+
+@pytest.mark.parametrize("donate", [True, "state", False, "batches"])
+def test_compile_train_step_takes_the_loops_donate_values(donate):
+    """The JAX version's ``compile_train_step(..., donate=True)``: every
+    value the loop accepts gives the same step, updated in place, with the
+    batch left as it was."""
+    def run(**kw):
+        strategy = SyncDataParallel("cpu")
+        optimizer = optim.adam(1e-2)
+        module = torch.nn.Linear(3, 2, bias=False)
+        with torch.no_grad():
+            module.weight.copy_(torch.arange(6, dtype=torch.float32).reshape(2, 3) / 10)
+        state = strategy.create_state(lambda: module, optimizer)
+        step = strategy.compile_train_step(lambda m, b: m(b["x"]).square().mean(), optimizer, **kw)
+        batch = strategy.shard_batch({"x": np.linspace(-1, 1, 12, dtype=np.float32).reshape(4, 3)})
+        x0 = batch["x"].clone()
+        for _ in range(3):
+            out, metrics = step(state, batch)
+            assert out is state and out.module is module
+        assert torch.equal(batch["x"], x0)
+        return module.weight.detach(), float(metrics["loss"])
+
+    want_w, want_loss = run()
+    got_w, got_loss = run(donate=donate)
+    assert torch.equal(got_w, want_w) and got_loss == want_loss
+
+
+def test_compile_train_step_refuses_other_donate_values():
+    strategy = SyncDataParallel("cpu")
+    optimizer = optim.sgd(0.1)
+    for bad in (7, "params", None):
+        with pytest.raises(ValueError, match="donate"):
+            strategy.compile_train_step(lambda m, b: m(b["x"]).sum(), optimizer, donate=bad)
