@@ -101,10 +101,29 @@ and the script exits non-zero:
                   batches, cuDNN deterministic: every parameter, BN
                   statistic and the last loss bitwise equal, after two eager
                   runs are shown bitwise equal to each other.
+   ``slice_fsdp`` the LM slice fully sharded (ZeRO-3): ``TFCluster.run``
+                  on one executor runs ``examples/transformer/fsdp_check.py``'s
+                  trainer, which builds ``SyncDataParallel(ctx.mesh({"dp": 1,
+                  "fsdp": -1}), fsdp=True)`` and ``SyncDataParallel(ctx.mesh(
+                  {"dp": -1}))`` and trains the full-width LM on each from
+                  the same weights and packed batches: 5 eager steps, two
+                  calls of the captured loop (K = 5: call 1 warms up and
+                  captures, call 2 is traced), then 5 turns timing an eager
+                  step and a loop call on each side in turn. Parameters and
+                  losses bitwise equal between the two after the eager
+                  steps and at the end; then the
+                  sharded state saved, ``ckpt.reshard_restore`` onto a fresh
+                  ``{"dp": -1}`` state and one more step on both, bitwise
+                  again. Each flash wrapper's launches on each side (6 a
+                  step for the 5 eager steps and the loop's 2 warm-up steps
+                  and capture), the traced call's device launches (6 a
+                  replayed step) and graph launches, eager and captured step
+                  ms (medians of the turns), tokens/s, peak memory, Adam
+                  state bytes, the parameters sharded (38 of 51).
 9. ``ckpt_engine`` ResNet-50 at the slice's shape in this process,
                   ``compile_train_loop`` (K = 5) driven by ``run_steps``:
                   runs with an ``AsyncCheckpointEngine`` (``keep=2``, a save
-                  every 10 steps) and runs without, alternating, 3 pairs,
+                  every 10 steps) and runs without, alternating, 2 pairs,
                   cuDNN deterministic. Step ms both ways, the training
                   thread's ms a snapshot, the writer's seconds a commit,
                   commits and supersedes; every committed checkpoint must
@@ -262,8 +281,9 @@ and the script exits non-zero:
                   loop paths of phases 5 and 7 launched it, the traced loop
                   call ran it on the card, (the BN kernels) run A of the
                   recover phase and the real-data slice launched it, and
-                  (the flash kernels) the pack-plane LM leg did, and (the
-                  flash forward) the LM server did.
+                  (the flash kernels) the pack-plane LM leg and the fully
+                  sharded leg (``slice_fsdp``) did, and (the flash forward)
+                  the LM server did.
 
 Then one JSON line with every kernel's measurements (``launches``: its
 wrapper's on the eager path; ``launches_loop_path``: its wrapper's on the
@@ -272,7 +292,9 @@ loop call; ``launches_recover_path``: its wrapper's in the recover phase's
 run A; ``launches_mnist_path``: its wrapper's in ``slice_mnist``'s
 trainer; ``launches_slice_real``: its wrapper's over the three
 ``slice_real`` legs; ``launches_slice_lm_pack``: its wrapper's in
-``slice_lm_pack``; ``launches_serving``: the flash forward's wrapper's over
+``slice_lm_pack``; ``launches_fsdp`` / ``device_launches_fsdp_traced_call``:
+the flash wrappers' on ``slice_fsdp``'s sharded side and the card's in its
+traced loop call; ``launches_serving``: the flash forward's wrapper's over
 ``serve_lm``'s traffic; ``launches_segmentation``: its wrapper's in
 ``slice_seg``'s trainer), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -303,8 +325,8 @@ LOOP_STEPS, TRACE_CALL = 20, 3
 RECOVER_STEPS, RECOVER_EVERY, RECOVER_KEEP = 300, 10, 3
 HEARTBEAT_S, KILL_AT, RECOVER_MIN_ROOM_S = 0.25, 0.35, 6.0
 #: the ckpt_engine phase: 8 calls of K = 5 a run, a save every 2 calls (10
-#: steps), 3 pairs of runs with and without the engine
-CKPT_CALLS, CKPT_EVERY, CKPT_PAIRS = 8, 2, 3
+#: steps), 2 pairs of runs with and without the engine
+CKPT_CALLS, CKPT_EVERY, CKPT_PAIRS = 8, 2, 2
 BF16_ULP = 2.0 ** -7  # bf16 keeps 8 significant bits
 #: f32 per-channel outputs of sums of up to 8e5 values, relative to the
 #: largest (floor 1): the kernels round each sum once from near-exact
@@ -1333,6 +1355,38 @@ def phase_compare_loop(torch, resnet, transformer, lm_host_batch, k=STEPS):
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
         torch.cuda.empty_cache()
+
+
+def phase_slice_fsdp(torch, fa, data_dir, work):
+    """The LM slice fully sharded, through ``TFCluster.run``
+    (``examples/transformer/fsdp_check.py``, module docstring phase
+    ``slice_fsdp``). Returns the sharded side's flash wrapper launches and
+    the traced call's device launches."""
+    from tensorflowonspark_tpu_torch.examples.transformer import fsdp_check
+    from tensorflowonspark_tpu_torch.train.strategy import _CapturedLoop
+
+    fa.reset_launch_counts()  # the trainer's counts start at 0 in its fresh process
+    os.makedirs(work, exist_ok=True)
+    out = fsdp_check.main(["--data_dir", data_dir, "--work_dir", work, "--eager_steps", str(STEPS),
+                           "--steps_per_loop", str(STEPS)])
+    want = LM["n_layers"] * (STEPS + _CapturedLoop.WARMUP + 1)
+    line = {"phase": "slice_fsdp", "model": "transformer", "config": dict(LM, seq_len=LM_SEQ),
+            "batch": LM_BATCH, "expected_launches": want, "expected_traced": LM["n_layers"] * STEPS}
+    line.update({k: v for k, v in out.items() if k not in ("config",)})
+    emit(line)
+    names = [name for name, *_ in FLASH_TABLE]
+    for side in ("fsdp", "dp"):
+        got = out[side]
+        bad = {n: got["launches"][n] for n in names if got["launches"][n] != want}
+        bad.update({n + "_traced": got["device_launches_traced_call"][n] for n in names
+                    if got["device_launches_traced_call"][n] != LM["n_layers"] * STEPS})
+        if bad or got["graph_launches_traced_call"] != STEPS:
+            raise AssertionError("slice_fsdp {}: flash launches {} (want {} a wrapper, {} traced), graph "
+                                 "launches {}".format(side, bad, want, LM["n_layers"] * STEPS,
+                                                      got["graph_launches_traced_call"]))
+    if out["fsdp"]["params_sharded"] != 38:
+        raise AssertionError("slice_fsdp: {} parameters sharded, want 38".format(out["fsdp"]["params_sharded"]))
+    return out["fsdp"]["launches"], out["fsdp"]["device_launches_traced_call"]
 
 
 def _state_host(torch, state):
@@ -3125,6 +3179,9 @@ def main():
     phase_compare_lm(torch, fa, transformer, lm_batch)
     torch.cuda.empty_cache()
     phase_compare_loop(torch, resnet, transformer, lm_batch)
+    torch.cuda.empty_cache()
+    fsdp_launches, fsdp_traced = timed("slice_fsdp", phase_slice_fsdp, torch, fa, data_dir,
+                                       os.path.join(here, "build", "chip_smoke_fsdp"))
     work = os.path.join(here, "build", "chip_smoke_ckpt")
     phase_ckpt_engine(torch, resnet, work)
     recover_launches = phase_recover(torch, fused_bn, work)
@@ -3166,6 +3223,7 @@ def main():
         {"name": name, "route": "cuda", "source": FLASH_SOURCE,
          "launched": (flash_launches[name] > 0 and loop_flash_launches[name] > 0
                       and traced_flash_launches[name] > 0 and pack_launches[name] > 0
+                      and fsdp_launches[name] > 0 and fsdp_traced[name] > 0
                       and (name != "flash_fwd" or serve_launches[name] > 0))}
         for name, *_ in FLASH_TABLE], "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
@@ -3188,6 +3246,7 @@ def main():
          "device_launches_traced_loop_call": traced_flash_launches[name],
          "launches_mnist_path": mnist_launches[name],
          "launches_slice_lm_pack": pack_launches[name],
+         "launches_fsdp": fsdp_launches[name], "device_launches_fsdp_traced_call": fsdp_traced[name],
          "launches_segmentation": seg_launches[name],
          **({"launches_serving": serve_launches[name]} if name == "flash_fwd" else {}),
          "max_abs_err": flash_totals[name]["max_abs_err"],

@@ -181,6 +181,25 @@ class TFNodeContext:
             backend, self.num_processes, self.process_id,
         )
 
+    def mesh(self, axes=None):
+        """The device mesh of this cluster over its ranks (one card each),
+        with the axes ``axes`` (default ``{"dp": -1}``; see
+        :mod:`tensorflowonspark_tpu_torch.parallel.mesh`). Ranks are grouped
+        by the reservation's host, so ``dp`` crosses hosts and ``fsdp`` stays
+        on one host. Joins the world first (a one-rank world for a single
+        process)."""
+        from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+
+        device = self.device
+        self.initialize_distributed()
+        mesh_lib.ensure_world(device.type)
+        spec = self.cluster_spec or {}
+        hosts = [entry.rsplit(":", 1)[0] for role in ("chief", "master", "worker") for entry in spec.get(role, [])]
+        if len(hosts) != self.num_processes:
+            hosts = [None] * self.num_processes
+        devices = [mesh_lib.RankDevice(r, h) for r, h in enumerate(hosts)]
+        return mesh_lib.build_mesh(axes, devices, device_type=device.type)
+
 
 def _role_rank(job_name):
     # template order mirrors the reference: ps → chief → evaluator → worker

@@ -16,9 +16,9 @@ checkpointing nearly free:
   written last + rename-published, so ``restore_latest`` cheap-verifies
   integrity instead of attempting restores.
 
-Under replicated data parallelism every rank holds the whole state, so a
-resume onto fewer ranks is a plain restore; restoring onto another model
-axis layout (the JAX package's ``reshard``) comes with the model axes.
+* :mod:`~tensorflowonspark_tpu_torch.ckpt.reshard` — ``reshard_restore``:
+  a checkpoint (always full tensors) restored onto another mesh, each rank
+  keeping its block under the new strategy's placement.
 
 Lazy re-exports (PEP 562) keep ``import tensorflowonspark_tpu_torch.ckpt``
 light — torch loads only when a snapshot or restore actually runs.
@@ -37,9 +37,12 @@ _EXPORTS = {
     "write_manifest": "manifest",
     "read_manifest": "manifest",
     "verify": "manifest",
+    "reshard_restore": "reshard",
+    "state_shardings": "reshard",
     "engine": None,
     "snapshot": None,
     "manifest": None,
+    "reshard": None,
 }
 
 

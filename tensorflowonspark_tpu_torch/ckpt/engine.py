@@ -155,10 +155,23 @@ class AsyncCheckpointEngine:
         one arrives is superseded (newest wins). It is dropped *before* the
         new snapshot is taken, so the new one reuses its pinned buffers: a
         writer slower than the cadence then keeps two buffer sets busy (the
-        one it writes and the pending one), never a third."""
+        one it writes and the pending one), never a third.
+
+        A state sharded over more than one rank is saved by every rank's
+        engine (the snapshot gathers its shards, a collective); rank 0's
+        writes, the others return once their part of the gathers is
+        queued."""
         with self._cond:
             if self._closed:
                 raise RuntimeError("AsyncCheckpointEngine is closed")
+        import torch.distributed as dist
+
+        from tensorflowonspark_tpu_torch.train import checkpoint
+
+        if checkpoint._gathers(state) and dist.get_rank() != 0:
+            checkpoint._to_saveable(state)  # the gathers are collective; rank 0 writes
+            return int(step)
+        with self._cond:
             stale = self._supersede_locked(step)
         if stale is not None:
             self._buffers.release(stale)

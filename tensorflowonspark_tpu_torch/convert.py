@@ -197,3 +197,36 @@ def convert_train_state(jax_state, state):
     opt["count"].fill_(count)
     state.step = int(np.asarray(jax_state.step))
     return state
+
+
+def flax_layouts(module):
+    """``{name: (flax_shape, dims)}`` for each of ``module``'s parameters:
+    the shape its JAX-package counterpart has (the converter's rules above,
+    read backwards), and for each flax dimension the port's dimension it
+    lands in (``dims[i]``). A fused port dimension takes several flax ones
+    (an attention projection's heads and head dim), major first. The
+    sharding rules (``parallel/sharding.py``) pick a dimension on the flax
+    shape, as the JAX package does, and shard the port's ``dims[i]``."""
+    modules = dict(module.named_modules())
+    out = {}
+    for name, p in module.named_parameters():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = modules[owner_name]
+        parent = modules.get(owner_name.rpartition(".")[0]) if owner_name else None
+        cfg = getattr(parent, "cfg", None)
+        attn = owner_name.rpartition(".")[2] if cfg is not None and hasattr(cfg, "n_heads") else None
+        s = tuple(p.shape)
+        if leaf != "weight" or len(s) < 2 or isinstance(owner, torch.nn.Embedding):
+            layout = (s, tuple(range(len(s))))
+        elif len(s) == 4 and isinstance(owner, torch.nn.ConvTranspose2d):  # [in, out, kh, kw]
+            layout = ((s[2], s[3], s[0], s[1]), (2, 3, 0, 1))
+        elif len(s) == 4:  # OIHW <- HWIO
+            layout = ((s[2], s[3], s[1], s[0]), (2, 3, 1, 0))
+        elif attn in ("q", "k", "v"):  # [H*D, d_model] <- [d_model, H, D]
+            layout = ((s[1], cfg.n_heads, s[0] // cfg.n_heads), (1, 0, 0))
+        elif attn == "o":  # [d_model, H*D] <- [H, D, d_model]
+            layout = ((cfg.n_heads, s[1] // cfg.n_heads, s[0]), (1, 1, 0))
+        else:  # Dense [out, in] <- [in, out]
+            layout = ((s[1], s[0]), (1, 0))
+        out[name] = layout
+    return out

@@ -25,8 +25,9 @@ identically. This module upgrades that loop into a **recovery ladder**:
 3. **Shrink to fit** — the next attempt runs at ``num_executors − len(blacklist)``
    (never below ``min_workers`` training participants — the ladder raises
    instead). ``map_fun`` restores the latest checkpoint at the smaller size
-   (under replicated data parallelism a plain restore; onto another model
-   axis layout, ``ckpt.reshard_restore``), so training *continues* instead
+   (under replicated data parallelism a plain restore; onto another mesh,
+   :func:`tensorflowonspark_tpu_torch.ckpt.reshard_restore`), so training
+   *continues* instead
    of dying. With ``regrow=True``
    blacklisted executors are re-probed at every relaunch — a checkpoint
    boundary by construction — and forgiven when they pass, growing the
@@ -410,7 +411,8 @@ def run_ladder(
       before the relaunch instead of burning an attempt discovering them.
     * the relaunch runs at ``num_executors − len(blacklist)`` — shrink to
       fit — and raises rather than go below ``min_workers`` training
-      participants. ``map_fun`` must restore via ``ckpt.reshard_restore``
+      participants. ``map_fun`` must restore via
+      :func:`tensorflowonspark_tpu_torch.ckpt.reshard_restore`
       (or ``restore_latest`` when sizes match) to continue the trajectory
       on the smaller mesh.
     * ``regrow=True`` re-probes blacklisted executors at every relaunch
@@ -423,7 +425,8 @@ def run_ladder(
       ``min_workers + overhead … num_executors``) whether to grow. A grow
       verdict posts a preemption warning — workers drain checkpoints,
       commit a ``preempted`` parting status and exit clean — and the next
-      attempt resumes onto the larger mesh via ``ckpt.reshard_restore``.
+      attempt resumes onto the larger mesh via
+      :func:`tensorflowonspark_tpu_torch.ckpt.reshard_restore`.
       ``preemption`` failures (this path, and real platform SIGTERMs) never
       blacklist and never consume the restart budget.
 

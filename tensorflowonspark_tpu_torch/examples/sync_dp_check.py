@@ -22,14 +22,24 @@ prints one JSON line per model:
 * eager and captured step ms (host clock, a device sync after each call),
   ``--pairs`` pairs in turns, medians and ranges.
 
+With ``--fsdp`` each model also trains, from the same weights on the same
+batches, on meshes over the ranks with the parameters and the optimizer
+state sharded along ``fsdp`` (ZeRO-3, ``SyncDataParallel(mesh,
+fsdp=True)``): ``dp`` = world/2 × ``fsdp`` = 2 (from 4 ranks) and ``dp`` =
+1 × ``fsdp`` = world. Each such leg's line adds its losses' relative gap to
+the data-parallel leg's (with ``--dtype float32`` held within 1e-5 after
+the steps: the sums only run in other orders), each rank's optimizer-state
+bytes and peak memory (``max_memory_allocated``), and the parameters
+sharded. Every leg's gathered parameters must be equal on every rank.
+
 Usage (four cards of one host, full ResNet-50 and the full-width LM)::
 
-    python -m tensorflowonspark_tpu_torch.examples.sync_dp_check --world 4
+    python -m tensorflowonspark_tpu_torch.examples.sync_dp_check --world 4 [--fsdp]
 
 and a rehearsal on the CPU at a small size::
 
     python -m tensorflowonspark_tpu_torch.examples.sync_dp_check --platform cpu \\
-        --world 4 --size small --steps 3 --pairs 0
+        --world 4 --size small --steps 3 --pairs 0 [--fsdp]
 """
 
 import argparse
@@ -39,12 +49,30 @@ import statistics
 import tempfile
 import time
 
+#: the ZeRO-3 rule's least sharded size: the JAX package's default at full
+#: size; smaller at the small size, so that its layers shard too
+MIN_WEIGHT_SIZE = {"full": 2 ** 14, "small": 2 ** 10}
 #: full size: the two slices' models and per-card batches
 FULL = {"resnet50": dict(batch=64, image=224), "transformer": dict(batch=8, seq=2048)}
 SMALL = {"resnet50": dict(batch=4, image=32), "transformer": dict(batch=2, seq=64)}
 
 
-def _models(size, device):
+#: the loss gap of a ZeRO-3 leg to the data-parallel leg in float32
+FSDP_REL_TOL = 1e-5
+
+
+def _legs(world, fsdp):
+    """``[(name, mesh axes or None, fsdp)]``: the data-parallel leg (a
+    replica a process, no mesh), then with ``fsdp`` the ZeRO-3 meshes."""
+    legs = [("dp", None, False)]
+    if fsdp:
+        if world >= 4 and world % 2 == 0:
+            legs.append(("dp{}_fsdp2".format(world // 2), {"dp": world // 2, "fsdp": 2}, True))
+        legs.append(("fsdp{}".format(world), {"dp": 1, "fsdp": world}, True))
+    return legs
+
+
+def _models(size, device, dtype_name):
     """``{name: (build, loss_fn, optimizer factory, loop kwargs, global
     batch maker)}`` for the slices' two models."""
     import numpy as np
@@ -54,7 +82,7 @@ def _models(size, device):
     from tensorflowonspark_tpu_torch.train import optim
 
     dims = FULL if size == "full" else SMALL
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    dtype = getattr(torch, dtype_name)
 
     def resnet_build():
         if size == "full":
@@ -72,7 +100,7 @@ def _models(size, device):
               else dict(vocab_size=300, d_model=64, n_layers=2, n_heads=2, d_ff=128))
 
     def lm_build():
-        return transformer.create_model(dtype="bfloat16" if device.type == "cuda" else "float32",
+        return transformer.create_model(dtype=dtype_name,
                                         max_seq_len=dims["transformer"]["seq"],
                                         generator=torch.Generator().manual_seed(0), **lm_cfg)
 
@@ -99,16 +127,19 @@ def _rank(rank, world, port, args, out_path):
     import torch.distributed as dist
 
     from tensorflowonspark_tpu_torch.ops import flash_attention, fused_bn
+    from tensorflowonspark_tpu_torch.parallel import build_mesh
     from tensorflowonspark_tpu_torch.train import SyncDataParallel
 
     cuda = args.platform == "gpu"
     if cuda:
         torch.cuda.set_device(rank)
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host's cores
     device = torch.device("cuda", rank) if cuda else torch.device("cpu")
     dist.init_process_group("nccl" if cuda else "gloo", init_method="tcp://127.0.0.1:{}".format(port),
                             rank=rank, world_size=world)
-    strategy = SyncDataParallel(device)
+    legs = [(name, build_mesh(axes) if axes else device, fsdp) for name, axes, fsdp in _legs(world, args.fsdp)]
     k = args.steps
 
     def sync():
@@ -119,75 +150,113 @@ def _rank(rank, world, port, args, out_path):
         return {fn.__name__: fn.launches for fn in fused_bn.COUNTED + flash_attention.KERNELS}
 
     results = []
-    for name, (build, loss_fn, make_opt, kw, make_batch) in _models(args.size, device).items():
+    for name, (build, loss_fn, make_opt, kw, make_batch) in _models(args.size, device, args.dtype).items():
         rng = np.random.default_rng(11)
-        share = []
+        host = []
         for _ in range(k):
             batch = make_batch(rng, world)
             n = next(iter(batch.values())).shape[0] // world
-            share.append(strategy.shard_batch({key: v[rank * n:(rank + 1) * n] for key, v in batch.items()}))
-        runs = {}
-        for side in ("eager", "loop"):
-            optimizer = make_opt()
-            state = strategy.create_state(build, optimizer)
-            before = counts()
-            if side == "eager":
-                step = strategy.compile_train_step(loss_fn, optimizer, **kw)
-                for b in share:
-                    state, metrics = step(state, b)
-            else:
-                loop = strategy.compile_train_loop(loss_fn, optimizer, k, **kw)
-                state, metrics = loop(state, share)
-            sync()
-            launches = {key: n - before[key] for key, n in counts().items()}
-            snap = {key: v.detach().clone() for key, v in dict(state.params, **state.model_state).items()}
-            runs[side] = (snap, metrics["loss"].detach().reshape(1).clone(), launches)
-            if side == "eager":
-                timer = (step, state)
-            else:
-                timed = (loop, state)
-        mismatched = [key for key, v in runs["eager"][0].items() if not torch.equal(v, runs["loop"][0][key])]
-        if not torch.equal(runs["eager"][1], runs["loop"][1]):
-            mismatched.append("loss")
-        off_rank0 = 0
-        for key, v in runs["loop"][0].items():
-            ref = v.clone()
-            dist.broadcast(ref, src=0)
-            off_rank0 += int(not torch.equal(ref, v))
-        losses = [torch.zeros_like(runs["loop"][1]) for _ in range(world)]
-        dist.all_gather(losses, runs["loop"][1])
-        walls = {"eager": [], "captured": []}
-        step, eager_state = timer
-        loop, loop_state = timed
-        for _ in range(args.pairs):
-            for side in ("eager", "captured"):
-                sync()
-                dist.barrier()
-                t0 = time.perf_counter()
+            host.append({key: v[rank * n:(rank + 1) * n] for key, v in batch.items()})
+        dp_losses = None
+        for leg, where, fsdp in legs:
+            strategy = SyncDataParallel(where, fsdp=fsdp, **(
+                {"min_weight_size": MIN_WEIGHT_SIZE[args.size]} if fsdp else {}))
+            share = [strategy.shard_batch(b) for b in host]
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+            runs = {}
+            for side in ("eager", "loop"):
+                optimizer = make_opt()
+                state = strategy.create_state(build, optimizer)
+                before = counts()
+                losses = []
                 if side == "eager":
+                    step = strategy.compile_train_step(loss_fn, optimizer, **kw)
                     for b in share:
-                        eager_state, _ = step(eager_state, b)
+                        state, metrics = step(state, b)
+                        losses.append(metrics["loss"].detach().reshape(1).clone())
                 else:
-                    loop_state, _ = loop(loop_state, share)
+                    loop = strategy.compile_train_loop(loss_fn, optimizer, k, **kw)
+                    state, metrics = loop(state, share)
+                    losses.append(metrics["loss"].detach().reshape(1).clone())
                 sync()
-                walls[side].append((time.perf_counter() - t0) / k * 1e3)
-        results.append({
-            "model": name, "world": world, "platform": args.platform, "size": args.size, "steps": k,
-            "batch_per_rank": next(iter(share[0].values())).shape[0],
-            "losses_by_rank": [float(v) for v in losses], "loop_vs_eager_mismatches": mismatched,
-            "tensors": len(runs["loop"][0]), "tensors_off_rank0": off_rank0,
-            "loop_launches": {key: n for key, n in runs["loop"][2].items() if n},
-            "eager_launches": {key: n for key, n in runs["eager"][2].items() if n},
-            "step_ms": {side: {"median": statistics.median(w), "min": min(w), "max": max(w)}
-                        for side, w in walls.items() if w}})
-        del runs, timer, timed, step, loop, eager_state, loop_state, share
-        if cuda:
-            torch.cuda.empty_cache()
+                launches = {key: n - before[key] for key, n in counts().items()}
+                snap = {key: v.detach().clone() for key, v in dict(state.params, **state.model_state).items()}
+                runs[side] = (snap, torch.cat(losses), launches)
+                if side == "eager":
+                    timer = (step, state)
+                else:
+                    timed = (loop, state)
+            mismatched = [key for key, v in runs["eager"][0].items() if not torch.equal(v, runs["loop"][0][key])]
+            if not torch.equal(runs["eager"][1][-1], runs["loop"][1][-1]):
+                mismatched.append("loss")
+            off_rank0 = 0
+            for key, v in runs["loop"][0].items():
+                ref = v.clone()
+                dist.broadcast(ref, src=0)
+                off_rank0 += int(not torch.equal(ref, v))
+            losses = [torch.zeros_like(runs["loop"][1]) for _ in range(world)]
+            dist.all_gather(losses, runs["loop"][1])
+            walls = {"eager": [], "captured": []}
+            step, eager_state = timer
+            loop, loop_state = timed
+            for _ in range(args.pairs):
+                for side in ("eager", "captured"):
+                    sync()
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    if side == "eager":
+                        for b in share:
+                            eager_state, _ = step(eager_state, b)
+                    else:
+                        loop_state, _ = loop(loop_state, share)
+                    sync()
+                    walls[side].append((time.perf_counter() - t0) / k * 1e3)
+            eager_losses = [float(v) for v in runs["eager"][1]]
+            line = {
+                "model": name, "leg": leg, "world": world, "platform": args.platform, "size": args.size,
+                "dtype": args.dtype, "steps": k, "batch_per_rank": next(iter(share[0].values())).shape[0],
+                "mesh": dict(zip(where.mesh_dim_names, where.mesh.shape)) if fsdp else None,
+                "losses_by_rank": [float(v) for v in losses], "eager_losses": eager_losses,
+                "loop_vs_eager_mismatches": mismatched,
+                "tensors": len(runs["loop"][0]), "tensors_off_rank0": off_rank0,
+                "params_sharded": len(loop_state.sharded.dims) if loop_state.sharded is not None else 0,
+                "optimizer_state_bytes_per_rank": sum(
+                    t.numel() * t.element_size() for t in _tensors(loop_state.opt_state)),
+                "loop_launches": {key: n for key, n in runs["loop"][2].items() if n},
+                "eager_launches": {key: n for key, n in runs["eager"][2].items() if n},
+                "step_ms": {side: {"median": statistics.median(w), "min": min(w), "max": max(w)}
+                            for side, w in walls.items() if w}}
+            if cuda:
+                peaks = torch.tensor([(torch.cuda.max_memory_allocated(device) - base) / 1e9], device=device)
+                gathered = [torch.zeros_like(peaks) for _ in range(world)]
+                dist.all_gather(gathered, peaks)
+                line["peak_memory_gb_by_rank"] = [float(v) for v in gathered]
+            if dp_losses is None:
+                dp_losses = eager_losses
+            else:
+                line["loss_rel_gap_to_dp"] = max(abs(a - b) / abs(b) for a, b in zip(eager_losses, dp_losses))
+            results.append(line)
+            del runs, timer, timed, step, loop, eager_state, loop_state, share, state
+            if cuda:
+                torch.cuda.empty_cache()
     if rank == 0:
         with open(out_path, "w") as f:
             json.dump(results, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _tensors(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return []
 
 
 def main(argv=None):
@@ -200,7 +269,12 @@ def main(argv=None):
     parser.add_argument("--size", choices=["full", "small"], default="full")
     parser.add_argument("--steps", type=int, default=5, help="steps a run, and of the loop")
     parser.add_argument("--pairs", type=int, default=5, help="eager/captured timing pairs")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="add the ZeRO-3 legs: dp=world/2 x fsdp=2 (4+ ranks) and dp=1 x fsdp=world")
+    parser.add_argument("--dtype", choices=["bfloat16", "float32"], default=None,
+                        help="the models' compute dtype; default: bfloat16 on the card, float32 on the CPU")
     args = parser.parse_args(argv)
+    args.dtype = args.dtype or ("bfloat16" if args.platform == "gpu" else "float32")
     if args.platform == "gpu" and torch.cuda.device_count() < args.world:
         raise SystemExit("sync_dp_check: --world {} needs {} CUDA devices, found {}".format(
             args.world, args.world, torch.cuda.device_count()))
@@ -226,8 +300,11 @@ def main(argv=None):
         print(json.dumps(line), flush=True)
         failed |= bool(line["loop_vs_eager_mismatches"] or line["tensors_off_rank0"]
                        or len(set(line["losses_by_rank"])) != 1)
+        if args.dtype == "float32" and line.get("loss_rel_gap_to_dp", 0) > FSDP_REL_TOL:
+            failed = True
     if failed:
-        raise SystemExit("sync_dp_check: a rank or the loop disagrees (lines above)")
+        raise SystemExit("sync_dp_check: a rank, the loop or a ZeRO-3 leg disagrees (lines above)")
+    return lines
 
 
 if __name__ == "__main__":

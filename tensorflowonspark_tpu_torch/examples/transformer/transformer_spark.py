@@ -49,9 +49,14 @@ epoch >= 2 from the packed-slab cache; the pipeline's iterator is taken
 before the trainer touches CUDA, so the workers fork from a process without
 a CUDA context. The stream is byte-identical in every mode.
 
+``--mesh dp=D,fsdp=F`` trains on ``ctx.mesh`` over the cluster's ranks
+(one card each): as in the JAX example, the batch is split over ``dp`` ×
+``fsdp`` and the parameters stay replicated (``SyncDataParallel(mesh)``);
+without ``--mesh`` each process holds a replica on ``ctx.device``.
+
 Not yet ported, and refused with an error: ``--moe_experts`` > 0,
-``--mesh`` axes other than ``dp`` (tensor and sequence parallelism, ring
-attention) and ``--remat``.
+``--mesh`` axes other than ``dp`` and ``fsdp`` (tensor and sequence
+parallelism, ring attention) and ``--remat``.
 """
 
 import argparse
@@ -104,7 +109,7 @@ def parse_mesh(spec):
 
 def refuse_unported(args):
     """Raise for the options whose machinery is not yet ported."""
-    model_axes = sorted(set(parse_mesh(args.mesh) or {}) - {"dp"})
+    model_axes = sorted(set(parse_mesh(args.mesh) or {}) - {"dp", "fsdp"})
     unported = [
         ("--moe_experts", args.moe_experts > 0, "mixture of experts"),
         ("--mesh " + ",".join(model_axes), model_axes, "model axes (tp/sp/ep, ring attention)"),
@@ -169,7 +174,8 @@ def main_fun(args, ctx):
     # here, from a process without a CUDA context
     stream = iter(pipe)
     ctx.initialize_distributed()
-    strategy = SyncDataParallel(ctx.device)
+    axes = parse_mesh(args.mesh)
+    strategy = SyncDataParallel(ctx.mesh(axes) if axes else ctx.device)
     model = transformer.create_model(
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff,
@@ -267,7 +273,8 @@ def build_parser():
     parser.add_argument("--log_steps", type=int, default=10)
     parser.add_argument("--max_bad_records", type=int, default=0)
     parser.add_argument("--mesh", default=None,
-                        help="dp only (model axes are not yet ported); default: all-dp")
+                        help="data axes over the ranks, e.g. dp=2,fsdp=2 (model axes are not yet "
+                             "ported); default: a replica a process")
     parser.add_argument("--model_dir", default=None,
                         help="checkpoint dir: resume from its newest checkpoint, save the final state")
     parser.add_argument("--moe_experts", type=int, default=0, help="not yet ported above 0")

@@ -73,14 +73,15 @@ at import.
 batch statistics of both BN modules are taken over the global batch: the
 SPMD train step sees the whole dp-sharded batch (``train/strategy.py:37-40``
 there), the Pallas kernels included. Here each process holds its shard, so
-when ``torch.distributed`` runs more than one rank both modules reduce
-across ranks: the kernels' split mode (:func:`bn_stats_sums`,
+when the process's data group (``parallel/collectives.py``: the ``dp`` ×
+``fsdp`` ranks of the strategy's mesh, else the world; never a model axis)
+holds more than one rank both modules reduce across its ranks: the kernels' split mode (:func:`bn_stats_sums`,
 :func:`bn_bwd_reduce_sums`: the finishing CTA writes the f64 sums ``[2, C]``
 instead of rounding them), one ``all_reduce`` of those sums, and
 :func:`bn_finish`, which rounds them as the single launch does; the plain
 paths all-reduce their own sums (f64 for the yardstick, f32 for ``flax``),
 and their gradient's ``g_mean``/``g_var``.
-The row count is the local one times the world (the ranks hold equal
+The row count is the local one times the group's size (the ranks hold equal
 batches, as the reference's even dp sharding does), and enters ``dx`` too.
 With one rank the single launches run, as before.
 
@@ -97,8 +98,8 @@ import threading
 import torch
 from torch import nn
 
-from tensorflowonspark_tpu_torch import util
 from tensorflowonspark_tpu_torch.ops import cuda_build
+from tensorflowonspark_tpu_torch.parallel import collectives
 
 #: elements per tile of the Triton kernels: 4096 bf16 = 8 KB per operand,
 #: 32 per thread at 4 warps
@@ -369,10 +370,11 @@ def _check(x2d, *vecs, dy=None):
 
 
 def _all_reduce(t):
-    """Sum ``t`` over the ranks, in place."""
+    """Sum ``t`` over the data group's ranks (``parallel.collectives``:
+    dp × fsdp of the strategy's mesh, else the world), in place."""
     import torch.distributed as dist
 
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=collectives.data_group())
     return t
 
 
@@ -433,7 +435,7 @@ class _PlainStats(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2d, exact):
-        world = util.world_size()
+        world = collectives.data_size()
         sums = bn_stats_sums_plain(x2d) if exact else bn_stats_sums_f32(x2d)
         if world > 1:
             _all_reduce(sums)
@@ -678,7 +680,7 @@ class _FusedBN2d(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2d, gamma, beta, eps):
-        world = util.world_size()
+        world = collectives.data_size()
         if world == 1:
             mean, var = bn_stats(x2d)
         else:

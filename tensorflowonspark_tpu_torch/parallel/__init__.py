@@ -1,4 +1,81 @@
-"""Parallelism helpers of the port. Data parallelism lives in
-:mod:`~tensorflowonspark_tpu_torch.train.strategy`; of the JAX package's
-model axes only the single-device attention reference is ported so far
-(:func:`~tensorflowonspark_tpu_torch.parallel.ring_attention.plain_attention`)."""
+"""Parallelism core of the port: device meshes over ranks, collectives over
+mesh axes, sharding rules, and the attention reference.
+
+Where the JAX package expresses distribution as shardings over a named
+``jax.sharding.Mesh`` and lets XLA insert the collectives, the port runs one
+process a card: a mesh is a :class:`torch.distributed.device_mesh.DeviceMesh`
+over ranks (:mod:`~tensorflowonspark_tpu_torch.parallel.mesh`), each
+collective is an explicit ``torch.distributed`` call over an axis's group
+(:mod:`~tensorflowonspark_tpu_torch.parallel.collectives`), and ZeRO-3 is
+the strategy's own step (:mod:`~tensorflowonspark_tpu_torch.parallel.
+sharding`, ``SyncDataParallel(mesh, fsdp=True)``).
+
+Canonical mesh axes (any subset may be present, always in this order):
+
+=======  =====================================================================
+``dp``   pure data parallelism (params replicated, batch sharded)
+``fsdp`` data parallelism with fully-sharded params (batch AND params sharded)
+``tp``   tensor (a.k.a. model) parallelism — not yet ported
+``sp``   sequence/context parallelism — ring attention, not yet ported
+``ep``   expert parallelism for MoE layers — not yet ported
+``pp``   pipeline parallelism — not yet ported
+=======  =====================================================================
+
+The model axes' machinery (``ring_attention``, the pipeline schedules,
+``HostAllReduceGroup``) raises ``NotImplementedError``; of ring attention
+only the single-device reference ``plain_attention`` is ported.
+"""
+
+# Lazy re-exports (PEP 562): importing this package loads no torch.distributed
+_EXPORTS = {
+    "AXIS_ORDER": "mesh",
+    "RankDevice": "mesh",
+    "build_hybrid_mesh": "mesh",
+    "build_mesh": "mesh",
+    "local_mesh": "mesh",
+    "mesh_shape": "mesh",
+    "Sharding": "sharding",
+    "batch_sharding": "sharding",
+    "batch_spec": "sharding",
+    "data_axes": "sharding",
+    "fsdp_param_specs": "sharding",
+    "overlay_fsdp_specs": "sharding",
+    "replicated": "sharding",
+    "shard_batch": "sharding",
+    "shard_params": "sharding",
+    "collectives": None,
+    "mesh": None,
+    "sharding": None,
+    "plain_attention": "ring_attention",
+    "ring_attention": "ring_attention",
+    "ring_attention_sharded": "ring_attention",
+    "HostAllReduceGroup": None,
+    "pipeline_apply": None,
+    "Pipeline1F1B": None,
+    "schedule_1f1b": None,
+    "stack_stage_params": None,
+    "split_microbatches": None,
+    "merge_microbatches": None,
+}
+
+#: exports whose machinery is not yet ported: each raises on access
+_UNPORTED = {"HostAllReduceGroup", "pipeline_apply", "Pipeline1F1B", "schedule_1f1b",
+             "stack_stage_params", "split_microbatches", "merge_microbatches"}
+
+
+def __getattr__(name):
+    import importlib
+
+    if name not in _EXPORTS:
+        raise AttributeError(name)
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            "{} is not yet ported to tensorflowonspark_tpu_torch; it comes with the "
+            "model-axes slices".format(name))
+    submodule = _EXPORTS[name] or name
+    mod = importlib.import_module("tensorflowonspark_tpu_torch.parallel." + submodule)
+    return mod if _EXPORTS[name] is None else getattr(mod, name)
+
+
+def __dir__():
+    return sorted(_EXPORTS)

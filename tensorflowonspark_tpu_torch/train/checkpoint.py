@@ -12,10 +12,18 @@ the JAX package's layout: a sentinel, ``step``, ``params``, ``opt_state``
 and ``model_state`` (always present), each a dict of host tensors by the
 module's names.
 
+A checkpoint holds full tensors whatever the state's placement: a state
+sharded along ``fsdp`` (ZeRO-3) saves its module's full parameters and its
+optimizer slots gathered to full size, as orbax saves full logical arrays,
+so a checkpoint is the same bytes on any mesh. Gathering is collective:
+every rank of a sharded state calls the save, and rank 0 writes.
+
 Restoring into a live TrainState copies **in place**: the module's
 parameters and buffers through ``load_state_dict``, ``copy_`` into every
-optimizer-state tensor (the device ``count`` included), and ``state.step``
-from the file. The tensors a captured CUDA graph points at
+optimizer-state tensor (the device ``count`` included; a sharded state
+keeps this rank's shard of each full slot, and of each parameter), and
+``state.step`` from the file, so a checkpoint lands on any strategy's
+placement (``ckpt/reshard.py``). The tensors a captured CUDA graph points at
 (``compile_train_loop``) stay the same objects, so a loop built before the
 restore trains the restored values. Files are read with
 ``torch.load(weights_only=True)``: a checkpoint holds tensors and plain
@@ -58,10 +66,18 @@ def _to_saveable(state):
             _STATE_SENTINEL: 1,
             "step": int(state.step),
             "params": state.params,
-            "opt_state": state.opt_state,
+            "opt_state": state.opt_state if state.sharded is None else state.sharded.full_tree(state.opt_state),
             "model_state": state.model_state,
         }
     return state
+
+
+def _gathers(state):
+    """True for a sharded state in a world of more than one rank: every
+    rank takes part in the save's gathers, and rank 0 alone writes."""
+    import torch.distributed as dist
+
+    return getattr(state, "sharded", None) is not None and dist.get_world_size() > 1
 
 
 def _write_tree(path, tree):
@@ -84,11 +100,19 @@ def save_checkpoint(path, state, force=True):
     an existing one raises.
 
     Under data parallelism every rank holds the same state: one rank saves
-    (several ranks writing one directory would race)."""
+    (several ranks writing one directory would race). A state sharded over
+    more than one rank is saved by every rank: each joins the gathers, rank
+    0 writes, and all return once the checkpoint is published."""
     import shutil
+
+    import torch.distributed as dist
 
     from tensorflowonspark_tpu_torch.ckpt.snapshot import snapshot_to_host
 
+    if _gathers(state) and dist.get_rank() != 0:
+        _to_saveable(state)
+        dist.barrier()
+        return os.path.abspath(os.path.expanduser(path))
     path = os.path.abspath(os.path.expanduser(path))
     if os.path.isdir(path) and not force:
         raise FileExistsError("checkpoint {} exists (force=False)".format(path))
@@ -109,6 +133,8 @@ def save_checkpoint(path, state, force=True):
     os.rename(staging, path)
     durable.fsync_dir(parent)
     logger.info("saved checkpoint to %s", path)
+    if _gathers(state):
+        dist.barrier()
     return path
 
 
@@ -186,10 +212,16 @@ def _from_saved(tree, target):
             raise KeyError("checkpoint holds no TrainState (no {!r} key)".format(_STATE_SENTINEL))
         live = dict(target.params, **target.model_state)
         _check_into(live, dict(tree["params"], **tree["model_state"]), "module")
-        _check_into(target.opt_state, tree["opt_state"], "opt_state")
+        opt_state = tree["opt_state"]
+        if target.sharded is not None:
+            _check_into(target.sharded.full_shapes(target.opt_state), opt_state, "opt_state")
+            opt_state = target.sharded.local_tree(opt_state)
+        _check_into(target.opt_state, opt_state, "opt_state")
         with torch.no_grad():
             target.module.load_state_dict(dict(tree["params"], **tree["model_state"]), strict=True)
-        _copy_into(target.opt_state, tree["opt_state"])
+        if target.sharded is not None:
+            target.sharded.reload()
+        _copy_into(target.opt_state, opt_state)
         target.step = int(tree["step"])
         return target
     if is_state:

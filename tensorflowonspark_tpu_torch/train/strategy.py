@@ -1,15 +1,25 @@
 """Synchronous data parallelism over ``torch.distributed`` — the port of the
 JAX package's ``train/strategy.py``.
 
-There the strategy owns a device mesh and XLA derives the gradient
-all-reduce from shardings. Here each process owns one device and a full
-replica: batches are placed on ``ctx.device``, and with more than one
+There the strategy owns a device mesh and XLA derives the collectives from
+shardings. Here each process owns one device. Given a device, every process
+holds a full replica: batches are placed on it, and with more than one
 process the gradients, the loss and the aux metrics are averaged with one
 all-reduce per step before the optimizer runs, so every replica takes the
 same update, parameters stay bit-identical across ranks, and every rank
 reports the global batch's loss. BatchNorm statistics are global too
 (``ops/fused_bn.py``). The parameters are broadcast from rank 0 when the
 state is created.
+
+Given a mesh (``parallel.build_mesh``, ``ctx.mesh``), the batch is split
+over its data axes (``dp`` × ``fsdp``), whose group carries the gradient,
+metric and BatchNorm reductions. With ``fsdp=True`` the parameters and the
+optimizer state are sharded along ``fsdp`` (ZeRO-3, the JAX package's
+per-array rule): the step body reduce-scatters each sharded gradient, the
+optimizer updates this rank's shards, and an all-gather writes them back
+into the module's full parameters, which stay resident
+(``parallel.sharding.ShardedParams``). The same body runs eagerly and
+inside the captured CUDA graph.
 
 The step contract is the JAX version's (``mutable`` / ``has_aux`` /
 ``step=``), with the ``nn.Module`` in the place of the params pytree: the
@@ -36,15 +46,19 @@ logger = logging.getLogger(__name__)
 
 
 class TrainState:
-    """``step`` (int), ``module`` (the model, holding the parameters and
-    the BN running buffers), ``opt_state`` (the optimizer's), and
+    """``step`` (int), ``module`` (the model, holding the full parameters
+    and the BN running buffers), ``opt_state`` (the optimizer's), and
     ``model_state``: the module's buffers by name (the JAX version's
-    ``batch_stats``), the same tensors the module uses."""
+    ``batch_stats``), the same tensors the module uses. ``sharded`` is the
+    ZeRO-3 state (:class:`~tensorflowonspark_tpu_torch.parallel.sharding.
+    ShardedParams`) under ``fsdp=True``, whose shards the optimizer state
+    mirrors; None when every rank holds everything."""
 
-    def __init__(self, step, module, opt_state):
+    def __init__(self, step, module, opt_state, sharded=None):
         self.step = step
         self.module = module
         self.opt_state = opt_state
+        self.sharded = sharded
 
     @property
     def params(self):
@@ -63,29 +77,80 @@ def _wants_step(loss_fn):
 
 
 class SyncDataParallel:
-    """Synchronous data parallelism: one full replica per process.
+    """Synchronous data parallelism, optionally fully sharded.
 
     Usage inside ``main_fun(args, ctx)``::
 
         ctx.initialize_distributed()
-        strategy = SyncDataParallel(ctx.device)
+        strategy = SyncDataParallel(ctx.device)       # a replica a process
+        # or: SyncDataParallel(ctx.mesh({"dp": 1, "fsdp": -1}), fsdp=True)
         state = strategy.create_state(lambda: resnet50(...), optimizer)
         step = strategy.compile_train_step(loss_fn, optimizer, mutable=True)
         for batch in batches:
             state, metrics = step(state, strategy.shard_batch(batch))
     """
 
-    def __init__(self, device=None, fsdp=False, tp=False):
-        """``device``: where this process's replica lives; ``None`` takes the
-        card (:func:`util.select_device`, which raises without CUDA), as the
-        JAX version's default mesh takes the accelerator. Pass ``"cpu"`` to
-        train on the CPU."""
-        if fsdp or tp:
+    def __init__(self, mesh=None, fsdp=False, min_weight_size=2**14, param_spec_fn=None, tp=False):
+        """``mesh``: a :class:`~torch.distributed.device_mesh.DeviceMesh`
+        (its device is this process's on it, and its data axes' group
+        carries the reductions), or the device of this process's replica:
+        ``None`` takes the card (:func:`util.select_device`, which raises
+        without CUDA), as the JAX version's default mesh takes the
+        accelerator; pass ``"cpu"`` to train on the CPU.
+
+        ``fsdp=True`` shards along the mesh's ``fsdp`` axis every parameter
+        of at least ``min_weight_size`` elements that has a dimension the
+        axis divides (the largest such dimension of its flax layout, as the
+        JAX package picks), and the optimizer state with it.
+        ``param_spec_fn(module, mesh) -> {name: spec}`` supplies a model's
+        own placement, which the ZeRO-3 overlay completes under ``fsdp``.
+        ``tp`` (tensor parallelism) is not yet ported and raises."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from tensorflowonspark_tpu_torch.parallel import collectives, mesh as mesh_lib, sharding
+
+        if tp:
             raise NotImplementedError(
-                "fsdp/tp are not yet ported to tensorflowonspark_tpu_torch; "
-                "SyncDataParallel replicates the model on every process"
+                "tp (tensor parallelism) is not yet ported to tensorflowonspark_tpu_torch; "
+                "it comes with the model-axes slice"
             )
-        self.device = torch.device(device) if device is not None else util.select_device("gpu")
+        self.fsdp, self.min_weight_size, self.param_spec_fn = fsdp, min_weight_size, param_spec_fn
+        if isinstance(mesh, DeviceMesh):
+            if fsdp and "fsdp" not in mesh.mesh_dim_names:
+                raise ValueError("fsdp=True requires a mesh with an 'fsdp' axis; got {}".format(
+                    mesh.mesh_dim_names))
+            self.mesh, self.device = mesh, mesh_lib.mesh_device(mesh)
+            self.data_group = sharding.data_group(mesh)
+        else:
+            if fsdp or param_spec_fn is not None:
+                raise ValueError("fsdp and param_spec_fn need a mesh, got the device {!r}".format(mesh))
+            self.mesh, self.data_group = None, None
+            self.device = torch.device(mesh) if mesh is not None else util.select_device("gpu")
+        collectives.set_data_group(self.data_group)
+
+    def param_shardings(self, module):
+        """``{name: Sharding}`` of a module's parameters on the mesh: the
+        model's own rules (``param_spec_fn``) completed by the ZeRO-3
+        overlay under ``fsdp``, the ZeRO-3 rule alone, or replicated. Under
+        ``fsdp`` the ``fsdp_params_sharded`` gauge reports how many
+        parameters ended up sharded, so a mis-sized ``min_weight_size``
+        (everything replicated) is visible in ``TFCluster.metrics()``."""
+        from tensorflowonspark_tpu_torch import obs
+        from tensorflowonspark_tpu_torch.parallel import sharding
+
+        if self.param_spec_fn is not None:
+            specs = self.param_spec_fn(module, self.mesh)
+            if self.fsdp:
+                specs = sharding.overlay_fsdp_specs(module, specs, self.mesh, self.min_weight_size)
+        elif self.fsdp:
+            specs = sharding.fsdp_param_specs(module, self.mesh, self.min_weight_size)
+        else:
+            specs = {n: () for n, _ in module.named_parameters()}
+        if self.fsdp:
+            obs.gauge(
+                "fsdp_params_sharded", help="param arrays sharded along the fsdp axis (ZeRO-3)",
+            ).set(sum(1 for s in specs.values() if "fsdp" in sharding._spec_axes(s)))
+        return {n: sharding.Sharding(self.mesh, s) for n, s in specs.items()}
 
     def shard_batch(self, batch):
         """Place this process's batch (numpy arrays or tensors) on the device."""
@@ -94,7 +159,8 @@ class SyncDataParallel:
     def create_state(self, init_fn, optimizer, *init_args):
         """``init_fn(*init_args)`` builds the module; it moves to the device,
         its parameters and buffers are broadcast from rank 0 (so replicas
-        start equal), and the optimizer state is created for it."""
+        start equal), and the optimizer state is created for it — under
+        ``fsdp``, for this rank's shards of the sharded parameters."""
         module = init_fn(*init_args).to(self.device)
         if util.world_size() > 1:
             import torch.distributed as dist
@@ -102,7 +168,13 @@ class SyncDataParallel:
             with torch.no_grad():
                 for t in list(module.parameters()) + list(module.buffers()):
                     dist.broadcast(t, src=0)
-        return TrainState(0, module, optimizer.init(dict(module.named_parameters())))
+        if not self.fsdp:
+            return TrainState(0, module, optimizer.init(dict(module.named_parameters())))
+        from tensorflowonspark_tpu_torch.parallel.sharding import ShardedParams
+
+        specs = {n: s.spec for n, s in self.param_shardings(module).items()}
+        sharded = ShardedParams(module, self.mesh, specs)
+        return TrainState(0, module, optimizer.init(sharded.optimizer_params(module)), sharded)
 
     def compile_train_step(self, loss_fn, optimizer, has_aux=False, mutable=False, donate=True):
         """``step(state, batch) -> (state, metrics)``.
@@ -129,7 +201,7 @@ class SyncDataParallel:
         consumed.
         """
         _check_donate(donate)
-        body = _train_body(loss_fn, optimizer, has_aux, mutable)
+        body = _train_body(loss_fn, optimizer, has_aux, mutable, self._reduce())
         wants_step = _wants_step(loss_fn)
 
         def train_step(state, batch):
@@ -171,7 +243,7 @@ class SyncDataParallel:
             raise ValueError("num_steps must be at least 1, got {}".format(num_steps))
         _check_donate(donate)
         if self.device.type == "cuda":
-            return _CapturedLoop(_train_body(loss_fn, optimizer, has_aux, mutable),
+            return _CapturedLoop(_train_body(loss_fn, optimizer, has_aux, mutable, self._reduce()),
                                  _wants_step(loss_fn), int(num_steps), packed, self.device)
         step = self.compile_train_step(loss_fn, optimizer, has_aux=has_aux, mutable=mutable)
 
@@ -182,6 +254,29 @@ class SyncDataParallel:
             return state, metrics
 
         return loop
+
+    def _reduce(self):
+        """The step's reduction over the data axes: None (one rank, no
+        mesh), or ``reduce(state, grads, metrics) -> (grads, metrics)``."""
+        import torch.distributed as dist
+
+        from tensorflowonspark_tpu_torch.parallel.sharding import _all_reduce_sum
+
+        if self.fsdp:
+            return lambda state, grads, metrics: state.sharded.reduce_grads(grads, metrics)
+        group = self.data_group
+        size = util.world_size() if self.mesh is None else dist.get_world_size(group)
+        if size == 1:
+            return None
+
+        def reduce(state, grads, metrics):
+            tensors = list(grads.values())
+            metrics = _all_reduce_sum(tensors, metrics, group)
+            for g in tensors:
+                g /= size
+            return grads, {k: v / size for k, v in metrics.items()}
+
+        return reduce
 
     def compile_eval_step(self, metric_fn):
         """``eval_step(module_or_state, *args)``: ``metric_fn(module,
@@ -217,14 +312,16 @@ def _inference(fn):
     return run
 
 
-def _train_body(loss_fn, optimizer, has_aux, mutable):
+def _train_body(loss_fn, optimizer, has_aux, mutable, reduce):
     """One train step's work, with no host sync: ``body(state, batch, kw) ->
-    metrics`` (``loss`` and the aux metrics, averaged over the ranks), the
-    parameters, optimizer state and BN statistics updated in place.
-    ``kw`` goes to ``loss_fn`` (``{"step": ...}`` or empty). The gradients
-    are set to None first, so the backward writes fresh ones; under CUDA
-    graph capture those come from the graph's pool, static buffers that
-    every replay writes in full."""
+    metrics`` (``loss`` and the aux metrics, averaged over the data axes),
+    the parameters, optimizer state and BN statistics updated in place.
+    ``kw`` goes to ``loss_fn`` (``{"step": ...}`` or empty); ``reduce`` is
+    the strategy's reduction (None: one rank). The gradients are set to
+    None first, so the backward writes fresh ones; under CUDA graph capture
+    those come from the graph's pool, static buffers that every replay
+    writes in full. A sharded state's optimizer updates its shards, which
+    are then gathered back into the module."""
 
     def body(state, batch, kw):
         module = state.module
@@ -241,14 +338,17 @@ def _train_body(loss_fn, optimizer, has_aux, mutable):
         with record_function("train_step.backward"):
             loss.backward()
         with record_function("train_step.optimizer"):
-            params = dict(module.named_parameters())
-            grads = {n: p.grad for n, p in params.items()}
+            grads = {n: p.grad for n, p in module.named_parameters()}
             metrics = {"loss": loss.detach()}
             if aux:
                 metrics.update(aux)
-            if util.world_size() > 1:
-                metrics = _all_reduce_mean(list(grads.values()), metrics)
-            optimizer.update(params, grads, state.opt_state)
+            if reduce is not None:
+                grads, metrics = reduce(state, grads, metrics)
+            if state.sharded is None:
+                optimizer.update(dict(module.named_parameters()), grads, state.opt_state)
+            else:
+                optimizer.update(state.sharded.optimizer_params(module), grads, state.opt_state)
+                state.sharded.gather()
         return metrics
 
     return body
@@ -372,32 +472,6 @@ def _adopt_model_state(module, model_state):
         for name, value in model_state.items():
             if value is not buffers[name]:
                 buffers[name].copy_(value)
-
-
-def _all_reduce_mean(grads, metrics):
-    """Average the gradients and the metrics over the world with one
-    all-reduce of a flattened buffer: the gradients first, the metrics in
-    its tail. Returns the averaged metrics (new tensors); the gradients are
-    averaged in place."""
-    import torch.distributed as dist
-
-    dtype, device = grads[0].dtype, grads[0].device
-    values = {k: torch.as_tensor(v, device=device) for k, v in metrics.items()}
-    flat = torch.cat([g.reshape(-1) for g in grads] + [v.reshape(-1).to(dtype) for v in values.values()])
-    dist.all_reduce(flat)
-    flat /= dist.get_world_size()
-    offset = 0
-    for g in grads:
-        n = g.numel()
-        g.copy_(flat[offset:offset + n].view_as(g))
-        offset += n
-    out = {}
-    for k, v in values.items():
-        n = v.numel()
-        got = flat[offset:offset + n].view(v.shape)
-        out[k] = (got.to(v.dtype) if v.dtype.is_floating_point else got).clone()
-        offset += n
-    return out
 
 
 def run_steps(step_fn, state, batches, engine=None, save_every_n=None, hooks=()):

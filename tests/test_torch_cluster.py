@@ -140,6 +140,32 @@ def test_two_executor_gloo_lm_keeps_params_bit_identical(tmp_path):
         assert torch.equal(value, ranks[1]["params"][name]), name
 
 
+def test_two_executor_lm_on_a_dp_fsdp_mesh(tmp_path):
+    """The LM example with ``--mesh dp=1,fsdp=2`` on 2 executors: the
+    batch is split over the mesh's data axes (the parameters replicated,
+    as in the JAX example), and both ranks report the same global loss at
+    every step."""
+    data_dir = str(tmp_path / "corpus")
+    transformer_spark.make_text_corpus(data_dir, num_shards=2, records_per_shard=40)
+    args = transformer_spark.build_parser().parse_args(TINY_LM + ["--data_dir", data_dir, "--mesh", "dp=1,fsdp=2"])
+    sc = LocalSparkContext(num_executors=2, task_timeout=120)
+    try:
+        cluster = TFCluster.run(sc, transformer_spark.main_fun, args, 2,
+                                input_mode=TFCluster.InputMode.TENSORFLOW, env=CPU_ENV)
+        assert cluster.wait_for_completion(timeout=120)
+        metrics = cluster.metrics(include_driver=False)
+        cluster.shutdown(timeout=120)
+    finally:
+        sc.stop()
+    losses = {}
+    for e in metrics["events"]:
+        if e.get("span") == "train_step":
+            losses.setdefault(e["step"], []).append(e["loss"])
+    assert sorted(losses) == [1, 2, 3]
+    for step, values in losses.items():
+        assert len(values) == 2 and values[0] == values[1] and np.isfinite(values[0]), (step, values)
+
+
 @pytest.mark.parametrize("flag", [["--moe_experts", "2"], ["--mesh", "dp=1,tp=2"], ["--remat"]])
 def test_unported_lm_options_are_refused(flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -114,11 +114,44 @@ def test_schedules_match_optax(count):
         np.testing.assert_allclose(port(count), float(ref(count)), rtol=1e-6)
 
 
+#: one process builds the fully sharded strategy on a one-rank world it
+#: joins itself (``local_mesh``), with no ``init_process_group`` of its own
+FSDP_BUILD = r"""
+import torch
+from tensorflowonspark_tpu_torch.parallel import local_mesh
+from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
+
+mesh = local_mesh({"dp": 1, "fsdp": -1}, device_type="cpu")
+strategy = SyncDataParallel(mesh, fsdp=True, min_weight_size=64)
+optimizer = optim.adam(1e-2)
+state = strategy.create_state(lambda: torch.nn.Linear(16, 8), optimizer)
+assert state.sharded.dims == {"weight": 1}, state.sharded.dims  # flax kernel [16, 8]: the 16
+step = strategy.compile_train_step(lambda m, b: m(b["x"]).square().mean(), optimizer)
+state, metrics = step(state, {"x": torch.ones(4, 16)})
+assert state.step == 1 and torch.equal(state.sharded.shards["weight"], state.module.weight.detach())
+print("built")
+"""
+
+
+def test_fsdp_strategy_builds_and_steps():
+    """``SyncDataParallel(mesh, fsdp=True)`` builds on a one-process mesh
+    and takes a step (in a process of its own: it joins a world)."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", FSDP_BUILD], cwd=repo, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and "built" in proc.stdout, proc.stdout[-2000:] + proc.stderr[-2000:]
+
+
 def test_unported_strategy_modes_raise():
-    with pytest.raises(NotImplementedError):
-        SyncDataParallel("cpu", fsdp=True)
+    """Tensor parallelism is not yet ported; fsdp needs a mesh."""
     with pytest.raises(NotImplementedError):
         SyncDataParallel("cpu", tp=True)
+    with pytest.raises(ValueError, match="need a mesh"):
+        SyncDataParallel("cpu", fsdp=True)
 
 
 def test_default_device_is_the_card(monkeypatch):

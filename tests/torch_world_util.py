@@ -1,0 +1,271 @@
+"""Gloo worlds of the port on the CPU for the mesh, FSDP and reshard tests.
+
+:func:`run_world` starts ``world`` processes, each joining the world through
+the port's ``testing.join_cpu_world`` and running the jobs of one spec (a
+dict ``{name: (job, kwargs)}``) in order; every rank's ``{name: result}``
+comes back. The jobs below use the port only (the JAX references stay in the
+test process): :func:`job_collectives`, :func:`job_train` and the reshard
+jobs."""
+
+import os
+import socket
+import subprocess
+import sys
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+_MAIN = r"""
+import sys
+sys.path.insert(0, sys.argv[6])
+import torch_world_util
+torch_world_util.rank_main(*sys.argv[1:6])
+"""
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(tmp_path, spec, world=4, timeout=240):
+    """Run ``spec``'s jobs on every rank of a ``world``-rank gloo world;
+    returns each rank's ``{name: result}``."""
+    job = str(tmp_path / "job.pt")
+    torch.save(spec, job)
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    outs = [str(tmp_path / "rank{}.pt".format(r)) for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-c", _MAIN, str(r), str(world), str(port), job, outs[r], HERE],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def rank_main(rank, world, port, job, out):
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch import testing
+
+    ctx = testing.join_cpu_world(int(rank), int(world), int(port))
+    spec = torch.load(job, weights_only=False)
+    results = {name: globals()[kind](ctx, **kw) for name, (kind, kw) in spec.items()}
+    torch.save(results, out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _block(x, n, i):
+    x = torch.as_tensor(x)
+    return x.chunk(n, 0)[i].contiguous()
+
+
+def job_collectives(ctx, x):
+    """Every collective of ``parallel.collectives`` on this rank's block of
+    the global ``x`` ([4·m, ...]) over a ``{"dp": 4}`` mesh, and the data
+    group's sum over a ``{"dp": 2, "fsdp": 2}`` mesh."""
+    from tensorflowonspark_tpu_torch.parallel import collectives as c
+
+    mesh = ctx.mesh({"dp": 4})
+    mine = _block(x, 4, ctx.process_id)
+    out = {
+        "psum": c.psum(mine, "dp", mesh), "pmean": c.pmean(mine, "dp", mesh),
+        "all_gather": c.all_gather(mine, "dp", mesh), "all_gather_1": c.all_gather(mine, "dp", mesh, axis=1),
+        "all_gather_stack": c.all_gather(mine, "dp", mesh, tiled=False),
+        "reduce_scatter": c.reduce_scatter(mine, "dp", mesh),
+        "reduce_scatter_1": c.reduce_scatter(mine, "dp", mesh, scatter_dimension=1),
+        "ring_shift": c.ring_shift(mine, "dp", mesh), "ring_shift_back": c.ring_shift(mine, "dp", mesh, shift=-1),
+        "all_to_all": c.all_to_all(mine, "dp", mesh, split_axis=1, concat_axis=0),
+        "axis_index": c.axis_index("dp", mesh), "axis_size": c.axis_size("dp", mesh),
+    }
+    hybrid = ctx.mesh({"dp": 2, "fsdp": 2})
+    out["psum_data"] = c.psum(mine, ("dp", "fsdp"), hybrid)
+    out["psum_fsdp"] = c.psum(mine, "fsdp", hybrid)
+    out["input_intact"] = torch.equal(mine, _block(x, 4, ctx.process_id))
+    return out
+
+
+class Mlp(torch.nn.Module):
+    """The MLP of the JAX package's multichip tests: ``w1`` [64, 64],
+    ``w2`` [64, 8] in the flax layout, ``tanh(x @ w1) @ w2``."""
+
+    def __init__(self, w1, w2):
+        super().__init__()
+        self.w1 = torch.nn.Parameter(torch.as_tensor(w1).clone())
+        self.w2 = torch.nn.Parameter(torch.as_tensor(w2).clone())
+
+    def forward(self, x):
+        return torch.tanh(x @ self.w1) @ self.w2
+
+
+def mlp_loss(module, batch):
+    return ((module(batch["x"]) - batch["y"]) ** 2).mean()
+
+
+def _model(kind, variables, cfg):
+    """``(init_fn, loss_fn, train kwargs)`` of a model kind from the JAX
+    model's variables (converted)."""
+    from tensorflowonspark_tpu_torch import convert
+
+    if kind == "mlp":
+        return (lambda: Mlp(variables["w1"], variables["w2"])), mlp_loss, {}
+    if kind == "transformer":
+        from tensorflowonspark_tpu_torch.models import transformer
+
+        module = transformer.create_model(**cfg)
+        return (lambda: convert.load_variables(module, {"params": variables})), \
+            transformer.make_loss_fn(module), {"has_aux": True}
+    from tensorflowonspark_tpu_torch.models import resnet
+
+    module = resnet.ResNet(**cfg)
+    return (lambda: convert.load_variables(module, variables)), \
+        resnet.make_loss_fn(weight_decay=1e-4), {"mutable": True}
+
+
+def _optimizer(spec):
+    from tensorflowonspark_tpu_torch.train import optim
+
+    name, kw = spec
+    return getattr(optim, name)(**kw)
+
+
+def job_train(ctx, kind, variables, cfg, optimizer, batches, axes, fsdp, min_weight_size):
+    """Train ``kind`` (converted from the JAX model's ``variables``) on
+    ``ctx.mesh(axes)``, each rank on its rows of the global ``batches``:
+    the losses, the full (gathered) parameters and buffers, the sharded
+    dims and the ``fsdp_params_sharded`` gauge."""
+    from tensorflowonspark_tpu_torch import obs
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel
+
+    mesh = ctx.mesh(axes)
+    strategy = SyncDataParallel(mesh, fsdp=fsdp, min_weight_size=min_weight_size)
+    init_fn, loss_fn, kw = _model(kind, variables, cfg)
+    opt = _optimizer(optimizer)
+    state = strategy.create_state(init_fn, opt)
+    mine = [strategy.shard_batch({k: _block(v, mesh.size(), ctx.process_id) for k, v in b.items()})
+            for b in batches]
+    step = strategy.compile_train_step(loss_fn, opt, **kw)
+    losses = []
+    for b in mine:
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+    opt = state.opt_state
+    return {"losses": losses, "params": {k: v.detach().clone() for k, v in state.params.items()},
+            "buffers": {k: v.clone() for k, v in state.model_state.items()},
+            "dims": dict(state.sharded.dims) if state.sharded is not None else {},
+            "gauge": obs.gauge("fsdp_params_sharded").value if fsdp else None,
+            "adam_elems": sum(t.numel() for t in opt["mu"].values()) if "mu" in opt else None}
+
+
+def _mnist_state(strategy, seed):
+    """The reshard tests' state: the port's MNIST MLP (hidden 8), SGD 0.1,
+    one step on a seeded batch split over the data axes."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch.models import mnist
+    from tensorflowonspark_tpu_torch.train import optim
+
+    model = mnist.create_model("mlp", hidden=8)
+    optimizer = optim.sgd(0.1, momentum=0.9)
+    state = strategy.create_state(lambda: mnist.make_init_fn(model)(torch.Generator().manual_seed(seed)),
+                                  optimizer)
+    step = strategy.compile_train_step(mnist.make_loss_fn(model), optimizer, has_aux=True)
+    rng = np.random.default_rng(7)
+    batch = {"image": rng.standard_normal((8, 28, 28)).astype(np.float32), "label": rng.integers(0, 10, 8)}
+    n = strategy.mesh.size()
+    state, _ = step(state, strategy.shard_batch({k: _block(v, n, torch.distributed.get_rank())
+                                                 for k, v in batch.items()}))
+    return state
+
+
+def _host(state):
+    """A TrainState's checkpointed tree, full tensors on the host."""
+    from tensorflowonspark_tpu_torch.train import checkpoint
+
+    tree = checkpoint._to_saveable(state)
+    return {k: ({n: v.detach().clone() for n, v in t.items()} if k == "params" else t)
+            for k, t in tree.items()}
+
+
+def _local(state):
+    return {"opt_state": state.opt_state, "shards": dict(state.sharded.shards) if state.sharded else {},
+            "dims": dict(state.sharded.dims) if state.sharded else {}}
+
+
+def job_save(ctx, root, axes, fsdp, step_no, engine=True):
+    """A state trained one step on ``ctx.mesh(axes)``, saved as
+    ``ckpt_<step_no>`` under ``root`` (through the async engine, or the
+    blocking save); returns its full host tree."""
+    from tensorflowonspark_tpu_torch import ckpt
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel, checkpoint
+
+    strategy = SyncDataParallel(ctx.mesh(axes), fsdp=fsdp, min_weight_size=1)
+    state = _mnist_state(strategy, seed=0)
+    host = _host(state)
+    if engine:
+        if fsdp or ctx.process_id == 0:  # a sharded state: every rank joins the gathers
+            with ckpt.AsyncCheckpointEngine(root) as eng:
+                eng.save(state, step_no)
+                assert eng.drain(timeout=120)
+        torch.distributed.barrier()
+    else:
+        checkpoint.save_checkpoint(os.path.join(root, "ckpt_{}".format(step_no)), state)
+    return {"host": host, "verified": ckpt.verify(os.path.join(root, "ckpt_{}".format(step_no)))}
+
+
+def job_restore(ctx, path, axes, fsdp, save_to=None):
+    """A fresh state on ``ctx.mesh(axes)`` (other seed), the checkpoint at
+    ``path`` resharded into it; its full host tree, its local shards and,
+    with ``save_to``, the restored state saved again (blocking) there."""
+    from tensorflowonspark_tpu_torch import ckpt
+    from tensorflowonspark_tpu_torch.ckpt.reshard import state_shardings
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel, checkpoint
+
+    strategy = SyncDataParallel(ctx.mesh(axes), fsdp=fsdp, min_weight_size=1)
+    fresh = _mnist_state(strategy, seed=9)
+    derived = state_shardings(strategy, fresh)
+    restored = ckpt.reshard_restore(path, strategy=strategy, target=fresh)
+    out = {"host": _host(restored), "local": _local(restored), "step": restored.step,
+           "derived": {"params": {n: s.spec for n, s in derived["params"].items()},
+                       "trace": {n: s.spec for n, s in derived["opt_state"]["trace"].items()}},
+           "mesh": dict(zip(strategy.mesh.mesh_dim_names, strategy.mesh.mesh.shape))}
+    if save_to:
+        checkpoint.save_checkpoint(save_to, restored)
+    return out
+
+
+def job_bare(ctx, root):
+    """The bare-pytree cases: a dict saved by the engine on rank 0, placed
+    with explicit shardings and by a strategy (replicated)."""
+    from tensorflowonspark_tpu_torch import ckpt
+    from tensorflowonspark_tpu_torch.parallel import sharding
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel
+
+    tree = {"step": 4, "w": torch.arange(32, dtype=torch.float32)}
+    if ctx.process_id == 0:
+        with ckpt.AsyncCheckpointEngine(root) as eng:
+            eng.save(tree, 4)
+            assert eng.drain(timeout=120)
+    torch.distributed.barrier()
+    path = os.path.join(root, "ckpt_4")
+    mesh = ctx.mesh({"dp": -1})
+    explicit = ckpt.reshard_restore(path, shardings={"step": sharding.replicated(mesh),
+                                                     "w": sharding.Sharding(mesh, ("dp",))})
+    strategy = SyncDataParallel(ctx.mesh({"dp": 2, "fsdp": 2}))
+    by_strategy = ckpt.reshard_restore(path, strategy=strategy)
+    blocks = sharding.shard_params({"w": tree["w"].view(4, 8)}, strategy.mesh, {"w": (None, "fsdp")})
+    return {"explicit": explicit, "by_strategy": by_strategy, "shard_params": blocks["w"]}
