@@ -120,6 +120,28 @@ and the script exits non-zero:
                   replayed step) and graph launches, eager and captured step
                   ms (medians of the turns), tokens/s, peak memory, Adam
                   state bytes, the parameters sharded (38 of 51).
+   ``slice_axes`` the LM slice on its model axes: ``TFCluster.run`` on one
+                  executor runs ``examples/transformer/axes_check.py``'s
+                  trainer. (a) tp: the LM built on ``ctx.mesh({"dp": 1,
+                  "tp": -1})`` (``SyncDataParallel(tp=transformer.
+                  param_specs)``, 37 of 51 parameters split) beside
+                  ``{"dp": -1}``, from the same weights and batches: 3
+                  eager steps, two calls of the captured loop (K = 5, call
+                  2 traced), 3 timed turns; bitwise equal after the eager
+                  steps and the loop, and after the tp state's checkpoint
+                  is resharded onto dp and both take a step. (b) the LM
+                  with 8 experts (capacity 1.25, groups of 256, balancing
+                  weight 0.01) on ``{"dp": 1, "ep": -1}``: 10 eager steps
+                  and the same 10 through the loop, bitwise; the loss
+                  finite and falling, ``moe_aux`` >= 0.99; one f32 step at
+                  depth 2 on the card against the CPU within 1e-4
+                  relative, and a 1% gradient fault caught. (c) one step
+                  with ``remat`` against one without, bitwise, with each
+                  step's peak memory, and the remat loop bitwise its eager
+                  steps. Each flash wrapper's launches in each leg (6 a
+                  step; 12 of B5 under remat, which recomputes the
+                  forward), the tp side's traced device launches, step ms
+                  and tokens/s, peak memory.
 9. ``ckpt_engine`` ResNet-50 at the slice's shape in this process,
                   ``compile_train_loop`` (K = 5) driven by ``run_steps``:
                   runs with an ``AsyncCheckpointEngine`` (``keep=2``, a save
@@ -281,9 +303,10 @@ and the script exits non-zero:
                   loop paths of phases 5 and 7 launched it, the traced loop
                   call ran it on the card, (the BN kernels) run A of the
                   recover phase and the real-data slice launched it, and
-                  (the flash kernels) the pack-plane LM leg and the fully
-                  sharded leg (``slice_fsdp``) did, and (the flash forward)
-                  the LM server did.
+                  (the flash kernels) the pack-plane LM leg, the fully
+                  sharded leg (``slice_fsdp``) and the model-axes legs
+                  (``slice_axes``: tp, the mixture, remat) did, and (the
+                  flash forward) the LM server did.
 
 Then one JSON line with every kernel's measurements (``launches``: its
 wrapper's on the eager path; ``launches_loop_path``: its wrapper's on the
@@ -294,7 +317,10 @@ trainer; ``launches_slice_real``: its wrapper's over the three
 ``slice_real`` legs; ``launches_slice_lm_pack``: its wrapper's in
 ``slice_lm_pack``; ``launches_fsdp`` / ``device_launches_fsdp_traced_call``:
 the flash wrappers' on ``slice_fsdp``'s sharded side and the card's in its
-traced loop call; ``launches_serving``: the flash forward's wrapper's over
+traced loop call; ``launches_axes_tp`` / ``device_launches_axes_tp_traced_call``
+/ ``launches_axes_moe`` / ``launches_axes_remat``: the flash wrappers' on
+``slice_axes``'s tp side (and the card's in its traced call), its mixture
+leg and its remat leg; ``launches_serving``: the flash forward's wrapper's over
 ``serve_lm``'s traffic; ``launches_segmentation``: its wrapper's in
 ``slice_seg``'s trainer), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -324,6 +350,8 @@ LOOP_STEPS, TRACE_CALL = 20, 3
 #: on an H100: run B's first life starts up to 3 s off run A's
 RECOVER_STEPS, RECOVER_EVERY, RECOVER_KEEP = 300, 10, 3
 HEARTBEAT_S, KILL_AT, RECOVER_MIN_ROOM_S = 0.25, 0.35, 6.0
+#: the slice_axes phase: eager steps and timed turns of its tp leg
+AXES_EAGER, AXES_PAIRS = 3, 3
 #: the ckpt_engine phase: 8 calls of K = 5 a run, a save every 2 calls (10
 #: steps), 2 pairs of runs with and without the engine
 CKPT_CALLS, CKPT_EVERY, CKPT_PAIRS = 8, 2, 2
@@ -1387,6 +1415,48 @@ def phase_slice_fsdp(torch, fa, data_dir, work):
     if out["fsdp"]["params_sharded"] != 38:
         raise AssertionError("slice_fsdp: {} parameters sharded, want 38".format(out["fsdp"]["params_sharded"]))
     return out["fsdp"]["launches"], out["fsdp"]["device_launches_traced_call"]
+
+
+def phase_slice_axes(torch, fa, data_dir, work):
+    """The LM slice on its model axes, through ``TFCluster.run``
+    (``examples/transformer/axes_check.py``, module docstring phase
+    ``slice_axes``). Returns the flash wrappers' launches on the tp side,
+    its traced call's device launches, and the wrappers' launches on the
+    mixture's and the remat leg's paths."""
+    from tensorflowonspark_tpu_torch.examples.transformer import axes_check
+    from tensorflowonspark_tpu_torch.train.strategy import _CapturedLoop
+
+    fa.reset_launch_counts()  # the trainer's counts start at 0 in its fresh process
+    os.makedirs(work, exist_ok=True)
+    out = axes_check.main(["--data_dir", data_dir, "--work_dir", work, "--eager_steps", str(AXES_EAGER),
+                           "--steps_per_loop", str(STEPS), "--pairs", str(AXES_PAIRS),
+                           "--moe_steps", str(2 * STEPS)])
+    layers, loop_steps = LM["n_layers"], _CapturedLoop.WARMUP + 1
+    want = {"tp": layers * (AXES_EAGER + loop_steps), "moe": layers * (2 * STEPS + loop_steps),
+            # remat recomputes each block's forward in the backward: B5 twice a step
+            "remat_fwd": layers * (1 + 2 * (STEPS + loop_steps)), "remat_bwd": layers * (1 + STEPS + loop_steps)}
+    line = {"phase": "slice_axes", "model": "transformer", "config": dict(LM, seq_len=LM_SEQ), "batch": LM_BATCH,
+            "expected_launches": want, "expected_traced": layers * STEPS}
+    line.update({k: v for k, v in out.items() if k not in ("config",)})
+    emit(line)
+    names = [name for name, *_ in FLASH_TABLE]
+    bad = {}
+    for side in ("tp", "dp"):
+        got = out[side]
+        bad.update({side + ":" + n: got["launches"][n] for n in names if got["launches"][n] != want["tp"]})
+        bad.update({side + ":" + n + "_traced": got["device_launches_traced_call"][n] for n in names
+                    if got["device_launches_traced_call"][n] != layers * STEPS})
+        if got["graph_launches_traced_call"] != STEPS:
+            bad[side + ":graph_launches"] = got["graph_launches_traced_call"]
+    bad.update({"moe:" + n: out["moe"]["launches"][n] for n in names if out["moe"]["launches"][n] != want["moe"]})
+    bad.update({"remat:" + n: out["remat"]["launches"][n] for n in names
+                if out["remat"]["launches"][n] != want["remat_fwd" if n == "flash_fwd" else "remat_bwd"]})
+    if bad:
+        raise AssertionError("slice_axes: launches {} against {}".format(bad, want))
+    if out["tp"]["params_split"] != 37:
+        raise AssertionError("slice_axes: {} parameters split over tp, want 37".format(out["tp"]["params_split"]))
+    return (out["tp"]["launches"], out["tp"]["device_launches_traced_call"], out["moe"]["launches"],
+            out["remat"]["launches"])
 
 
 def _state_host(torch, state):
@@ -3182,6 +3252,8 @@ def main():
     torch.cuda.empty_cache()
     fsdp_launches, fsdp_traced = timed("slice_fsdp", phase_slice_fsdp, torch, fa, data_dir,
                                        os.path.join(here, "build", "chip_smoke_fsdp"))
+    axes_launches, axes_traced, moe_launches, remat_launches = timed(
+        "slice_axes", phase_slice_axes, torch, fa, data_dir, os.path.join(here, "build", "chip_smoke_axes"))
     work = os.path.join(here, "build", "chip_smoke_ckpt")
     phase_ckpt_engine(torch, resnet, work)
     recover_launches = phase_recover(torch, fused_bn, work)
@@ -3224,6 +3296,8 @@ def main():
          "launched": (flash_launches[name] > 0 and loop_flash_launches[name] > 0
                       and traced_flash_launches[name] > 0 and pack_launches[name] > 0
                       and fsdp_launches[name] > 0 and fsdp_traced[name] > 0
+                      and axes_launches[name] > 0 and axes_traced[name] > 0 and moe_launches[name] > 0
+                      and remat_launches[name] > 0
                       and (name != "flash_fwd" or serve_launches[name] > 0))}
         for name, *_ in FLASH_TABLE], "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
@@ -3247,6 +3321,8 @@ def main():
          "launches_mnist_path": mnist_launches[name],
          "launches_slice_lm_pack": pack_launches[name],
          "launches_fsdp": fsdp_launches[name], "device_launches_fsdp_traced_call": fsdp_traced[name],
+         "launches_axes_tp": axes_launches[name], "device_launches_axes_tp_traced_call": axes_traced[name],
+         "launches_axes_moe": moe_launches[name], "launches_axes_remat": remat_launches[name],
          "launches_segmentation": seg_launches[name],
          **({"launches_serving": serve_launches[name]} if name == "flash_fwd" else {}),
          "max_abs_err": flash_totals[name]["max_abs_err"],

@@ -193,12 +193,25 @@ class TFNodeContext:
         device = self.device
         self.initialize_distributed()
         mesh_lib.ensure_world(device.type)
+        return mesh_lib.build_mesh(axes, self._rank_devices(), device_type=device.type)
+
+    def mesh_plan(self, axes=None):
+        """The layout :meth:`mesh` gives ``axes``, as a plan with no process
+        groups: built by this rank alone (not collective) and without
+        touching the card, so it shards the input by the data axes before
+        the trainer's pipeline forks its workers."""
+        from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+
+        return mesh_lib.build_mesh(axes, self._rank_devices(), device_type="cpu", plan=True)
+
+    def _rank_devices(self):
+        from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+
         spec = self.cluster_spec or {}
         hosts = [entry.rsplit(":", 1)[0] for role in ("chief", "master", "worker") for entry in spec.get(role, [])]
         if len(hosts) != self.num_processes:
             hosts = [None] * self.num_processes
-        devices = [mesh_lib.RankDevice(r, h) for r, h in enumerate(hosts)]
-        return mesh_lib.build_mesh(axes, devices, device_type=device.type)
+        return [mesh_lib.RankDevice(r, h) for r, h in enumerate(hosts)]
 
 
 def _role_rank(job_name):
@@ -227,6 +240,17 @@ def _derive_world(cluster_info, me):
         if row["executor_id"] == me["executor_id"]:
             return coord, len(parts), i
     return None, 1, 0
+
+
+def _nodes_on_host(ctx):
+    """Nodes of the cluster whose address names this node's host (this
+    one included)."""
+    addrs = [a for job in (ctx.cluster_spec or {}).values() for a in job]
+    try:
+        host = ctx.cluster_spec[ctx.job_name][ctx.task_index].rpartition(":")[0]
+    except (KeyError, IndexError, TypeError):
+        return 1
+    return max(1, sum(1 for a in addrs if a.rpartition(":")[0] == host))
 
 
 def _child_entry(fn, tf_args, ctx, cluster_meta, error_queue_spec):
@@ -270,6 +294,12 @@ def _child_entry(fn, tf_args, ctx, cluster_meta, error_queue_spec):
             import torch
 
             gpu_info.validate_against_runtime(torch.cuda.device_count())
+        else:
+            import torch
+
+            # the host's trainers split its cores; each taking all of them
+            # (torch's default) oversubscribes the host
+            torch.set_num_threads(util.cpu_share(_nodes_on_host(ctx)))
         with obs_trace.span("node_main", job=ctx.job_name, task_index=ctx.task_index):
             fn(tf_args, ctx)
         _drain_checkpoints()
@@ -687,6 +717,14 @@ class _NodeLaunchTask:
         # env vars _child_entry sets land before CUDA is first initialised
         import functools
 
+        if (meta.get("env") or {}).get(util.ENV_PLATFORM) == "cpu":
+            # a CPU trainer shares its host's cores: its OpenMP threads wait
+            # passively, so a busy host slows it in proportion instead of
+            # starving it (spinning teams of several processes on the same
+            # cores slowed each other many times over). The runtime reads
+            # this when it loads, before any of the child's code runs, so it
+            # rides the environment the child is spawned with.
+            os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
         child = util.spawn_process(
             functools.partial(
                 _child_entry, self.fn, self.tf_args, ctx, meta, (mgr.address, authkey)

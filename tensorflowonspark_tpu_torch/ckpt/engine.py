@@ -168,7 +168,7 @@ class AsyncCheckpointEngine:
 
         from tensorflowonspark_tpu_torch.train import checkpoint
 
-        if checkpoint._gathers(state) and dist.get_rank() != 0:
+        if checkpoint.save_is_collective(state) and dist.get_rank() != 0:
             checkpoint._to_saveable(state)  # the gathers are collective; rank 0 writes
             return int(step)
         with self._cond:

@@ -16,12 +16,19 @@ loads, name for name:
   ``[H·D, d_model]``, ``o`` ``kernel`` ``[H, D, d_model]`` → ``weight``
   ``[d_model, H·D]``;
 * Embed ``embedding`` ``[vocab, d_model]`` → ``weight`` (as it is);
+* a mixture of experts' ``moe/wi`` ``[E, d_model, d_ff]`` and ``moe/wo``
+  ``[E, d_ff, d_model]`` as they are (the port keeps the flax layout), its
+  ``router`` as a Dense;
 * BatchNorm, GroupNorm and RMSNorm ``scale`` / ``bias`` → ``weight`` /
   ``bias``;
 * ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``.
 
 Any key left unmatched on either side raises, as does a shape mismatch:
-a silently partial load would train a different model.
+a silently partial load would train a different model. A module built on a
+mesh (``models.transformer.create_model(mesh=...)``) holds this rank's
+blocks of the tensors its ``model_specs`` split over ``tp`` or ``ep``: the
+full tensors are converted, checked against its ``full_shapes`` and cut to
+those blocks (:func:`local_blocks`).
 
 :func:`convert_train_state` carries a whole JAX-package ``TrainState``
 (``step``, ``params``, ``batch_stats`` and the optax state) onto the port's
@@ -51,6 +58,8 @@ def _flatten(tree, prefix=()):
 def _convert_leaf(collection, path, value):
     leaves = _PARAM_LEAVES if collection == "params" else _STAT_LEAVES
     leaf = path[-1]
+    if collection == "params" and len(path) > 1 and path[-2] == "moe" and leaf in ("wi", "wo"):
+        return ".".join(path), torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
     if leaf not in leaves:
         raise KeyError("no port counterpart for {}/{}".format(collection, "/".join(path)))
     arr = np.asarray(value, dtype=np.float32)
@@ -83,7 +92,7 @@ def convert_variables(variables, module=None):
             name, tensor = _convert_leaf(collection, path, value)
             out[name] = tensor
     if module is not None:
-        expected = module.state_dict()
+        expected = _full_shapes(module)
         missing = sorted(set(expected) - set(out))
         extra = sorted(set(out) - set(expected))
         if missing or extra:
@@ -92,9 +101,30 @@ def convert_variables(variables, module=None):
                 "no port counterpart for {}".format(missing, extra)
             )
         for name, tensor in out.items():
-            if tuple(tensor.shape) != tuple(expected[name].shape):
+            if tuple(tensor.shape) != expected[name]:
                 raise ValueError("{}: JAX shape {} vs port shape {}".format(
-                    name, tuple(tensor.shape), tuple(expected[name].shape)))
+                    name, tuple(tensor.shape), expected[name]))
+        out = local_blocks(out, module)
+    return out
+
+
+def _full_shapes(module):
+    """``{name: shape}`` of the module's whole state: its ``state_dict``'s,
+    with each block of a model on a mesh at its full shape."""
+    full = getattr(module, "full_shapes", {})
+    return {n: tuple(full.get(n, t.shape)) for n, t in module.state_dict().items()}
+
+
+def local_blocks(tensors, module):
+    """``{name: full tensor}`` → the same with each tensor the module holds
+    a block of (its ``model_specs``: a model built on a mesh) cut to this
+    rank's block; the others as they are."""
+    from tensorflowonspark_tpu_torch.parallel.sharding import block
+
+    out = dict(tensors)
+    for name, spec in getattr(module, "model_specs", {}).items():
+        if name in out:
+            out[name] = block(out[name], spec, module.mesh).contiguous().clone()
     return out
 
 
@@ -140,16 +170,17 @@ def _param_tree(tree, module, what):
     """A params-shaped tree (numpy leaves) → ``{name: tensor}`` under the
     module's parameter names, with every name matched and shapes equal."""
     out = dict(_convert_leaf("params", path, value) for path, value in _flatten(tree))
-    expected = dict(module.named_parameters())
+    shapes = _full_shapes(module)
+    expected = {n: shapes[n] for n, _ in module.named_parameters()}
     missing, extra = sorted(set(expected) - set(out)), sorted(set(out) - set(expected))
     if missing or extra:
         raise KeyError("unmatched {} leaves: missing in JAX {}, no port counterpart for {}".format(
             what, missing, extra))
     for name, tensor in out.items():
-        if tuple(tensor.shape) != tuple(expected[name].shape):
+        if tuple(tensor.shape) != expected[name]:
             raise ValueError("{} {}: JAX shape {} vs port shape {}".format(
-                what, name, tuple(tensor.shape), tuple(expected[name].shape)))
-    return out
+                what, name, tuple(tensor.shape), expected[name]))
+    return local_blocks(out, module)
 
 
 @torch.no_grad()
@@ -206,8 +237,11 @@ def flax_layouts(module):
     lands in (``dims[i]``). A fused port dimension takes several flax ones
     (an attention projection's heads and head dim), major first. The
     sharding rules (``parallel/sharding.py``) pick a dimension on the flax
-    shape, as the JAX package does, and shard the port's ``dims[i]``."""
+    shape, as the JAX package does, and shard the port's ``dims[i]``. A
+    module built on a mesh reports its whole tensors' layouts (its
+    ``full_shapes``)."""
     modules = dict(module.named_modules())
+    full = getattr(module, "full_shapes", {})
     out = {}
     for name, p in module.named_parameters():
         owner_name, _, leaf = name.rpartition(".")
@@ -215,7 +249,7 @@ def flax_layouts(module):
         parent = modules.get(owner_name.rpartition(".")[0]) if owner_name else None
         cfg = getattr(parent, "cfg", None)
         attn = owner_name.rpartition(".")[2] if cfg is not None and hasattr(cfg, "n_heads") else None
-        s = tuple(p.shape)
+        s = tuple(full.get(name, p.shape))
         if leaf != "weight" or len(s) < 2 or isinstance(owner, torch.nn.Embedding):
             layout = (s, tuple(range(len(s))))
         elif len(s) == 4 and isinstance(owner, torch.nn.ConvTranspose2d):  # [in, out, kh, kw]
@@ -229,4 +263,22 @@ def flax_layouts(module):
         else:  # Dense [out, in] <- [in, out]
             layout = ((s[1], s[0]), (1, 0))
         out[name] = layout
+    return out
+
+
+def flax_names(module):
+    """``{name: flax path}`` of each of ``module``'s parameters (the
+    converter's names read backwards): a 2-D or larger ``weight`` is a
+    ``kernel`` (an Embedding's an ``embedding``), a 1-D one a norm's
+    ``scale``, and any other leaf keeps its name."""
+    modules = dict(module.named_modules())
+    out = {}
+    for name, p in module.named_parameters():
+        owner_name, _, leaf = name.rpartition(".")
+        if leaf == "weight":
+            if isinstance(modules[owner_name], torch.nn.Embedding):
+                leaf = "embedding"
+            else:
+                leaf = "scale" if p.dim() == 1 else "kernel"
+        out[name] = "/".join(owner_name.split(".") + [leaf]) if owner_name else leaf
     return out

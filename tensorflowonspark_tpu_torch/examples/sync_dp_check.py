@@ -32,14 +32,29 @@ the steps: the sums only run in other orders), each rank's optimizer-state
 bytes and peak memory (``max_memory_allocated``), and the parameters
 sharded. Every leg's gathered parameters must be equal on every rank.
 
+With ``--tp`` the LM trains (from the same weights, on a global batch of
+8 rows split over each leg's data axes) on the model axes too: ``dp`` =
+world/2 × ``tp`` = 2, ``tp`` = world, and ``dp`` × ``fsdp`` = 2 × ``tp`` = 2
+(ZeRO-3 over the tp blocks), beside the data-parallel leg on the same rows;
+with ``--ep`` the LM with 8 experts (``transformer_moe``) on ``ep`` = world
+and ``dp`` = world/2 × ``ep`` = 2 beside its data-parallel leg. The model is
+built on each leg's mesh from this rank's blocks
+(``transformer.create_model(mesh=...)``). Their lines add the parameters
+split over a model axis and each rank's parameter bytes; every rank's
+parameters, gathered to full tensors, must be equal, so the arrays no model
+axis splits are equal on every rank of a group.
+
+``--models`` picks the models (default ``resnet50,transformer``); ``--tp``
+and ``--ep`` add theirs.
+
 Usage (four cards of one host, full ResNet-50 and the full-width LM)::
 
-    python -m tensorflowonspark_tpu_torch.examples.sync_dp_check --world 4 [--fsdp]
+    python -m tensorflowonspark_tpu_torch.examples.sync_dp_check --world 4 [--fsdp] [--tp] [--ep]
 
 and a rehearsal on the CPU at a small size::
 
     python -m tensorflowonspark_tpu_torch.examples.sync_dp_check --platform cpu \\
-        --world 4 --size small --steps 3 --pairs 0 [--fsdp]
+        --world 4 --size small --steps 3 --pairs 0 [--fsdp] [--tp] [--ep]
 """
 
 import argparse
@@ -57,24 +72,43 @@ FULL = {"resnet50": dict(batch=64, image=224), "transformer": dict(batch=8, seq=
 SMALL = {"resnet50": dict(batch=4, image=32), "transformer": dict(batch=2, seq=64)}
 
 
-#: the loss gap of a ZeRO-3 leg to the data-parallel leg in float32
-FSDP_REL_TOL = 1e-5
+#: the loss gap of a ZeRO-3, tp or ep leg to the data-parallel leg in float32
+REL_TOL = 1e-5
+#: the model-axes legs' global batch (rows), split over each leg's data axes
+AXES_ROWS = {"full": 8, "small": 4}
+#: the mixture's experts
+EXPERTS = 8
 
 
-def _legs(world, fsdp):
+def _legs(model, world, fsdp):
     """``[(name, mesh axes or None, fsdp)]``: the data-parallel leg (a
-    replica a process, no mesh), then with ``fsdp`` the ZeRO-3 meshes."""
+    replica a process, no mesh), then with ``fsdp`` the ZeRO-3 meshes; for
+    ``transformer_tp`` and ``transformer_moe`` their model-axes meshes."""
     legs = [("dp", None, False)]
-    if fsdp:
-        if world >= 4 and world % 2 == 0:
+    half = world >= 4 and world % 2 == 0
+    if model == "transformer_tp":
+        if half:
+            legs.append(("dp{}_tp2".format(world // 2), {"dp": world // 2, "tp": 2}, False))
+        legs.append(("tp{}".format(world), {"dp": 1, "tp": world}, False))
+        if world >= 4 and world % 4 == 0:
+            legs.append(("dp{}_fsdp2_tp2".format(world // 4), {"dp": world // 4, "fsdp": 2, "tp": 2}, True))
+    elif model == "transformer_moe":
+        legs.append(("ep{}".format(world), {"dp": 1, "ep": world}, False))
+        if half:
+            legs.append(("dp{}_ep2".format(world // 2), {"dp": world // 2, "ep": 2}, False))
+    elif fsdp:
+        if half:
             legs.append(("dp{}_fsdp2".format(world // 2), {"dp": world // 2, "fsdp": 2}, True))
         legs.append(("fsdp{}".format(world), {"dp": 1, "fsdp": world}, True))
     return legs
 
 
-def _models(size, device, dtype_name):
-    """``{name: (build, loss_fn, optimizer factory, loop kwargs, global
-    batch maker)}`` for the slices' two models."""
+def _models(size, device, dtype_name, names):
+    """``{name: (build(mesh), loss_fn, optimizer factory, loop kwargs,
+    global batch maker(rng, world))}`` for the slices' models in
+    ``names``: ``resnet50`` and ``transformer`` (a per-rank batch a rank),
+    ``transformer_tp`` and ``transformer_moe`` (``AXES_ROWS`` rows in
+    all)."""
     import numpy as np
     import torch
 
@@ -84,7 +118,7 @@ def _models(size, device, dtype_name):
     dims = FULL if size == "full" else SMALL
     dtype = getattr(torch, dtype_name)
 
-    def resnet_build():
+    def resnet_build(mesh=None):
         if size == "full":
             return resnet.resnet50(dtype=dtype, bn_impl="pallas", generator=torch.Generator().manual_seed(0))
         return resnet.ResNet((1, 1), (8, 16), num_classes=10, bottleneck=True, stem="imagenet",
@@ -99,26 +133,58 @@ def _models(size, device, dtype_name):
     lm_cfg = (dict(vocab_size=32000, d_model=512, n_layers=6, n_heads=8, d_ff=2048) if size == "full"
               else dict(vocab_size=300, d_model=64, n_layers=2, n_heads=2, d_ff=128))
 
-    def lm_build():
-        return transformer.create_model(dtype=dtype_name,
+    def lm_build(mesh=None, **over):
+        return transformer.create_model(mesh=mesh, dtype=dtype_name,
                                         max_seq_len=dims["transformer"]["seq"],
-                                        generator=torch.Generator().manual_seed(0), **lm_cfg)
+                                        generator=torch.Generator().manual_seed(0), **dict(lm_cfg, **over))
 
-    def lm_batch(rng, world):
-        n, length = dims["transformer"]["batch"] * world, dims["transformer"]["seq"] + 1
+    # groups of 256 tokens at full size (the JAX default), of a row at the
+    # small: a divisor of every rank's token count on every leg
+    moe = dict(moe_experts=EXPERTS, moe_group_size=min(256, dims["transformer"]["seq"]))
+
+    def lm_batch(rng, world, rows=None):
+        n, length = rows or dims["transformer"]["batch"] * world, dims["transformer"]["seq"] + 1
         tokens = rng.integers(1, lm_cfg["vocab_size"], (n, length)).astype(np.int32)
         cut = length // 3
         seg = np.where(np.arange(length) < cut, 1, 2)[None].repeat(n, 0).astype(np.int32)
         pos = np.concatenate([np.arange(cut), np.arange(length - cut)])[None].repeat(n, 0).astype(np.int32)
         return {"tokens": tokens, "segment_ids": seg, "positions": pos}
 
-    return {
+    rows = AXES_ROWS[size]
+    models = {
         "resnet50": (resnet_build, resnet.make_loss_fn(weight_decay=1e-4),
                      lambda: optim.sgd(optim.linear_schedule(0.0, 0.1, 5), momentum=0.9),
                      dict(mutable=True), resnet_batch),
         "transformer": (lm_build, transformer.make_loss_fn(None), lambda: optim.adamw(3e-4),
                         dict(has_aux=True), lm_batch),
+        "transformer_tp": (lm_build, transformer.make_loss_fn(None), lambda: optim.adamw(3e-4),
+                           dict(has_aux=True), lambda rng, world: lm_batch(rng, world, rows)),
+        "transformer_moe": (lambda mesh=None: lm_build(mesh, **moe), transformer.make_loss_fn(None),
+                            lambda: optim.adamw(3e-4), dict(has_aux=True),
+                            lambda rng, world: lm_batch(rng, world, rows)),
     }
+    return {name: models[name] for name in names}
+
+
+def _strategy(where, axes, fsdp, size):
+    """The leg's strategy: a replica a process, or the mesh with the LM's
+    placement rules when it has a model axis."""
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel
+
+    kw = {"min_weight_size": MIN_WEIGHT_SIZE[size]} if fsdp else {}
+    if axes and {"tp", "ep"} & set(axes):
+        kw["param_spec_fn"] = transformer.param_specs
+    return SyncDataParallel(where, fsdp=fsdp, **kw)
+
+
+def _full(state):
+    """The state's parameters and buffers as full tensors (a model split
+    over model axes gathers its blocks: collective)."""
+    params = {key: v.detach().clone() for key, v in state.params.items()}
+    if state.blocks is not None:
+        params = state.blocks.full_tree(params)
+    return dict(params, **{key: v.clone() for key, v in state.model_state.items()})
 
 
 def _rank(rank, world, port, args, out_path):
@@ -127,8 +193,7 @@ def _rank(rank, world, port, args, out_path):
     import torch.distributed as dist
 
     from tensorflowonspark_tpu_torch.ops import flash_attention, fused_bn
-    from tensorflowonspark_tpu_torch.parallel import build_mesh
-    from tensorflowonspark_tpu_torch.train import SyncDataParallel
+    from tensorflowonspark_tpu_torch.parallel import build_mesh, sharding
 
     cuda = args.platform == "gpu"
     if cuda:
@@ -139,7 +204,6 @@ def _rank(rank, world, port, args, out_path):
     device = torch.device("cuda", rank) if cuda else torch.device("cpu")
     dist.init_process_group("nccl" if cuda else "gloo", init_method="tcp://127.0.0.1:{}".format(port),
                             rank=rank, world_size=world)
-    legs = [(name, build_mesh(axes) if axes else device, fsdp) for name, axes, fsdp in _legs(world, args.fsdp)]
     k = args.steps
 
     def sync():
@@ -150,18 +214,20 @@ def _rank(rank, world, port, args, out_path):
         return {fn.__name__: fn.launches for fn in fused_bn.COUNTED + flash_attention.KERNELS}
 
     results = []
-    for name, (build, loss_fn, make_opt, kw, make_batch) in _models(args.size, device, args.dtype).items():
+    for name, (build, loss_fn, make_opt, kw, make_batch) in _models(args.size, device, args.dtype,
+                                                                    args.models).items():
         rng = np.random.default_rng(11)
-        host = []
-        for _ in range(k):
-            batch = make_batch(rng, world)
-            n = next(iter(batch.values())).shape[0] // world
-            host.append({key: v[rank * n:(rank + 1) * n] for key, v in batch.items()})
+        glob = [make_batch(rng, world) for _ in range(k)]
         dp_losses = None
-        for leg, where, fsdp in legs:
-            strategy = SyncDataParallel(where, fsdp=fsdp, **(
-                {"min_weight_size": MIN_WEIGHT_SIZE[args.size]} if fsdp else {}))
-            share = [strategy.shard_batch(b) for b in host]
+        for leg, axes, fsdp in _legs(name, world, args.fsdp):
+            where = build_mesh(axes) if axes else device
+            strategy = _strategy(where, axes, fsdp, args.size)
+            mesh = where if axes and ({"tp", "ep"} & set(axes)) else None
+            index, count = sharding.data_shard(where, rank) if axes else (rank, world)
+            share = []
+            for batch in glob:
+                n = next(iter(batch.values())).shape[0] // count
+                share.append(strategy.shard_batch({key: v[index * n:(index + 1) * n] for key, v in batch.items()}))
             if cuda:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(device)
@@ -169,7 +235,7 @@ def _rank(rank, world, port, args, out_path):
             runs = {}
             for side in ("eager", "loop"):
                 optimizer = make_opt()
-                state = strategy.create_state(build, optimizer)
+                state = strategy.create_state(lambda: build(mesh), optimizer)
                 before = counts()
                 losses = []
                 if side == "eager":
@@ -183,8 +249,7 @@ def _rank(rank, world, port, args, out_path):
                     losses.append(metrics["loss"].detach().reshape(1).clone())
                 sync()
                 launches = {key: n - before[key] for key, n in counts().items()}
-                snap = {key: v.detach().clone() for key, v in dict(state.params, **state.model_state).items()}
-                runs[side] = (snap, torch.cat(losses), launches)
+                runs[side] = (_full(state), torch.cat(losses), launches)
                 if side == "eager":
                     timer = (step, state)
                 else:
@@ -218,11 +283,13 @@ def _rank(rank, world, port, args, out_path):
             line = {
                 "model": name, "leg": leg, "world": world, "platform": args.platform, "size": args.size,
                 "dtype": args.dtype, "steps": k, "batch_per_rank": next(iter(share[0].values())).shape[0],
-                "mesh": dict(zip(where.mesh_dim_names, where.mesh.shape)) if fsdp else None,
+                "mesh": dict(zip(where.mesh_dim_names, where.mesh.shape)) if axes else None,
                 "losses_by_rank": [float(v) for v in losses], "eager_losses": eager_losses,
                 "loop_vs_eager_mismatches": mismatched,
                 "tensors": len(runs["loop"][0]), "tensors_off_rank0": off_rank0,
                 "params_sharded": len(loop_state.sharded.dims) if loop_state.sharded is not None else 0,
+                "params_split": len(loop_state.blocks.specs) if loop_state.blocks is not None else 0,
+                "param_bytes_per_rank": sum(p.numel() * p.element_size() for p in loop_state.module.parameters()),
                 "optimizer_state_bytes_per_rank": sum(
                     t.numel() * t.element_size() for t in _tensors(loop_state.opt_state)),
                 "loop_launches": {key: n for key, n in runs["loop"][2].items() if n},
@@ -271,10 +338,18 @@ def main(argv=None):
     parser.add_argument("--pairs", type=int, default=5, help="eager/captured timing pairs")
     parser.add_argument("--fsdp", action="store_true",
                         help="add the ZeRO-3 legs: dp=world/2 x fsdp=2 (4+ ranks) and dp=1 x fsdp=world")
+    parser.add_argument("--tp", action="store_true",
+                        help="add the LM on dp=world/2 x tp=2, tp=world and dp x fsdp=2 x tp=2 (transformer_tp)")
+    parser.add_argument("--ep", action="store_true",
+                        help="add the 8-expert LM on ep=world and dp=world/2 x ep=2 (transformer_moe)")
+    parser.add_argument("--models", default="resnet50,transformer",
+                        help="comma-separated models of the data-parallel and ZeRO-3 legs ('' for none)")
     parser.add_argument("--dtype", choices=["bfloat16", "float32"], default=None,
                         help="the models' compute dtype; default: bfloat16 on the card, float32 on the CPU")
     args = parser.parse_args(argv)
     args.dtype = args.dtype or ("bfloat16" if args.platform == "gpu" else "float32")
+    args.models = [m for m in args.models.split(",") if m] + ["transformer_tp"] * args.tp + \
+        ["transformer_moe"] * args.ep
     if args.platform == "gpu" and torch.cuda.device_count() < args.world:
         raise SystemExit("sync_dp_check: --world {} needs {} CUDA devices, found {}".format(
             args.world, args.world, torch.cuda.device_count()))
@@ -300,10 +375,10 @@ def main(argv=None):
         print(json.dumps(line), flush=True)
         failed |= bool(line["loop_vs_eager_mismatches"] or line["tensors_off_rank0"]
                        or len(set(line["losses_by_rank"])) != 1)
-        if args.dtype == "float32" and line.get("loss_rel_gap_to_dp", 0) > FSDP_REL_TOL:
+        if args.dtype == "float32" and line.get("loss_rel_gap_to_dp", 0) > REL_TOL:
             failed = True
     if failed:
-        raise SystemExit("sync_dp_check: a rank, the loop or a ZeRO-3 leg disagrees (lines above)")
+        raise SystemExit("sync_dp_check: a rank, the loop or a ZeRO-3, tp or ep leg disagrees (lines above)")
     return lines
 
 

@@ -39,9 +39,11 @@ host ms in ``train.fetch`` / ``train.call`` / ``train.sync`` (and
 set on that call's span as ``device_trace``.
 
 With ``--model_dir`` a run resumes from the newest restorable checkpoint
-there (``checkpoint.restore_latest``, in place) and rank 0 saves the final
-state as ``ckpt_<train_steps>``, as the JAX example does; the text stream
-starts over on resume.
+there (``checkpoint.restore_latest``, in place) and the final state is
+saved as ``ckpt_<train_steps>``, as the JAX example does: by rank 0 when
+every rank holds the same state, by every rank (gathering, rank 0 writing)
+when the state is split over model axes; the text stream starts over on
+resume.
 
 ``--pack_workers N`` packs in N forked workers writing into shared-memory
 slabs (the text plane's decode plane), and ``--slab_cache_dir`` serves
@@ -49,14 +51,21 @@ epoch >= 2 from the packed-slab cache; the pipeline's iterator is taken
 before the trainer touches CUDA, so the workers fork from a process without
 a CUDA context. The stream is byte-identical in every mode.
 
-``--mesh dp=D,fsdp=F`` trains on ``ctx.mesh`` over the cluster's ranks
-(one card each): as in the JAX example, the batch is split over ``dp`` ×
-``fsdp`` and the parameters stay replicated (``SyncDataParallel(mesh)``);
-without ``--mesh`` each process holds a replica on ``ctx.device``.
+``--mesh dp=D,fsdp=F,tp=T,ep=E`` trains on ``ctx.mesh`` over the
+cluster's ranks (one card each): as in the JAX example, the batch is split
+over ``dp`` × ``fsdp`` and the parameters the model's rules do not place
+stay replicated; ``tp`` splits attention heads, the MLP's hidden dim and
+the vocabulary (``SyncDataParallel(mesh, param_spec_fn=transformer.param_specs)``),
+``ep`` the experts of ``--moe_experts N``, on a model built from each
+rank's blocks (``create_model(mesh=...)``). Ranks that differ only in
+their ``tp`` or ``ep`` coordinate read the same shards with the same seed,
+so they train on the same batches (each logged step's span carries
+``batch_digest``, a digest of the batches trained so far). Without
+``--mesh`` each process holds a replica on ``ctx.device``. ``--remat``
+recomputes each block's activations in the backward.
 
-Not yet ported, and refused with an error: ``--moe_experts`` > 0,
-``--mesh`` axes other than ``dp`` and ``fsdp`` (tensor and sequence
-parallelism, ring attention) and ``--remat``.
+Not yet ported, and refused with an error: a ``--mesh`` with ``sp``
+(sequence parallelism, ring attention).
 """
 
 import argparse
@@ -109,18 +118,39 @@ def parse_mesh(spec):
 
 def refuse_unported(args):
     """Raise for the options whose machinery is not yet ported."""
-    model_axes = sorted(set(parse_mesh(args.mesh) or {}) - {"dp", "fsdp"})
-    unported = [
-        ("--moe_experts", args.moe_experts > 0, "mixture of experts"),
-        ("--mesh " + ",".join(model_axes), model_axes, "model axes (tp/sp/ep, ring attention)"),
-        ("--remat", args.remat, "rematerialization"),
-    ]
-    for flag, value, what in unported:
-        if value:
-            raise NotImplementedError(
-                "{} is not yet ported to tensorflowonspark_tpu_torch ({} comes in a "
-                "later slice)".format(flag, what)
-            )
+    if "sp" in (parse_mesh(args.mesh) or {}):
+        raise NotImplementedError(
+            "--mesh {} is not yet ported to tensorflowonspark_tpu_torch (sequence "
+            "parallelism, ring attention, comes in a later slice)".format(args.mesh)
+        )
+
+
+class _Digest:
+    """A digest of the batches trained so far: :meth:`wrap` passes a
+    stream's batches through, queueing each one's token digest (the
+    prefetch may run ahead of training), and :meth:`trained` folds the
+    first ``n`` into a running sha256."""
+
+    def __init__(self):
+        import collections
+        import hashlib
+
+        self.queued, self.hash, self.folded = collections.deque(), hashlib.sha256(), 0
+
+    def wrap(self, stream):
+        import hashlib
+
+        import numpy as np
+
+        for batch in stream:
+            self.queued.append(hashlib.sha256(np.ascontiguousarray(batch["tokens"]).tobytes()).digest())
+            yield batch
+
+    def trained(self, n):
+        while self.folded < n:
+            self.hash.update(self.queued.popleft())
+            self.folded += 1
+        return self.hash.hexdigest()[:16]
 
 
 def main_fun(args, ctx):
@@ -138,21 +168,30 @@ def main_fun(args, ctx):
     from tensorflowonspark_tpu_torch.models import transformer
     from tensorflowonspark_tpu_torch.ops import flash_attention
     from tensorflowonspark_tpu_torch.ops.kernel_trace import KernelTrace
+    from tensorflowonspark_tpu_torch.parallel import sharding
     from tensorflowonspark_tpu_torch.train import SyncDataParallel, checkpoint, optim
 
     refuse_unported(args)
+    axes = parse_mesh(args.mesh)
+    # this rank's share of the data: by its coordinate over the mesh's data
+    # axes (the ranks of a tp or ep group read the same shards, seeded
+    # alike), or a share a worker without a mesh
+    if axes:
+        share, shares = sharding.data_shard(ctx.mesh_plan(axes), ctx.process_id)
+    else:
+        share, shares = ctx.executor_id, ctx.num_workers
     # real corpus: per-worker TFRecord text shards → tokenize → FFD-pack
     # into [B, seq_len+1] (the +1 feeds the shift-by-one LM loss), with
     # segment_ids/positions fencing packed sequences in the attention mask
     all_files = tfr.list_shards(args.data_dir)
-    files = shard_files(all_files, ctx.num_workers, ctx.executor_id)
+    files = shard_files(all_files, shares, share)
     if not files:
         # fail loudly NOW: a worker with no data would sit out the
         # collective train steps and hang the whole world at step 1
         raise RuntimeError(
-            "worker {} got 0 of {} shard files in {} — distributed training "
-            "needs at least num_workers ({}) shard files".format(
-                ctx.executor_id, len(all_files), args.data_dir, ctx.num_workers
+            "data share {} got 0 of {} shard files in {} — distributed training "
+            "needs at least as many shard files as data shares ({})".format(
+                share, len(all_files), args.data_dir, shares
             )
         )
     tokenizer = Tokenizer(
@@ -167,19 +206,24 @@ def main_fun(args, ctx):
         )
     pipe = TextPipeline(
         files, tokenizer, seq_len=args.seq_len + 1, batch_size=args.batch_size,
-        seed=ctx.executor_id, epochs=None, max_bad_records=args.max_bad_records,
+        seed=share, epochs=None, max_bad_records=args.max_bad_records,
         pack_workers=args.pack_workers, slab_cache_dir=args.slab_cache_dir,
     )
     # taken before the trainer touches CUDA: a pack plane forks its workers
     # here, from a process without a CUDA context
     stream = iter(pipe)
     ctx.initialize_distributed()
-    axes = parse_mesh(args.mesh)
-    strategy = SyncDataParallel(ctx.mesh(axes) if axes else ctx.device)
+    mesh = ctx.mesh(axes) if axes else None
+    model_axes = set(axes or {}) & {"tp", "ep"}
+    # as the JAX example: the model's rules place what a model axis splits
+    strategy = (SyncDataParallel(mesh, param_spec_fn=transformer.param_specs if model_axes else None)
+                if mesh is not None else SyncDataParallel(ctx.device))
     model = transformer.create_model(
+        mesh=mesh if model_axes else None,
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff,
-        max_seq_len=args.seq_len, dtype=args.dtype,
+        max_seq_len=args.seq_len, dtype=args.dtype, remat=args.remat,
+        moe_experts=args.moe_experts,
     )
     optimizer = optim.adamw(args.learning_rate)
     state = strategy.create_state(
@@ -205,8 +249,9 @@ def main_fun(args, ctx):
 
     # placed ahead through pinned buffers: whole windows of K for the loop,
     # single batches for the eager step
-    feed = (loop_prefetch(stream, strategy, steps_per_loop) if loop is not None
-            else device_prefetch(stream, strategy))
+    digest = _Digest()
+    feed = (loop_prefetch(digest.wrap(stream), strategy, steps_per_loop) if loop is not None
+            else device_prefetch(digest.wrap(stream), strategy))
 
     launches0 = flash_attention.launch_counts()
     t0, metrics = time.perf_counter(), {}
@@ -235,7 +280,7 @@ def main_fun(args, ctx):
                         loss = float(metrics["loss"])  # waits for the device
                     dt = time.perf_counter() - t0
                     tps = args.batch_size * args.seq_len * (i - last_log) / dt
-                    sp.set(loss=loss, tokens_per_sec=tps)
+                    sp.set(loss=loss, tokens_per_sec=tps, batch_digest=digest.trained(i - start_step))
                     print("step {}: loss {:.3f} ({:.0f} tokens/s)".format(i, loss, tps))
                     last_log, t0 = i, time.perf_counter()
             if trace is not None:
@@ -243,7 +288,7 @@ def main_fun(args, ctx):
                 print("device trace of call {}: {}".format(calls, json.dumps(trace.readings)))
     feed.close()
     stream.close()  # stop the producer before teardown
-    if args.model_dir and ctx.process_id == 0:  # every rank holds the same state
+    if args.model_dir and (ctx.process_id == 0 or checkpoint.save_is_collective(state)):
         with obs.span("ckpt_save", step=args.train_steps):
             checkpoint.save_checkpoint(
                 os.path.join(args.model_dir, "ckpt_{}".format(args.train_steps)), state)
@@ -273,11 +318,12 @@ def build_parser():
     parser.add_argument("--log_steps", type=int, default=10)
     parser.add_argument("--max_bad_records", type=int, default=0)
     parser.add_argument("--mesh", default=None,
-                        help="data axes over the ranks, e.g. dp=2,fsdp=2 (model axes are not yet "
-                             "ported); default: a replica a process")
+                        help="mesh axes over the ranks, e.g. dp=2,fsdp=2 or dp=2,tp=2 or dp=1,ep=4 "
+                             "(sp is not yet ported); default: a replica a process")
     parser.add_argument("--model_dir", default=None,
                         help="checkpoint dir: resume from its newest checkpoint, save the final state")
-    parser.add_argument("--moe_experts", type=int, default=0, help="not yet ported above 0")
+    parser.add_argument("--moe_experts", type=int, default=0,
+                        help=">0: a mixture of that many experts in every block, split over the mesh's ep")
     parser.add_argument("--n_heads", type=int, default=8)
     parser.add_argument("--n_layers", type=int, default=2)
     parser.add_argument("--pack_workers", type=int, default=0,
@@ -285,7 +331,8 @@ def build_parser():
                              "shared-memory slabs (forked before the trainer touches CUDA)")
     parser.add_argument("--platform", choices=["gpu", "cpu"], default="gpu",
                         help="device of each trainer: one CUDA device per process, or the CPU")
-    parser.add_argument("--remat", action="store_true", help="not yet ported")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute each block's activations in the backward")
     parser.add_argument("--seq_len", type=int, default=256)
     parser.add_argument("--slab_cache_dir", default=None,
                         help="packed-slab cache root: epoch >= 2 (or a warm relaunch) serves token "

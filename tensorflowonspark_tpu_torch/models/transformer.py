@@ -15,13 +15,28 @@ Attention goes through :func:`_dispatch_attention`: ``flash`` runs the
 port's CUDA kernels (:mod:`~tensorflowonspark_tpu_torch.ops.flash_attention`;
 their plain versions on a CPU tensor), ``plain`` the dense reference, and
 ``auto`` the kernels on a CUDA tensor and the dense reference on the CPU.
-Mixture of experts, ring attention, tensor
-parallelism (``param_specs``) and rematerialization come with the
-model-axes slice and raise here.
+
+``moe_experts > 0`` swaps every block's MLP for :class:`MoeMlp`, the JAX
+package's switch-routed mixture of experts; ``remat`` recomputes each
+block's activations in the backward (``torch.utils.checkpoint``).
+
+On a mesh (``create_model(mesh=...)``) the model is built from this rank's
+blocks of the parameters that :func:`param_specs` places on a model axis:
+the JAX package's rules, where ``tp`` splits attention heads, the MLP's
+hidden dim, the vocabulary of ``lm_head`` and the experts' hidden dim, and
+``ep`` the experts. Each split layer runs its part and joins the others
+through the gradient-carrying collectives of
+:mod:`~tensorflowonspark_tpu_torch.parallel.collectives` (Megatron-LM's
+column- and row-parallel pairs); a dim that the rule drops leaves its layer
+whole, with no collective. The JAX model constrains its activations'
+sharding (``Transformer._constrain``) for XLA; here every rank holds its
+activations whole, so that has no counterpart. Sequence parallelism
+(``sp``, ring attention) is not yet ported and raises.
 """
 
 import dataclasses
 import math
+import re
 
 import torch
 import torch.nn.functional as F
@@ -44,12 +59,21 @@ class TransformerConfig:
     d_ff: int = 2048
     max_seq_len: int = 2048
     dtype: str = "float32"  # compute dtype; params stay float32
-    remat: bool = False  # not yet ported
+    remat: bool = False  # checkpoint each block: FLOPs for memory
     #: "auto" — the flash kernels on a CUDA tensor, plain attention on
     #: the CPU; or force "flash"/"plain"
     attention: str = "auto"
-    #: >0: mixture-of-experts MLPs (not yet ported)
+    #: >0 switches every block's MLP to a switch-routed mixture of experts,
+    #: split over the mesh's ``ep`` axis (expert parallelism)
     moe_experts: int = 0
+    #: per-expert capacity per token group = factor * group_size / experts
+    moe_capacity_factor: float = 1.25
+    #: weight of the router load-balancing auxiliary loss
+    moe_aux_weight: float = 0.01
+    #: dispatch group size (GShard-style): the dispatch and combine masks
+    #: grow as factor * tokens * group_size, linear in the tokens; shrunk
+    #: to a divisor of a rank's token count
+    moe_group_size: int = 256
 
     @property
     def head_dim(self):
@@ -105,21 +129,66 @@ def _trunc_normal_(w, fan_in, generator):
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
+class _Blocks:
+    """Where a model built on a mesh cuts its parameters: for each name,
+    the model-axis entries of its spec (:func:`param_specs`). Without a
+    mesh every parameter is whole."""
+
+    def __init__(self, mesh=None, specs=None):
+        self.mesh, self.specs = mesh, specs or {}
+
+    def cut(self, name):
+        """``((port dim, parts, index), ...)``: this rank's block of
+        parameter ``name``."""
+        from tensorflowonspark_tpu_torch.parallel import collectives
+
+        return tuple((d, collectives.axis_size(a, self.mesh), collectives.axis_index(a, self.mesh))
+                     for d, a in enumerate(self.specs.get(name, ())) if a)
+
+    def group(self, *names):
+        """The process group over the model axes that cut any of ``names``
+        (in the mesh's order), or None when none does."""
+        from tensorflowonspark_tpu_torch.parallel import collectives
+
+        axes = {a for n in names for a in self.specs.get(n, ()) if a}
+        if not axes:
+            return None
+        return collectives.axes_group(self.mesh, tuple(a for a in self.mesh.mesh_dim_names if a in axes))
+
+
+def _block_of(full, cut):
+    for d, parts, index in cut:
+        full = full.chunk(parts, d)[index]
+    return full
+
+
+def _draw_(param, full_shape, cut, draw):
+    """Fill ``param`` with its block of a full tensor that ``draw`` fills
+    (so a model on a mesh draws the numbers the whole model draws)."""
+    full = torch.empty(full_shape, device=param.device)
+    draw(full)
+    param.copy_(_block_of(full, cut))
+
+
 class Dense(nn.Module):
     """``flax.linen.Dense(use_bias=False)`` / ``DenseGeneral``: ``weight``
-    ``[out, in]`` in float32, the product in ``dtype``. ``fan_in`` is the
-    flax kernel's contracted size (its lecun-normal scale)."""
+    ``[out, in]`` in float32, the product in ``dtype``. ``cut`` takes this
+    rank's block of the ``[out, in]`` weight (``((dim, parts, index),
+    ...)``); the lecun-normal scale is the whole kernel's fan-in."""
 
-    def __init__(self, in_features, out_features, dtype=torch.float32):
+    def __init__(self, in_features, out_features, dtype=torch.float32, cut=()):
         super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.dtype, self.cut = dtype, cut
+        self.full_shape = (out_features, in_features)
+        self.weight = nn.Parameter(torch.empty(_block_of(torch.empty(self.full_shape, device="meta"), cut).shape))
 
     def forward(self, x):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
 
+    @torch.no_grad()
     def reset_parameters(self, generator=None):
-        _trunc_normal_(self.weight, self.weight.shape[1], generator)
+        _draw_(self.weight, self.full_shape, self.cut,
+               lambda w: _trunc_normal_(w, self.full_shape[1], generator))
 
 
 class RMSNorm(nn.Module):
@@ -140,74 +209,223 @@ class RMSNorm(nn.Module):
         nn.init.ones_(self.weight)
 
 
+def _open(x, group):
+    if group is None:
+        return x
+    from tensorflowonspark_tpu_torch.parallel.collectives import copy_to_region
+
+    return copy_to_region(x, group)
+
+
+def _close(x, group):
+    if group is None:
+        return x
+    from tensorflowonspark_tpu_torch.parallel.collectives import reduce_from_region
+
+    return reduce_from_region(x, group)
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg):
+    """Causal self-attention. Split over ``tp`` (the heads), ``q``/``k``/
+    ``v`` are column-parallel and ``o`` row-parallel: the input enters the
+    region by ``copy_to_region``, each rank attends with its heads, and
+    ``o``'s partial products leave it by ``reduce_from_region``."""
+
+    def __init__(self, cfg, blocks=None, prefix=""):
         super().__init__()
+        blocks = blocks or _Blocks()
         self.cfg = cfg
         dt, width = cfg.compute_dtype, cfg.n_heads * cfg.head_dim
-        self.q = Dense(cfg.d_model, width, dt)
-        self.k = Dense(cfg.d_model, width, dt)
-        self.v = Dense(cfg.d_model, width, dt)
-        self.o = Dense(width, cfg.d_model, dt)
+        self.q = Dense(cfg.d_model, width, dt, blocks.cut(prefix + "q.weight"))
+        self.k = Dense(cfg.d_model, width, dt, blocks.cut(prefix + "k.weight"))
+        self.v = Dense(cfg.d_model, width, dt, blocks.cut(prefix + "v.weight"))
+        self.o = Dense(width, cfg.d_model, dt, blocks.cut(prefix + "o.weight"))
+        self.heads = self.q.weight.shape[0] // cfg.head_dim
+        self.group = blocks.group(*(prefix + n + ".weight" for n in "qkvo"))
 
     def forward(self, x, positions, segment_ids=None):
         cfg = self.cfg
         b, length, _ = x.shape
-        heads = lambda t: t.view(b, length, cfg.n_heads, cfg.head_dim)  # noqa: E731
+        x = _open(x, self.group)
+        heads = lambda t: t.view(b, length, self.heads, cfg.head_dim)  # noqa: E731
         q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))  # [B, L, H, D]
         q = _rope(q, positions)
         k = _rope(k, positions)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, L, D]
         out = _dispatch_attention(q, k, v, cfg.attention, segment_ids=segment_ids)
-        return self.o(out.transpose(1, 2).reshape(b, length, -1))
+        return _close(self.o(out.transpose(1, 2).reshape(b, length, -1)), self.group)
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg):
+    """tanh-GELU MLP. Split over ``tp`` (the hidden dim), ``wi`` is
+    column-parallel and ``wo`` row-parallel."""
+
+    def __init__(self, cfg, blocks=None, prefix=""):
         super().__init__()
+        blocks = blocks or _Blocks()
         dt = cfg.compute_dtype
-        self.wi = Dense(cfg.d_model, cfg.d_ff, dt)
-        self.wo = Dense(cfg.d_ff, cfg.d_model, dt)
+        self.wi = Dense(cfg.d_model, cfg.d_ff, dt, blocks.cut(prefix + "wi.weight"))
+        self.wo = Dense(cfg.d_ff, cfg.d_model, dt, blocks.cut(prefix + "wo.weight"))
+        self.group = blocks.group(prefix + "wi.weight", prefix + "wo.weight")
 
     def forward(self, x):
-        return self.wo(F.gelu(self.wi(x), approximate="tanh"))  # flax nn.gelu: tanh form
+        h = F.gelu(self.wi(_open(x, self.group)), approximate="tanh")  # flax nn.gelu: tanh form
+        return _close(self.wo(h), self.group)
+
+
+class MoeMlp(nn.Module):
+    """Switch-routed (top-1) mixture-of-experts MLP with dense dispatch —
+    the JAX package's ``MoeMlp``, in the same arithmetic and order: tokens
+    in GShard groups of ``moe_group_size`` (shrunk to a divisor of the
+    token count), an f32 router and softmax, the top-1 ``argmax``, each
+    token's place in its expert's buffer by ``cumsum``, tokens past the
+    capacity ``int(factor * group / E)`` dropped, and the ``[G_n, G, E,
+    C]`` dispatch and combine masks; the expert products in the compute
+    dtype. ``wi`` ``[E, d_model, d_ff]`` and ``wo`` ``[E, d_ff, d_model]``
+    keep the flax layout.
+
+    The Switch balancing loss ``E * sum_e f_e * p_e`` (``f_e`` the share of
+    tokens routed to expert e, ``p_e`` its mean router probability) is kept
+    as :attr:`aux` after each forward (the JAX module sows it). Its means
+    are over the global batch: with more than one data rank the counts and
+    probabilities are summed over the data group (``global_sum``).
+
+    Over ``ep`` the experts are split, and ``ep`` is not a data axis: every
+    rank of an ``ep`` group holds the same tokens. Each routes all of them
+    with the replicated router, runs its ``E/ep`` experts on their slice of
+    the masks, and combines a partial output that ``reduce_from_region``
+    sums over the group — the JAX package's semantics with no all-to-all.
+    The expert input and the gate enter the region by ``copy_to_region``,
+    so the router's and the input's gradients are whole on every rank.
+    ``tp`` splits each expert's hidden dim the same way."""
+
+    def __init__(self, cfg, blocks=None, prefix=""):
+        super().__init__()
+        blocks = blocks or _Blocks()
+        self.cfg = cfg
+        e, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
+        self.router = Dense(d, e, torch.float32, blocks.cut(prefix + "router.weight"))
+        self.cuts = {n: blocks.cut(prefix + n) for n in ("wi", "wo")}
+        self.full_shapes = {"wi": (e, d, f), "wo": (e, f, d)}
+        for n, shape in self.full_shapes.items():
+            self.register_parameter(n, nn.Parameter(torch.empty(
+                _block_of(torch.empty(shape, device="meta"), self.cuts[n]).shape)))
+        self.group = blocks.group(prefix + "wi", prefix + "wo")
+        cut = dict((dim, (parts, index)) for dim, parts, index in self.cuts["wi"])
+        parts, index = cut.get(0, (1, 0))
+        self.experts = slice(index * (e // parts), (index + 1) * (e // parts))
+        self.aux = None
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        for n, shape in self.full_shapes.items():  # flax lecun_normal: fan_in = E * in
+            _draw_(getattr(self, n), shape, self.cuts[n],
+                   lambda w, s=shape: _trunc_normal_(w, s[0] * s[1], generator))
+
+    def forward(self, x):
+        from tensorflowonspark_tpu_torch.parallel import collectives
+
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        e = cfg.moe_experts
+        b, length, d = x.shape
+        tokens = b * length
+        group = min(cfg.moe_group_size or tokens, tokens)
+        while tokens % group:
+            group -= 1
+        n_groups = tokens // group
+        capacity = max(1, int(cfg.moe_capacity_factor * group / e))
+
+        xg = x.reshape(n_groups, group, d)
+        gates = torch.softmax(self.router(xg.float()), dim=-1)  # [G_n, G, E]
+        expert_idx = torch.argmax(gates, dim=-1)  # [G_n, G]
+        onehot = F.one_hot(expert_idx, e).float()  # [G_n, G, E]
+        gate = torch.sum(gates * onehot, dim=-1)  # [G_n, G]
+
+        # each token's place in its expert's per-group buffer; tokens past
+        # the capacity drop (switch overflow)
+        position = torch.cumsum(onehot, dim=1) * onehot - 1.0  # [G_n, G, E]
+        keep = (position < capacity) & (onehot > 0)
+        pos_cap = torch.clamp(position, 0, capacity - 1).long()
+        dispatch = keep[..., None] & F.one_hot(pos_cap, capacity).bool()  # [G_n, G, E, C]
+
+        # load-balancing loss (Switch eq. 4) over the global batch
+        counts, probs, n = onehot.sum((0, 1)), gates.sum((0, 1)), float(tokens)
+        if collectives.data_size() > 1:
+            import torch.distributed as dist
+
+            counts = counts.clone()
+            dist.all_reduce(counts, group=collectives.data_group())
+            probs = collectives.global_sum(probs, collectives.data_group())
+            n *= collectives.data_size()
+        self.aux = e * torch.sum((counts / n) * (probs / n))
+
+        local = dispatch[:, :, self.experts]
+        combine = local.float() * _open(gate, self.group)[..., None, None]
+        expert_in = torch.einsum(
+            "gtec,gtd->gecd", local.to(dt), _open(xg, self.group).to(dt))  # [G_n, E, C, D]
+        h = F.gelu(torch.einsum("gecd,edf->gecf", expert_in, self.wi.to(dt)), approximate="tanh")
+        out_e = torch.einsum("gecf,efd->gecd", h, self.wo.to(dt))  # [G_n, E, C, D]
+        yg = torch.einsum("gtec,gecd->gtd", combine.to(dt), out_e)
+        return _close(yg.reshape(b, length, d), self.group)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, blocks=None, prefix=""):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, cfg.compute_dtype)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, blocks, prefix + "attn.")
         self.ln2 = RMSNorm(cfg.d_model, cfg.compute_dtype)
-        self.mlp = Mlp(cfg)
+        if cfg.moe_experts > 0:
+            self.moe = MoeMlp(cfg, blocks, prefix + "moe.")
+        else:
+            self.mlp = Mlp(cfg, blocks, prefix + "mlp.")
 
     def forward(self, x, positions, segment_ids=None):
         x = x + self.attn(self.ln1(x), positions, segment_ids)
-        return x + self.mlp(self.ln2(x))
+        ffn = self.moe if hasattr(self, "moe") else self.mlp
+        return x + ffn(self.ln2(x))
 
 
 class Transformer(nn.Module):
     """Parameters are initialised as flax initialises them (lecun-normal
     Dense kernels, ``embed`` normal with std ``1/sqrt(d_model)``, RMSNorm
-    scales 1), drawn from ``generator`` when one is given."""
+    scales 1), drawn from ``generator`` when one is given.
 
-    def __init__(self, cfg, generator=None):
+    ``mesh`` (a ``DeviceMesh``): the model holds this rank's blocks of the
+    parameters :func:`param_specs` places on a model axis
+    (:attr:`model_specs`, ``{name: spec}`` of those axes' entries;
+    :attr:`full_shapes` the whole tensors' shapes). A block holds the
+    numbers the whole model draws there from the same generator."""
+
+    def __init__(self, cfg, generator=None, mesh=None):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "moe_experts > 0 (mixture of experts) is not yet ported to "
-                "tensorflowonspark_tpu_torch; it comes with the model-axes slice"
-            )
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat is not yet ported to tensorflowonspark_tpu_torch"
-            )
-        self.cfg = cfg
+        self.cfg, self.mesh = cfg, mesh
+        self.model_specs = {}
+        if mesh is not None:
+            if "sp" in mesh.mesh_dim_names:
+                raise NotImplementedError(
+                    "sequence parallelism (an 'sp' mesh axis, ring attention) is not yet "
+                    "ported to tensorflowonspark_tpu_torch")
+            from tensorflowonspark_tpu_torch.parallel.sharding import model_spec
+
+            with torch.device("meta"):
+                whole = Transformer(cfg)
+            self.model_specs = {n: model_spec(s) for n, s in param_specs(whole, mesh).items()
+                                if any(model_spec(s))}
+        blocks = _Blocks(mesh, self.model_specs)
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model)
         for i in range(cfg.n_layers):
-            self.add_module("layer_{}".format(i), Block(cfg))
+            self.add_module("layer_{}".format(i), Block(cfg, blocks, "layer_{}.".format(i)))
         self.ln_f = RMSNorm(cfg.d_model, cfg.compute_dtype)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.compute_dtype)
+        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.compute_dtype, blocks.cut("lm_head.weight"))
+        self.head_group = blocks.group("lm_head.weight")
+        self.full_shapes = {n: tuple(p.shape) for n, p in self.named_parameters()}
+        for prefix, m in self.named_modules():
+            if isinstance(m, Dense):
+                self.full_shapes[prefix + ".weight"] = m.full_shape
+            elif isinstance(m, MoeMlp):
+                self.full_shapes.update((prefix + "." + n, shape) for n, shape in m.full_shapes.items())
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator=None):
@@ -215,8 +433,14 @@ class Transformer(nn.Module):
         with torch.no_grad():
             self.embed.weight.normal_(0.0, math.sqrt(1.0 / self.cfg.d_model), generator=generator)
             for m in self.modules():
-                if isinstance(m, (Dense, RMSNorm)):
+                if isinstance(m, (Dense, RMSNorm, MoeMlp)):
                     m.reset_parameters(generator)
+
+    def moe_aux(self):
+        """The mean over the MoE layers of their last forward's balancing
+        loss (None without experts)."""
+        aux = [m.aux for m in self.modules() if isinstance(m, MoeMlp)]
+        return sum(aux) / len(aux) if aux else None
 
     def forward(self, tokens, positions=None, segment_ids=None):
         cfg = self.cfg
@@ -224,24 +448,85 @@ class Transformer(nn.Module):
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :].expand(tokens.shape)
         for i in range(cfg.n_layers):
-            x = getattr(self, "layer_{}".format(i))(x, positions, segment_ids)
-        return self.lm_head(self.ln_f(x)).float()
+            layer = getattr(self, "layer_{}".format(i))
+            if cfg.remat and torch.is_grad_enabled():
+                from torch.utils.checkpoint import checkpoint
+
+                # no RNG in a block: nothing to replay, and the RNG state
+                # cannot be read inside a CUDA-graph capture
+                x = checkpoint(layer, x, positions, segment_ids, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, positions, segment_ids)
+        logits = self.lm_head(_open(self.ln_f(x), self.head_group))
+        if self.head_group is not None:
+            from tensorflowonspark_tpu_torch.parallel.collectives import gather_from_region
+
+            logits = gather_from_region(logits, self.head_group, -1)
+        return logits.float()
 
 
-def param_specs(*args, **kwargs):
-    raise NotImplementedError(
-        "param_specs (tensor-parallel placement) is not yet ported to "
-        "tensorflowonspark_tpu_torch; SyncDataParallel replicates the model"
-    )
+#: path-regex → PartitionSpec-template rules for tensor parallelism, on the
+#: flax paths and layouts of the JAX package (``convert.flax_names`` /
+#: ``convert.flax_layouts`` give a port parameter's); dims not named here
+#: fall back to fsdp placement when an fsdp axis exists.
+_TP_RULES = (
+    (r"attn/(q|k|v)/kernel$", ("fsdp", "tp", None)),  # [d_model, H, head_dim]
+    (r"attn/o/kernel$", ("tp", None, "fsdp")),  # [H, head_dim, d_model]
+    (r"mlp/wi/kernel$", ("fsdp", "tp")),  # [d_model, d_ff]
+    (r"mlp/wo/kernel$", ("tp", "fsdp")),  # [d_ff, d_model]
+    (r"moe/router/kernel$", (None, None)),  # [d_model, E] — replicated
+    (r"moe/wi$", ("ep", "fsdp", "tp")),  # [E, d_model, d_ff]
+    (r"moe/wo$", ("ep", "tp", "fsdp")),  # [E, d_ff, d_model]
+    (r"embed/embedding$", ("fsdp", None)),  # [vocab, d_model]
+    (r"lm_head/kernel$", ("fsdp", "tp")),  # [d_model, vocab]
+)
+
+
+def param_specs(module, mesh, tp_axis="tp"):
+    """``{name: spec}`` for the transformer's parameters over ``mesh``: the
+    tp rules above, replication for the rest; the fsdp overlay
+    (``SyncDataParallel(fsdp=True)``) completes them. Axes not present in
+    the mesh are dropped from the specs, so the same rules serve dp-only,
+    dp×tp, dp×fsdp×tp, dp×ep. ``tp_axis`` renames the mesh axis the
+    tensor-parallel dims land on; the rules themselves always say
+    ``"tp"``. An axis whose mesh size does not divide the dim it names is
+    dropped for that dim (degrade to replicated), so undersized debug
+    models still place.
+
+    The rules name the dims of each parameter's flax layout (the whole
+    tensor's, ``module.full_shapes`` for a model built on a mesh); a spec
+    names the port tensor's dims (``convert.flax_layouts``)."""
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.parallel.mesh import mesh_shape
+    from tensorflowonspark_tpu_torch.parallel.sharding import _to_port
+
+    sizes = mesh_shape(mesh)
+    keys = convert.flax_names(module)
+    specs = {}
+    for name, (shape, dims) in convert.flax_layouts(module).items():
+        spec = ()
+        for pattern, template in _TP_RULES:
+            if re.search(pattern, keys[name]):
+                entries = [None] * (max(dims) + 1)
+                for i, a in enumerate(tp_axis if a == "tp" else a for a in template):
+                    if a in sizes and shape[i] % sizes[a] == 0:
+                        d = _to_port(i, shape, dims)
+                        if entries[d] is not None:
+                            raise ValueError("{}: axes {} and {} on one dim".format(name, entries[d], a))
+                        entries[d] = a
+                spec = tuple(entries)
+                break
+        specs[name] = spec
+    return specs
 
 
 @register("transformer")
 def create_model(mesh=None, generator=None, **cfg):
-    """``Transformer(TransformerConfig(**cfg))``; ``mesh`` must be None
-    (model axes are not yet ported)."""
-    if mesh is not None:
-        raise NotImplementedError("a model mesh is not yet ported to tensorflowonspark_tpu_torch")
-    return Transformer(TransformerConfig(**cfg), generator=generator)
+    """``Transformer(TransformerConfig(**cfg))``; on ``mesh`` (a
+    ``DeviceMesh``) built from this rank's blocks of the parameters
+    :func:`param_specs` places on its model axes."""
+    return Transformer(TransformerConfig(**cfg), generator=generator, mesh=mesh)
 
 
 def make_init_fn(model):
@@ -259,6 +544,8 @@ def make_loss_fn(model):
     """Next-token LM loss for ``SyncDataParallel.compile_train_step(...,
     has_aux=True)``: ``loss_fn(module, batch) -> (loss, {"perplexity"})``;
     batch = ``{"tokens": int [B, L]}`` (optionally with ``{"mask": [B, L]}``).
+    A mixture-of-experts model adds ``moe_aux_weight`` times the layers'
+    mean balancing loss, reported as ``metrics["moe_aux"]``.
 
     Packed batches from the text plane also carry ``segment_ids`` and
     ``positions`` (``int [B, L]``): segments fence attention
@@ -291,6 +578,11 @@ def make_loss_fn(model):
             loss = (losses * mask).sum() / torch.clamp_min(mask.sum(), 1)
         else:
             loss = losses.mean()
-        return loss, {"perplexity": torch.exp(loss.detach())}
+        metrics = {"perplexity": torch.exp(loss.detach())}
+        moe_aux = module.moe_aux()
+        if moe_aux is not None:
+            metrics["moe_aux"] = moe_aux.detach()
+            loss = loss + module.cfg.moe_aux_weight * moe_aux
+        return loss, metrics
 
     return loss_fn

@@ -199,3 +199,111 @@ def axis_size(axis_name, mesh):
     names = mesh.mesh_dim_names
     axes = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
     return math.prod(mesh.mesh.shape[names.index(a)] for a in axes)
+
+
+# -- Collectives that carry a gradient ------------------------------------
+#
+# The functions above have no backward. A layer split over a model axis
+# (tensor parallelism over ``tp``, experts over ``ep``) needs the conjugate
+# pairs of Megatron-LM, where each collective's backward is the transpose
+# of its forward over the same group:
+#
+#   copy_to_region      identity            | all-reduce of the gradient
+#   reduce_from_region  all-reduce (sum)    | identity
+#   gather_from_region  all-gather on dim   | this rank's slice of the gradient
+#   global_sum          all-reduce (sum)    | all-reduce of the gradient
+#
+# A region opens with ``copy_to_region`` on its input (each rank's part of
+# the layer back-propagates a partial gradient into it) and closes with
+# ``reduce_from_region`` on its partial output (or ``gather_from_region``
+# on an output split along a dim). ``global_sum`` is a statistic of the
+# data axes that every rank's loss uses, as the MoE balancing loss does:
+# the strategy averages the ranks' gradients, so each rank's share of it
+# must carry the sum of theirs. At a group of one rank every function
+# moves the bytes as they are. ``group`` None is the world.
+
+
+def _autograd():
+    """The region functions, made at first use (the module imports no
+    torch)."""
+    fns = _AUTOGRAD.get("fns")
+    if fns is not None:
+        return fns
+    import torch
+    import torch.distributed as dist
+
+    def all_reduce(x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    class CopyToRegion(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            ctx.group = group
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return all_reduce(grad, ctx.group), None
+
+    class ReduceFromRegion(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            return all_reduce(x, group)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad, None
+
+    class GatherFromRegion(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group, dim):
+            d = dim % x.dim()
+            ctx.dim, ctx.rank = d, dist.get_rank(group)
+            ctx.n = dist.get_world_size(group)
+            return gather_blocks(x, group).movedim(0, d).flatten(d, d + 1)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad.chunk(ctx.n, ctx.dim)[ctx.rank].contiguous(), None, None
+
+    class GlobalSum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            ctx.group = group
+            return all_reduce(x, group)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return all_reduce(grad, ctx.group), None
+
+    fns = _AUTOGRAD["fns"] = (CopyToRegion.apply, ReduceFromRegion.apply, GatherFromRegion.apply,
+                              GlobalSum.apply)
+    return fns
+
+
+_AUTOGRAD = {}
+
+
+def copy_to_region(x, group):
+    """``x`` as it is; the backward sums the gradient over ``group``."""
+    return _autograd()[0](x, group)
+
+
+def reduce_from_region(x, group):
+    """The sum of every member's ``x`` over ``group``; the backward passes
+    the gradient as it is."""
+    return _autograd()[1](x, group)
+
+
+def gather_from_region(x, group, dim=-1):
+    """Every member's ``x`` concatenated along ``dim`` in the group's
+    order; the backward keeps this rank's slice of the gradient (no sum)."""
+    return _autograd()[2](x, group, dim)
+
+
+def global_sum(x, group):
+    """The sum of every member's ``x`` over ``group``; the backward sums the
+    gradient over the group too."""
+    return _autograd()[3](x, group)

@@ -197,17 +197,17 @@ def _rank_of(device):
     return device if isinstance(device, int) else device.rank
 
 
-def _device_mesh(grid, names, device_type):
+def _device_mesh(grid, names, device_type, plan=False):
     """A DeviceMesh over ``grid`` (an ndarray of ranks or rank descriptors),
-    its groups created when a world is up (on the world's backend), and
-    ``mesh.devices = grid``."""
+    its groups created when a world is up (on the world's backend) unless
+    ``plan``, and ``mesh.devices = grid``."""
     import numpy as np
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
     ranks = torch.tensor(np.vectorize(_rank_of, otypes=[np.int64])(grid), dtype=torch.int)
-    if _live():
+    if _live() and not plan:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
         mesh = DeviceMesh(device_type, ranks, mesh_dim_names=names)
     else:  # a placement plan: no process groups
@@ -216,7 +216,8 @@ def _device_mesh(grid, names, device_type):
     return mesh
 
 
-def build_hybrid_mesh(axes=None, devices=None, dcn_axes=("dp",), drop_trivial=False, device_type="cuda"):
+def build_hybrid_mesh(axes=None, devices=None, dcn_axes=("dp",), drop_trivial=False, device_type="cuda",
+                      plan=False):
     """Build a host-topology-aware mesh: cross-host axes outer, NVLink axes
     inner.
 
@@ -237,7 +238,7 @@ def build_hybrid_mesh(axes=None, devices=None, dcn_axes=("dp",), drop_trivial=Fa
         devices = world_devices()
     groups = _slice_groups(devices)
     if len(groups) <= 1:
-        return build_mesh(axes, devices, drop_trivial, device_type)
+        return build_mesh(axes, devices, drop_trivial, device_type, plan=plan)
     n_slices = len(groups)
     if axes is None:
         axes = {"dp": n_slices, "fsdp": -1}
@@ -251,10 +252,10 @@ def build_hybrid_mesh(axes=None, devices=None, dcn_axes=("dp",), drop_trivial=Fa
         factors = {a: factors[a] for a in shape}
     grid = _hybrid_device_grid(shape, factors, groups)
     logger.info("hybrid mesh: %s over %d host(s), cross-host factors %s", shape, n_slices, factors)
-    return _device_mesh(grid, tuple(shape), device_type)
+    return _device_mesh(grid, tuple(shape), device_type, plan)
 
 
-def build_mesh(axes=None, devices=None, drop_trivial=False, device_type="cuda"):
+def build_mesh(axes=None, devices=None, drop_trivial=False, device_type="cuda", plan=False):
     """Build a :class:`~torch.distributed.device_mesh.DeviceMesh` with named
     axes over the ranks (a plain reshape of ``devices``, in rank order).
 
@@ -264,14 +265,16 @@ def build_mesh(axes=None, devices=None, drop_trivial=False, device_type="cuda"):
     world's, joining a one-rank world on ``device_type`` when none is up.
     Ranks on more than one host delegate to :func:`build_hybrid_mesh`; only
     if no axis can absorb the host dimension does the flat reshape run
-    (with a warning).
+    (with a warning). ``plan`` builds the layout alone, with no process
+    groups, even in a live world (building a mesh is otherwise collective).
     """
     if devices is None:
         ensure_world(device_type)
         devices = world_devices()
     if len(_slice_groups(devices)) > 1:
         try:
-            return build_hybrid_mesh(axes, devices, drop_trivial=drop_trivial, device_type=device_type)
+            return build_hybrid_mesh(axes, devices, drop_trivial=drop_trivial, device_type=device_type,
+                                     plan=plan)
         except ValueError as e:
             logger.warning(
                 "hybrid mesh placement failed (%s); flat reshape: inner-axis "
@@ -284,7 +287,7 @@ def build_mesh(axes=None, devices=None, drop_trivial=False, device_type="cuda"):
     grid = np.empty(len(devices), dtype=object)
     grid[:] = list(devices)
     logger.info("mesh: %s over %d rank(s)", shape, len(devices))
-    return _device_mesh(grid.reshape(tuple(shape.values())), tuple(shape), device_type)
+    return _device_mesh(grid.reshape(tuple(shape.values())), tuple(shape), device_type, plan)
 
 
 def local_mesh(axes=None, device_type="cuda"):

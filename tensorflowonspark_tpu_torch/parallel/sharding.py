@@ -55,6 +55,22 @@ def mesh_axis_size(mesh, name):
     return mesh_shape(mesh).get(name, 1)
 
 
+def data_shard(mesh, rank):
+    """``(index, count)`` of ``rank``'s share of a batch split over the
+    mesh's data axes: its row-major coordinate over them (its rank in
+    their group) and their size. Read from the mesh's layout alone, so a
+    plan (no process groups) answers before the world is joined."""
+    names, grid = mesh.mesh_dim_names, mesh.mesh
+    where = (grid == rank).nonzero()
+    if len(where) != 1:
+        raise ValueError("rank {} is not on the mesh {}".format(rank, grid.tolist()))
+    index, count = 0, 1
+    for a in data_axes(mesh):
+        i = names.index(a)
+        index, count = index * grid.shape[i] + int(where[0][i]), count * grid.shape[i]
+    return index, count
+
+
 def data_group(mesh):
     """The process group over the mesh's data axes (the ranks a batch is
     split over; a model axis is never in it)."""
@@ -155,16 +171,22 @@ def overlay_fsdp_specs(params, specs, mesh, min_weight_size=2**14):
     return out
 
 
+def block(x, spec, mesh):
+    """This rank's block of the full tensor ``x`` under ``spec`` on
+    ``mesh`` (a view)."""
+    for d, entry in enumerate(spec):
+        if entry:
+            x = x.chunk(collectives.axis_size(entry, mesh), d)[collectives.axis_index(entry, mesh)]
+    return x
+
+
 def place(x, sharding):
     """This rank's block of the full host tensor ``x`` under ``sharding``,
     on the mesh's device (a copy). Anything but a tensor passes through."""
     if not isinstance(x, torch.Tensor):
         return x
     mesh, spec = sharding
-    for d, entry in enumerate(spec):
-        if entry:
-            x = x.chunk(collectives.axis_size(entry, mesh), d)[collectives.axis_index(entry, mesh)]
-    return x.to(mesh_device(mesh), copy=True).contiguous()
+    return block(x, spec, mesh).to(mesh_device(mesh), copy=True).contiguous()
 
 
 def shard_params(params, mesh, specs=None):
@@ -273,17 +295,7 @@ class ShardedParams:
         return collectives.gather_blocks(shard, self.fsdp_group).movedim(0, d).flatten(d, d + 1)
 
     def _map_param_like(self, tree, fn):
-        """``tree`` with ``fn(name, tensor)`` applied to the sharded entries
-        of every dict keyed by the module's parameter names (the optimizer's
-        per-parameter slots, matched structurally as the JAX package's
-        ``_opt_shardings`` does)."""
-        if isinstance(tree, dict):
-            if set(tree) == self.names:
-                return {k: fn(k, v) if k in self.dims else v for k, v in tree.items()}
-            return {k: self._map_param_like(v, fn) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(self._map_param_like(v, fn) for v in tree)
-        return tree
+        return _map_param_like(tree, self.names, self.dims, fn)
 
     def full_tree(self, opt_state):
         """``opt_state`` with each sharded slot gathered to full size
@@ -306,6 +318,111 @@ class ShardedParams:
         with torch.no_grad():
             for name, shard in self.shards.items():
                 shard.copy_(self.local(self.full[name], name))
+
+
+def _map_param_like(tree, names, cut, fn):
+    """``tree`` with ``fn(name, tensor)`` applied to the entries named in
+    ``cut`` of every dict keyed by the module's parameter ``names`` (the
+    parameters, and the optimizer's per-parameter slots, matched
+    structurally as the JAX package's ``_opt_shardings`` does)."""
+    if isinstance(tree, dict):
+        if set(tree) == names:
+            return {k: fn(k, v) if k in cut else v for k, v in tree.items()}
+        return {k: _map_param_like(v, names, cut, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_param_like(v, names, cut, fn) for v in tree)
+    return tree
+
+
+def _entry_axes(entry):
+    return () if not entry else ((entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def model_spec(spec):
+    """The entries of ``spec`` that name a model axis (any axis but the
+    data axes ``dp`` and ``fsdp``): the block a model built on the mesh
+    holds itself."""
+    return tuple(e if _entry_axes(e) and not set(_entry_axes(e)) & {"dp", "fsdp"} else None
+                 for e in tuple(spec))
+
+
+def data_spec(spec):
+    """The entries of ``spec`` that name a data axis: what the strategy
+    shards of the model's block (ZeRO-3 along ``fsdp``)."""
+    return tuple(e if _entry_axes(e) and set(_entry_axes(e)) <= {"dp", "fsdp"} else None
+                 for e in tuple(spec))
+
+
+class ModelShards:
+    """The blocks of a module built on a mesh (``create_model(mesh=...)``):
+    for each parameter whose spec names a model axis (``tp``, ``ep``), the
+    module holds this rank's block along it, and this object moves between
+    those blocks and the full tensors. A checkpoint holds full tensors on
+    any mesh (:meth:`full_tree` gathers, collectively; :meth:`local_tree`
+    cuts), and :meth:`broadcast` makes each block equal on the ranks that
+    hold the same one."""
+
+    def __init__(self, module, mesh, specs):
+        self.mesh = mesh
+        self.names = set(specs)
+        #: {name: the model-axis entries of its spec}, for the split parameters
+        self.specs = {n: model_spec(s) for n, s in specs.items() if any(model_spec(s))}
+        params = dict(module.named_parameters())
+        self.shapes = {n: tuple(params[n].shape) for n in self.specs}
+
+    def _cuts(self, name):
+        return [(d, axis) for d, axis in enumerate(self.specs.get(name, ())) if axis]
+
+    def full_shape(self, name):
+        shape = list(self.shapes[name])
+        for d, axis in self._cuts(name):
+            shape[d] *= collectives.axis_size(axis, self.mesh)
+        return tuple(shape)
+
+    def local(self, full, name):
+        """This rank's block of the full tensor of parameter ``name`` (a
+        contiguous copy, where ``full`` lies)."""
+        return block(full, self.specs[name], self.mesh).contiguous().clone()
+
+    @torch.no_grad()
+    def gather_full(self, name, block):
+        """A new full tensor from every rank's ``block`` of parameter
+        ``name`` (collective over its model axes)."""
+        block = block.detach()
+        for d, axis in self._cuts(name):
+            block = collectives.gather_blocks(block, collectives.axes_group(self.mesh, axis)) \
+                .movedim(0, d).flatten(d, d + 1)
+        return block
+
+    def full_tree(self, tree):
+        """``tree`` (the parameters, or the optimizer state) with each block
+        gathered to full size (collective: every rank calls it)."""
+        return _map_param_like(tree, self.names, self.specs, self.gather_full)
+
+    def full_shapes(self, tree):
+        """``tree`` with each block as a meta tensor of its full shape."""
+        return _map_param_like(tree, self.names, self.specs,
+                               lambda n, t: t.new_empty(self.full_shape(n), device="meta"))
+
+    def local_tree(self, tree):
+        """A full-size tree (a checkpoint's) cut to this rank's blocks."""
+        return _map_param_like(tree, self.names, self.specs, lambda n, t: self.local(t, n))
+
+    @torch.no_grad()
+    def broadcast(self, module):
+        """Make every parameter and buffer equal to the first rank's among
+        the ranks that hold the same block of it (the mesh's other axes),
+        as ``create_state`` broadcasts a replicated model from rank 0."""
+        import torch.distributed as dist
+
+        names = self.mesh.mesh_dim_names
+        for name, t in list(module.named_parameters()) + list(module.named_buffers()):
+            own = {a for _, axis in self._cuts(name) for a in _entry_axes(axis)}
+            others = tuple(a for a in names if a not in own)
+            if not others or collectives.axis_size(others, self.mesh) == 1:
+                continue
+            group = collectives.axes_group(self.mesh, others)
+            dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
 
 
 def _all_reduce_sum(tensors, metrics, group):

@@ -14,9 +14,11 @@ module's names.
 
 A checkpoint holds full tensors whatever the state's placement: a state
 sharded along ``fsdp`` (ZeRO-3) saves its module's full parameters and its
-optimizer slots gathered to full size, as orbax saves full logical arrays,
-so a checkpoint is the same bytes on any mesh. Gathering is collective:
-every rank of a sharded state calls the save, and rank 0 writes.
+optimizer slots gathered to full size, and a module built from blocks over
+``tp`` / ``ep`` saves its parameters and slots gathered from every rank's
+blocks, as orbax saves full logical arrays, so a checkpoint is the same
+bytes on any mesh. Gathering is collective: every rank of a sharded state
+calls the save, and rank 0 writes.
 
 Restoring into a live TrainState copies **in place**: the module's
 parameters and buffers through ``load_state_dict``, ``copy_`` into every
@@ -62,22 +64,29 @@ def _to_saveable(state):
         # model_state is ALWAYS present (empty dict included) so the saved and
         # target tree structures agree regardless of whether the model carries
         # BN statistics
+        params, opt_state = state.params, state.opt_state
+        if state.sharded is not None:
+            opt_state = state.sharded.full_tree(opt_state)
+        if state.blocks is not None:
+            params, opt_state = state.blocks.full_tree(params), state.blocks.full_tree(opt_state)
         return {
             _STATE_SENTINEL: 1,
             "step": int(state.step),
-            "params": state.params,
-            "opt_state": state.opt_state if state.sharded is None else state.sharded.full_tree(state.opt_state),
+            "params": params,
+            "opt_state": opt_state,
             "model_state": state.model_state,
         }
     return state
 
 
-def _gathers(state):
-    """True for a sharded state in a world of more than one rank: every
-    rank takes part in the save's gathers, and rank 0 alone writes."""
+def save_is_collective(state):
+    """True for a sharded state (along ``fsdp``, or in blocks over a model
+    axis) in a world of more than one rank: every rank takes part in the
+    save's gathers, and rank 0 alone writes."""
     import torch.distributed as dist
 
-    return getattr(state, "sharded", None) is not None and dist.get_world_size() > 1
+    sharded = getattr(state, "sharded", None) is not None or getattr(state, "blocks", None) is not None
+    return sharded and dist.is_initialized() and dist.get_world_size() > 1
 
 
 def _write_tree(path, tree):
@@ -109,7 +118,7 @@ def save_checkpoint(path, state, force=True):
 
     from tensorflowonspark_tpu_torch.ckpt.snapshot import snapshot_to_host
 
-    if _gathers(state) and dist.get_rank() != 0:
+    if save_is_collective(state) and dist.get_rank() != 0:
         _to_saveable(state)
         dist.barrier()
         return os.path.abspath(os.path.expanduser(path))
@@ -133,7 +142,7 @@ def save_checkpoint(path, state, force=True):
     os.rename(staging, path)
     durable.fsync_dir(parent)
     logger.info("saved checkpoint to %s", path)
-    if _gathers(state):
+    if save_is_collective(state):
         dist.barrier()
     return path
 
@@ -210,15 +219,23 @@ def _from_saved(tree, target):
     if isinstance(target, TrainState):
         if not is_state:
             raise KeyError("checkpoint holds no TrainState (no {!r} key)".format(_STATE_SENTINEL))
-        live = dict(target.params, **target.model_state)
-        _check_into(live, dict(tree["params"], **tree["model_state"]), "module")
-        opt_state = tree["opt_state"]
+        blocks = target.blocks
+        live = target.params if blocks is None else blocks.full_shapes(target.params)
+        _check_into(dict(live, **target.model_state), dict(tree["params"], **tree["model_state"]), "module")
+        opt_state, shapes = tree["opt_state"], target.opt_state
         if target.sharded is not None:
-            _check_into(target.sharded.full_shapes(target.opt_state), opt_state, "opt_state")
+            shapes = target.sharded.full_shapes(shapes)
+        if blocks is not None:
+            shapes = blocks.full_shapes(shapes)
+        _check_into(shapes, opt_state, "opt_state")
+        params = tree["params"]
+        if blocks is not None:
+            params, opt_state = blocks.local_tree(params), blocks.local_tree(opt_state)
+        if target.sharded is not None:
             opt_state = target.sharded.local_tree(opt_state)
         _check_into(target.opt_state, opt_state, "opt_state")
         with torch.no_grad():
-            target.module.load_state_dict(dict(tree["params"], **tree["model_state"]), strict=True)
+            target.module.load_state_dict(dict(params, **tree["model_state"]), strict=True)
         if target.sharded is not None:
             target.sharded.reload()
         _copy_into(target.opt_state, opt_state)

@@ -21,6 +21,15 @@ into the module's full parameters, which stay resident
 (``parallel.sharding.ShardedParams``). The same body runs eagerly and
 inside the captured CUDA graph.
 
+With the model's placement rules (``tp=`` / ``param_spec_fn=``, e.g.
+``models.transformer.param_specs``) the model axes ``tp`` and ``ep`` split
+parameters too: the module is built on the mesh
+(``transformer.create_model(mesh=...)``) from this rank's blocks, and its
+layers join them with gradient-carrying collectives in the forward and
+backward, so the gradient all-reduce stays on the data axes. Under
+``fsdp`` the ZeRO-3 overlay shards those blocks further. A checkpoint
+still holds full tensors (``parallel.sharding.ModelShards``).
+
 The step contract is the JAX version's (``mutable`` / ``has_aux`` /
 ``step=``), with the ``nn.Module`` in the place of the params pytree: the
 module holds the parameters, and the step updates parameters, optimizer
@@ -52,13 +61,17 @@ class TrainState:
     ``batch_stats``), the same tensors the module uses. ``sharded`` is the
     ZeRO-3 state (:class:`~tensorflowonspark_tpu_torch.parallel.sharding.
     ShardedParams`) under ``fsdp=True``, whose shards the optimizer state
-    mirrors; None when every rank holds everything."""
+    mirrors; None when every rank holds everything. ``blocks`` (a
+    :class:`~tensorflowonspark_tpu_torch.parallel.sharding.ModelShards`)
+    describes the module's blocks of the parameters split over model axes
+    (``tp``, ``ep``); None when the module is whole."""
 
-    def __init__(self, step, module, opt_state, sharded=None):
+    def __init__(self, step, module, opt_state, sharded=None, blocks=None):
         self.step = step
         self.module = module
         self.opt_state = opt_state
         self.sharded = sharded
+        self.blocks = blocks
 
     @property
     def params(self):
@@ -103,25 +116,49 @@ class SyncDataParallel:
         axis divides (the largest such dimension of its flax layout, as the
         JAX package picks), and the optimizer state with it.
         ``param_spec_fn(module, mesh) -> {name: spec}`` supplies a model's
-        own placement, which the ZeRO-3 overlay completes under ``fsdp``.
-        ``tp`` (tensor parallelism) is not yet ported and raises."""
+        own placement, which the ZeRO-3 overlay completes under ``fsdp``;
+        its model axes (``tp``, ``ep``) split the module, which must be
+        built on this mesh, and its ``fsdp`` entries shard only under
+        ``fsdp=True`` (otherwise the data axes replicate).
+
+        ``tp`` turns on tensor parallelism over the mesh's ``tp`` axis:
+        pass the model's placement rules directly
+        (``tp=transformer.param_specs``) or ``tp=True`` alongside an
+        explicit ``param_spec_fn``. Only the model knows which dims are
+        column- vs row-parallel, so ``tp`` without rules is an error, as is
+        a mesh without a ``tp`` axis. ``fsdp`` composes: the model's tp
+        specs place first, the ZeRO-3 overlay shards the rest."""
         from torch.distributed.device_mesh import DeviceMesh
 
         from tensorflowonspark_tpu_torch.parallel import collectives, mesh as mesh_lib, sharding
 
-        if tp:
-            raise NotImplementedError(
-                "tp (tensor parallelism) is not yet ported to tensorflowonspark_tpu_torch; "
-                "it comes with the model-axes slice"
-            )
+        if callable(tp):
+            if param_spec_fn is not None and param_spec_fn is not tp:
+                raise ValueError(
+                    "pass the placement rules once: tp=<spec_fn> or "
+                    "param_spec_fn=<spec_fn>, not two different functions"
+                )
+            param_spec_fn, tp = tp, True
+        self.tp = bool(tp)
         self.fsdp, self.min_weight_size, self.param_spec_fn = fsdp, min_weight_size, param_spec_fn
         if isinstance(mesh, DeviceMesh):
             if fsdp and "fsdp" not in mesh.mesh_dim_names:
                 raise ValueError("fsdp=True requires a mesh with an 'fsdp' axis; got {}".format(
                     mesh.mesh_dim_names))
+            if self.tp and "tp" not in mesh.mesh_dim_names:
+                raise ValueError("tp=... requires a mesh with a 'tp' axis; got {}".format(
+                    mesh.mesh_dim_names))
+            if self.tp and param_spec_fn is None:
+                raise ValueError(
+                    "tp=True needs the model's placement rules: pass "
+                    "tp=<param_spec_fn> (e.g. models.transformer.param_specs) "
+                    "or param_spec_fn= explicitly"
+                )
             self.mesh, self.device = mesh, mesh_lib.mesh_device(mesh)
             self.data_group = sharding.data_group(mesh)
         else:
+            if self.tp:
+                raise ValueError("tp=... requires a mesh with a 'tp' axis; got the device {!r}".format(mesh))
             if fsdp or param_spec_fn is not None:
                 raise ValueError("fsdp and param_spec_fn need a mesh, got the device {!r}".format(mesh))
             self.mesh, self.data_group = None, None
@@ -129,12 +166,15 @@ class SyncDataParallel:
         collectives.set_data_group(self.data_group)
 
     def param_shardings(self, module):
-        """``{name: Sharding}`` of a module's parameters on the mesh: the
-        model's own rules (``param_spec_fn``) completed by the ZeRO-3
-        overlay under ``fsdp``, the ZeRO-3 rule alone, or replicated. Under
-        ``fsdp`` the ``fsdp_params_sharded`` gauge reports how many
-        parameters ended up sharded, so a mis-sized ``min_weight_size``
-        (everything replicated) is visible in ``TFCluster.metrics()``."""
+        """``{name: Sharding}`` of a module's parameters on the mesh (each
+        spec of the whole tensor): the model's own rules
+        (``param_spec_fn``) completed by the ZeRO-3 overlay under ``fsdp``
+        (without it, their ``fsdp`` entries dropped), the ZeRO-3 rule
+        alone, or replicated. Under ``fsdp`` the ``fsdp_params_sharded``
+        gauge reports how many parameters ended up sharded, so a mis-sized
+        ``min_weight_size`` (everything replicated) is visible in
+        ``TFCluster.metrics()``; under ``tp`` the ``tp_params_sharded``
+        gauge how many carry a ``tp`` dim."""
         from tensorflowonspark_tpu_torch import obs
         from tensorflowonspark_tpu_torch.parallel import sharding
 
@@ -142,6 +182,8 @@ class SyncDataParallel:
             specs = self.param_spec_fn(module, self.mesh)
             if self.fsdp:
                 specs = sharding.overlay_fsdp_specs(module, specs, self.mesh, self.min_weight_size)
+            else:
+                specs = {n: sharding.model_spec(s) for n, s in specs.items()}
         elif self.fsdp:
             specs = sharding.fsdp_param_specs(module, self.mesh, self.min_weight_size)
         else:
@@ -150,6 +192,10 @@ class SyncDataParallel:
             obs.gauge(
                 "fsdp_params_sharded", help="param arrays sharded along the fsdp axis (ZeRO-3)",
             ).set(sum(1 for s in specs.values() if "fsdp" in sharding._spec_axes(s)))
+        if self.tp:
+            obs.gauge(
+                "tp_params_sharded", help="param arrays sharded along the tp axis (tensor parallelism)",
+            ).set(sum(1 for s in specs.values() if "tp" in sharding._spec_axes(s)))
         return {n: sharding.Sharding(self.mesh, s) for n, s in specs.items()}
 
     def shard_batch(self, batch):
@@ -159,22 +205,37 @@ class SyncDataParallel:
     def create_state(self, init_fn, optimizer, *init_args):
         """``init_fn(*init_args)`` builds the module; it moves to the device,
         its parameters and buffers are broadcast from rank 0 (so replicas
-        start equal), and the optimizer state is created for it — under
-        ``fsdp``, for this rank's shards of the sharded parameters."""
+        start equal; the blocks of a module built on the mesh from the
+        first of the ranks that hold the same block), and the optimizer
+        state is created for it — under ``fsdp``, for this rank's shards of
+        the sharded parameters. A module whose blocks are not the ones the
+        placement rules give on this mesh raises."""
+        from tensorflowonspark_tpu_torch.parallel import sharding
+
         module = init_fn(*init_args).to(self.device)
+        specs = ({n: s.spec for n, s in self.param_shardings(module).items()}
+                 if self.mesh is not None else {})
+        held = getattr(module, "model_specs", {})
+        placed = {n: sharding.model_spec(s) for n, s in specs.items() if any(sharding.model_spec(s))}
+        if held != placed:
+            raise ValueError(
+                "the module holds blocks {} where this strategy's placement gives {}: build it "
+                "on the strategy's mesh (create_model(mesh=...)) and pass its placement rules "
+                "(tp= / param_spec_fn=)".format(held, placed))
+        blocks = sharding.ModelShards(module, self.mesh, specs) if placed else None
         if util.world_size() > 1:
             import torch.distributed as dist
 
             with torch.no_grad():
-                for t in list(module.parameters()) + list(module.buffers()):
-                    dist.broadcast(t, src=0)
+                if blocks is not None:
+                    blocks.broadcast(module)
+                else:
+                    for t in list(module.parameters()) + list(module.buffers()):
+                        dist.broadcast(t, src=0)
         if not self.fsdp:
-            return TrainState(0, module, optimizer.init(dict(module.named_parameters())))
-        from tensorflowonspark_tpu_torch.parallel.sharding import ShardedParams
-
-        specs = {n: s.spec for n, s in self.param_shardings(module).items()}
-        sharded = ShardedParams(module, self.mesh, specs)
-        return TrainState(0, module, optimizer.init(sharded.optimizer_params(module)), sharded)
+            return TrainState(0, module, optimizer.init(dict(module.named_parameters())), blocks=blocks)
+        sharded = sharding.ShardedParams(module, self.mesh, {n: sharding.data_spec(s) for n, s in specs.items()})
+        return TrainState(0, module, optimizer.init(sharded.optimizer_params(module)), sharded, blocks)
 
     def compile_train_step(self, loss_fn, optimizer, has_aux=False, mutable=False, donate=True):
         """``step(state, batch) -> (state, metrics)``.

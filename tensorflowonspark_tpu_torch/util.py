@@ -183,6 +183,16 @@ def force_platform(platform):
         os.environ["CUDA_VISIBLE_DEVICES"] = ""
 
 
+def cpu_share(sharers):
+    """This process's share of the cores it may run on when ``sharers``
+    processes of the host split them (at least one)."""
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except AttributeError:  # not Linux
+        cores = os.cpu_count() or 1
+    return max(1, cores // max(1, int(sharers)))
+
+
 def select_device(platform="gpu", index=0):
     """The ``torch.device`` this process trains on.
 

@@ -166,10 +166,49 @@ def test_two_executor_lm_on_a_dp_fsdp_mesh(tmp_path):
         assert len(values) == 2 and values[0] == values[1] and np.isfinite(values[0]), (step, values)
 
 
-@pytest.mark.parametrize("flag", [["--moe_experts", "2"], ["--mesh", "dp=1,tp=2"], ["--remat"]])
+@pytest.mark.parametrize("flag", [["--mesh", "dp=1,sp=2"]])
 def test_unported_lm_options_are_refused(flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         transformer_spark.main(TINY_LM + flag)
+
+
+@pytest.mark.parametrize("flag", [["--moe_experts", "2"], ["--remat"]])
+def test_lm_options_run(tmp_path, flag):
+    """The LM example's mixture of experts and rematerialization train
+    through ``TFCluster.run``: a finite loss at every logged step."""
+    data_dir = str(tmp_path / "corpus")
+    transformer_spark.make_text_corpus(data_dir, num_shards=2, records_per_shard=40)
+    steps, _ = _run_events(transformer_spark.main_fun,
+                           transformer_spark.build_parser().parse_args(TINY_LM + ["--data_dir", data_dir] + flag))
+    assert [e["step"] for e in steps] == [1, 2, 3]
+    assert all(np.isfinite(e["loss"]) for e in steps)
+
+
+def test_two_executor_lm_on_a_dp_tp_mesh(tmp_path):
+    """The LM example with ``--mesh dp=1,tp=2`` on 2 executors: the two
+    ranks of the tp group read the same shards with the same seed, so they
+    train on the same batches (equal digests) and log the same loss at
+    every step."""
+    data_dir = str(tmp_path / "corpus")
+    transformer_spark.make_text_corpus(data_dir, num_shards=2, records_per_shard=40)
+    args = transformer_spark.build_parser().parse_args(TINY_LM + ["--data_dir", data_dir, "--mesh", "dp=1,tp=2"])
+    sc = LocalSparkContext(num_executors=2, task_timeout=120)
+    try:
+        cluster = TFCluster.run(sc, transformer_spark.main_fun, args, 2,
+                                input_mode=TFCluster.InputMode.TENSORFLOW, env=CPU_ENV)
+        assert cluster.wait_for_completion(timeout=120)
+        metrics = cluster.metrics(include_driver=False)
+        cluster.shutdown(timeout=120)
+    finally:
+        sc.stop()
+    seen = {}
+    for e in metrics["events"]:
+        if e.get("span") == "train_step":
+            seen.setdefault(e["step"], []).append((e["loss"], e["batch_digest"]))
+    assert sorted(seen) == [1, 2, 3]
+    for step, values in seen.items():
+        assert len(values) == 2 and values[0] == values[1] and np.isfinite(values[0][0]), (step, values)
+    assert len({v[0][1] for v in seen.values()}) == 3  # a digest of the batches so far: it moves each step
 
 
 def _run_events(main_fun, args, timeout=120):

@@ -146,9 +146,10 @@ def test_fsdp_strategy_builds_and_steps():
     assert proc.returncode == 0 and "built" in proc.stdout, proc.stdout[-2000:] + proc.stderr[-2000:]
 
 
-def test_unported_strategy_modes_raise():
-    """Tensor parallelism is not yet ported; fsdp needs a mesh."""
-    with pytest.raises(NotImplementedError):
+def test_strategy_modes_need_a_mesh():
+    """Tensor parallelism needs a mesh with a ``tp`` axis; fsdp needs a
+    mesh."""
+    with pytest.raises(ValueError, match="'tp' axis"):
         SyncDataParallel("cpu", tp=True)
     with pytest.raises(ValueError, match="need a mesh"):
         SyncDataParallel("cpu", fsdp=True)

@@ -132,13 +132,16 @@ def test_adamw_three_steps_match_optax():
             np.testing.assert_allclose(t.detach().numpy(), want[name].numpy(), atol=1e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("kwargs, match", [
-    (dict(moe_experts=4), "mixture of experts"),
-    (dict(remat=True), "remat"),
-])
-def test_unported_model_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        transformer.create_model(**dict(SMALL, **kwargs))
+@pytest.mark.parametrize("kwargs", [dict(moe_experts=4), dict(remat=True)])
+def test_model_options_run(kwargs):
+    """A mixture of experts and rematerialization build and take a
+    forward and backward (their numerics against the JAX package:
+    test_torch_moe.py, test_torch_model_axes.py)."""
+    module = transformer.create_model(**dict(SMALL, **kwargs))
+    loss, metrics = transformer.make_loss_fn(module)(module, {"tokens": torch.randint(0, 8, (2, 9))})
+    loss.backward()
+    assert torch.isfinite(loss) and all(p.grad is not None for p in module.parameters())
+    assert ("moe_aux" in metrics) == bool(kwargs.get("moe_experts"))
 
 
 def test_ring_attention_raises():

@@ -85,3 +85,20 @@ def test_select_device_gpu_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         util.select_device("gpu")
     assert util.select_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_share_splits_the_usable_cores(monkeypatch):
+    """A CPU trainer's intra-op threads: its share of the cores it may run
+    on, at least one (C13: each child taking all of them oversubscribed
+    the host)."""
+    monkeypatch.setattr(util.os, "sched_getaffinity", lambda pid: set(range(8)), raising=False)
+    assert [util.cpu_share(n) for n in (1, 2, 3, 8, 16, 0)] == [8, 4, 2, 1, 1, 8]
+
+
+def test_nodes_on_host_counts_the_cluster_spec_by_host():
+    from tensorflowonspark_tpu_torch.TFSparkNode import TFNodeContext, _nodes_on_host
+
+    spec = {"chief": ["a:1"], "worker": ["a:2", "b:1", "a:3"], "ps": ["b:2"]}
+    ctx = lambda job, i: TFNodeContext(0, job, i, spec, "file://", ".")  # noqa: E731
+    assert _nodes_on_host(ctx("worker", 0)) == 3 and _nodes_on_host(ctx("ps", 0)) == 2
+    assert _nodes_on_host(TFNodeContext(0, "worker", 0, None, "file://", ".")) == 1

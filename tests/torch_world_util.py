@@ -269,3 +269,151 @@ def job_bare(ctx, root):
     by_strategy = ckpt.reshard_restore(path, strategy=strategy)
     blocks = sharding.shard_params({"w": tree["w"].view(4, 8)}, strategy.mesh, {"w": (None, "fsdp")})
     return {"explicit": explicit, "by_strategy": by_strategy, "shard_params": blocks["w"]}
+
+
+# -- model axes (tp, ep): the transformer built on a mesh ----------------------
+
+
+def _axes_strategy(mesh, axes, fsdp=False):
+    """The strategy for a mesh with model axes: the transformer's rules as
+    ``tp=`` when the mesh has ``tp``, as ``param_spec_fn=`` for ``ep``."""
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel
+
+    kw = {}
+    if "tp" in axes:
+        kw["tp"] = transformer.param_specs
+    elif "ep" in axes:
+        kw["param_spec_fn"] = transformer.param_specs
+    return SyncDataParallel(mesh, fsdp=fsdp, min_weight_size=1, **kw)
+
+
+def _data_rows(mesh, x):
+    """This rank's rows of the global ``x``: split over the mesh's data
+    axes only (the ranks of a model axis hold the same rows)."""
+    from tensorflowonspark_tpu_torch.parallel import collectives, sharding
+
+    axes = sharding.data_axes(mesh)
+    if not axes:
+        return _block(x, 1, 0)
+    return _block(x, collectives.axis_size(axes, mesh), collectives.axis_index(axes, mesh))
+
+
+def _lm_state(ctx, variables, cfg, axes, fsdp=False, lr=1e-3):
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.train import optim
+
+    mesh = ctx.mesh(axes)
+    strategy = _axes_strategy(mesh, axes, fsdp)
+    model = transformer.create_model(mesh=mesh, **cfg)
+    opt = optim.adamw(lr)
+    state = strategy.create_state(lambda: convert.load_variables(model, {"params": variables}), opt)
+    return mesh, strategy, model, opt, state
+
+
+def _full_params(state):
+    params = {k: v.detach().clone() for k, v in state.params.items()}
+    return state.blocks.full_tree(params) if state.blocks is not None else params
+
+
+def job_axes_logits(ctx, variables, cfg, batch, axes, fsdp=False):
+    """The packed batch's logits from the transformer (converted from the
+    JAX model's ``variables``) built on ``ctx.mesh(axes)``, every rank on
+    the whole batch; the specs, the module's blocks and the
+    ``tp_params_sharded`` gauge."""
+    from tensorflowonspark_tpu_torch import obs
+
+    _, strategy, _, _, state = _lm_state(ctx, variables, cfg, axes, fsdp)
+    with torch.no_grad():
+        logits = state.module(torch.as_tensor(batch["tokens"]), positions=torch.as_tensor(batch["positions"]),
+                              segment_ids=torch.as_tensor(batch["segment_ids"]))
+    return {"logits": logits, "specs": {n: s.spec for n, s in strategy.param_shardings(state.module).items()},
+            "model_specs": dict(state.module.model_specs),
+            "local_shapes": {n: tuple(p.shape) for n, p in state.module.named_parameters()},
+            "fsdp_dims": dict(state.sharded.dims) if state.sharded is not None else {},
+            "gauge": obs.gauge("tp_params_sharded").value if "tp" in axes else None}
+
+
+def job_axes_step(ctx, variables, cfg, batches, axes, fsdp=False):
+    """``len(batches)`` AdamW steps of the transformer on
+    ``ctx.mesh(axes)``, each rank on its data rows: the losses and last
+    metrics, the full (gathered) parameters and last gradients (averaged
+    over the data axes), the gradients of the parameters no model axis
+    splits, and the Adam state's elements."""
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    mesh, strategy, model, opt, state = _lm_state(ctx, variables, cfg, axes, fsdp)
+    step = strategy.compile_train_step(transformer.make_loss_fn(model), opt, has_aux=True)
+    losses, metrics = [], {}
+    for b in batches:
+        state, metrics = step(state, strategy.shard_batch({k: _data_rows(mesh, v) for k, v in b.items()}))
+        losses.append(float(metrics["loss"]))
+    cut = set(state.blocks.specs) if state.blocks is not None else set()
+    grads = {n: p.grad.clone() for n, p in state.module.named_parameters()}
+    return {"losses": losses, "metrics": {k: float(v) for k, v in metrics.items() if k != "step"},
+            "params": _full_params(state),
+            "grads": state.blocks.full_tree(grads) if state.blocks is not None else grads,
+            "replicated_grads": {n: p.grad.clone() for n, p in state.module.named_parameters() if n not in cut},
+            "adam_elems": sum(t.numel() for t in state.opt_state["mu"].values())}
+
+
+def job_axes_save(ctx, root, variables, cfg, batch, axes, step_no, fsdp=False):
+    """One step on ``ctx.mesh(axes)``, saved as ``ckpt_<step_no>`` under
+    ``root`` by the blocking save (every rank of a sharded state calls it,
+    rank 0 writes; otherwise rank 0 alone); its full host tree."""
+    from tensorflowonspark_tpu_torch import ckpt
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.train import checkpoint
+
+    mesh, strategy, model, opt, state = _lm_state(ctx, variables, cfg, axes, fsdp)
+    step = strategy.compile_train_step(transformer.make_loss_fn(model), opt, has_aux=True)
+    state, _ = step(state, strategy.shard_batch({k: _data_rows(mesh, v) for k, v in batch.items()}))
+    path = os.path.join(root, "ckpt_{}".format(step_no))
+    if checkpoint.save_is_collective(state) or ctx.process_id == 0:
+        checkpoint.save_checkpoint(path, state)
+    torch.distributed.barrier()
+    return {"tree": checkpoint.restore_checkpoint(path), "verified": ckpt.verify(path),
+            "gathers": checkpoint.save_is_collective(state)}
+
+
+def job_axes_restore(ctx, path, variables, cfg, axes, fsdp=False):
+    """A fresh state on ``ctx.mesh(axes)`` (the JAX model's weights), the
+    checkpoint at ``path`` resharded into it: its full parameters and
+    optimizer state (gathered), its step, and its own blocks."""
+    from tensorflowonspark_tpu_torch import ckpt
+    from tensorflowonspark_tpu_torch.train import checkpoint
+
+    _, strategy, _, _, state = _lm_state(ctx, variables, cfg, axes, fsdp)
+    restored = ckpt.reshard_restore(path, strategy=strategy, target=state)
+    tree = checkpoint._to_saveable(restored)  # collective gathers
+    return {"params": {k: v.detach().clone() for k, v in tree["params"].items()},
+            "opt_state": tree["opt_state"], "step": restored.step,
+            "local": {k: v.detach().clone() for k, v in restored.params.items()}}
+
+
+def job_regions(ctx, x, w):
+    """Each gradient-carrying collective over the 4-rank ``tp`` group, with
+    this rank's block ``x[r]`` (``x[0]`` on every rank for
+    ``copy_to_region``, whose input is replicated) and weights ``w``: the
+    value and the gradient of this rank's input."""
+    from tensorflowonspark_tpu_torch.parallel import collectives as c
+
+    mesh = ctx.mesh({"dp": 1, "tp": 4})
+    group = c.axes_group(mesh, "tp")
+    r = c.axis_index("tp", mesh)
+    w = torch.as_tensor(w)
+    out = {}
+    for name in ("copy", "reduce", "gather", "global_sum"):
+        xr = torch.as_tensor(x[0 if name == "copy" else r]).clone().requires_grad_(True)
+        if name == "copy":
+            y = c.copy_to_region(xr, group) * w[r]
+        elif name == "reduce":
+            y = c.reduce_from_region(xr, group) * w[0]
+        elif name == "gather":
+            y = c.gather_from_region(xr, group, dim=1) * torch.cat(list(w), dim=1)
+        else:
+            y = torch.tanh(c.global_sum(xr, group)) * w[0]
+        y.sum().backward()
+        out[name] = {"value": y.detach().clone(), "grad": xr.grad.clone()}
+    return out
