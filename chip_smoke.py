@@ -55,6 +55,29 @@ and the script exits non-zero:
                   forward's time against SDPA's forward and the backward
                   pair's against SDPA's backward, both with
                   ``is_causal=True``.
+   ``kernel_ring`` ring attention over 4 members in this process
+                  (``ring_attention_local``, the seam of the ring's
+                  exchange: NCCL takes no two ranks on one card) at the LM's
+                  width, 8 heads of 64, causal: bf16 over the packed slab
+                  [8, 2048] and over one unpacked sequence of 16,384, f32
+                  over the slab cut to [2, 1024]. Each case: every wrapper's
+                  count set to 0, the ring's forward and backward run under a
+                  trace; each flash kernel launched n(n+1)/2 = 10 times by
+                  its wrapper and on the card; the output and the three
+                  gradients against whole-sequence ``flash_attention`` on
+                  the same tensors (bf16 as a norm within 2^-8, f32 within
+                  1e-4 of the largest); every hop's three kernels (the
+                  keys' own segment ids, f32 outputs) against their plain
+                  versions at the flash limits above (O and lse on the rows
+                  that attend a key of the hop); in bf16, every hop's f32
+                  outputs before any cast (O against the kernel's own online
+                  rounding of p, ``flash_fwd_online_plain``; dq, dk, dv
+                  against the plain versions) as a norm within 2^-12, below
+                  one bf16 rounding, which the same hop's bf16 outputs cast
+                  up to f32 must exceed; a 1% fault in one hop's dk
+                  that the check must catch; a diagonal and an off-diagonal
+                  hop's forward, dq and dk/dv ms beside their bounds (the
+                  hop's attended pairs).
 5. ``slice``      the port's ResNet path: ``TFCluster.run`` on the local
                   backend, one executor, the port's ``resnet_spark.main_fun``
                   on full ResNet-50, bf16, ``bn_impl="pallas"``, batch 64, 5
@@ -138,7 +161,12 @@ and the script exits non-zero:
                   relative, and a 1% gradient fault caught. (c) one step
                   with ``remat`` against one without, bitwise, with each
                   step's peak memory, and the remat loop bitwise its eager
-                  steps. Each flash wrapper's launches in each leg (6 a
+                  steps. (d) sp: the LM on ``ctx.mesh({"dp": 1, "sp":
+                  -1})`` (the model on the mesh, each batch cut to the
+                  rank's block of the sequence), a third side of (a)'s
+                  turns: at one rank a ring of one member, bitwise dp after
+                  the eager steps, the loop, and a resharded restore and a
+                  step. Each flash wrapper's launches in each leg (6 a
                   step; 12 of B5 under remat, which recomputes the
                   forward), the tp side's traced device launches, step ms
                   and tokens/s, peak memory.
@@ -320,7 +348,11 @@ the flash wrappers' on ``slice_fsdp``'s sharded side and the card's in its
 traced loop call; ``launches_axes_tp`` / ``device_launches_axes_tp_traced_call``
 / ``launches_axes_moe`` / ``launches_axes_remat``: the flash wrappers' on
 ``slice_axes``'s tp side (and the card's in its traced call), its mixture
-leg and its remat leg; ``launches_serving``: the flash forward's wrapper's over
+leg and its remat leg; ``launches_axes_sp`` /
+``device_launches_axes_sp_traced_call``: its sp side's;
+``launches_ring`` / ``device_launches_ring_traced`` / ``ring_hop_ms``:
+``kernel_ring``'s packed case, the wrappers', the card's and a diagonal and
+an off-diagonal hop's ms beside their bounds; ``launches_serving``: the flash forward's wrapper's over
 ``serve_lm``'s traffic; ``launches_segmentation``: its wrapper's in
 ``slice_seg``'s trainer), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -336,6 +368,7 @@ import sys
 import threading
 import time
 
+_T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
@@ -411,6 +444,10 @@ FLASH_BF16_NORM_TOL = {"flash_fwd": 2.0 ** -8, "flash_bwd_dq": 2.0 ** -10,
 
 
 def emit(obj):
+    """Print one JSON line; a phase's line carries the script's seconds so
+    far (``t_s``), so a run's timeline reads from its lines."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -1074,6 +1111,244 @@ def phase_flash_causal(torch, F, fa):
     torch.cuda.empty_cache()
 
 
+#: the ring phase: members of the ring, and the unpacked causal sequence's length
+RING_N, RING_LONG = 4, 16384
+#: the ring's merged output and gradients against whole-sequence flash:
+#: bf16 as a norm, f32 within this much of the largest value
+RING_BF16_NORM_TOL, RING_F32_TOL = 2.0 ** -8, 1e-4
+#: a bf16 hop's f32 outputs, before any cast, against their references in
+#: f32 (the forward's O against ``flash_fwd_online_plain``, the kernel's own
+#: rounding of p; dq, dk, dv against the plain versions): a norm well below
+#: one bf16 rounding (~2^-9.3), which the same hop's bf16 outputs cast up to
+#: f32 (the control) must exceed
+RING_F32_OUT_NORM_TOL = 2.0 ** -12
+#: (wrapper: f32 [BH, L] row vectors moved, f32 [BH, L, D] outputs written)
+#: of a ring hop: the bf16 kernels write f32 outputs for the ring's sums
+RING_HOP_IO = {"flash_fwd": (1, 1), "flash_bwd_dq": (2, 1), "flash_bwd_dkv": (2, 2)}
+
+
+def hop_pairs(seg_q, seg_k, diagonal):
+    """(q, k) pairs per head that one ring hop attends on ``[B, L_local]``
+    ids: on the diagonal, causal pairs of equal ids (n(n+1)/2 an id); off
+    it, every pair of equal ids."""
+    import numpy as np
+
+    total = 0
+    for rq, rk in zip(np.asarray(seg_q), np.asarray(seg_k)):
+        ids, cq = np.unique(rq, return_counts=True)
+        if diagonal:
+            total += int((cq * (cq + 1) // 2).sum())
+        else:
+            ck = dict(zip(*np.unique(rk, return_counts=True)))
+            total += int(sum(int(c) * int(ck.get(i, 0)) for i, c in zip(ids, cq)))
+    return total
+
+
+def ring_hop_bound(name, bh, b, length, d, elem_bytes, pairs, segmented):
+    """(bound_ms, bound_by) of one ring hop's call: its inputs read once
+    (q, k, v and dO, f32 row vectors, both sides' ids), its f32 outputs
+    written once, and its matrix products on the attended pairs."""
+    _, _, products, tensors, _ = next(t for t in FLASH_TABLE if t[0] == name)
+    rows, outs = RING_HOP_IO[name]
+    moved = ((tensors - outs) * bh * length * d * elem_bytes + outs * bh * length * d * 4 + rows * bh * length * 4
+             + (2 * b * length * 4 if segmented else 0))
+    flops = products * 2 * d * pairs
+    peak = BF16_FLOPS_PER_S if elem_bytes == 2 else F32_FLOPS_PER_S
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _attending_rows(torch, seg_q, seg_k, diagonal, heads):
+    """``[BH, L]`` booleans: the rows that attend at least one key of a hop
+    (the rows a hop's O and lse are compared on; a row that attends none
+    weighs 0 in the merge, ROADMAP 4c)."""
+    if seg_q is None:
+        return None
+    eq = seg_q[:, :, None] == seg_k[:, None, :]
+    if diagonal:
+        eq = eq & torch.ones(seg_q.shape[1], seg_q.shape[1], dtype=torch.bool, device=seg_q.device).tril()
+    return eq.any(-1).repeat_interleave(heads, 0)
+
+
+def hop_f32_outputs(torch, fa, name, kernel, args, seg_k, rows, got, ref):
+    """``{output: (norm_err, control_norm_err)}`` of one bf16 ring hop's
+    kernel: its f32 outputs ``got`` (before any cast) against their f32
+    references (the forward's O against ``flash_fwd_online_plain``, the
+    gradients against the plain versions' ``ref``), and the same launch
+    with bf16 outputs cast up to f32 against the same references (the
+    control that the limit must refuse). The forward on ``rows`` only."""
+    if name == "flash_fwd":
+        got, ref = got[:1], fa.flash_fwd_online_plain(*args, seg_k=seg_k)[:1]
+    control = kernel(*args, seg_k=seg_k)
+    control = control if isinstance(control, tuple) else (control,)
+    whats = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}[name]
+    out = {}
+    for what, g, c, r in zip(whats, got, control, ref):
+        if g.dtype != torch.float32:
+            raise AssertionError("{} {}: a ring hop's output is {}, not float32".format(name, what, g.dtype))
+        if rows is not None and name == "flash_fwd":
+            g, c, r = g[rows], c[rows], r[rows]
+        c = c.float()
+        out[what] = (float((g - r).norm() / r.norm()), float((c - r).norm() / r.norm()))
+    return out
+
+
+def phase_kernel_ring(torch, fa, ra, seg_slice):
+    """Ring attention over ``RING_N`` members in this process
+    (``ring_attention_local``, the exchange's seam), at the LM's width (8
+    heads of 64): bf16 over the packed slab [8, 2048] and over one unpacked
+    causal sequence of ``RING_LONG``, and f32 over the slab cut to [2, 1024].
+    Each case: the counts set to 0, the ring's forward and backward run
+    (traced), each wrapper's launches and the trace's read (n(n+1)/2 each);
+    the merged output and the three gradients held against whole-sequence
+    ``flash_attention`` on the same tensors (bf16 as a norm within
+    ``RING_BF16_NORM_TOL``, f32 within ``RING_F32_TOL`` of the largest);
+    every hop's three kernels against their plain versions at the flash
+    limits (O and lse on the rows that attend a key of the hop); in bf16
+    each hop's f32 outputs before any cast within
+    ``RING_F32_OUT_NORM_TOL`` of their f32 references, a limit that the
+    hop's bf16 outputs cast up to f32 must fail (:func:`hop_f32_outputs`);
+    a 1% fault in one hop's dk that the check must catch; the ms of a diagonal and an
+    off-diagonal hop, forward and backward, beside their bounds. Returns
+    the packed case's launches (wrappers, trace) and hop timings."""
+    from tensorflowonspark_tpu_torch.examples.resnet.bench_bn import time_ms
+    from tensorflowonspark_tpu_torch.ops.flash_attention import flash_attention
+    from tensorflowonspark_tpu_torch.ops.kernel_trace import KernelTrace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    heads, d, n = LM["n_heads"], LM["d_model"] // LM["n_heads"], RING_N
+    want = n * (n + 1) // 2
+    names = [name for name, *_ in FLASH_TABLE]
+    out = None
+    for case, dtype_name, b, length, packed in (("packed", "bfloat16", LM_BATCH, LM_SEQ, True),
+                                                ("long", "bfloat16", 1, RING_LONG, False),
+                                                ("packed_f32", "float32", 2, 1024, True)):
+        dtype = getattr(torch, dtype_name)
+        seg = seg_slice[:b, :length].contiguous() if packed else None
+        q, k, v, do = (torch.randn(b, heads, length, d, device="cuda", generator=gen).to(dtype) for _ in range(4))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        fa.reset_launch_counts()
+        with KernelTrace() as trace:
+            o = ra.ring_attention_local(*leaves, n, causal=True, segment_ids=seg)
+            grads = torch.autograd.grad(o, leaves, do)
+        launches = fa.launch_counts()
+        traced = trace.readings["launches"]
+        ref_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref = flash_attention(*ref_leaves, causal=True, segment_ids=seg)
+        ref_grads = torch.autograd.grad(ref, ref_leaves, do)
+        errs = {}
+        for what, got, want_t in zip(("o", "dq", "dk", "dv"), (o.detach(),) + grads, (ref.detach(),) + ref_grads):
+            g, r = got.float(), want_t.float()
+            if dtype == torch.bfloat16:
+                errs[what] = {"norm": float((g - r).norm() / r.norm()), "max_abs": float((g - r).abs().max())}
+            else:
+                errs[what] = {"max_abs": float((g - r).abs().max()), "ref_max": float(r.abs().max())}
+        bad = [w for w, e in errs.items() if not (e["norm"] <= RING_BF16_NORM_TOL if "norm" in e
+                                                   else e["max_abs"] <= RING_F32_TOL * max(1.0, e["ref_max"]))]
+        bad += [nm for nm in names if launches[nm] != want or traced[nm] != want]
+        # every hop's kernels against their plain versions, on the whole
+        # sequence's final lse and delta (as the backward runs them)
+        m = lambda t: t.reshape(b * heads, length, d).contiguous()  # noqa: E731
+        qm, km, vm, dom = m(q), m(k), m(v), m(do)
+        scale = 1.0 / math.sqrt(d)
+        o_full, lse_full = fa.flash_fwd(qm, km, vm, seg, scale, True, heads)
+        delta_full = (dom.float() * o_full.float()).sum(-1)
+        chunk = lambda t: [c.contiguous() for c in t.chunk(n, 1)]  # noqa: E731
+        qs, ks, vs, dos, lses, deltas = (chunk(t) for t in (qm, km, vm, dom, lse_full, delta_full))
+        segs = chunk(seg) if seg is not None else [None] * n
+        hop_errs, hop_ms, controls, f32_out = {}, {}, {}, {}
+        for s, my, src, mask in ra.hop_schedule(n, True):
+            fwd = (qs[my], ks[src], vs[src], segs[my], scale, mask, heads)
+            bwd = (qs[my], ks[src], vs[src], segs[my], dos[my], lses[my], deltas[my], scale, mask, heads)
+            kw = {"seg_k": segs[src], "out_dtype": torch.float32}
+            rows = _attending_rows(torch, segs[my], segs[src], mask, heads)
+            for name, kernel, plain, args in (("flash_fwd", fa.flash_fwd, fa.flash_fwd_plain, fwd),
+                                              ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, bwd),
+                                              ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, bwd)):
+                got, ref_hop = kernel(*args, **kw), plain(*args, **kw)
+                got = got if isinstance(got, tuple) else (got,)
+                ref_hop = ref_hop if isinstance(ref_hop, tuple) else (ref_hop,)
+                raw = got, ref_hop  # the f32 outputs before any cast
+                # the main outputs in the input dtype for the flash limits;
+                # O and lse on the rows that attend a key of the hop
+                cast = lambda outs: tuple(  # noqa: E731
+                    (t if name == "flash_fwd" and i == 1 else t.to(dtype)) for i, t in enumerate(outs))
+                got, ref_hop = cast(got), cast(ref_hop)
+                if name == "flash_fwd" and rows is not None:
+                    if not bool(rows.any()):
+                        continue  # no row of this hop attends a key: nothing it computes is used
+                    got, ref_hop = tuple(t[rows] for t in got), tuple(t[rows] for t in ref_hop)
+                key = "{}:s{}m{}".format(name, s, my)
+                if not any(bool(t.any()) for t in ref_hop):
+                    # no pair of the hop is attended (no shared id): the
+                    # gradients' parts are exactly zero on both sides
+                    if any(bool(t.any()) for t in got):
+                        bad.append("{}: nonzero parts of a hop that attends nothing".format(key))
+                    continue
+                err, failures, readings = flash_errors(name, got, ref_hop)
+                hop_errs[key] = {"max_abs_err": err, **readings}
+                if failures:
+                    bad.append("{} {}".format(key, failures))
+                if dtype == torch.bfloat16:
+                    f32_out[key] = hop_f32_outputs(torch, fa, name, kernel, args, segs[src], rows, *raw)
+                    for what, (norm, control) in f32_out[key].items():
+                        if not norm <= RING_F32_OUT_NORM_TOL:
+                            bad.append("{} {}: f32 output norm err {} > {}".format(
+                                key, what, norm, RING_F32_OUT_NORM_TOL))
+                        if not control > RING_F32_OUT_NORM_TOL:
+                            bad.append("{} {}: its bf16 output cast to f32 passed the f32 limit ({})".format(
+                                key, what, control))
+                if name == "flash_bwd_dkv" and s == 1 and my == 1 and dtype == torch.bfloat16:
+                    _, caught, controls["dk_x1.01"] = flash_errors(name, (got[0].float().mul(1.01).to(dtype),)
+                                                                + got[1:], ref_hop)
+                    if not caught:
+                        bad.append("a 1% fault in hop (s=1, member 1)'s dk passed the check {}".format(
+                            controls["dk_x1.01"]))
+            for kind, (s_t, my_t) in (("diagonal", (0, n - 1)), ("off_diagonal", (1, n - 1))):
+                if (s, my) != (s_t, my_t):
+                    continue
+                local = length // n
+                if packed:
+                    pairs = hop_pairs(segs[my].cpu(), segs[src].cpu(), mask) * heads
+                else:
+                    pairs = b * heads * (local * (local + 1) // 2 if mask else local * local)
+                entry = {"pairs": pairs}
+                for name, kernel, args in (("flash_fwd", fa.flash_fwd, fwd), ("flash_bwd_dq", fa.flash_bwd_dq, bwd),
+                                           ("flash_bwd_dkv", fa.flash_bwd_dkv, bwd)):
+                    b_ms, b_by = ring_hop_bound(name, b * heads, b, local, d, q.element_size(), pairs, packed)
+                    entry[name] = {"ms": time_ms(torch, lambda: kernel(*args, **kw), flush), "bound_ms": b_ms,
+                                   "bound_by": b_by}
+                entry["backward_ms"] = entry["flash_bwd_dq"]["ms"] + entry["flash_bwd_dkv"]["ms"]
+                hop_ms[kind] = entry
+        line = {"phase": "kernel_ring", "case": case, "dtype": dtype_name, "members": n, "batch": b,
+                "heads": heads, "head_dim": d, "length": length, "local_length": length // n,
+                "causal": True, "packed": packed, "launches": launches, "device_launches_traced": traced,
+                "expected_launches": want, "vs_flash": errs, "norm_tolerance": RING_BF16_NORM_TOL,
+                "f32_tolerance": RING_F32_TOL, "hop_max_abs_err": max(e["max_abs_err"] for e in hop_errs.values()),
+                "hop_elem_err": max((e["elem"] or 0.0) for e in hop_errs.values()),
+                "hop_norm_err": {nm: max((e["norm"] or 0.0) for key, e in hop_errs.items() if key.startswith(nm + ":"))
+                                 for nm in names},
+                "controls": controls, "hop_ms": hop_ms}
+        if f32_out:
+            line["f32_outputs"] = {
+                "norm_tolerance": RING_F32_OUT_NORM_TOL,
+                **{what: {"max_norm_err": max(e[what][0] for e in f32_out.values() if what in e),
+                          "min_bf16_control_norm_err": min(e[what][1] for e in f32_out.values() if what in e)}
+                   for what in ("o", "dq", "dk", "dv")}}
+        emit(line)
+        if bad:
+            raise AssertionError("kernel_ring {}: {}".format(case, bad))
+        if case == "packed":
+            out = {"launches": launches, "traced": traced, "hop_ms": hop_ms,
+                   "max_abs_err": {nm: max(e["max_abs_err"] for key, e in hop_errs.items()
+                                           if key.startswith(nm + ":")) for nm in names}}
+        del q, k, v, do, leaves, o, grads, ref_leaves, ref, ref_grads, qm, km, vm, dom, o_full, lse_full
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1, pack_workers=0):
     """The port's LM path through the user's entry points; with
     ``steps_per_loop`` K > 1 its loop path, traced as in :func:`phase_slice`;
@@ -1421,8 +1696,9 @@ def phase_slice_axes(torch, fa, data_dir, work):
     """The LM slice on its model axes, through ``TFCluster.run``
     (``examples/transformer/axes_check.py``, module docstring phase
     ``slice_axes``). Returns the flash wrappers' launches on the tp side,
-    its traced call's device launches, and the wrappers' launches on the
-    mixture's and the remat leg's paths."""
+    its traced call's device launches, the wrappers' launches on the
+    mixture's and the remat leg's paths, and the sp side's launches and
+    traced device launches."""
     from tensorflowonspark_tpu_torch.examples.transformer import axes_check
     from tensorflowonspark_tpu_torch.train.strategy import _CapturedLoop
 
@@ -1441,7 +1717,7 @@ def phase_slice_axes(torch, fa, data_dir, work):
     emit(line)
     names = [name for name, *_ in FLASH_TABLE]
     bad = {}
-    for side in ("tp", "dp"):
+    for side in ("tp", "sp", "dp"):
         got = out[side]
         bad.update({side + ":" + n: got["launches"][n] for n in names if got["launches"][n] != want["tp"]})
         bad.update({side + ":" + n + "_traced": got["device_launches_traced_call"][n] for n in names
@@ -1456,7 +1732,7 @@ def phase_slice_axes(torch, fa, data_dir, work):
     if out["tp"]["params_split"] != 37:
         raise AssertionError("slice_axes: {} parameters split over tp, want 37".format(out["tp"]["params_split"]))
     return (out["tp"]["launches"], out["tp"]["device_launches_traced_call"], out["moe"]["launches"],
-            out["remat"]["launches"])
+            out["remat"]["launches"], out["sp"]["launches"], out["sp"]["device_launches_traced_call"])
 
 
 def _state_host(torch, state):
@@ -3172,6 +3448,7 @@ def main():
     from tensorflowonspark_tpu_torch.models import resnet, transformer
     from tensorflowonspark_tpu_torch.ops import flash_attention as fa
     from tensorflowonspark_tpu_torch.ops import fused_bn
+    from tensorflowonspark_tpu_torch.parallel import ring_attention
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3238,6 +3515,7 @@ def main():
     seg_slice = torch.as_tensor(lm_batch["segment_ids"][:, :-1]).cuda().contiguous()
     flash_totals = phase_flash_kernel(torch, F, fa, seg_slice)
     phase_flash_causal(torch, F, fa)
+    ring = timed("kernel_ring", phase_kernel_ring, torch, fa, ring_attention, seg_slice)
     del seg_slice
     torch.cuda.empty_cache()  # hand the trainer child the card's memory
     launches, _ = phase_slice(torch, fused_bn)
@@ -3252,7 +3530,7 @@ def main():
     torch.cuda.empty_cache()
     fsdp_launches, fsdp_traced = timed("slice_fsdp", phase_slice_fsdp, torch, fa, data_dir,
                                        os.path.join(here, "build", "chip_smoke_fsdp"))
-    axes_launches, axes_traced, moe_launches, remat_launches = timed(
+    axes_launches, axes_traced, moe_launches, remat_launches, sp_launches, sp_traced = timed(
         "slice_axes", phase_slice_axes, torch, fa, data_dir, os.path.join(here, "build", "chip_smoke_axes"))
     work = os.path.join(here, "build", "chip_smoke_ckpt")
     phase_ckpt_engine(torch, resnet, work)
@@ -3297,7 +3575,8 @@ def main():
                       and traced_flash_launches[name] > 0 and pack_launches[name] > 0
                       and fsdp_launches[name] > 0 and fsdp_traced[name] > 0
                       and axes_launches[name] > 0 and axes_traced[name] > 0 and moe_launches[name] > 0
-                      and remat_launches[name] > 0
+                      and remat_launches[name] > 0 and sp_launches[name] > 0 and sp_traced[name] > 0
+                      and ring["launches"][name] > 0 and ring["traced"][name] > 0
                       and (name != "flash_fwd" or serve_launches[name] > 0))}
         for name, *_ in FLASH_TABLE], "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
@@ -3323,6 +3602,11 @@ def main():
          "launches_fsdp": fsdp_launches[name], "device_launches_fsdp_traced_call": fsdp_traced[name],
          "launches_axes_tp": axes_launches[name], "device_launches_axes_tp_traced_call": axes_traced[name],
          "launches_axes_moe": moe_launches[name], "launches_axes_remat": remat_launches[name],
+         "launches_axes_sp": sp_launches[name], "device_launches_axes_sp_traced_call": sp_traced[name],
+         "launches_ring": ring["launches"][name], "device_launches_ring_traced": ring["traced"][name],
+         "ring_hop_max_abs_err": ring["max_abs_err"][name],
+         "ring_hop_ms": {kind: dict(ring["hop_ms"][kind][name], pairs=ring["hop_ms"][kind]["pairs"])
+                         for kind in ("diagonal", "off_diagonal")},
          "launches_segmentation": seg_launches[name],
          **({"launches_serving": serve_launches[name]} if name == "flash_fwd" else {}),
          "max_abs_err": flash_totals[name]["max_abs_err"],

@@ -8,7 +8,13 @@
 //
 // Operands are [BH, L, D] row-major (q, k, v, o, do, dq, dk, dv) in bf16 or
 // f32, row statistics (lse, delta) are [BH, L] f32 and segment ids are
-// int32 [B, L], read at b = bh / heads (never broadcast over heads).
+// int32 [B, L], read at b = bh / heads (never broadcast over heads). The
+// query side's ids (seg) and the key side's (seg_k) may differ: a ring
+// attention hop attends this member's queries to another member's keys.
+// seg_k null means seg_k = seg; seg null means no fence at all. The bf16
+// kernels write their outputs (o, dq, dk, dv) as bf16 or, with out_f32, as
+// f32, so that the partial results a ring sums over its hops are not each
+// rounded to bf16 first.
 //
 // Bound on an H100 SXM: every kernel is a chain of matrix products over
 // 64x64 tiles (QK^T and PV forward; QK^T, dO V^T, dS K for dq; KQ^T, V dO^T,
@@ -200,8 +206,8 @@ __device__ __forceinline__ float masked_score(float s, float scale, int qi, int 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ seg, T* __restrict__ o, float* __restrict__ lse,
-                 int L, int heads, float scale, bool causal) {
+                 const int* __restrict__ seg, const int* __restrict__ seg_kv, T* __restrict__ o,
+                 float* __restrict__ lse, int L, int heads, float scale, bool causal) {
   static_assert(std::is_same<T, float>::value, "bf16 takes flash_fwd_wgmma_kernel");
   using P = Plan<D>;
   extern __shared__ __align__(128) char smem[];
@@ -219,7 +225,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   const int bh = blockIdx.x, q0 = blockIdx.y * kBlock;
   const size_t base = (size_t)bh * L * D;
-  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
+  const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   load_tile<D>(qs, P::kTileLd, q + base, q0, L);
@@ -235,7 +242,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();  // the previous block is done with ks / vs / ps
     load_tile<D>(ks, P::kTileLd, k + base, k0, L);
     load_tile<D>(vs, P::kTileLd, v + base, k0, L);
-    if (seg_b) load_vec(seg_k, seg_b, k0, L, -1);
+    if (seg_b) load_vec(seg_k, seg_kb, k0, L, -1);
     __syncthreads();
     tile_mm<kBlock, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, kBlock);
     __syncthreads();
@@ -276,7 +283,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const int* __restrict__ seg, const T* __restrict__ dout, const float* __restrict__ lse,
+                    const int* __restrict__ seg, const int* __restrict__ seg_kv, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int L, int heads, float scale,
                     bool causal) {
   static_assert(std::is_same<T, float>::value, "bf16 takes flash_bwd_dq_wgmma_kernel");
@@ -298,7 +306,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   const int bh = blockIdx.x, q0 = blockIdx.y * kBlock;
   const size_t base = (size_t)bh * L * D;
-  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
+  const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
 
   load_tile<D>(qs, P::kTileLd, q + base, q0, L);
   load_tile<D>(dos, P::kTileLd, dout + base, q0, L);
@@ -314,7 +323,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     __syncthreads();
     load_tile<D>(ks, P::kTileLd, k + base, k0, L);
     load_tile<D>(vs, P::kTileLd, v + base, k0, L);
-    if (seg_b) load_vec(seg_k, seg_b, k0, L, -1);
+    if (seg_b) load_vec(seg_k, seg_kb, k0, L, -1);
     __syncthreads();
     tile_mm<kBlock, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, kBlock);
     tile_mm<kBlock, D, false, true, false>(dos, P::kTileLd, vs, P::kTileLd, dp, kBlock);
@@ -341,7 +350,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const int* __restrict__ seg, const T* __restrict__ dout, const float* __restrict__ lse,
+                     const int* __restrict__ seg, const int* __restrict__ seg_kv, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int L, int heads,
                      float scale, bool causal) {
   static_assert(std::is_same<T, float>::value, "bf16 takes flash_bwd_dkv_wgmma_kernel");
@@ -365,11 +375,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   const int bh = blockIdx.x, k0 = blockIdx.y * kBlock;
   const size_t base = (size_t)bh * L * D;
-  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
+  const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
 
   load_tile<D>(ks, P::kTileLd, k + base, k0, L);
   load_tile<D>(vs, P::kTileLd, v + base, k0, L);
-  if (seg_b) load_vec(seg_k, seg_b, k0, L, -1);
+  if (seg_b) load_vec(seg_k, seg_kb, k0, L, -1);
   for (int i = threadIdx.x; i < kBlock * D; i += kThreads) dk_acc[i] = dv_acc[i] = 0.0f;
 
   const int n_q = (L + kBlock - 1) / kBlock;
@@ -411,45 +422,47 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int bh, int heads,
-               int L, float scale, int causal, cudaStream_t stream) {
+int launch_fwd(const void* q, const void* k, const void* v, const int* seg, const int* seg_kv, void* o, float* lse,
+               int bh, int heads, int L, float scale, int causal, cudaStream_t stream) {
   const size_t smem = Plan<D>::bytes(3, 1, 1);
   auto kern = flash_fwd_kernel<T, D>;
   cudaError_t err = allow_smem<flash_fwd_kernel<T, D>>(smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, (L + kBlock - 1) / kBlock);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                         static_cast<const T*>(v), seg, static_cast<T*>(o), lse, L, heads, scale,
-                                         causal != 0);
+                                         static_cast<const T*>(v), seg, seg_kv, static_cast<T*>(o), lse, L, heads,
+                                         scale, causal != 0);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
-              const float* delta, void* dq, int bh, int heads, int L, float scale, int causal, cudaStream_t stream) {
+int launch_dq(const void* q, const void* k, const void* v, const int* seg, const int* seg_kv, const void* dout,
+              const float* lse, const float* delta, void* dq, int bh, int heads, int L, float scale, int causal,
+              cudaStream_t stream) {
   const size_t smem = Plan<D>::bytes(4, 2, 1);
   auto kern = flash_bwd_dq_kernel<T, D>;
   cudaError_t err = allow_smem<flash_bwd_dq_kernel<T, D>>(smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, (L + kBlock - 1) / kBlock);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                         static_cast<const T*>(v), seg, static_cast<const T*>(dout), lse, delta,
-                                         static_cast<T*>(dq), L, heads, scale, causal != 0);
+                                         static_cast<const T*>(v), seg, seg_kv, static_cast<const T*>(dout), lse,
+                                         delta, static_cast<T*>(dq), L, heads, scale, causal != 0);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
-               const float* delta, void* dk, void* dv, int bh, int heads, int L, float scale, int causal,
-               cudaStream_t stream) {
+int launch_dkv(const void* q, const void* k, const void* v, const int* seg, const int* seg_kv, const void* dout,
+               const float* lse, const float* delta, void* dk, void* dv, int bh, int heads, int L, float scale,
+               int causal, cudaStream_t stream) {
   const size_t smem = Plan<D>::bytes(4, 2, 2);
   auto kern = flash_bwd_dkv_kernel<T, D>;
   cudaError_t err = allow_smem<flash_bwd_dkv_kernel<T, D>>(smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, (L + kBlock - 1) / kBlock);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                         static_cast<const T*>(v), seg, static_cast<const T*>(dout), lse, delta,
-                                         static_cast<T*>(dk), static_cast<T*>(dv), L, heads, scale, causal != 0);
+                                         static_cast<const T*>(v), seg, seg_kv, static_cast<const T*>(dout), lse,
+                                         delta, static_cast<T*>(dk), static_cast<T*>(dv), L, heads, scale,
+                                         causal != 0);
   return (int)cudaGetLastError();
 }
 
@@ -576,6 +589,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two neighbouring outputs (columns c, c + 1: at is even) of a bf16 kernel,
+// as a bf16 pair or, with out_f32, as two floats.
+__device__ __forceinline__ void store_pair(void* out, bool out_f32, size_t at, float lo, float hi) {
+  if (out_f32)
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + at) = make_float2(lo, hi);
+  else
+    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + at) = pack_bf16(lo, hi);
+}
+
 // Accumulator element i of a thread (lane, warp w of the warpgroup) sits at
 // row 16 w + lane / 4 + 8 ((i / 2) % 2) and column 8 (i / 4) + 2 (lane % 4)
 // + i % 2. Elements 8c .. 8c + 7 are then, as bf16 pairs, exactly the A
@@ -611,35 +633,37 @@ __device__ __forceinline__ void tile_fb(float (&acc)[D / 64][32], const uint32_t
 // The fence-aware block skip: which of the candidate blocks [lo, hi) a CTA
 // visits, given its own block at rows [own0, own0 + 64). Without segment
 // ids every candidate is visited; with them, a candidate whose [min, max]
-// id range does not overlap the own block's holds no pair of equal ids,
-// so every score between the two is masked (p = 0 exactly) and the pair is
-// skipped. Ids past L are ignored. Writes the visited block indices, in
-// order, to list[] and returns their count. flags[] (hi - lo words) and
-// scratch[1] are shared memory; every thread of the CTA must call it.
-__device__ int visit_list(const int* seg_b, int L, int own0, int lo, int hi, int* flags, int* list, int* scratch) {
+// id range (read from the candidates' side, cand_seg) does not overlap the
+// own block's (from own_seg) holds no pair of equal ids, so every score
+// between the two is masked (p = 0 exactly) and the pair is skipped. Ids
+// past L are ignored. Writes the visited block indices, in order, to
+// list[] and returns their count. flags[] (hi - lo words) and scratch[1]
+// are shared memory; every thread of the CTA must call it.
+__device__ int visit_list(const int* own_seg, const int* cand_seg, int L, int own0, int lo, int hi, int* flags,
+                          int* list, int* scratch) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32, n = hi - lo;
-  if (seg_b) {
+  if (own_seg) {
     // a warp takes a block's 64 ids as 2 a lane; min and max over those < L
     auto range = [&](int row0, const int (&v)[2], int& mn, int& mx) {
       const bool a = row0 + lane < L, b = row0 + 32 + lane < L;
       mn = __reduce_min_sync(0xffffffffu, min(a ? v[0] : INT_MAX, b ? v[1] : INT_MAX));
       mx = __reduce_max_sync(0xffffffffu, max(a ? v[0] : INT_MIN, b ? v[1] : INT_MIN));
     };
-    auto load = [&](int row0, int (&v)[2]) {
+    auto load = [&](const int* seg, int row0, int (&v)[2]) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) v[h] = row0 + 32 * h + lane < L ? seg_b[row0 + 32 * h + lane] : 0;
+      for (int h = 0; h < 2; ++h) v[h] = row0 + 32 * h + lane < L ? seg[row0 + 32 * h + lane] : 0;
     };
     // every warp reads the own block's range itself (no barrier), and its
     // candidates kBatch at a time with all their loads in flight together
     constexpr int kBatch = 8;
     int own[2], own_mn, own_mx;
-    load(own0, own);
+    load(own_seg, own0, own);
     range(own0, own, own_mn, own_mx);
     for (int i0 = warp; i0 < n; i0 += warps * kBatch) {
       int v[kBatch][2];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u)
-        if (i0 + u * warps < n) load((lo + i0 + u * warps) * kBlock, v[u]);
+        if (i0 + u * warps < n) load(cand_seg, (lo + i0 + u * warps) * kBlock, v[u]);
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int i = i0 + u * warps;
@@ -711,7 +735,8 @@ template <int D, int STAGES>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
-                       bf16* __restrict__ o, float* __restrict__ lse, int L, int heads, float scale, bool causal) {
+                       const int* __restrict__ seg_kv, void* __restrict__ o, float* __restrict__ lse, int L,
+                       int heads, float scale, bool causal, bool out_f32) {
   using R = RingPlan<D, STAGES, 1>;
   extern __shared__ char smem_raw[];
   char* smem = align_atom(smem_raw);
@@ -728,7 +753,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
   // the causal work of a q block grows with its index: the heaviest first
   const int bh = blockIdx.x, qb = n_blk - 1 - (int)blockIdx.y, q0 = qb * kBlock;
   const int tid = threadIdx.x;
-  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
+  const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
 
   init_barriers(bars, 1 + STAGES);
   if (tid == 0) {
@@ -743,13 +769,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
     seg_q[h] = seg_b && qi[h] < L ? seg_b[qi[h]] : 0;
   }
   const float scale2 = scale * kLog2e;
-  const int n_vis = visit_list(seg_b, L, q0, 0, causal ? qb + 1 : n_blk, flags, list, scratch);
+  const int n_vis = visit_list(seg_b, seg_kb, L, q0, 0, causal ? qb + 1 : n_blk, flags, list, scratch);
 
   // ring stage s takes kv block kb: K, V by TMA, the keys' ids by the
   // threads, read into a register (fetch) well before they are stored
   auto fetch = [&](int kb) {
     const int j = kb * kBlock + tid;
-    return seg_b && tid < kBlock && j < L ? seg_b[j] : -1;
+    return seg_kb && tid < kBlock && j < L ? seg_kb[j] : -1;
   };
   auto issue = [&](int s, int kb, int ids) {
     if (tid == 0) {
@@ -864,9 +890,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const int h = (i >> 1) & 1, r = q0 + acc_row(i);
-      if (r < L)
-        *reinterpret_cast<uint32_t*>(o + base + (size_t)r * D + pn * 64 + acc_col(i)) =
-            pack_bf16(acc[pn][i] / den[h], acc[pn][i + 1] / den[h]);
+      if (r < L) store_pair(o, out_f32, base + (size_t)r * D + pn * 64 + acc_col(i), acc[pn][i] / den[h],
+                            acc[pn][i + 1] / den[h]);
     }
   if (tid % 4 == 0) {
 #pragma unroll
@@ -879,9 +904,9 @@ template <int D, int STAGES>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                          const int* __restrict__ seg, const float* __restrict__ lse,
-                          const float* __restrict__ delta, bf16* __restrict__ dq, int L, int heads, float scale,
-                          bool causal) {
+                          const int* __restrict__ seg, const int* __restrict__ seg_kv,
+                          const float* __restrict__ lse, const float* __restrict__ delta, void* __restrict__ dq,
+                          int L, int heads, float scale, bool causal, bool out_f32) {
   using R = RingPlan<D, STAGES, 2>;
   extern __shared__ char smem_raw[];
   char* smem = align_atom(smem_raw);
@@ -899,7 +924,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
   // the causal work of a q block grows with its index: the heaviest first
   const int bh = blockIdx.x, qb = n_blk - 1 - (int)blockIdx.y, q0 = qb * kBlock;
   const int tid = threadIdx.x;
-  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
+  const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
 
   init_barriers(bars, 1 + STAGES);
   if (tid == 0) {
@@ -919,13 +945,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
     seg_q[h] = seg_b && in ? seg_b[qi[h]] : 0;
   }
   const float scale2 = scale * kLog2e;
-  const int n_vis = visit_list(seg_b, L, q0, 0, causal ? qb + 1 : n_blk, flags, list, scratch);
+  const int n_vis = visit_list(seg_b, seg_kb, L, q0, 0, causal ? qb + 1 : n_blk, flags, list, scratch);
 
   // ring stage s takes kv block kb: K, V by TMA, the keys' ids by the
   // threads, read into a register (fetch) well before they are stored
   auto fetch = [&](int kb) {
     const int j = kb * kBlock + tid;
-    return seg_b && tid < kBlock && j < L ? seg_b[j] : -1;
+    return seg_kb && tid < kBlock && j < L ? seg_kb[j] : -1;
   };
   auto issue = [&](int s, int kb, int ids) {
     if (tid == 0) {
@@ -1003,9 +1029,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const int r = q0 + acc_row(i);
-      if (r < L)
-        *reinterpret_cast<uint32_t*>(dq + base + (size_t)r * D + pn * 64 + acc_col(i)) =
-            pack_bf16(acc[pn][i], acc[pn][i + 1]);
+      if (r < L) store_pair(dq, out_f32, base + (size_t)r * D + pn * 64 + acc_col(i), acc[pn][i], acc[pn][i + 1]);
     }
 }
 
@@ -1013,9 +1037,9 @@ template <int D, int STAGES>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                           const int* __restrict__ seg, const float* __restrict__ lse,
-                           const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int L,
-                           int heads, float scale, bool causal) {
+                           const int* __restrict__ seg, const int* __restrict__ seg_kv,
+                           const float* __restrict__ lse, const float* __restrict__ delta, void* __restrict__ dk,
+                           void* __restrict__ dv, int L, int heads, float scale, bool causal, bool out_f32) {
   using R = RingPlan<D, STAGES, 2>;
   extern __shared__ char smem_raw[];
   char* smem = align_atom(smem_raw);
@@ -1034,7 +1058,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
   // the heaviest first
   const int bh = blockIdx.x, kb = blockIdx.y, k0 = kb * kBlock;
   const int tid = threadIdx.x;
-  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
+  const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
   const float* lse_b = lse + (size_t)bh * L;
   const float* delta_b = delta + (size_t)bh * L;
 
@@ -1044,7 +1069,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     load_tile_tma<D>(ks, &tm_k, &bars[0], k0, bh);
     load_tile_tma<D>(vs, &tm_v, &bars[0], k0, bh);
   }
-  const int n_vis = visit_list(seg_b, L, k0, causal ? kb : 0, n_blk, flags, list, scratch);
+  const int n_vis = visit_list(seg_kb, seg_b, L, k0, causal ? kb : 0, n_blk, flags, list, scratch);
 
   // ring stage s takes q block qb: Q, dO by TMA, the rows' lse (scaled by
   // log2 e), delta and ids by the threads, read into registers (fetch)
@@ -1094,7 +1119,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     kj[h] = k0 + acc_row(2 * h);
-    seg_k[h] = seg_b && kj[h] < L ? seg_b[kj[h]] : 0;
+    seg_k[h] = seg_kb && kj[h] < L ? seg_kb[kj[h]] : 0;
   }
   const float scale2 = scale * kLog2e;
   __syncthreads();  // the ring's row vectors are in shared memory
@@ -1170,8 +1195,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
       const int r = k0 + acc_row(i);
       if (r < L) {
         const size_t at = base + (size_t)r * D + pn * 64 + acc_col(i);
-        *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16(dk_acc[pn][i], dk_acc[pn][i + 1]);
-        *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dv_acc[pn][i], dv_acc[pn][i + 1]);
+        store_pair(dk, out_f32, at, dk_acc[pn][i], dk_acc[pn][i + 1]);
+        store_pair(dv, out_f32, at, dv_acc[pn][i], dv_acc[pn][i + 1]);
       }
     }
 }
@@ -1224,8 +1249,9 @@ int make_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N], int bh, int 
 template <int D> constexpr int kStages = D == 64 ? 3 : 2;
 
 template <int D>
-int launch_fwd_wgmma(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int bh,
-                     int heads, int L, float scale, int causal, cudaStream_t stream) {
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, const int* seg, const int* seg_kv, void* o,
+                     float* lse, int bh, int heads, int L, float scale, int causal, int out_f32,
+                     cudaStream_t stream) {
   constexpr int S = kStages<D>;
   CUtensorMap m[3];
   if (int err = make_maps(m, {q, k, v}, bh, L, D)) return err;
@@ -1234,15 +1260,15 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, const int* seg
   auto kern = flash_fwd_wgmma_kernel<D, S>;
   cudaError_t err = allow_smem<flash_fwd_wgmma_kernel<D, S>>(smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(bh, n_blk), kThreads, smem, stream>>>(m[0], m[1], m[2], seg, static_cast<bf16*>(o), lse, L, heads,
-                                                     scale, causal != 0);
+  kern<<<dim3(bh, n_blk), kThreads, smem, stream>>>(m[0], m[1], m[2], seg, seg_kv, o, lse, L, heads, scale,
+                                                     causal != 0, out_f32 != 0);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_dq_wgmma(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
-                    const float* delta, void* dq, int bh, int heads, int L, float scale, int causal,
-                    cudaStream_t stream) {
+int launch_dq_wgmma(const void* q, const void* k, const void* v, const int* seg, const int* seg_kv, const void* dout,
+                    const float* lse, const float* delta, void* dq, int bh, int heads, int L, float scale,
+                    int causal, int out_f32, cudaStream_t stream) {
   constexpr int S = kStages<D>;
   CUtensorMap m[4];
   if (int err = make_maps(m, {q, k, v, dout}, bh, L, D)) return err;
@@ -1251,15 +1277,15 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v, const int* seg,
   auto kern = flash_bwd_dq_wgmma_kernel<D, S>;
   cudaError_t err = allow_smem<flash_bwd_dq_wgmma_kernel<D, S>>(smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(bh, n_blk), kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], seg, lse, delta,
-                                                     static_cast<bf16*>(dq), L, heads, scale, causal != 0);
+  kern<<<dim3(bh, n_blk), kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], seg, seg_kv, lse, delta, dq, L,
+                                                     heads, scale, causal != 0, out_f32 != 0);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_dkv_wgmma(const void* q, const void* k, const void* v, const int* seg, const void* dout, const float* lse,
-                     const float* delta, void* dk, void* dv, int bh, int heads, int L, float scale, int causal,
-                     cudaStream_t stream) {
+int launch_dkv_wgmma(const void* q, const void* k, const void* v, const int* seg, const int* seg_kv,
+                     const void* dout, const float* lse, const float* delta, void* dk, void* dv, int bh, int heads,
+                     int L, float scale, int causal, int out_f32, cudaStream_t stream) {
   constexpr int S = kStages<D>;
   CUtensorMap m[4];
   if (int err = make_maps(m, {q, k, v, dout}, bh, L, D)) return err;
@@ -1268,9 +1294,8 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const int* seg
   auto kern = flash_bwd_dkv_wgmma_kernel<D, S>;
   cudaError_t err = allow_smem<flash_bwd_dkv_wgmma_kernel<D, S>>(smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(bh, n_blk), kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], seg, lse, delta,
-                                                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), L, heads, scale,
-                                                     causal != 0);
+  kern<<<dim3(bh, n_blk), kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], seg, seg_kv, lse, delta, dk, dv, L,
+                                                     heads, scale, causal != 0, out_f32 != 0);
   return (int)cudaGetLastError();
 }
 
@@ -1280,47 +1305,55 @@ constexpr int kUnsupported = -1;
 }  // namespace
 
 // C interface for ctypes. dtype: 0 = float32, 1 = bfloat16; seg may be null
-// (no fence); returns 0 or a cudaError_t code (kUnsupported for a bad D/dtype,
-// kNoTensorMap when the driver's tensor-map encoder is missing or refuses).
+// (no fence), seg_k null means the keys' ids are seg; out_f32 makes the bf16
+// kernels write f32 outputs (the f32 kernels always do). Returns 0 or a
+// cudaError_t code (kUnsupported for a bad D/dtype, kNoTensorMap when the
+// driver's tensor-map encoder is missing or refuses).
 extern "C" {
 
-int tos_flash_fwd(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int bh,
-                  int heads, int L, int D, int dtype, float scale, int causal, void* stream) {
+int tos_flash_fwd(const void* q, const void* k, const void* v, const int* seg, const int* seg_k, void* o, float* lse,
+                  int bh, int heads, int L, int D, int dtype, float scale, int causal, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64) return launch_fwd_wgmma<64>(q, k, v, seg, o, lse, bh, heads, L, scale, causal, st);
-  if (dtype == 1 && D == 128) return launch_fwd_wgmma<128>(q, k, v, seg, o, lse, bh, heads, L, scale, causal, st);
-  if (dtype == 0 && D == 64) return launch_fwd<float, 64>(q, k, v, seg, o, lse, bh, heads, L, scale, causal, st);
-  if (dtype == 0 && D == 128) return launch_fwd<float, 128>(q, k, v, seg, o, lse, bh, heads, L, scale, causal, st);
+  if (dtype == 1 && D == 64)
+    return launch_fwd_wgmma<64>(q, k, v, seg, seg_k, o, lse, bh, heads, L, scale, causal, out_f32, st);
+  if (dtype == 1 && D == 128)
+    return launch_fwd_wgmma<128>(q, k, v, seg, seg_k, o, lse, bh, heads, L, scale, causal, out_f32, st);
+  if (dtype == 0 && D == 64)
+    return launch_fwd<float, 64>(q, k, v, seg, seg_k, o, lse, bh, heads, L, scale, causal, st);
+  if (dtype == 0 && D == 128)
+    return launch_fwd<float, 128>(q, k, v, seg, seg_k, o, lse, bh, heads, L, scale, causal, st);
   return kUnsupported;
 }
 
-int tos_flash_bwd_dq(const void* q, const void* k, const void* v, const int* seg, const void* dout,
+int tos_flash_bwd_dq(const void* q, const void* k, const void* v, const int* seg, const int* seg_k, const void* dout,
                      const float* lse, const float* delta, void* dq, int bh, int heads, int L, int D, int dtype,
-                     float scale, int causal, void* stream) {
+                     float scale, int causal, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 64)
-    return launch_dq_wgmma<64>(q, k, v, seg, dout, lse, delta, dq, bh, heads, L, scale, causal, st);
+    return launch_dq_wgmma<64>(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, scale, causal, out_f32, st);
   if (dtype == 1 && D == 128)
-    return launch_dq_wgmma<128>(q, k, v, seg, dout, lse, delta, dq, bh, heads, L, scale, causal, st);
+    return launch_dq_wgmma<128>(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, scale, causal, out_f32, st);
   if (dtype == 0 && D == 64)
-    return launch_dq<float, 64>(q, k, v, seg, dout, lse, delta, dq, bh, heads, L, scale, causal, st);
+    return launch_dq<float, 64>(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, scale, causal, st);
   if (dtype == 0 && D == 128)
-    return launch_dq<float, 128>(q, k, v, seg, dout, lse, delta, dq, bh, heads, L, scale, causal, st);
+    return launch_dq<float, 128>(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, scale, causal, st);
   return kUnsupported;
 }
 
-int tos_flash_bwd_dkv(const void* q, const void* k, const void* v, const int* seg, const void* dout,
-                      const float* lse, const float* delta, void* dk, void* dv, int bh, int heads, int L, int D,
-                      int dtype, float scale, int causal, void* stream) {
+int tos_flash_bwd_dkv(const void* q, const void* k, const void* v, const int* seg, const int* seg_k,
+                      const void* dout, const float* lse, const float* delta, void* dk, void* dv, int bh, int heads,
+                      int L, int D, int dtype, float scale, int causal, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 64)
-    return launch_dkv_wgmma<64>(q, k, v, seg, dout, lse, delta, dk, dv, bh, heads, L, scale, causal, st);
+    return launch_dkv_wgmma<64>(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, scale, causal, out_f32,
+                                st);
   if (dtype == 1 && D == 128)
-    return launch_dkv_wgmma<128>(q, k, v, seg, dout, lse, delta, dk, dv, bh, heads, L, scale, causal, st);
+    return launch_dkv_wgmma<128>(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, scale, causal,
+                                 out_f32, st);
   if (dtype == 0 && D == 64)
-    return launch_dkv<float, 64>(q, k, v, seg, dout, lse, delta, dk, dv, bh, heads, L, scale, causal, st);
+    return launch_dkv<float, 64>(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, scale, causal, st);
   if (dtype == 0 && D == 128)
-    return launch_dkv<float, 128>(q, k, v, seg, dout, lse, delta, dk, dv, bh, heads, L, scale, causal, st);
+    return launch_dkv<float, 128>(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, scale, causal, st);
   return kUnsupported;
 }
 

@@ -44,17 +44,28 @@ split over a model axis and each rank's parameter bytes; every rank's
 parameters, gathered to full tensors, must be equal, so the arrays no model
 axis splits are equal on every rank of a group.
 
-``--models`` picks the models (default ``resnet50,transformer``); ``--tp``
-and ``--ep`` add theirs.
+With ``--sp`` the LM trains sequence-parallel (ring attention through the
+flash kernels, each rank of an ``sp`` group on its block of every row:
+``sharding.sequence_chunk``) on ``sp`` = world, ``dp`` = world/2 × ``sp``
+= 2, ``tp`` = 2 × ``sp`` = world/2 and ``fsdp`` = 2 × ``sp`` = world/2
+beside its data-parallel leg on the same 8 rows (``transformer_sp``). With
+``--sp_long`` one long-context leg follows: ``sp`` = world on ``LONG_ROWS``
+rows of ``LONG_SEQ`` tokens (``transformer_sp_long``): its step ms (host
+clock, a sync after each step), tokens/s, each rank's peak memory, and its
+first loss against the same rows' on one rank at full length (no ring, the
+flash kernels), within ``LONG_LOSS_TOL`` relative.
+
+``--models`` picks the models (default ``resnet50,transformer``); ``--tp``,
+``--ep`` and ``--sp`` add theirs.
 
 Usage (four cards of one host, full ResNet-50 and the full-width LM)::
 
-    python -m tensorflowonspark_tpu_torch.examples.sync_dp_check --world 4 [--fsdp] [--tp] [--ep]
+    python -m tensorflowonspark_tpu_torch.examples.sync_dp_check --world 4 [--fsdp] [--tp] [--ep] [--sp]
 
 and a rehearsal on the CPU at a small size::
 
     python -m tensorflowonspark_tpu_torch.examples.sync_dp_check --platform cpu \\
-        --world 4 --size small --steps 3 --pairs 0 [--fsdp] [--tp] [--ep]
+        --world 4 --size small --steps 3 --pairs 0 [--fsdp] [--tp] [--ep] [--sp] [--sp_long]
 """
 
 import argparse
@@ -78,6 +89,9 @@ REL_TOL = 1e-5
 AXES_ROWS = {"full": 8, "small": 4}
 #: the mixture's experts
 EXPERTS = 8
+#: the long-context leg: rows and sequence length, and its first loss
+#: against one rank's at full length (the LM's bf16 loss limit)
+LONG_ROWS, LONG_SEQ, LONG_LOSS_TOL = 2, {"full": 16384, "small": 256}, 2e-4
 
 
 def _legs(model, world, fsdp):
@@ -96,6 +110,12 @@ def _legs(model, world, fsdp):
         legs.append(("ep{}".format(world), {"dp": 1, "ep": world}, False))
         if half:
             legs.append(("dp{}_ep2".format(world // 2), {"dp": world // 2, "ep": 2}, False))
+    elif model == "transformer_sp":
+        legs.append(("sp{}".format(world), {"dp": 1, "sp": world}, False))
+        if half:
+            legs.append(("dp{}_sp2".format(world // 2), {"dp": world // 2, "sp": 2}, False))
+            legs.append(("tp2_sp{}".format(world // 2), {"dp": 1, "tp": 2, "sp": world // 2}, False))
+            legs.append(("fsdp2_sp{}".format(world // 2), {"dp": 1, "fsdp": 2, "sp": world // 2}, True))
     elif fsdp:
         if half:
             legs.append(("dp{}_fsdp2".format(world // 2), {"dp": world // 2, "fsdp": 2}, True))
@@ -135,15 +155,15 @@ def _models(size, device, dtype_name, names):
 
     def lm_build(mesh=None, **over):
         return transformer.create_model(mesh=mesh, dtype=dtype_name,
-                                        max_seq_len=dims["transformer"]["seq"],
-                                        generator=torch.Generator().manual_seed(0), **dict(lm_cfg, **over))
+                                        generator=torch.Generator().manual_seed(0),
+                                        **dict(dict(lm_cfg, max_seq_len=dims["transformer"]["seq"]), **over))
 
     # groups of 256 tokens at full size (the JAX default), of a row at the
     # small: a divisor of every rank's token count on every leg
     moe = dict(moe_experts=EXPERTS, moe_group_size=min(256, dims["transformer"]["seq"]))
 
-    def lm_batch(rng, world, rows=None):
-        n, length = rows or dims["transformer"]["batch"] * world, dims["transformer"]["seq"] + 1
+    def lm_batch(rng, world, rows=None, seq=None):
+        n, length = rows or dims["transformer"]["batch"] * world, (seq or dims["transformer"]["seq"]) + 1
         tokens = rng.integers(1, lm_cfg["vocab_size"], (n, length)).astype(np.int32)
         cut = length // 3
         seg = np.where(np.arange(length) < cut, 1, 2)[None].repeat(n, 0).astype(np.int32)
@@ -162,6 +182,11 @@ def _models(size, device, dtype_name, names):
         "transformer_moe": (lambda mesh=None: lm_build(mesh, **moe), transformer.make_loss_fn(None),
                             lambda: optim.adamw(3e-4), dict(has_aux=True),
                             lambda rng, world: lm_batch(rng, world, rows)),
+        "transformer_sp": (lm_build, transformer.make_loss_fn(None), lambda: optim.adamw(3e-4),
+                           dict(has_aux=True), lambda rng, world: lm_batch(rng, world, rows)),
+        "transformer_sp_long": (lambda mesh=None: lm_build(mesh, max_seq_len=LONG_SEQ[size]),
+                                transformer.make_loss_fn(None), lambda: optim.adamw(3e-4), dict(has_aux=True),
+                                lambda rng, world: lm_batch(rng, world, LONG_ROWS, LONG_SEQ[size])),
     }
     return {name: models[name] for name in names}
 
@@ -222,12 +247,14 @@ def _rank(rank, world, port, args, out_path):
         for leg, axes, fsdp in _legs(name, world, args.fsdp):
             where = build_mesh(axes) if axes else device
             strategy = _strategy(where, axes, fsdp, args.size)
-            mesh = where if axes and ({"tp", "ep"} & set(axes)) else None
+            mesh = where if axes and ({"tp", "ep", "sp"} & set(axes)) else None
             index, count = sharding.data_shard(where, rank) if axes else (rank, world)
+            block = sharding.sequence_shard(where, rank) if axes else (0, 1)
             share = []
             for batch in glob:
                 n = next(iter(batch.values())).shape[0] // count
-                share.append(strategy.shard_batch({key: v[index * n:(index + 1) * n] for key, v in batch.items()}))
+                rows = {key: v[index * n:(index + 1) * n] for key, v in batch.items()}
+                share.append(strategy.shard_batch(sharding.sequence_chunk(rows, *block)))
             if cuda:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(device)
@@ -309,11 +336,76 @@ def _rank(rank, world, port, args, out_path):
             del runs, timer, timed, step, loop, eager_state, loop_state, share, state
             if cuda:
                 torch.cuda.empty_cache()
+    if args.sp_long:
+        results.append(_long_leg(rank, world, args, device, sync))
     if rank == 0:
         with open(out_path, "w") as f:
             json.dump(results, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _long_leg(rank, world, args, device, sync):
+    """The long-context leg: the LM on ``sp`` = world over ``LONG_ROWS``
+    rows of ``LONG_SEQ`` tokens, ``args.steps`` eager steps (each timed,
+    host clock after a sync), then rank 0 alone computes the first batch's
+    loss from the same weights on the whole sequence (no mesh: the flash
+    kernels on the card)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.parallel import build_mesh, sharding
+
+    build, loss_fn, make_opt, kw, make_batch = _models(args.size, device, args.dtype, ["transformer_sp_long"])[
+        "transformer_sp_long"]
+    axes = {"dp": 1, "sp": world}
+    where = build_mesh(axes)
+    strategy = _strategy(where, axes, False, args.size)
+    host = make_batch(np.random.default_rng(12), world)
+    batch = strategy.shard_batch(sharding.sequence_chunk(host, *sharding.sequence_shard(where, rank)))
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    optimizer = make_opt()
+    state = strategy.create_state(lambda: build(where), optimizer)
+    step = strategy.compile_train_step(loss_fn, optimizer, **kw)
+    losses, ms = [], []
+    for _ in range(args.steps):
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    length = LONG_SEQ[args.size]
+    line = {"model": "transformer_sp_long", "leg": "sp{}_long".format(world), "world": world,
+            "platform": args.platform, "size": args.size, "dtype": args.dtype, "rows": LONG_ROWS, "seq": length,
+            "local_seq": length // world, "steps": args.steps, "losses": losses,
+            "step_ms": {"median": statistics.median(ms[1:] or ms), "min": min(ms), "max": max(ms),
+                        "first": ms[0]},
+            "tokens_per_sec": LONG_ROWS * length / (statistics.median(ms[1:] or ms) / 1e3)}
+    if cuda:
+        peaks = torch.tensor([(torch.cuda.max_memory_allocated(device) - base) / 1e9], device=device)
+        gathered = [torch.zeros_like(peaks) for _ in range(world)]
+        dist.all_gather(gathered, peaks)
+        line["peak_memory_gb_by_rank"] = [float(v) for v in gathered]
+    del state, step, batch
+    if cuda:
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with torch.no_grad():
+            whole = build().to(device)
+            ref, _ = loss_fn(whole, {key: torch.as_tensor(v).to(device) for key, v in host.items()})
+        line["loss_one_rank"] = float(ref)
+        line["first_loss_rel_gap"] = abs(losses[0] - float(ref)) / abs(float(ref))
+        line["tolerance"] = LONG_LOSS_TOL
+        del whole, ref
+    dist.barrier()
+    return line
 
 
 def _tensors(tree):
@@ -342,6 +434,12 @@ def main(argv=None):
                         help="add the LM on dp=world/2 x tp=2, tp=world and dp x fsdp=2 x tp=2 (transformer_tp)")
     parser.add_argument("--ep", action="store_true",
                         help="add the 8-expert LM on ep=world and dp=world/2 x ep=2 (transformer_moe)")
+    parser.add_argument("--sp", action="store_true",
+                        help="add the LM sequence-parallel on sp=world, dp=world/2 x sp=2, tp=2 x sp=world/2 "
+                             "and fsdp=2 x sp=world/2 (transformer_sp)")
+    parser.add_argument("--sp_long", action="store_true",
+                        help="add the long-context leg: sp=world on {} rows of {} tokens".format(
+                            LONG_ROWS, LONG_SEQ["full"]))
     parser.add_argument("--models", default="resnet50,transformer",
                         help="comma-separated models of the data-parallel and ZeRO-3 legs ('' for none)")
     parser.add_argument("--dtype", choices=["bfloat16", "float32"], default=None,
@@ -349,7 +447,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     args.dtype = args.dtype or ("bfloat16" if args.platform == "gpu" else "float32")
     args.models = [m for m in args.models.split(",") if m] + ["transformer_tp"] * args.tp + \
-        ["transformer_moe"] * args.ep
+        ["transformer_moe"] * args.ep + ["transformer_sp"] * args.sp
     if args.platform == "gpu" and torch.cuda.device_count() < args.world:
         raise SystemExit("sync_dp_check: --world {} needs {} CUDA devices, found {}".format(
             args.world, args.world, torch.cuda.device_count()))
@@ -373,12 +471,15 @@ def main(argv=None):
     failed = False
     for line in lines:
         print(json.dumps(line), flush=True)
+        if line["model"] == "transformer_sp_long":
+            failed |= not line["first_loss_rel_gap"] <= line["tolerance"]
+            continue
         failed |= bool(line["loop_vs_eager_mismatches"] or line["tensors_off_rank0"]
                        or len(set(line["losses_by_rank"])) != 1)
         if args.dtype == "float32" and line.get("loss_rel_gap_to_dp", 0) > REL_TOL:
             failed = True
     if failed:
-        raise SystemExit("sync_dp_check: a rank, the loop or a ZeRO-3, tp or ep leg disagrees (lines above)")
+        raise SystemExit("sync_dp_check: a rank, the loop or a ZeRO-3, tp, ep or sp leg disagrees (lines above)")
     return lines
 
 

@@ -1,6 +1,6 @@
 """The LM on its model axes, checked against its plain runs through
-``TFCluster.run``: tensor parallelism, an 8-expert mixture over ``ep``,
-and rematerialization.
+``TFCluster.run``: tensor parallelism, sequence parallelism, an 8-expert
+mixture over ``ep``, and rematerialization.
 
 The trainer (:func:`main_fun`, one executor, a world of one rank) runs
 three legs on the LM, from seed-0 weights and the example's packed text:
@@ -16,6 +16,13 @@ three legs on the LM, from seed-0 weights and the example's packed text:
   steps and after the loop; then the tp state is saved, restored onto a
   fresh data-parallel state with ``ckpt.reshard_restore`` and both take
   one more step: bitwise again.
+* **sp**: ``SyncDataParallel(ctx.mesh({"dp": 1, "sp": -1}))`` with the
+  model built on that mesh, each batch cut to this rank's block of the
+  sequence (``sharding.sequence_chunk``), as a third side of the same
+  turns. A ring of one member is the flash call, so it must agree with dp
+  **bitwise** after the eager steps, after the loop, and after its
+  checkpoint is resharded onto a fresh data-parallel state and both take a
+  step.
 * **moe**: the LM with 8 experts at the JAX package's defaults (capacity
   1.25, groups of 256, balancing weight 0.01) on ``{"dp": 1, "ep": -1}``:
   ``--moe_steps`` eager steps, and from the same weights the same batches
@@ -92,6 +99,7 @@ def main_fun(args, ctx):
     from tensorflowonspark_tpu_torch.models import transformer
     from tensorflowonspark_tpu_torch.ops import flash_attention
     from tensorflowonspark_tpu_torch.ops.kernel_trace import KernelTrace
+    from tensorflowonspark_tpu_torch.parallel import sharding
     from tensorflowonspark_tpu_torch.train import SyncDataParallel, checkpoint, optim
 
     size = FULL if args.size == "full" else SMALL
@@ -114,7 +122,9 @@ def main_fun(args, ctx):
             torch.cuda.synchronize(device)
 
     def build(strategy, seed, **over):
-        mesh = strategy.mesh if strategy.param_spec_fn is not None else None
+        # the model is built on a mesh with a model axis or sp
+        mesh = (strategy.mesh if strategy.param_spec_fn is not None
+                or "sp" in getattr(strategy.mesh, "mesh_dim_names", ()) else None)
         model = transformer.create_model(mesh=mesh, **dict(dict(cfg, dtype=dtype, max_seq_len=size["seq_len"]),
                                                            **over))
         optimizer = optim.adamw(3e-4)
@@ -129,6 +139,7 @@ def main_fun(args, ctx):
 
     # -- tp: dp x tp at one rank against dp, bitwise -----------------------
     sides = {"tp": SyncDataParallel(ctx.mesh({"dp": 1, "tp": -1}), tp=transformer.param_specs),
+             "sp": SyncDataParallel(ctx.mesh({"dp": 1, "sp": -1})),
              "dp": SyncDataParallel(ctx.mesh({"dp": -1}))}
     runs = {}
     for name, strategy in sides.items():
@@ -138,8 +149,10 @@ def main_fun(args, ctx):
             torch.cuda.reset_peak_memory_stats(device)
         flash_attention.reset_launch_counts()
         state, step, loop = build(strategy, 0)
+        block = (sharding.sequence_shard(strategy.mesh, ctx.process_id) if strategy.mesh is not None
+                 else (0, 1))
         run = {"state": state, "step": step, "loop": loop, "losses": [], "eager_ms": [], "call_ms": [],
-               "batches": iter([strategy.shard_batch(b) for b in host])}
+               "batches": iter([strategy.shard_batch(sharding.sequence_chunk(b, *block)) for b in host])}
         for _ in range(e):
             _eager(run, sync)
         run["after_eager"] = _snapshot(run["state"])
@@ -171,22 +184,23 @@ def main_fun(args, ctx):
                            "max": max(run["eager_ms"])},
             captured_step_ms={"median": statistics.median(captured), "min": min(captured), "max": max(captured)},
             tokens_per_sec_captured=tokens / (statistics.median(captured) / 1e3))
-    tp, dp = runs["tp"], runs["dp"]
-    out["tp_eager_mismatches"] = _mismatches(tp["after_eager"], dp["after_eager"])
-    out["tp_loop_mismatches"] = _mismatches(_snapshot(tp["state"]), _snapshot(dp["state"]))
-    out["tp_losses_bitwise"] = bool(torch.equal(torch.stack(tp["losses"]), torch.stack(dp["losses"])))
-    del runs, dp
-    path = os.path.join(args.work_dir, "ckpt_tp_{}".format(tp["state"].step))
-    checkpoint.save_checkpoint(path, tp["state"])
-    fresh, dp_step, _ = build(sides["dp"], 1)
-    restored = ckpt.reshard_restore(path, strategy=sides["dp"], target=fresh)
-    out["tp_restored_mismatches"] = _mismatches(_snapshot(restored), _snapshot(tp["state"]))
+    dp = runs.pop("dp")
     last = sides["dp"].shard_batch(host[-1])
-    state, metrics = tp["step"](tp["state"], last)
-    restored, restored_metrics = dp_step(restored, last)
-    out["tp_resumed_mismatches"] = _mismatches(_snapshot(restored), _snapshot(state))
-    out["tp_resumed_loss_bitwise"] = bool(torch.equal(metrics["loss"], restored_metrics["loss"]))
-    del tp, state, restored, fresh, dp_step, sides
+    for name, run in runs.items():  # tp, sp: against dp, bitwise
+        out[name + "_eager_mismatches"] = _mismatches(run["after_eager"], dp["after_eager"])
+        out[name + "_loop_mismatches"] = _mismatches(_snapshot(run["state"]), _snapshot(dp["state"]))
+        out[name + "_losses_bitwise"] = bool(torch.equal(torch.stack(run["losses"]), torch.stack(dp["losses"])))
+        path = os.path.join(args.work_dir, "ckpt_{}_{}".format(name, run["state"].step))
+        checkpoint.save_checkpoint(path, run["state"])
+        fresh, dp_step, _ = build(sides["dp"], 1)
+        restored = ckpt.reshard_restore(path, strategy=sides["dp"], target=fresh)
+        out[name + "_restored_mismatches"] = _mismatches(_snapshot(restored), _snapshot(run["state"]))
+        state, metrics = run["step"](run["state"], last)
+        restored, restored_metrics = dp_step(restored, last)
+        out[name + "_resumed_mismatches"] = _mismatches(_snapshot(restored), _snapshot(state))
+        out[name + "_resumed_loss_bitwise"] = bool(torch.equal(metrics["loss"], restored_metrics["loss"]))
+        del state, restored, fresh, dp_step
+    del runs, dp, sides
 
     # -- moe: 8 experts over ep, eager against captured ----------------------
     if cuda:
@@ -303,9 +317,11 @@ def _card_vs_cpu(torch, transformer, cfg, size, host_batch, ep, rows):
 
 def failures(out):
     """What in the trainer's readings breaks the contract (empty: none)."""
-    bad = [key for key in ("tp_eager_mismatches", "tp_loop_mismatches", "tp_restored_mismatches",
-                           "tp_resumed_mismatches") if out[key]]
-    bad += [key for key in ("tp_losses_bitwise", "tp_resumed_loss_bitwise") if not out[key]]
+    bad = [side + key for side in ("tp", "sp") for key in ("_eager_mismatches", "_loop_mismatches",
+                                                          "_restored_mismatches", "_resumed_mismatches")
+           if out[side + key]]
+    bad += [side + key for side in ("tp", "sp") for key in ("_losses_bitwise", "_resumed_loss_bitwise")
+            if not out[side + key]]
     if out["tp"]["params_split"] == 0:
         bad.append("no parameter split over tp")
     moe = out["moe"]

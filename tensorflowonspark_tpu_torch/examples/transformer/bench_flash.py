@@ -10,10 +10,12 @@ blocks the kernels visit (``visited_blocks``) and the outputs' agreement
 with the plain versions.
 
 ``--baseline SOURCE`` also builds another copy of ``flash_attention.cu``
-(the same C interface, e.g. an earlier commit's, unpacked under ``build/``)
-into ``build/cuda_baseline`` and times its kernels in turns with the
+(e.g. an earlier commit's, unpacked under ``build/``, with the same C
+interface) into ``build/cuda_baseline``, times its kernels in turns with the
 current ones (baseline, current, current, baseline, per round), so that
-both are read on one card in one process::
+both are read on one card in one process, and reports whether each
+kernel's outputs equal the baseline's bitwise (``bitwise_equal_baseline``;
+also in f32 at ``[16, 1024, 64]``)::
 
     python -m tensorflowonspark_tpu_torch.examples.transformer.bench_flash \\
         --baseline build/parent/flash_attention.cu
@@ -49,30 +51,36 @@ def time_ms(torch, fn, flush, iters):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def launchers(torch, fa, lib):
-    """The forward, dq and dk/dv through the C interface of ``lib`` (the
-    wrappers' calls, without their launch counts)."""
+def launchers(torch, fa, path):
+    """The forward, dq and dk/dv through the C interface of the library at
+    ``path`` (the wrappers' calls, without their launch counts), the queries'
+    ids on both sides, outputs in the input dtype."""
+    lib = fa.bind(path)
+
     def stream(t):
         return torch.cuda.current_stream(t.device).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    def dtype(t):
+        return 1 if t.dtype == torch.bfloat16 else 0
+
     def fwd(q, k, v, seg, scale, causal, heads):
         o = torch.empty_like(q)
         bh, length, d = q.shape
         lse = torch.empty((bh, length), device=q.device, dtype=torch.float32)
         fa._raise_on(lib.tos_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(seg), o.data_ptr(), lse.data_ptr(), bh, heads,
-            length, d, 1, float(scale), int(causal), stream(q)), "flash_fwd")
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(seg), None, o.data_ptr(), lse.data_ptr(), bh, heads,
+            length, d, dtype(q), float(scale), int(causal), 0, stream(q)), "flash_fwd")
         return o, lse
 
     def dq(q, k, v, seg, do, lse, delta, scale, causal, heads):
         out = torch.empty_like(q)
         bh, length, d = q.shape
         fa._raise_on(lib.tos_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(seg), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), out.data_ptr(), bh, heads, length, d, 1, float(scale), int(causal),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(seg), None, do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), out.data_ptr(), bh, heads, length, d, dtype(q), float(scale), int(causal), 0,
             stream(q)), "flash_bwd_dq")
         return out
 
@@ -80,12 +88,20 @@ def launchers(torch, fa, lib):
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         bh, length, d = q.shape
         fa._raise_on(lib.tos_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(seg), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, heads, length, d, 1, float(scale),
-            int(causal), stream(q)), "flash_bwd_dkv")
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(seg), None, do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, heads, length, d, dtype(q), float(scale),
+            int(causal), 0, stream(q)), "flash_bwd_dkv")
         return dk, dv
 
     return {"flash_fwd": fwd, "flash_bwd_dq": dq, "flash_bwd_dkv": dkv}
+
+
+def bitwise(torch, impls, name, args):
+    """Whether the baseline's outputs of kernel ``name`` equal the current
+    ones on ``args``, bitwise."""
+    got = [impls[impl][name](*args) for impl in ("baseline", "current")]
+    got = [g if isinstance(g, tuple) else (g,) for g in got]
+    return all(torch.equal(a, b) for a, b in zip(*got))
 
 
 def agreement(torch, got, want):
@@ -123,11 +139,11 @@ def main(argv=None):
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
-    impls = {"current": launchers(torch, fa, fa.bind(fa.build()))}
+    impls = {"current": launchers(torch, fa, fa.build())}
     if args.baseline:
-        path = fa.build(os.path.abspath(args.baseline), os.path.join(os.path.dirname(fa.BUILD_DIR),
-                                                                      "cuda_baseline"))
-        impls["baseline"] = launchers(torch, fa, fa.bind(path))
+        path = fa.build(os.path.abspath(args.baseline),
+                        os.path.join(os.path.dirname(fa.BUILD_DIR), "cuda_baseline"))
+        impls["baseline"] = launchers(torch, fa, path)
     order = ["baseline", "current", "current", "baseline"] if args.baseline else ["current"]
 
     seg_all = torch.as_tensor(packed_batch(SEQ, BATCH, args.data_dir)["segment_ids"][:, :-1])
@@ -191,9 +207,23 @@ def main(argv=None):
                             for impl in impls}
         for impl in impls:
             result["pair_ms_" + impl] = sum(result[name][impl]["ms"] for name in ("flash_bwd_dq", "flash_bwd_dkv"))
+        if args.baseline:
+            result["bitwise_equal_baseline"] = {name: bitwise(torch, impls, name, (q, k, v) + inputs[name])
+                                                for name in want}
         print(json.dumps(result), flush=True)
         del out, qg, kg, vg, want, o_ref, lse, delta, inputs
         torch.cuda.empty_cache()
+    if args.baseline:  # the f32 kernels, at a smaller shape, bitwise only
+        b = 2
+        q, k, v, do = (torch.randn(b * HEADS, 1024, D, device="cuda", generator=gen) for _ in range(4))
+        for line, seg in (("segments", seg_all[:b, :1024].contiguous()), ("causal", None)):
+            o, lse = impls["current"]["flash_fwd"](q, k, v, seg, scale, True, HEADS)
+            bwd = (seg, do, lse, (do * o).sum(-1), scale, True, HEADS)
+            print(json.dumps({"line": line, "shape": [b * HEADS, 1024, D], "dtype": "float32", "causal": True,
+                              "bitwise_equal_baseline": {
+                                  name: bitwise(torch, impls, name, (q, k, v) + (bwd if name != "flash_fwd" else
+                                                                                 (seg, scale, True, HEADS)))
+                                  for name in impls["current"]}}), flush=True)
     print(card, flush=True)
 
 

@@ -51,21 +51,22 @@ epoch >= 2 from the packed-slab cache; the pipeline's iterator is taken
 before the trainer touches CUDA, so the workers fork from a process without
 a CUDA context. The stream is byte-identical in every mode.
 
-``--mesh dp=D,fsdp=F,tp=T,ep=E`` trains on ``ctx.mesh`` over the
+``--mesh dp=D,fsdp=F,tp=T,sp=S,ep=E`` trains on ``ctx.mesh`` over the
 cluster's ranks (one card each): as in the JAX example, the batch is split
 over ``dp`` × ``fsdp`` and the parameters the model's rules do not place
 stay replicated; ``tp`` splits attention heads, the MLP's hidden dim and
 the vocabulary (``SyncDataParallel(mesh, param_spec_fn=transformer.param_specs)``),
 ``ep`` the experts of ``--moe_experts N``, on a model built from each
-rank's blocks (``create_model(mesh=...)``). Ranks that differ only in
-their ``tp`` or ``ep`` coordinate read the same shards with the same seed,
-so they train on the same batches (each logged step's span carries
-``batch_digest``, a digest of the batches trained so far). Without
-``--mesh`` each process holds a replica on ``ctx.device``. ``--remat``
-recomputes each block's activations in the backward.
-
-Not yet ported, and refused with an error: a ``--mesh`` with ``sp``
-(sequence parallelism, ring attention).
+rank's blocks (``create_model(mesh=...)``); ``sp`` splits the sequence:
+each rank of an ``sp`` group takes its block of every row
+(``sharding.sequence_chunk``: ``ceil(seq_len / S)`` tokens, the last block
+padded behind the segment fence and out of the loss) and attention is
+ring attention over the group, through the flash kernels. Ranks that
+differ only in their ``tp``, ``sp`` or ``ep`` coordinate read the same
+shards with the same seed, so they train on the same batches (each logged
+step's span carries ``batch_digest``, a digest of the rows trained so
+far). Without ``--mesh`` each process holds a replica on ``ctx.device``.
+``--remat`` recomputes each block's activations in the backward.
 """
 
 import argparse
@@ -116,15 +117,6 @@ def parse_mesh(spec):
     return axes
 
 
-def refuse_unported(args):
-    """Raise for the options whose machinery is not yet ported."""
-    if "sp" in (parse_mesh(args.mesh) or {}):
-        raise NotImplementedError(
-            "--mesh {} is not yet ported to tensorflowonspark_tpu_torch (sequence "
-            "parallelism, ring attention, comes in a later slice)".format(args.mesh)
-        )
-
-
 class _Digest:
     """A digest of the batches trained so far: :meth:`wrap` passes a
     stream's batches through, queueing each one's token digest (the
@@ -171,13 +163,16 @@ def main_fun(args, ctx):
     from tensorflowonspark_tpu_torch.parallel import sharding
     from tensorflowonspark_tpu_torch.train import SyncDataParallel, checkpoint, optim
 
-    refuse_unported(args)
     axes = parse_mesh(args.mesh)
     # this rank's share of the data: by its coordinate over the mesh's data
-    # axes (the ranks of a tp or ep group read the same shards, seeded
-    # alike), or a share a worker without a mesh
+    # axes (the ranks of a tp, sp or ep group read the same shards, seeded
+    # alike), or a share a worker without a mesh; along sp, its block of
+    # the sequence
+    block, blocks = 0, 1
     if axes:
-        share, shares = sharding.data_shard(ctx.mesh_plan(axes), ctx.process_id)
+        plan = ctx.mesh_plan(axes)
+        share, shares = sharding.data_shard(plan, ctx.process_id)
+        block, blocks = sharding.sequence_shard(plan, ctx.process_id)
     else:
         share, shares = ctx.executor_id, ctx.num_workers
     # real corpus: per-worker TFRecord text shards → tokenize → FFD-pack
@@ -214,12 +209,13 @@ def main_fun(args, ctx):
     stream = iter(pipe)
     ctx.initialize_distributed()
     mesh = ctx.mesh(axes) if axes else None
-    model_axes = set(axes or {}) & {"tp", "ep"}
-    # as the JAX example: the model's rules place what a model axis splits
-    strategy = (SyncDataParallel(mesh, param_spec_fn=transformer.param_specs if model_axes else None)
+    split_axes = set(axes or {}) & {"tp", "ep"}
+    # as the JAX example: the model's rules place what a model axis splits;
+    # the model is built on a mesh with a model axis or sp
+    strategy = (SyncDataParallel(mesh, param_spec_fn=transformer.param_specs if split_axes else None)
                 if mesh is not None else SyncDataParallel(ctx.device))
     model = transformer.create_model(
-        mesh=mesh if model_axes else None,
+        mesh=mesh if split_axes or "sp" in (axes or {}) else None,
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff,
         max_seq_len=args.seq_len, dtype=args.dtype, remat=args.remat,
@@ -250,8 +246,9 @@ def main_fun(args, ctx):
     # placed ahead through pinned buffers: whole windows of K for the loop,
     # single batches for the eager step
     digest = _Digest()
-    feed = (loop_prefetch(digest.wrap(stream), strategy, steps_per_loop) if loop is not None
-            else device_prefetch(digest.wrap(stream), strategy))
+    rows = (sharding.sequence_chunk(b, block, blocks) for b in digest.wrap(stream))
+    feed = (loop_prefetch(rows, strategy, steps_per_loop) if loop is not None
+            else device_prefetch(rows, strategy))
 
     launches0 = flash_attention.launch_counts()
     t0, metrics = time.perf_counter(), {}
@@ -318,8 +315,8 @@ def build_parser():
     parser.add_argument("--log_steps", type=int, default=10)
     parser.add_argument("--max_bad_records", type=int, default=0)
     parser.add_argument("--mesh", default=None,
-                        help="mesh axes over the ranks, e.g. dp=2,fsdp=2 or dp=2,tp=2 or dp=1,ep=4 "
-                             "(sp is not yet ported); default: a replica a process")
+                        help="mesh axes over the ranks, e.g. dp=2,fsdp=2 or dp=2,tp=2 or dp=1,sp=4 (ring "
+                             "attention over the sequence) or dp=1,ep=4; default: a replica a process")
     parser.add_argument("--model_dir", default=None,
                         help="checkpoint dir: resume from its newest checkpoint, save the final state")
     parser.add_argument("--moe_experts", type=int, default=0,
@@ -352,7 +349,6 @@ def build_parser():
 
 def main(argv=None, sc=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     if not args.data_dir:
         args.data_dir = os.path.join(tempfile.gettempdir(), "tos_transformer_corpus")
         shards = make_text_corpus(args.data_dir)

@@ -13,8 +13,11 @@ variables name for name.
 
 Attention goes through :func:`_dispatch_attention`: ``flash`` runs the
 port's CUDA kernels (:mod:`~tensorflowonspark_tpu_torch.ops.flash_attention`;
-their plain versions on a CPU tensor), ``plain`` the dense reference, and
-``auto`` the kernels on a CUDA tensor and the dense reference on the CPU.
+their plain versions on a CPU tensor), ``plain`` the dense reference,
+``ring`` ring attention over the mesh's ``sp`` axis
+(:mod:`~tensorflowonspark_tpu_torch.parallel.ring_attention`; the flash
+call without one), and ``auto`` the ring on an ``sp`` mesh, else the
+kernels on a CUDA tensor and the dense reference on the CPU.
 
 ``moe_experts > 0`` swaps every block's MLP for :class:`MoeMlp`, the JAX
 package's switch-routed mixture of experts; ``remat`` recomputes each
@@ -29,9 +32,16 @@ through the gradient-carrying collectives of
 :mod:`~tensorflowonspark_tpu_torch.parallel.collectives` (Megatron-LM's
 column- and row-parallel pairs); a dim that the rule drops leaves its layer
 whole, with no collective. The JAX model constrains its activations'
-sharding (``Transformer._constrain``) for XLA; here every rank holds its
-activations whole, so that has no counterpart. Sequence parallelism
-(``sp``, ring attention) is not yet ported and raises.
+sharding (``Transformer._constrain``) for XLA; here a rank holds the
+activations of its rows whole, except along ``sp``: on a mesh with an
+``sp`` axis each rank holds its block of the sequence (``L / sp`` tokens,
+``parallel.sharding.sequence_chunk``) through the embedding, the norms and
+the MLP, and attention is the ring over the ``sp`` group. The default
+positions are then the block's global ones, and :func:`make_loss_fn` gives
+the JAX loss: the mean over the real tokens of the rows that the ``sp``
+group holds (each rank's gradient is its tokens' share of it, which the
+strategy sums over ``sp``). A mixture of experts on an ``sp`` mesh is not
+ported and raises.
 """
 
 import dataclasses
@@ -98,12 +108,18 @@ def _rope(x, positions, base=10000.0):
 _ATTENTION_IMPLS = ("auto", "flash", "plain", "ring")
 
 
-def _dispatch_attention(q, k, v, impl, segment_ids=None):
+def _dispatch_attention(q, k, v, impl, segment_ids=None, sp_group=None):
     """Pick the attention path over ``[B, H, L, D]`` tensors, causal.
     ``plain``: the dense reference; ``flash``: the flash kernels (their
-    plain versions on a CPU tensor); ``auto``: the kernels on a CUDA tensor
-    at every length, plain on the CPU; ``ring`` is not yet ported. The kernels mask ragged sequence tails, so no
-    padding is needed (the JAX package pads to a multiple of 128).
+    plain versions on a CPU tensor); ``ring``: ring attention over
+    ``sp_group`` (the model's ``sp`` group; None, a ring of one: the flash
+    call); ``auto``: the ring when the sequence is split over ``sp``, else
+    the kernels on a CUDA tensor at every length and plain on the CPU. The
+    kernels mask ragged sequence tails, so no padding is needed (the JAX
+    package pads to a multiple of 128). With the sequence split over
+    ``sp``, ``plain`` and ``flash`` would attend within a rank's block only
+    and raise (the JAX package's ``plain`` there runs on the whole
+    sequence).
 
     ``segment_ids`` (``int [B, L]``, 0 = padding) fences packed sequences
     block-diagonally on every path."""
@@ -111,11 +127,13 @@ def _dispatch_attention(q, k, v, impl, segment_ids=None):
         raise ValueError(
             "unknown attention impl {!r}; expected one of {}".format(impl, _ATTENTION_IMPLS)
         )
-    if impl == "ring":
-        raise NotImplementedError(
-            "attention='ring' (sequence parallelism) is not yet ported to "
-            "tensorflowonspark_tpu_torch; it comes with the model-axes slice"
-        )
+    if impl == "ring" or (impl == "auto" and sp_group is not None):
+        from tensorflowonspark_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, sp_group, causal=True, segment_ids=segment_ids)
+    if sp_group is not None:
+        raise ValueError("attention={!r} on a sequence split over sp attends within a rank's block; "
+                         "use 'ring' or 'auto'".format(impl))
     use_flash = impl == "flash" or (impl == "auto" and q.device.type == "cuda")
     if not use_flash:
         return plain_attention(q, k, v, causal=True, segment_ids=segment_ids)
@@ -136,6 +154,14 @@ class _Blocks:
 
     def __init__(self, mesh=None, specs=None):
         self.mesh, self.specs = mesh, specs or {}
+        #: the ``sp`` group when the mesh splits the sequence (more than one
+        #: member), else None
+        self.sp_group = None
+        if mesh is not None and "sp" in mesh.mesh_dim_names:
+            from tensorflowonspark_tpu_torch.parallel import collectives
+
+            if collectives.axis_size("sp", mesh) > 1:
+                self.sp_group = collectives.axes_group(mesh, "sp")
 
     def cut(self, name):
         """``((port dim, parts, index), ...)``: this rank's block of
@@ -242,6 +268,7 @@ class Attention(nn.Module):
         self.o = Dense(width, cfg.d_model, dt, blocks.cut(prefix + "o.weight"))
         self.heads = self.q.weight.shape[0] // cfg.head_dim
         self.group = blocks.group(*(prefix + n + ".weight" for n in "qkvo"))
+        self.sp_group = blocks.sp_group
 
     def forward(self, x, positions, segment_ids=None):
         cfg = self.cfg
@@ -252,7 +279,7 @@ class Attention(nn.Module):
         q = _rope(q, positions)
         k = _rope(k, positions)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, L, D]
-        out = _dispatch_attention(q, k, v, cfg.attention, segment_ids=segment_ids)
+        out = _dispatch_attention(q, k, v, cfg.attention, segment_ids=segment_ids, sp_group=self.sp_group)
         return _close(self.o(out.transpose(1, 2).reshape(b, length, -1)), self.group)
 
 
@@ -403,10 +430,6 @@ class Transformer(nn.Module):
         self.cfg, self.mesh = cfg, mesh
         self.model_specs = {}
         if mesh is not None:
-            if "sp" in mesh.mesh_dim_names:
-                raise NotImplementedError(
-                    "sequence parallelism (an 'sp' mesh axis, ring attention) is not yet "
-                    "ported to tensorflowonspark_tpu_torch")
             from tensorflowonspark_tpu_torch.parallel.sharding import model_spec
 
             with torch.device("meta"):
@@ -414,6 +437,17 @@ class Transformer(nn.Module):
             self.model_specs = {n: model_spec(s) for n, s in param_specs(whole, mesh).items()
                                 if any(model_spec(s))}
         blocks = _Blocks(mesh, self.model_specs)
+        #: the ``sp`` group when the sequence is split over it, else None
+        self.sp_group = blocks.sp_group
+        self.sp_rank = 0
+        if self.sp_group is not None:
+            from tensorflowonspark_tpu_torch.parallel.sharding import sequence_shard
+
+            self.sp_rank = sequence_shard(mesh)[0]
+        if self.sp_group is not None and cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "a mixture of experts on a sequence split over sp is not yet ported to "
+                "tensorflowonspark_tpu_torch (its balancing loss is per rank's tokens)")
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model)
         for i in range(cfg.n_layers):
             self.add_module("layer_{}".format(i), Block(cfg, blocks, "layer_{}.".format(i)))
@@ -446,7 +480,11 @@ class Transformer(nn.Module):
         cfg = self.cfg
         x = F.embedding(tokens, self.embed.weight).to(cfg.compute_dtype)
         if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :].expand(tokens.shape)
+            # on a sequence split over sp, this rank's block starts at its
+            # index times the block's length
+            start = self.sp_rank * tokens.shape[1]
+            positions = torch.arange(start, start + tokens.shape[1], device=tokens.device)[None, :].expand(
+                tokens.shape)
         for i in range(cfg.n_layers):
             layer = getattr(self, "layer_{}".format(i))
             if cfg.remat and torch.is_grad_enabled():
@@ -540,6 +578,20 @@ def make_init_fn(model):
     return init
 
 
+def _sequence_mean(losses, mask, group):
+    """The masked mean of ``losses`` over every block of the sequence that
+    ``group`` holds: the sums and counts all-reduced over it (no gradient
+    through them); the value is the whole mean on every member, the
+    gradient this member's terms over the whole count."""
+    import torch.distributed as dist
+
+    local = (losses * mask).sum() if mask is not None else losses.sum()
+    count = mask.sum() if mask is not None else losses.new_full((), losses.numel())
+    totals = torch.stack([local.detach(), count.detach().to(local.dtype)])
+    dist.all_reduce(totals, group=group)
+    return (totals[0] + (local - local.detach())) / torch.clamp_min(totals[1], 1)
+
+
 def make_loss_fn(model):
     """Next-token LM loss for ``SyncDataParallel.compile_train_step(...,
     has_aux=True)``: ``loss_fn(module, batch) -> (loss, {"perplexity"})``;
@@ -551,7 +603,13 @@ def make_loss_fn(model):
     ``positions`` (``int [B, L]``): segments fence attention
     block-diagonally, per-segment positions keep the rotary phase local,
     and the loss drops targets that cross a pack boundary or fall in
-    padding."""
+    padding.
+
+    On a sequence split over ``sp`` (a module with an ``sp_group``; the
+    batch is this rank's block, ``parallel.sharding.sequence_chunk``) the
+    loss is the mean over the real tokens of all the group's blocks: its
+    value is that mean on every rank of the group, its gradient this
+    rank's tokens' share (the strategy sums the gradients over ``sp``)."""
     del model  # the module arrives with each call
 
     def loss_fn(module, batch):
@@ -574,7 +632,10 @@ def make_loss_fn(model):
             # from share a real (non-pad) segment
             seg_mask = ((seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] > 0)).to(losses.dtype)
             mask = seg_mask if mask is None else mask * seg_mask
-        if mask is not None:
+        sp_group = getattr(module, "sp_group", None)
+        if sp_group is not None:
+            loss = _sequence_mean(losses, mask, sp_group)
+        elif mask is not None:
             loss = (losses * mask).sum() / torch.clamp_min(mask.sum(), 1)
         else:
             loss = losses.mean()

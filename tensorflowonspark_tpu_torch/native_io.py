@@ -26,7 +26,7 @@ import shutil
 import subprocess
 import threading
 
-from tensorflowonspark_tpu_torch import chaos, resilience
+from tensorflowonspark_tpu_torch import chaos, durable, resilience
 from tensorflowonspark_tpu_torch.ops import cuda_build
 from tensorflowonspark_tpu_torch.store import framing
 
@@ -71,8 +71,9 @@ def build(jpeg=None, build_dir=BUILD_DIR):
     """Compile ``csrc/tfrecord_io.cc`` unless a build of these bytes and
     flags exists; returns the library's path. ``jpeg`` is ``"libjpeg"`` or
     ``"scalar"`` (default: libjpeg where the probe passes). ``g++`` writes
-    to a private name, renamed into place, so concurrent builders never load
-    a half-written library."""
+    to a private name, fsynced and renamed into place (the directory
+    fsynced after), so concurrent builders never load a half-written
+    library."""
     cxx = _cxx()
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++ or $CXX) to build {}".format(SOURCE))
@@ -91,7 +92,9 @@ def build(jpeg=None, build_dir=BUILD_DIR):
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise RuntimeError("g++ failed to build {}:\n{}".format(SOURCE, out.stderr[-4000:]))
+    durable.fsync_file(tmp)
     os.replace(tmp, path)
+    durable.fsync_dir(build_dir)
     return path
 
 

@@ -13,6 +13,8 @@ import re
 import shutil
 import subprocess
 
+from tensorflowonspark_tpu_torch import durable
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(ROOT, "tensorflowonspark_tpu_torch", "csrc")
 BUILD_DIR = os.path.join(ROOT, "build", "cuda")
@@ -39,8 +41,10 @@ def library_path(source, build_dir=BUILD_DIR):
 
 def build(source, build_dir=BUILD_DIR):
     """Compile ``source`` if it has no build yet (``nvcc`` writes to a
-    private name, renamed into place, so concurrent processes never load a
-    half-written library); returns the path of the library."""
+    private name, fsynced and renamed into place, the directory fsynced
+    after, so concurrent processes never load a half-written library and a
+    crash never leaves one under the final name); returns the path of the
+    library."""
     path = library_path(source, build_dir)
     if os.path.isfile(path):
         return path
@@ -52,7 +56,9 @@ def build(source, build_dir=BUILD_DIR):
         f.write(out.stdout + out.stderr)
     if out.returncode != 0:
         raise RuntimeError("nvcc failed to build {}:\n{}".format(source, out.stderr[-4000:]))
+    durable.fsync_file(tmp)
     os.replace(tmp, path)
+    durable.fsync_dir(build_dir)
     return path
 
 

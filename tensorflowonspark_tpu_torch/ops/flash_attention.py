@@ -19,6 +19,11 @@ the TPU kernels, and keeps its sums in f32; ``p`` and ``ds`` are cast to the
 input dtype before the second product, as there.
 ``lse`` is ``[BH, L]`` f32 (the TPU's ``[BH, L, 8]`` lanes are a tiling
 artifact) and segment ids stay ``[B, L]`` int32, read at ``bh // heads``.
+The keys may carry ids of their own (``seg_k``, the queries' ``seg`` by
+default): a ring attention hop (``parallel/ring_attention.py``) attends
+this member's queries to another member's keys. ``out_dtype=torch.float32``
+makes a bf16 kernel write its outputs in f32, so that the partial results
+a ring sums over its hops are not each rounded to bf16 first.
 
 **Bound.** Every kernel is a chain of matrix products (2, 3 and 4 of
 ``2·D`` flops per attended (q, k) pair) over ``O(L·D)`` bytes: the tensor
@@ -95,9 +100,9 @@ def bind(path):
     """The kernels' C interface of the library at ``path`` (``ctypes``)."""
     lib = ctypes.CDLL(path)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tos_flash_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [f32, i32, ptr]
-    lib.tos_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 5 + [f32, i32, ptr]
-    lib.tos_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 5 + [f32, i32, ptr]
+    lib.tos_flash_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [f32, i32, i32, ptr]
+    lib.tos_flash_bwd_dq.argtypes = [ptr] * 9 + [i32] * 5 + [f32, i32, i32, ptr]
+    lib.tos_flash_bwd_dkv.argtypes = [ptr] * 10 + [i32] * 5 + [f32, i32, i32, ptr]
     for fn in (lib.tos_flash_fwd, lib.tos_flash_bwd_dq, lib.tos_flash_bwd_dkv):
         fn.restype = i32
     return lib
@@ -142,10 +147,12 @@ def _on_card(t):
     raise RuntimeError("flash attention kernels run on CUDA; got a tensor on {}".format(t.device))
 
 
-def _check(q, seg, heads, like=(), rows=()):
+def _check(q, seg, heads, like=(), rows=(), seg_k=None, out_dtype=None):
     """Validate a CUDA launch: ``[BH, L, D]`` operands of one dtype and
     shape, contiguous and 16-byte aligned; ``[BH, L]`` f32 row statistics;
-    ``[B, L]`` int32 segment ids with ``B·heads == BH``."""
+    ``[B, L]`` int32 segment ids with ``B·heads == BH`` (the keys' too, and
+    only beside the queries'); outputs in the input dtype or f32. Returns
+    the outputs' dtype."""
     if q.dim() != 3:
         raise ValueError("expected [BH, L, D] operands, got {}".format(tuple(q.shape)))
     bh, length, d = q.shape
@@ -163,11 +170,17 @@ def _check(q, seg, heads, like=(), rows=()):
                 or not t.is_contiguous()):
             raise ValueError("row statistics must be contiguous float32 [{}, {}] on {}".format(
                 bh, length, q.device))
-    if seg is not None:
-        if (seg.dim() != 2 or seg.shape[1] != length or seg.shape[0] * heads != bh
-                or seg.dtype != torch.int32 or not seg.is_contiguous() or seg.device != q.device):
+    if seg_k is not None and seg is None:
+        raise ValueError("the keys' segment ids need the queries' (seg)")
+    for ids in (seg, seg_k):
+        if ids is not None and (ids.dim() != 2 or ids.shape[1] != length or ids.shape[0] * heads != bh
+                                or ids.dtype != torch.int32 or not ids.is_contiguous() or ids.device != q.device):
             raise ValueError("segment ids must be contiguous int32 [BH/heads, {}] on {}; got {} {}"
-                             .format(length, q.device, tuple(seg.shape), seg.dtype))
+                             .format(length, q.device, tuple(ids.shape), ids.dtype))
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise TypeError("flash attention kernels write {} or float32 outputs, not {}".format(q.dtype, out_dtype))
+    return out_dtype
 
 
 _STATUS = {-1: "unsupported head dim or dtype",
@@ -191,30 +204,39 @@ def _stream(t):
 # -- plain versions (the reference for tests and chip_smoke.py) -------------
 
 
-def visited_blocks(seg, causal, block=64):
+def visited_blocks(seg, causal, block=64, seg_k=None):
     """The plain mirror of the bf16 kernels' block skip
     (``visit_list`` in the CUDA source): ``[B, n, n]`` booleans, True where
-    the (q block, kv block) pair of a row of ``seg`` (``int [B, L]``) is
-    visited, ``n = ceil(L / block)``. A pair is skipped when the causal mask
+    the (q block, kv block) pair of a row of ``seg`` (``int [B, L]``, the
+    queries' ids; ``seg_k`` the keys', default ``seg``) is visited,
+    ``n = ceil(L / block)``. A pair is skipped when the causal mask
     empties it (kv block after the q block) or when the ``[min, max]``
     segment-id ranges of its two blocks do not overlap, which holds no pair
     of equal ids. Pass zeros for no fence."""
+
+    def ranges(ids):
+        ids = torch.as_tensor(ids)
+        b, length = ids.shape
+        n = -(-length // block)
+        pad = n * block - length
+        info = torch.iinfo(ids.dtype)
+        lo = torch.nn.functional.pad(ids, (0, pad), value=info.max).view(b, n, block).amin(-1)
+        hi = torch.nn.functional.pad(ids, (0, pad), value=info.min).view(b, n, block).amax(-1)
+        return lo, hi, n
+
+    lo, hi, n = ranges(seg)
+    lo_k, hi_k, _ = ranges(seg if seg_k is None else seg_k)
     seg = torch.as_tensor(seg)
-    b, length = seg.shape
-    n = -(-length // block)
-    pad = n * block - length
-    info = torch.iinfo(seg.dtype)
-    lo = torch.nn.functional.pad(seg, (0, pad), value=info.max).view(b, n, block).amin(-1)
-    hi = torch.nn.functional.pad(seg, (0, pad), value=info.min).view(b, n, block).amax(-1)
-    visit = (hi[:, :, None] >= lo[:, None, :]) & (lo[:, :, None] <= hi[:, None, :])
+    visit = (hi[:, :, None] >= lo_k[:, None, :]) & (lo[:, :, None] <= hi_k[:, None, :])
     if causal:
         visit &= torch.ones(n, n, dtype=torch.bool, device=seg.device).tril()
     return visit
 
 
-def _masked_scores(q, k, seg, scale, causal, heads):
+def _masked_scores(q, k, seg, scale, causal, heads, seg_k=None):
     """Dense f32 scores ``[BH, L, L]`` with the kernels' masks: the
-    sentinel where the causal mask or the segment fence drops a score."""
+    sentinel where the causal mask or the segment fence (the queries' ids
+    ``seg`` against the keys' ``seg_k``, default ``seg``) drops a score."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     length = q.shape[1]
     if causal:
@@ -222,94 +244,125 @@ def _masked_scores(q, k, seg, scale, causal, heads):
         s = torch.where((pos[:, None] >= pos[None, :])[None], s, NEG_BIG)
     if seg is not None:
         seg_bh = seg.repeat_interleave(heads, dim=0)
-        s = torch.where(seg_bh[:, :, None] == seg_bh[:, None, :], s, NEG_BIG)
+        seg_k_bh = seg_bh if seg_k is None else seg_k.repeat_interleave(heads, dim=0)
+        s = torch.where(seg_bh[:, :, None] == seg_k_bh[:, None, :], s, NEG_BIG)
     return s
 
 
-def flash_fwd_plain(q, k, v, seg, scale, causal, heads):
+def flash_fwd_plain(q, k, v, seg, scale, causal, heads, seg_k=None, out_dtype=None):
     """``(o, lse)`` from dense masked scores in f32; ``p`` is cast to the
-    input dtype before the product with ``v``, as in the kernel."""
-    s = _masked_scores(q, k, seg, scale, causal, heads)
+    input dtype before the product with ``v``, as in the kernel; ``o`` in
+    ``out_dtype`` (default the input's)."""
+    s = _masked_scores(q, k, seg, scale, causal, heads, seg_k=seg_k)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     denom = torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
     o = torch.einsum("bqk,bkd->bqd", p.to(q.dtype).float(), v.float()) / denom
-    return o.to(q.dtype), (m + torch.log(denom)).squeeze(-1)
+    return o.to(out_dtype or q.dtype), (m + torch.log(denom)).squeeze(-1)
 
 
-def _probs_and_ds(q, k, v, seg, do, lse, delta, scale, causal, heads):
-    s = _masked_scores(q, k, seg, scale, causal, heads)
+def flash_fwd_online_plain(q, k, v, seg, scale, causal, heads, seg_k=None, block=64):
+    """The bf16 forward kernel's own arithmetic in plain PyTorch: the
+    online softmax over kv blocks of ``block`` keys in order, in the log2
+    domain, with ``p`` rounded to the input dtype against each block's
+    running max (:func:`flash_fwd_plain` rounds it against the row's final
+    max, which moves O by nearly one bf16 rounding).
+    ``(o, lse)``, ``o`` in f32: the reference that holds the kernel's f32
+    output well below one bf16 rounding. Rows that attend no key hold
+    garbage, as in the kernel."""
+    log2e = 1.0 / math.log(2.0)
+    s = _masked_scores(q, k, seg, scale * log2e, causal, heads, seg_k=seg_k)
+    bh, length, d = q.shape
+    m = torch.full((bh, length, 1), NEG_BIG, device=q.device)
+    l = torch.zeros((bh, length, 1), device=q.device)
+    acc = torch.zeros((bh, length, d), device=q.device)
+    for k0 in range(0, length, block):
+        x = s[:, :, k0:k0 + block]
+        mx = torch.maximum(m, x.amax(-1, keepdim=True))
+        corr, p = torch.exp2(m - mx), torch.exp2(x - mx)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bqk,bkd->bqd", p.to(q.dtype).float(), v[:, k0:k0 + block].float())
+        m = mx
+    den = torch.clamp_min(l, 1e-30)
+    return acc / den, (m * math.log(2.0) + torch.log(den)).squeeze(-1)
+
+
+def _probs_and_ds(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k):
+    s = _masked_scores(q, k, seg, scale, causal, heads, seg_k=seg_k)
     p = torch.exp(s - lse[:, :, None])
     dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
     return p, p * (dp - delta[:, :, None]) * scale
 
 
-def flash_bwd_dq_plain(q, k, v, seg, do, lse, delta, scale, causal, heads):
+def flash_bwd_dq_plain(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None, out_dtype=None):
     """``dq = ds·K`` with ``p`` recomputed from ``lse`` (f32, ``ds`` cast to
     the input dtype before the product)."""
-    _, ds = _probs_and_ds(q, k, v, seg, do, lse, delta, scale, causal, heads)
-    return torch.einsum("bqk,bkd->bqd", ds.to(q.dtype).float(), k.float()).to(q.dtype)
+    _, ds = _probs_and_ds(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k)
+    return torch.einsum("bqk,bkd->bqd", ds.to(q.dtype).float(), k.float()).to(out_dtype or q.dtype)
 
 
-def flash_bwd_dkv_plain(q, k, v, seg, do, lse, delta, scale, causal, heads):
+def flash_bwd_dkv_plain(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None, out_dtype=None):
     """``(dk, dv) = (dsᵀ·Q, pᵀ·dO)`` (f32, ``p``/``ds`` cast to the input
     dtype before the products)."""
-    p, ds = _probs_and_ds(q, k, v, seg, do, lse, delta, scale, causal, heads)
+    p, ds = _probs_and_ds(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k)
     dk = torch.einsum("bqk,bqd->bkd", ds.to(q.dtype).float(), q.float())
     dv = torch.einsum("bqk,bqd->bkd", p.to(q.dtype).float(), do.float())
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
 
 
 # -- kernel wrappers ----------------------------------------------------------
 
 
-def flash_fwd(q, k, v, seg, scale, causal, heads):
+def flash_fwd(q, k, v, seg, scale, causal, heads, seg_k=None, out_dtype=None):
     """``(o [BH, L, D], lse [BH, L] f32)`` of attention over ``[BH, L, D]``
-    operands (replaces ``_fwd_kernel``)."""
+    operands (replaces ``_fwd_kernel``); ``seg_k``: the keys' segment ids
+    (default ``seg``); ``o`` in ``out_dtype`` (the input's, or f32)."""
     if not _on_card(q):
-        return flash_fwd_plain(q, k, v, seg, scale, causal, heads)
-    _check(q, seg, heads, like=(k, v))
+        return flash_fwd_plain(q, k, v, seg, scale, causal, heads, seg_k, out_dtype)
+    out_dtype = _check(q, seg, heads, like=(k, v), seg_k=seg_k, out_dtype=out_dtype)
     lib = _load()
     bh, length, d = q.shape
-    o = torch.empty_like(q)
+    o = torch.empty(q.shape, device=q.device, dtype=out_dtype)
     lse = torch.empty((bh, length), device=q.device, dtype=torch.float32)
     _raise_on(lib.tos_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), o.data_ptr(), lse.data_ptr(),
-        bh, heads, length, d, _DTYPES[q.dtype], float(scale), int(bool(causal)), _stream(q),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), _ptr(seg_k), o.data_ptr(), lse.data_ptr(),
+        bh, heads, length, d, _DTYPES[q.dtype], float(scale), int(bool(causal)),
+        int(out_dtype != q.dtype), _stream(q),
     ), "flash_fwd")
     flash_fwd.launches += 1
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, seg, do, lse, delta, scale, causal, heads):
-    """``dq [BH, L, D]`` (replaces ``_bwd_dq_kernel``)."""
+def flash_bwd_dq(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None, out_dtype=None):
+    """``dq [BH, L, D]`` in ``out_dtype`` (replaces ``_bwd_dq_kernel``)."""
     if not _on_card(q):
-        return flash_bwd_dq_plain(q, k, v, seg, do, lse, delta, scale, causal, heads)
-    _check(q, seg, heads, like=(k, v, do), rows=(lse, delta))
+        return flash_bwd_dq_plain(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, out_dtype)
+    out_dtype = _check(q, seg, heads, like=(k, v, do), rows=(lse, delta), seg_k=seg_k, out_dtype=out_dtype)
     lib = _load()
     bh, length, d = q.shape
-    dq = torch.empty_like(q)
+    dq = torch.empty(q.shape, device=q.device, dtype=out_dtype)
     _raise_on(lib.tos_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), do.data_ptr(), lse.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), _ptr(seg_k), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), bh, heads, length, d, _DTYPES[q.dtype], float(scale),
-        int(bool(causal)), _stream(q),
+        int(bool(causal)), int(out_dtype != q.dtype), _stream(q),
     ), "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, seg, do, lse, delta, scale, causal, heads):
-    """``(dk, dv)``, each ``[BH, L, D]`` (replaces ``_bwd_dkv_kernel``)."""
+def flash_bwd_dkv(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None, out_dtype=None):
+    """``(dk, dv)``, each ``[BH, L, D]`` in ``out_dtype`` (replaces
+    ``_bwd_dkv_kernel``)."""
     if not _on_card(q):
-        return flash_bwd_dkv_plain(q, k, v, seg, do, lse, delta, scale, causal, heads)
-    _check(q, seg, heads, like=(k, v, do), rows=(lse, delta))
+        return flash_bwd_dkv_plain(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, out_dtype)
+    out_dtype = _check(q, seg, heads, like=(k, v, do), rows=(lse, delta), seg_k=seg_k, out_dtype=out_dtype)
     lib = _load()
     bh, length, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv = (torch.empty(q.shape, device=q.device, dtype=out_dtype) for _ in range(2))
     _raise_on(lib.tos_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), do.data_ptr(), lse.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), _ptr(seg_k), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, heads, length, d, _DTYPES[q.dtype],
-        float(scale), int(bool(causal)), _stream(q),
+        float(scale), int(bool(causal)), int(out_dtype != q.dtype), _stream(q),
     ), "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv

@@ -1,29 +1,31 @@
 """Parallelism core of the port: device meshes over ranks, collectives over
-mesh axes, sharding rules, and the attention reference.
+mesh axes, sharding rules, and ring attention.
 
 Where the JAX package expresses distribution as shardings over a named
 ``jax.sharding.Mesh`` and lets XLA insert the collectives, the port runs one
 process a card: a mesh is a :class:`torch.distributed.device_mesh.DeviceMesh`
 over ranks (:mod:`~tensorflowonspark_tpu_torch.parallel.mesh`), each
 collective is an explicit ``torch.distributed`` call over an axis's group
-(:mod:`~tensorflowonspark_tpu_torch.parallel.collectives`), and ZeRO-3 is
+(:mod:`~tensorflowonspark_tpu_torch.parallel.collectives`), ZeRO-3 is
 the strategy's own step (:mod:`~tensorflowonspark_tpu_torch.parallel.
-sharding`, ``SyncDataParallel(mesh, fsdp=True)``).
+sharding`, ``SyncDataParallel(mesh, fsdp=True)``), the model axes split a
+model built on the mesh (``transformer.create_model(mesh=...)``), and
+ring attention passes K/V blocks around the ``sp`` group
+(:mod:`~tensorflowonspark_tpu_torch.parallel.ring_attention`).
 
 Canonical mesh axes (any subset may be present, always in this order):
 
 =======  =====================================================================
 ``dp``   pure data parallelism (params replicated, batch sharded)
 ``fsdp`` data parallelism with fully-sharded params (batch AND params sharded)
-``tp``   tensor (a.k.a. model) parallelism — not yet ported
-``sp``   sequence/context parallelism — ring attention, not yet ported
-``ep``   expert parallelism for MoE layers — not yet ported
+``tp``   tensor (a.k.a. model) parallelism
+``sp``   sequence/context parallelism — ring attention
+``ep``   expert parallelism for MoE layers
 ``pp``   pipeline parallelism — not yet ported
 =======  =====================================================================
 
-The model axes' machinery (``ring_attention``, the pipeline schedules,
-``HostAllReduceGroup``) raises ``NotImplementedError``; of ring attention
-only the single-device reference ``plain_attention`` is ported.
+The pipeline schedules and ``HostAllReduceGroup`` are not yet ported: each
+of their names raises ``NotImplementedError`` on access.
 """
 
 # Lazy re-exports (PEP 562): importing this package loads no torch.distributed
@@ -49,6 +51,7 @@ _EXPORTS = {
     "plain_attention": "ring_attention",
     "ring_attention": "ring_attention",
     "ring_attention_sharded": "ring_attention",
+    "ring_attention_local": "ring_attention",
     "HostAllReduceGroup": None,
     "pipeline_apply": None,
     "Pipeline1F1B": None,

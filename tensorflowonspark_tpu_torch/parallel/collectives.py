@@ -211,12 +211,15 @@ def axis_size(axis_name, mesh):
 #   copy_to_region      identity            | all-reduce of the gradient
 #   reduce_from_region  all-reduce (sum)    | identity
 #   gather_from_region  all-gather on dim   | this rank's slice of the gradient
+#   split_to_region     this rank's slice   | all-gather of the gradient
 #   global_sum          all-reduce (sum)    | all-reduce of the gradient
 #
 # A region opens with ``copy_to_region`` on its input (each rank's part of
 # the layer back-propagates a partial gradient into it) and closes with
 # ``reduce_from_region`` on its partial output (or ``gather_from_region``
-# on an output split along a dim). ``global_sum`` is a statistic of the
+# on an output split along a dim). ``split_to_region`` cuts a tensor
+# every rank holds whole into this rank's slice, as ring attention takes
+# its block of the sequence. ``global_sum`` is a statistic of the
 # data axes that every rank's loss uses, as the MoE balancing loss does:
 # the strategy averages the ranks' gradients, so each rank's share of it
 # must carry the sum of theirs. At a group of one rank every function
@@ -268,6 +271,18 @@ def _autograd():
         def backward(ctx, grad):
             return grad.chunk(ctx.n, ctx.dim)[ctx.rank].contiguous(), None, None
 
+    class SplitToRegion(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group, dim):
+            d = dim % x.dim()
+            ctx.group, ctx.dim = group, d
+            return x.chunk(dist.get_world_size(group), d)[dist.get_rank(group)].contiguous()
+
+        @staticmethod
+        def backward(ctx, grad):
+            d = ctx.dim
+            return gather_blocks(grad.contiguous(), ctx.group).movedim(0, d).flatten(d, d + 1), None, None
+
     class GlobalSum(torch.autograd.Function):
         @staticmethod
         def forward(ctx, x, group):
@@ -279,7 +294,7 @@ def _autograd():
             return all_reduce(grad, ctx.group), None
 
     fns = _AUTOGRAD["fns"] = (CopyToRegion.apply, ReduceFromRegion.apply, GatherFromRegion.apply,
-                              GlobalSum.apply)
+                              GlobalSum.apply, SplitToRegion.apply)
     return fns
 
 
@@ -301,6 +316,13 @@ def gather_from_region(x, group, dim=-1):
     """Every member's ``x`` concatenated along ``dim`` in the group's
     order; the backward keeps this rank's slice of the gradient (no sum)."""
     return _autograd()[2](x, group, dim)
+
+
+def split_to_region(x, group, dim=-1):
+    """This rank's slice of ``x`` (which every member holds whole) along
+    ``dim``, in the group's order; the backward gathers every member's
+    slice of the gradient, so the input's gradient is whole."""
+    return _autograd()[4](x, group, dim)
 
 
 def global_sum(x, group):

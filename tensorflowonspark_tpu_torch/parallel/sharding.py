@@ -6,7 +6,9 @@ port's tensor, the mesh axis (or tuple of axes) it is split over, or None;
 ``()`` replicates. A :class:`Sharding` pairs a spec with its mesh, as
 ``NamedSharding`` does. Batches split their leading dimension over the data
 axes (``dp`` × ``fsdp``): each rank is fed its own share, so placing a batch
-is a copy to this rank's device. Parameters are replicated for pure DP or
+is a copy to this rank's device. ``sp`` is not a data axis: the ranks of
+an ``sp`` group read the same rows, and each takes its block of the
+sequence (:func:`sequence_shard`, :func:`sequence_chunk`). Parameters are replicated for pure DP or
 sharded along ``fsdp`` (ZeRO-3) with the JAX package's per-array rule,
 applied to the flax layout of each parameter (``convert.flax_layouts``) so
 that the port shards the same logical dimension the JAX package does.
@@ -55,20 +57,74 @@ def mesh_axis_size(mesh, name):
     return mesh_shape(mesh).get(name, 1)
 
 
-def data_shard(mesh, rank):
-    """``(index, count)`` of ``rank``'s share of a batch split over the
-    mesh's data axes: its row-major coordinate over them (its rank in
-    their group) and their size. Read from the mesh's layout alone, so a
-    plan (no process groups) answers before the world is joined."""
+def _shard(mesh, rank, axes):
+    """``(index, count)``: ``rank``'s row-major coordinate over ``axes`` of
+    the mesh and their size, read from the mesh's layout alone, so a plan
+    (no process groups) answers before the world is joined."""
     names, grid = mesh.mesh_dim_names, mesh.mesh
     where = (grid == rank).nonzero()
     if len(where) != 1:
         raise ValueError("rank {} is not on the mesh {}".format(rank, grid.tolist()))
     index, count = 0, 1
-    for a in data_axes(mesh):
+    for a in axes:
         i = names.index(a)
         index, count = index * grid.shape[i] + int(where[0][i]), count * grid.shape[i]
     return index, count
+
+
+def data_shard(mesh, rank):
+    """``(index, count)`` of ``rank``'s share of a batch split over the
+    mesh's data axes: its coordinate over them (its rank in their group)
+    and their size."""
+    return _shard(mesh, rank, data_axes(mesh))
+
+
+def sequence_shard(mesh, rank=None, axis="sp"):
+    """``(index, count)`` of ``rank``'s block of the sequence along the
+    mesh's ``axis``: ``(0, 1)`` without one. The one reading of which block
+    a rank holds: the data's chunking (:func:`sequence_chunk`), the model's
+    default positions and the ring's split all take it here. ``rank`` None
+    is this process, whose rank in the axis's process group (the order the
+    ring sends in) must then be the same index."""
+    axes = [a for a in (axis,) if a in mesh.mesh_dim_names]
+    if rank is not None:
+        return _shard(mesh, rank, axes)
+    import torch.distributed as dist
+
+    index, count = _shard(mesh, dist.get_rank(), axes)
+    if count > 1 and dist.get_rank(collectives.axes_group(mesh, axis)) != index:
+        raise RuntimeError("rank {} holds block {} of the sequence on the mesh, but is member {} of its {} "
+                           "group".format(dist.get_rank(), index, dist.get_rank(collectives.axes_group(mesh, axis)),
+                                          axis))
+    return index, count
+
+
+def sequence_chunk(batch, index, count):
+    """Block ``index`` of ``count`` of an LM batch's sequence: ``tokens``
+    ``[B, L + 1]`` (the inputs are ``tokens[:, :-1]``, the targets
+    ``tokens[:, 1:]``) and the ``segment_ids``, ``positions`` and ``mask``
+    beside them. Each block of ``c = ceil(L / count)`` inputs takes its
+    ``c + 1`` tokens (one overlapping the next block, its last target), so
+    the loss's shift by one runs on the block as on the whole row. The last
+    block is padded with token 0, segment id 0 and position 0, and a
+    ``mask`` of 0 there (added when the batch has none), so its padding is
+    neither attended by a real token nor counted in the loss. Numpy arrays
+    or tensors; ``count`` 1 returns the batch as it is."""
+    if count == 1:
+        return batch
+    import numpy as np
+
+    length = batch["tokens"].shape[1] - 1
+    c = -(-length // count)
+    out = dict(batch)
+    if c * count > length and "mask" not in batch:
+        out["mask"] = np.ones(batch["tokens"].shape, np.int32)
+    for key, v in out.items():
+        v = v[:, index * c:index * c + c + 1]
+        if v.shape[1] < c + 1:
+            v = np.pad(np.asarray(v), ((0, 0), (0, c + 1 - v.shape[1])))
+        out[key] = v
+    return out
 
 
 def data_group(mesh):
@@ -215,7 +271,8 @@ class ShardedParams:
       ``fsdp``, the shards all-reduced over ``dp``; each replicated
       gradient, and the metrics, all-reduced over the data axes; all
       divided by the data axes' size (the loss is a mean over the global
-      batch).
+      batch). On a sequence split over ``sp`` every gradient is first
+      summed over it (each rank's is its tokens' share).
     * :meth:`gather`: each updated shard is all-gathered over ``fsdp``
       into the module's parameter, in place (through a staging buffer when
       the dimension is not the leading one), so the full parameters are
@@ -239,6 +296,7 @@ class ShardedParams:
         self.data_group = data_group(mesh)
         self.n = dist.get_world_size(self.fsdp_group)
         self.data_size = math.prod(mesh_axis_size(mesh, a) for a in data_axes(mesh))
+        self.sp_group = mesh.get_group("sp") if mesh_axis_size(mesh, "sp") > 1 else None
         params = dict(module.named_parameters())
         self.full = {n: params[n] for n in self.dims}
         with torch.no_grad():
@@ -263,6 +321,8 @@ class ShardedParams:
         """``grads``: ``{name: full gradient}`` → ``{name: gradient of what
         the optimizer updates}``, averaged over the data axes; returns it
         and the averaged metrics."""
+        if self.sp_group is not None:
+            _all_reduce_sum(list(grads.values()), {}, self.sp_group)
         shard_grads = {n: self._scatter(n, grads[n]) for n in self.dims}
         out = dict(grads)
         out.update(shard_grads)

@@ -30,6 +30,15 @@ backward, so the gradient all-reduce stays on the data axes. Under
 ``fsdp`` the ZeRO-3 overlay shards those blocks further. A checkpoint
 still holds full tensors (``parallel.sharding.ModelShards``).
 
+On a mesh with an ``sp`` axis (sequence parallelism: the model built on
+the mesh runs ring attention over it, each rank on its block of the
+sequence of the same rows) every rank's gradient is its tokens' share of
+the loss's: the gradients are *summed* over ``sp`` and averaged over the
+data axes, in one all-reduce over both (under ``fsdp`` a sum over ``sp``
+comes first). The loss and the metrics are equal on the ranks of an ``sp``
+group (``transformer.make_loss_fn``) and are averaged over the data axes
+alone.
+
 The step contract is the JAX version's (``mutable`` / ``has_aux`` /
 ``step=``), with the ``nn.Module`` in the place of the params pytree: the
 module holds the parameters, and the step updates parameters, optimizer
@@ -156,12 +165,16 @@ class SyncDataParallel:
                 )
             self.mesh, self.device = mesh, mesh_lib.mesh_device(mesh)
             self.data_group = sharding.data_group(mesh)
+            #: the group of the data axes and sp, when the sequence is split
+            #: over more than one sp rank (None otherwise)
+            self.sequence_group = (collectives.axes_group(mesh, sharding.data_axes(mesh) + ("sp",))
+                                   if sharding.mesh_axis_size(mesh, "sp") > 1 else None)
         else:
             if self.tp:
                 raise ValueError("tp=... requires a mesh with a 'tp' axis; got the device {!r}".format(mesh))
             if fsdp or param_spec_fn is not None:
                 raise ValueError("fsdp and param_spec_fn need a mesh, got the device {!r}".format(mesh))
-            self.mesh, self.data_group = None, None
+            self.mesh, self.data_group, self.sequence_group = None, None, None
             self.device = torch.device(mesh) if mesh is not None else util.select_device("gpu")
         collectives.set_data_group(self.data_group)
 
@@ -325,17 +338,24 @@ class SyncDataParallel:
 
         if self.fsdp:
             return lambda state, grads, metrics: state.sharded.reduce_grads(grads, metrics)
-        group = self.data_group
+        group, sequence = self.data_group, self.sequence_group
         size = util.world_size() if self.mesh is None else dist.get_world_size(group)
-        if size == 1:
+        if size == 1 and sequence is None:
             return None
 
         def reduce(state, grads, metrics):
             tensors = list(grads.values())
-            metrics = _all_reduce_sum(tensors, metrics, group)
-            for g in tensors:
-                g /= size
-            return grads, {k: v / size for k, v in metrics.items()}
+            if sequence is None:
+                metrics = _all_reduce_sum(tensors, metrics, group)
+            else:  # summed over sp as well; the metrics are equal there already
+                _all_reduce_sum(tensors, {}, sequence)
+                if size > 1:
+                    metrics = _all_reduce_sum([], metrics, group)
+            if size > 1:
+                for g in tensors:
+                    g /= size
+                metrics = {k: v / size for k, v in metrics.items()}
+            return grads, metrics
 
         return reduce
 

@@ -167,9 +167,30 @@ def test_two_executor_lm_on_a_dp_fsdp_mesh(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "dp=1,sp=2"]])
-def test_unported_lm_options_are_refused(flag):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        transformer_spark.main(TINY_LM + flag)
+def test_unported_lm_options_are_refused(tmp_path, flag):
+    """Once refused, now ported: the LM example on ``--mesh dp=1,sp=2``
+    (each of 2 ranks on its half of every row, ring attention between
+    them) trains through ``TFCluster.run``, with the same finite loss on
+    both ranks at every logged step."""
+    data_dir = str(tmp_path / "corpus")
+    transformer_spark.make_text_corpus(data_dir, num_shards=2, records_per_shard=40)
+    args = transformer_spark.build_parser().parse_args(TINY_LM + ["--data_dir", data_dir] + flag)
+    sc = LocalSparkContext(num_executors=2, task_timeout=120)
+    try:
+        cluster = TFCluster.run(sc, transformer_spark.main_fun, args, 2,
+                                input_mode=TFCluster.InputMode.TENSORFLOW, env=CPU_ENV)
+        assert cluster.wait_for_completion(timeout=120)
+        metrics = cluster.metrics(include_driver=False)
+        cluster.shutdown(timeout=120)
+    finally:
+        sc.stop()
+    losses = {}
+    for e in metrics["events"]:
+        if e.get("span") == "train_step":
+            losses.setdefault(e["step"], []).append(e["loss"])
+    assert sorted(losses) == [1, 2, 3]
+    for step, values in losses.items():
+        assert len(values) == 2 and values[0] == values[1] and np.isfinite(values[0]), (step, values)
 
 
 @pytest.mark.parametrize("flag", [["--moe_experts", "2"], ["--remat"]])

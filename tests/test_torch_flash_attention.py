@@ -209,9 +209,9 @@ def test_plain_versions_skipping_unvisited_blocks_match_pallas_interpret(kind, c
     seg = _layout(kind, B, L, 10)
     masked_scores = fa._masked_scores
 
-    def skipping(q, k, seg, scale, causal, heads):
-        s = masked_scores(q, k, seg, scale, causal, heads)
-        visit = fa.visited_blocks(seg, causal).repeat_interleave(64, 1).repeat_interleave(64, 2)
+    def skipping(q, k, seg, scale, causal, heads, seg_k=None):
+        s = masked_scores(q, k, seg, scale, causal, heads, seg_k=seg_k)
+        visit = fa.visited_blocks(seg, causal, seg_k=seg_k).repeat_interleave(64, 1).repeat_interleave(64, 2)
         visit = visit[:, :s.shape[1], :s.shape[2]].repeat_interleave(heads, 0)
         return torch.where(visit, s, fa.NEG_BIG)
 
@@ -361,3 +361,45 @@ def test_forward_kernel_loop_twin_matches_pallas_interpret(kind, causal, dtype, 
     tol = 2e-5 if dtype == "float32" else 0.05
     np.testing.assert_allclose(o.float().numpy(), np.asarray(jo, np.float32), atol=tol)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :, 0], atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["mid_block", "reused", "all_pad"])
+def test_online_mirror_matches_forward_kernel_loop_twin(kind, causal, dtype):
+    """``flash_fwd_online_plain`` (every kv block at once over all rows, the
+    card's reference for the bf16 forward's f32 output) gives the blockwise
+    twin's o and lse: a block the kernel skips adds exactly nothing, and p is
+    rounded against the same running max (o within 2^-12 as a norm, the
+    card's limit, lse within 1e-5)."""
+    q, k, v = _qkv(15)
+    seg = _t(_layout(kind, B, L, 16))
+    merge = lambda x: _t(x.reshape(B * H, L, D)).to(getattr(torch, dtype))  # noqa: E731
+    args = (merge(q), merge(k), merge(v), seg, 1 / math.sqrt(D), causal, H)
+    o, lse = fa.flash_fwd_online_plain(*args)
+    o_twin, lse_twin = _forward_kernel_loop(*args)
+    assert o.dtype == torch.float32
+    g, r = o.to(o_twin.dtype).float(), o_twin.float()
+    assert float((g - r).norm() / r.norm()) <= 2.0 ** -12
+    np.testing.assert_allclose(lse.numpy(), lse_twin.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_online_mirror_with_key_ids_matches_plain_forward(causal):
+    """With the keys' ids of their own (a ring hop) and f32 inputs, where
+    rounding p changes nothing, the online mirror equals ``flash_fwd_plain``
+    within 2e-5 on the rows that attend a key."""
+    q, k, v = _qkv(17)
+    seg = _t(_segments(B, L, SPANS))
+    seg_k = _t(_segments(B, L, ((0, 40), (40, 150), (150, 256))))
+    merge = lambda x: _t(x.reshape(B * H, L, D))  # noqa: E731
+    args = (merge(q), merge(k), merge(v), seg, 1 / math.sqrt(D), causal, H)
+    o, lse = fa.flash_fwd_online_plain(*args, seg_k=seg_k)
+    o_ref, lse_ref = fa.flash_fwd_plain(*args, seg_k=seg_k)
+    attend = seg[:, :, None] == seg_k[:, None, :]
+    if causal:
+        attend &= torch.ones(L, L, dtype=torch.bool).tril()
+    rows = attend.any(-1).repeat_interleave(H, 0)
+    assert bool(rows.any()) and not bool(rows.all())
+    np.testing.assert_allclose(o[rows].numpy(), o_ref[rows].numpy(), atol=2e-5)
+    np.testing.assert_allclose(lse[rows].numpy(), lse_ref[rows].numpy(), atol=2e-5)

@@ -174,3 +174,75 @@ def test_unsupported_head_dim_raises_on_card(d):
     q = torch.randn(2, 128, d, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd(q, q, q, None, 0.1, True, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_key_ids_and_f32_outputs_on_card(d):
+    """A ring hop's launch: the keys carry ids of their own (every query id
+    among them, so every row attends a key) and the bf16 kernels write f32
+    outputs, against the plain versions cast to the input dtype; and the
+    f32 outputs before any cast (O against the forward's own online
+    rounding, ``flash_fwd_online_plain``) within 2^-12 as a norm, a limit
+    that the same launch's bf16 outputs cast up to f32 exceed."""
+    _card()
+    gen = torch.Generator().manual_seed(13)
+    b, heads, length = 2, 2, 256
+    q, k, v, do = (torch.randn(b * heads, length, d, generator=gen).cuda().to(torch.bfloat16)
+                   for _ in range(4))
+    seg = torch.full((b, length), 2, dtype=torch.int32)
+    seg[:, :100] = 1
+    seg_k = torch.full((b, length), 2, dtype=torch.int32)
+    seg_k[:, 40:120], seg_k[:, :8] = 1, 0
+    seg, seg_k = seg.cuda(), seg_k.cuda()
+    scale, kw = 1.0 / math.sqrt(d), {"seg_k": seg_k, "out_dtype": torch.float32}
+    o, lse = fa.flash_fwd(q, k, v, seg, scale, False, heads, **kw)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, seg, scale, False, heads, **kw)
+    assert o.dtype == torch.float32
+    _close("o", o.to(torch.bfloat16), o_ref.to(torch.bfloat16))
+    _close("lse", lse, lse_ref)
+    bwd = (seg, do, lse_ref, (do.float() * o_ref).sum(-1), scale, False, heads)
+    _close("dq", fa.flash_bwd_dq(q, k, v, *bwd, **kw).to(torch.bfloat16),
+           fa.flash_bwd_dq_plain(q, k, v, *bwd, **kw).to(torch.bfloat16))
+    for name, got, want in zip(("dk", "dv"), fa.flash_bwd_dkv(q, k, v, *bwd, **kw),
+                               fa.flash_bwd_dkv_plain(q, k, v, *bwd, **kw)):
+        _close(name, got.to(torch.bfloat16), want.to(torch.bfloat16))
+    norm = lambda g, r: float((g.float() - r).norm() / r.norm())  # noqa: E731
+    f32_refs = {"o": (o, fa.flash_fwd(q, k, v, seg, scale, False, heads, seg_k=seg_k)[0],
+                      fa.flash_fwd_online_plain(q, k, v, seg, scale, False, heads, seg_k=seg_k)[0]),
+                "dq": (fa.flash_bwd_dq(q, k, v, *bwd, **kw), fa.flash_bwd_dq(q, k, v, *bwd, seg_k=seg_k),
+                       fa.flash_bwd_dq_plain(q, k, v, *bwd, **kw))}
+    for name, got, control, want in zip(("dk", "dv"), fa.flash_bwd_dkv(q, k, v, *bwd, **kw),
+                                        fa.flash_bwd_dkv(q, k, v, *bwd, seg_k=seg_k),
+                                        fa.flash_bwd_dkv_plain(q, k, v, *bwd, **kw)):
+        f32_refs[name] = (got, control, want)
+    for name, (got, control, want) in f32_refs.items():
+        assert got.dtype == torch.float32 and control.dtype == torch.bfloat16, name
+        assert norm(got, want) <= 2.0 ** -12, (name, norm(got, want))
+        assert norm(control, want) > 2.0 ** -12, (name, norm(control, want))
+
+
+@pytest.mark.cuda
+def test_ring_of_four_matches_whole_sequence_flash_on_card():
+    """The one-process ring (4 members, causal, packed) launches each
+    kernel 10 times a direction and matches whole-sequence flash."""
+    from tensorflowonspark_tpu_torch.ops.flash_attention import flash_attention
+    from tensorflowonspark_tpu_torch.parallel.ring_attention import ring_attention_local
+
+    _card()
+    gen = torch.Generator().manual_seed(14)
+    b, heads, length, d = 2, 4, 512, 64
+    q, k, v, do = (torch.randn(b, heads, length, d, generator=gen).cuda().to(torch.bfloat16) for _ in range(4))
+    seg = _packed_segments(b, length, gen)
+    outs = []
+    for fn in (lambda *t: ring_attention_local(*t, 4, causal=True, segment_ids=seg),
+               lambda *t: flash_attention(*t, causal=True, segment_ids=seg)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.reset_launch_counts()
+        o = fn(*leaves)
+        outs.append((o.detach(),) + torch.autograd.grad(o, leaves, do))
+        if len(outs) == 1:
+            assert fa.launch_counts() == {"flash_fwd": 10, "flash_bwd_dq": 10, "flash_bwd_dkv": 10}
+    for name, got, want in zip(("o", "dq", "dk", "dv"), *outs):
+        g, r = got.float(), want.float()
+        assert float((g - r).norm() / r.norm()) <= 2.0 ** -8, name

@@ -145,6 +145,10 @@ def test_model_options_run(kwargs):
 
 
 def test_ring_attention_raises():
-    module = transformer.create_model(attention="ring", **SMALL)
-    with pytest.raises(NotImplementedError, match="ring"):
-        module(torch.zeros(1, 8, dtype=torch.int32))
+    """Once refused, now ported: ``attention="ring"`` without a mesh is a
+    ring of one member, the flash call, and equals plain attention."""
+    ring = transformer.create_model(attention="ring", generator=torch.Generator().manual_seed(0), **SMALL)
+    plain = transformer.create_model(attention="plain", generator=torch.Generator().manual_seed(0), **SMALL)
+    tokens = torch.randint(0, SMALL["vocab_size"], (2, 24), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        np.testing.assert_allclose(ring(tokens).numpy(), plain(tokens).numpy(), atol=2e-5)

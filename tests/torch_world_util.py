@@ -299,6 +299,17 @@ def _data_rows(mesh, x):
     return _block(x, collectives.axis_size(axes, mesh), collectives.axis_index(axes, mesh))
 
 
+def _lm_rows(mesh, batch):
+    """This rank's part of a global LM batch: its data rows and, along
+    ``sp``, its block of the sequence (``sharding.sequence_chunk``)."""
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.parallel import sharding
+
+    rows = {k: _data_rows(mesh, v).numpy() for k, v in batch.items()}
+    return sharding.sequence_chunk(rows, *sharding.sequence_shard(mesh, dist.get_rank()))
+
+
 def _lm_state(ctx, variables, cfg, axes, fsdp=False, lr=1e-3):
     from tensorflowonspark_tpu_torch import convert
     from tensorflowonspark_tpu_torch.models import transformer
@@ -347,7 +358,7 @@ def job_axes_step(ctx, variables, cfg, batches, axes, fsdp=False):
     step = strategy.compile_train_step(transformer.make_loss_fn(model), opt, has_aux=True)
     losses, metrics = [], {}
     for b in batches:
-        state, metrics = step(state, strategy.shard_batch({k: _data_rows(mesh, v) for k, v in b.items()}))
+        state, metrics = step(state, strategy.shard_batch(_lm_rows(mesh, b)))
         losses.append(float(metrics["loss"]))
     cut = set(state.blocks.specs) if state.blocks is not None else set()
     grads = {n: p.grad.clone() for n, p in state.module.named_parameters()}
@@ -368,7 +379,7 @@ def job_axes_save(ctx, root, variables, cfg, batch, axes, step_no, fsdp=False):
 
     mesh, strategy, model, opt, state = _lm_state(ctx, variables, cfg, axes, fsdp)
     step = strategy.compile_train_step(transformer.make_loss_fn(model), opt, has_aux=True)
-    state, _ = step(state, strategy.shard_batch({k: _data_rows(mesh, v) for k, v in batch.items()}))
+    state, _ = step(state, strategy.shard_batch(_lm_rows(mesh, batch)))
     path = os.path.join(root, "ckpt_{}".format(step_no))
     if checkpoint.save_is_collective(state) or ctx.process_id == 0:
         checkpoint.save_checkpoint(path, state)
@@ -417,3 +428,44 @@ def job_regions(ctx, x, w):
         y.sum().backward()
         out[name] = {"value": y.detach().clone(), "grad": xr.grad.clone()}
     return out
+
+
+# -- sequence parallelism: ring attention over sp -------------------------------
+
+
+def job_ring(ctx, cases):
+    """``ring_attention_sharded`` on each case ``{name: (axes, q, k, v,
+    segment_ids, causal, g)}`` (whole ``[B, H, L, D]`` inputs on every rank):
+    the output, the gradients of ``sum(out · g)`` and, for a ring of the
+    whole world, the one-process seam (``ring_attention_local``) on the
+    same inputs."""
+    from tensorflowonspark_tpu_torch.parallel import ring_attention as ra
+
+    out = {}
+    for name, (axes, q, k, v, seg, causal, g) in cases.items():
+        mesh = ctx.mesh(axes)
+        leaves = [torch.as_tensor(t).clone().requires_grad_(True) for t in (q, k, v)]
+        ids = None if seg is None else torch.as_tensor(seg)
+        o = ra.ring_attention_sharded(*leaves, mesh, causal=causal, segment_ids=ids)
+        grads = torch.autograd.grad((o * torch.as_tensor(g)).sum(), leaves)
+        res = {"out": o.detach(), "grads": [t.detach() for t in grads]}
+        n = axes.get("sp", 1)
+        if n == torch.distributed.get_world_size() and q.shape[2] % n == 0:
+            res["local"] = ra.ring_attention_local(*(torch.as_tensor(t) for t in (q, k, v)), n, causal=causal,
+                                                   segment_ids=ids).detach()
+        out[name] = res
+    return out
+
+
+def job_sp_logits(ctx, variables, cfg, batch, axes):
+    """The transformer (the JAX model's weights) on ``ctx.mesh(axes)``, every
+    rank on all rows and its block of the sequence (L divisible by sp):
+    its block of the logits and its sp index."""
+    from tensorflowonspark_tpu_torch.parallel import collectives
+
+    mesh, _, _, _, state = _lm_state(ctx, variables, cfg, axes)
+    n, i = collectives.axis_size("sp", mesh), collectives.axis_index("sp", mesh)
+    mine = {k: torch.as_tensor(v).chunk(n, 1)[i].contiguous() for k, v in batch.items()}
+    with torch.no_grad():
+        logits = state.module(mine["tokens"], positions=mine.get("positions"), segment_ids=mine.get("segment_ids"))
+    return {"logits": logits, "sp_index": i, "sp": n}
