@@ -39,9 +39,8 @@ The pieces:
   stream is **byte-identical regardless of K** (batches are grouped in
   arrival order and the source tail is flushed by binary decomposition
   into bucket-sized windows, so nothing is dropped and every window size
-  is a bucket). Run a window with a loop compiled for its ``k``
-  (``compile_train_loop(loss_fn, optimizer, k, packed=True)``, one a
-  bucket).
+  is a bucket). Run a window with a loop built for its ``k``
+  (``train.PackedLoopCache``: one a bucket, built on first use).
 * :class:`ReadaheadAutotuner` — sizes the shard read-ahead from the stall
   counters (``ImagePipeline(readahead="auto")``, the store's prefetch
   window).
@@ -500,16 +499,15 @@ def autotuned_prefetch(batches, strategy, tuner=None, **tuner_kw):
     :func:`~tensorflowonspark_tpu_torch.data.packed_prefetch`.
 
     Yields :class:`AutotunedWindow` objects (``.data`` = ``[k, B, ...]``
-    device dict, ``.k`` = its bucket); run each with a loop compiled for
-    its bucket::
+    device dict, ``.k`` = its bucket); run them with
+    :class:`~tensorflowonspark_tpu_torch.train.strategy.PackedLoopCache`,
+    which builds a loop a bucket on first use (on the card all of them
+    replay one captured step)::
 
         tuner = FeedAutotuner()
-        loops = {}
+        cache = PackedLoopCache(strategy, loss_fn, optimizer, mutable=True)
         for window in autotuned_prefetch(pipe, strategy, tuner=tuner):
-            if window.k not in loops:
-                loops[window.k] = strategy.compile_train_loop(
-                    loss_fn, optimizer, window.k, mutable=True, packed=True)
-            state, metrics = loops[window.k](state, window.data)
+            state, metrics = cache.run(state, window)
 
     The delivered batch stream is byte-identical to the K=1 reference for
     any controller trajectory: batches are grouped strictly in arrival

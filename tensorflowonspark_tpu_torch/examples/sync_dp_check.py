@@ -92,6 +92,18 @@ EXPERTS = 8
 #: the long-context leg: rows and sequence length, and its first loss
 #: against one rank's at full length (the LM's bf16 loss limit)
 LONG_ROWS, LONG_SEQ, LONG_LOSS_TOL = 2, {"full": 16384, "small": 256}, 2e-4
+#: the pipeline legs: the LM's depth (2 blocks a stage on pp4), its rows,
+#: microbatches, and the float32 gaps to the one-card sequential
+#: composition they must keep (loss relative; a stage's gradient as a norm)
+PP_LAYERS, PP_ROWS, PP_MICRO, PP_TOL = {"full": 8, "small": 4}, 8, 4, 1e-5
+#: the overlap leg: microbatches a rank (of its AXES_ROWS / world rows)
+OVERLAP_MICRO = 2
+
+
+def _lm_cfg(size):
+    """The LM's width: ``TransformerConfig``'s defaults at full size."""
+    return (dict(vocab_size=32000, d_model=512, n_layers=6, n_heads=8, d_ff=2048) if size == "full"
+            else dict(vocab_size=300, d_model=64, n_layers=2, n_heads=2, d_ff=128))
 
 
 def _legs(model, world, fsdp):
@@ -150,8 +162,7 @@ def _models(size, device, dtype_name, names):
         return {"image": rng.standard_normal((n, px, px, 3)).astype(np.float32),
                 "label": rng.integers(0, classes, n)}
 
-    lm_cfg = (dict(vocab_size=32000, d_model=512, n_layers=6, n_heads=8, d_ff=2048) if size == "full"
-              else dict(vocab_size=300, d_model=64, n_layers=2, n_heads=2, d_ff=128))
+    lm_cfg = _lm_cfg(size)
 
     def lm_build(mesh=None, **over):
         return transformer.create_model(mesh=mesh, dtype=dtype_name,
@@ -324,10 +335,7 @@ def _rank(rank, world, port, args, out_path):
                 "step_ms": {side: {"median": statistics.median(w), "min": min(w), "max": max(w)}
                             for side, w in walls.items() if w}}
             if cuda:
-                peaks = torch.tensor([(torch.cuda.max_memory_allocated(device) - base) / 1e9], device=device)
-                gathered = [torch.zeros_like(peaks) for _ in range(world)]
-                dist.all_gather(gathered, peaks)
-                line["peak_memory_gb_by_rank"] = [float(v) for v in gathered]
+                line["peak_memory_gb_by_rank"] = _peaks(device, base, world)
             if dp_losses is None:
                 dp_losses = eager_losses
             else:
@@ -338,6 +346,10 @@ def _rank(rank, world, port, args, out_path):
                 torch.cuda.empty_cache()
     if args.sp_long:
         results.append(_long_leg(rank, world, args, device, sync))
+    if args.pp:
+        results += _pp_legs(rank, world, args, device, sync)
+    if args.overlap:
+        results.append(_overlap_leg(rank, world, args, device, sync))
     if rank == 0:
         with open(out_path, "w") as f:
             json.dump(results, f)
@@ -389,10 +401,7 @@ def _long_leg(rank, world, args, device, sync):
                         "first": ms[0]},
             "tokens_per_sec": LONG_ROWS * length / (statistics.median(ms[1:] or ms) / 1e3)}
     if cuda:
-        peaks = torch.tensor([(torch.cuda.max_memory_allocated(device) - base) / 1e9], device=device)
-        gathered = [torch.zeros_like(peaks) for _ in range(world)]
-        dist.all_gather(gathered, peaks)
-        line["peak_memory_gb_by_rank"] = [float(v) for v in gathered]
+        line["peak_memory_gb_by_rank"] = _peaks(device, base, world)
     del state, step, batch
     if cuda:
         torch.cuda.empty_cache()
@@ -405,6 +414,315 @@ def _long_leg(rank, world, args, device, sync):
         line["tolerance"] = LONG_LOSS_TOL
         del whole, ref
     dist.barrier()
+    return line
+
+
+def pp_stage(cfg, n_blocks):
+    """A stage of ``n_blocks`` LM blocks on the ``meta`` device, for
+    ``parallel.module_stage``: ``x`` [B, L, d] in, positions 0..L-1 a row
+    (one causal segment a row)."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    class Stage(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            for j in range(n_blocks):
+                self.add_module("b{}".format(j), transformer.Block(cfg))
+
+        def forward(self, x):
+            positions = torch.arange(x.shape[1], device=x.device)[None].expand(x.shape[0], x.shape[1])
+            for j in range(n_blocks):
+                x = getattr(self, "b{}".format(j))(x, positions)
+            return x
+
+    with torch.device("meta"):
+        return Stage()
+
+
+def stage_params(model, layers):
+    """``{"b<j>.<name>": tensor}`` of the LM's blocks ``layers`` (in the
+    stage's order), detached: a :func:`pp_stage`'s parameters."""
+    return {"b{}.{}".format(j, n): p.detach() for j, i in enumerate(layers)
+            for n, p in getattr(model, "layer_{}".format(i)).named_parameters()}
+
+
+def _pp_setup(args, device, dtype_name, n_stages):
+    """The LM at ``PP_LAYERS`` layers (seed 0) on ``device``, its blocks cut
+    into ``n_stages`` stages (``[{"b<j>.<name>": tensor}]``), the stage
+    function, the head's loss, and ``PP_ROWS`` rows of ``PP_MICRO``
+    microbatches embedded (inputs) with their next tokens (targets)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.parallel import module_stage, split_microbatches
+
+    lm_cfg = _lm_cfg(args.size)
+    layers, seq = PP_LAYERS[args.size], (FULL if args.size == "full" else SMALL)["transformer"]["seq"]
+    model = transformer.create_model(dtype=dtype_name, generator=torch.Generator().manual_seed(0),
+                                     **dict(lm_cfg, n_layers=layers, max_seq_len=seq)).to(device)
+    per = layers // n_stages
+    stages = [stage_params(model, range(i * per, (i + 1) * per)) for i in range(n_stages)]
+    tokens = torch.as_tensor(np.random.default_rng(13).integers(1, lm_cfg["vocab_size"], (PP_ROWS, seq + 1)),
+                             device=device)
+    with torch.no_grad():
+        x = F.embedding(tokens[:, :-1], model.embed.weight).to(model.cfg.compute_dtype)
+
+    def loss_fn(h, t):
+        logits = model.lm_head(model.ln_f(h)).float()
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), t.reshape(-1))
+
+    stage_fn = module_stage(pp_stage(model.cfg, per))
+    return (model, stages, stage_fn, loss_fn, split_microbatches(x, PP_MICRO),
+            split_microbatches(tokens[:, 1:], PP_MICRO))
+
+
+def _sequential(stage_fn, stages, loss_fn, xs, ts):
+    """The stages composed in order under plain autograd on the microbatches:
+    the mean loss and every stage's gradients."""
+    import torch
+
+    leaves = [{k: v.detach().clone().requires_grad_() for k, v in s.items()} for s in stages]
+    loss = 0.0
+    for m in range(xs.shape[0]):
+        h = xs[m]
+        for s in leaves:
+            h = stage_fn(s, h)
+        loss = loss + loss_fn(h, ts[m]) / xs.shape[0]
+    grads = torch.autograd.grad(loss, [t for s in leaves for t in s.values()])
+    it = iter(grads)
+    return loss.detach(), [{k: next(it) for k in s} for s in leaves]
+
+
+def _rel_gap(got, want):
+    import torch
+
+    flat = lambda tree: torch.cat([t.float().flatten() for t in tree])  # noqa: E731
+    return float((flat(got) - flat(want)).norm() / flat(want).norm())
+
+
+def _timed_ms(fn, sync, steps, barrier=None):
+    ms = []
+    for _ in range(steps):
+        sync()
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"median": statistics.median(ms[1:] or ms), "min": min(ms), "max": max(ms), "first": ms[0]}
+
+
+def _peaks(device, base, world):
+    """Every rank's peak memory over ``base`` (GB; collective)."""
+    import torch
+    import torch.distributed as dist
+
+    peak = torch.tensor([(torch.cuda.max_memory_allocated(device) - base) / 1e9], device=device)
+    gathered = [torch.zeros_like(peak) for _ in range(world)]
+    dist.all_gather(gathered, peak)
+    return [float(v) for v in gathered]
+
+
+def _pp_legs(rank, world, args, device, sync):
+    """GPipe over NCCL (``pipeline_apply``) on ``pp`` = world and ``dp`` =
+    world/2 × ``pp`` = 2 (``batch_axis="dp"``), the LM at ``PP_LAYERS``
+    layers: in float32 the loss and this rank's stage gradient against the
+    one-card sequential composition (gaps gathered), in bfloat16 the step
+    ms and each rank's peak memory; then on rank 0 ``Pipeline1F1B`` with
+    its stages on the ``world`` cards (``cuda:0..``; the CPU ``world``
+    times at ``--platform cpu``)."""
+    import torch
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.parallel import build_mesh, collectives, pipeline_apply, stack_stage_params
+
+    cuda = device.type == "cuda"
+    legs = [("pp{}".format(world), {"pp": world}, None)]
+    if world >= 4 and world % 2 == 0:
+        legs.append(("dp{}_pp2".format(world // 2), {"dp": world // 2, "pp": 2}, "dp"))
+    lines = []
+    for leg, axes, batch_axis in legs:
+        mesh = build_mesh(axes)
+        stage = collectives.axis_index("pp", mesh)
+        line = {"model": "transformer_pp", "leg": leg, "world": world, "platform": args.platform,
+                "size": args.size, "layers": PP_LAYERS[args.size], "stages": axes["pp"], "rows": PP_ROWS,
+                "microbatches": PP_MICRO, "mesh": axes, "batch_axis": batch_axis}
+        for dtype_name in ("float32", "bfloat16"):
+            model, stages, stage_fn, loss_fn, xs, ts = _pp_setup(args, device, dtype_name, axes["pp"])
+            stacked = {k: v.clone().requires_grad_() for k, v in stack_stage_params(stages).items()}
+
+            def step():
+                out = pipeline_apply(stage_fn, stacked, xs, mesh, batch_axis=batch_axis)
+                loss = sum(loss_fn(out[m], ts[m]) for m in range(PP_MICRO)) / PP_MICRO
+                return loss.detach(), torch.autograd.grad(loss, list(stacked.values()))
+
+            if dtype_name == "float32":
+                loss, grads = step()
+                ref_loss, ref_grads = _sequential(stage_fn, stages, loss_fn, xs, ts)
+                gaps = torch.tensor([abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+                                     _rel_gap([g[stage] for g in grads], list(ref_grads[stage].values()))],
+                                    device=device)
+                every = [torch.zeros_like(gaps) for _ in range(world)]
+                dist.all_gather(every, gaps)
+                line["f32_loss"], line["f32_loss_sequential"] = float(loss), float(ref_loss)
+                line["f32_loss_rel_gap"] = max(float(g[0]) for g in every)
+                line["f32_grad_rel_gap_by_rank"] = [float(g[1]) for g in every]
+                del grads, ref_grads
+            else:
+                if cuda:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats(device)
+                    base = torch.cuda.memory_allocated(device)
+                line["bf16_step_ms"] = _timed_ms(step, sync, args.steps, dist.barrier)
+                if cuda:
+                    line["peak_memory_gb_by_rank"] = _peaks(device, base, world)
+            del model, stages, stacked, xs, ts
+            if cuda:
+                torch.cuda.empty_cache()
+        lines.append(line)
+    dist.barrier()
+    if rank == 0:
+        lines.append(_one_f1b(args, world, sync))
+    dist.barrier()
+    return lines
+
+
+def _one_f1b(args, world, sync):
+    """``Pipeline1F1B`` in this process with one stage a card (the CPU
+    ``world`` times at ``--platform cpu``): float32 gaps to the one-card
+    sequential composition, bfloat16 step ms with overlap on and off, each
+    card's peak memory, the measured bubble and overlap fractions."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.parallel import Pipeline1F1B
+
+    cuda = args.platform == "gpu"
+    devices = [torch.device("cuda", i) if cuda else torch.device("cpu") for i in range(world)]
+    sync_all = (lambda: [torch.cuda.synchronize(d) for d in devices]) if cuda else sync
+    line = {"model": "transformer_pp", "leg": "1f1b_{}_cards".format(world), "world": world,
+            "platform": args.platform, "size": args.size, "layers": PP_LAYERS[args.size], "stages": world,
+            "rows": PP_ROWS, "microbatches": PP_MICRO, "devices": [str(d) for d in devices]}
+    for dtype_name in ("float32", "bfloat16"):
+        model, stages, stage_fn, loss_fn, xs, ts = _pp_setup(args, devices[0], dtype_name, world)
+        # the head closes the last stage on its card
+        head = _Head(model).to(devices[-1])
+        pipes = {side: Pipeline1F1B(stage_fn, stages, head, devices=devices, overlap=side == "on")
+                 for side in ("on", "off")}
+        try:
+            if dtype_name == "float32":
+                loss, grads = pipes["on"].step(xs, ts)
+                ref_loss, ref_grads = _sequential(stage_fn, stages, loss_fn, xs, ts)
+                line["f32_loss_rel_gap"] = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+                line["f32_grad_rel_gap_by_stage"] = [
+                    _rel_gap([g[k].to(devices[0]) for k in g], list(r.values())) for g, r in zip(grads, ref_grads)]
+                off_loss, off_grads = pipes["off"].step(xs, ts)
+                line["f32_on_off_bitwise"] = bool(torch.equal(loss, off_loss) and all(
+                    torch.equal(a[k], b[k]) for a, b in zip(grads, off_grads) for k in a))
+                del grads, ref_grads, off_grads
+            else:
+                if cuda:
+                    for d in devices:
+                        torch.cuda.reset_peak_memory_stats(d)
+                line["bf16_step_ms"] = {side: _timed_ms(lambda p=p: p.step(xs, ts), sync_all, args.steps)
+                                        for side, p in pipes.items()}
+                line["bubble_fraction"] = {side: p.last_stats["bubble_fraction"] for side, p in pipes.items()}
+                line["bubble_fraction_closed_form"] = pipes["on"].last_stats["bubble_fraction_theory"]
+                line["overlap_fraction"] = {side: p.last_stats["overlap_fraction"] for side, p in pipes.items()}
+                line["transfer_ms"] = {side: p.last_stats["comm_busy_s"] * 1e3 for side, p in pipes.items()}
+                if cuda:
+                    line["peak_memory_gb_by_card"] = [torch.cuda.max_memory_allocated(d) / 1e9 for d in devices]
+        finally:
+            for p in pipes.values():
+                p.close()
+        del model, stages, pipes, head
+        if cuda:
+            torch.cuda.empty_cache()
+    return line
+
+
+class _Head:
+    """The LM's final norm, head and cross-entropy as a ``loss_fn(h, t)``
+    on the last stage's card."""
+
+    def __init__(self, model):
+        self.ln_f, self.lm_head = model.ln_f, model.lm_head
+
+    def to(self, device):
+        import copy
+
+        head = copy.copy(self)
+        head.ln_f, head.lm_head = copy.deepcopy(self.ln_f).to(device), copy.deepcopy(self.lm_head).to(device)
+        return head
+
+    def __call__(self, h, t):
+        import torch.nn.functional as F
+
+        logits = self.lm_head(self.ln_f(h)).float()
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), t.reshape(-1))
+
+
+def _overlap_leg(rank, world, args, device, sync):
+    """``BucketedOverlap`` of the full-width LM over ``world`` processes
+    through a ``HostAllReduceGroup`` bootstrapped over the world: each rank
+    on ``OVERLAP_MICRO`` microbatches of its rows of a global batch of
+    ``AXES_ROWS`` rows (at least a row a microbatch), ``args.steps`` AdamW steps with overlap on and off
+    from the same weights. Losses by rank and side, step ms (host clock, a
+    sync after each step), the comm thread's seconds, buckets, overlap
+    fraction, peak memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.parallel import HostAllReduceGroup
+    from tensorflowonspark_tpu_torch.train import BucketedOverlap, SyncDataParallel
+
+    build, loss_fn, make_opt, kw, make_batch = _models(args.size, device, args.dtype, ["transformer"])[
+        "transformer"]
+    glob = make_batch(np.random.default_rng(11), world, max(AXES_ROWS[args.size], OVERLAP_MICRO * world))
+    n = next(iter(glob.values())).shape[0] // world
+    mine = {k: v[rank * n:(rank + 1) * n] for k, v in glob.items()}
+    per = n // OVERLAP_MICRO
+    strategy = SyncDataParallel(device)
+    mbs = [strategy.shard_batch({k: v[j * per:(j + 1) * per] for k, v in mine.items()})
+           for j in range(OVERLAP_MICRO)]
+    cuda = device.type == "cuda"
+    line = {"model": "transformer_overlap", "leg": "dp{}_host_group".format(world), "world": world,
+            "platform": args.platform, "size": args.size, "dtype": args.dtype, "steps": args.steps,
+            "rows_per_rank": n, "microbatches": OVERLAP_MICRO}
+    with HostAllReduceGroup(rank, world) as group:
+        for side in ("on", "off"):
+            optimizer = make_opt()
+            state = strategy.create_state(build, optimizer)
+            sched = BucketedOverlap(strategy, loss_fn, optimizer, group=group, overlap=side == "on", **kw)
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(device)
+            losses, ms = [], []
+            for _ in range(args.steps):
+                sync()
+                t0 = time.perf_counter()
+                state, metrics = sched.step(state, mbs)
+                losses.append(float(metrics["loss"]))
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            stats = dict(sched.last_stats)
+            sched.close()
+            every = [None] * world
+            dist.all_gather_object(every, losses)
+            line["losses_by_rank_" + side] = every
+            line["step_ms_" + side] = {"median": statistics.median(ms[1:] or ms), "min": min(ms), "max": max(ms)}
+            line["comm_busy_s_" + side] = stats["comm_busy_s"]
+            line["device_wait_s_" + side] = stats["device_wait_s"]
+            line["overlap_fraction_" + side] = stats["overlap_fraction"]
+            line["buckets"] = stats["buckets"]
+            if cuda:
+                line["peak_memory_gb_by_rank_" + side] = _peaks(device, 0, world)
+            del state, sched, optimizer
     return line
 
 
@@ -440,6 +758,11 @@ def main(argv=None):
     parser.add_argument("--sp_long", action="store_true",
                         help="add the long-context leg: sp=world on {} rows of {} tokens".format(
                             LONG_ROWS, LONG_SEQ["full"]))
+    parser.add_argument("--pp", action="store_true",
+                        help="add GPipe (pipeline_apply over NCCL) on pp=world and dp=world/2 x pp=2, and "
+                             "Pipeline1F1B with a stage a card, the LM at {} layers".format(PP_LAYERS["full"]))
+    parser.add_argument("--overlap", action="store_true",
+                        help="add BucketedOverlap of the LM over a HostAllReduceGroup of the ranks")
     parser.add_argument("--models", default="resnet50,transformer",
                         help="comma-separated models of the data-parallel and ZeRO-3 legs ('' for none)")
     parser.add_argument("--dtype", choices=["bfloat16", "float32"], default=None,
@@ -474,12 +797,22 @@ def main(argv=None):
         if line["model"] == "transformer_sp_long":
             failed |= not line["first_loss_rel_gap"] <= line["tolerance"]
             continue
+        if line["model"] == "transformer_pp":
+            gaps = line.get("f32_grad_rel_gap_by_rank") or line.get("f32_grad_rel_gap_by_stage")
+            failed |= not (line["f32_loss_rel_gap"] <= PP_TOL and max(gaps) <= PP_TOL
+                           and line.get("f32_on_off_bitwise", True))
+            continue
+        if line["model"] == "transformer_overlap":
+            on, off = line["losses_by_rank_on"], line["losses_by_rank_off"]
+            failed |= not (all(r == on[0] for r in on) and on == off and on[0][-1] < on[0][0])
+            continue
         failed |= bool(line["loop_vs_eager_mismatches"] or line["tensors_off_rank0"]
                        or len(set(line["losses_by_rank"])) != 1)
         if args.dtype == "float32" and line.get("loss_rel_gap_to_dp", 0) > REL_TOL:
             failed = True
     if failed:
-        raise SystemExit("sync_dp_check: a rank, the loop or a ZeRO-3, tp, ep or sp leg disagrees (lines above)")
+        raise SystemExit("sync_dp_check: a rank, the loop or a ZeRO-3, tp, ep, sp, pp or overlap leg disagrees "
+                         "(lines above)")
     return lines
 
 

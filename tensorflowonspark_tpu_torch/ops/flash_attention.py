@@ -329,7 +329,7 @@ def flash_fwd(q, k, v, seg, scale, causal, heads, seg_k=None, out_dtype=None):
         bh, heads, length, d, _DTYPES[q.dtype], float(scale), int(bool(causal)),
         int(out_dtype != q.dtype), _stream(q),
     ), "flash_fwd")
-    flash_fwd.launches += 1
+    _count(flash_fwd)
     return o, lse
 
 
@@ -346,7 +346,7 @@ def flash_bwd_dq(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None,
         delta.data_ptr(), dq.data_ptr(), bh, heads, length, d, _DTYPES[q.dtype], float(scale),
         int(bool(causal)), int(out_dtype != q.dtype), _stream(q),
     ), "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq)
     return dq
 
 
@@ -364,8 +364,18 @@ def flash_bwd_dkv(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, heads, length, d, _DTYPES[q.dtype],
         float(scale), int(bool(causal)), int(out_dtype != q.dtype), _stream(q),
     ), "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv)
     return dk, dv
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper):
+    """One more launch in ``wrapper.launches``; a lock keeps the count exact
+    when several threads launch at once (``Pipeline1F1B``'s stages)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 #: the three kernel wrappers of this module, forward first

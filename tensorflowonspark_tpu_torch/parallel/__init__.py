@@ -1,5 +1,6 @@
 """Parallelism core of the port: device meshes over ranks, collectives over
-mesh axes, sharding rules, and ring attention.
+mesh axes, sharding rules, ring attention, pipeline schedules and the host
+all-reduce group.
 
 Where the JAX package expresses distribution as shardings over a named
 ``jax.sharding.Mesh`` and lets XLA insert the collectives, the port runs one
@@ -11,7 +12,13 @@ the strategy's own step (:mod:`~tensorflowonspark_tpu_torch.parallel.
 sharding`, ``SyncDataParallel(mesh, fsdp=True)``), the model axes split a
 model built on the mesh (``transformer.create_model(mesh=...)``), and
 ring attention passes K/V blocks around the ``sp`` group
-(:mod:`~tensorflowonspark_tpu_torch.parallel.ring_attention`).
+(:mod:`~tensorflowonspark_tpu_torch.parallel.ring_attention`), GPipe passes
+activations along the ``pp`` group and the host-driven 1F1B schedule runs
+stages on threads of one process
+(:mod:`~tensorflowonspark_tpu_torch.parallel.pipeline_parallel`), and
+``HostAllReduceGroup`` reduces gradient buckets over host TCP for
+``train.BucketedOverlap`` (:mod:`~tensorflowonspark_tpu_torch.parallel.
+hostreduce`).
 
 Canonical mesh axes (any subset may be present, always in this order):
 
@@ -21,11 +28,8 @@ Canonical mesh axes (any subset may be present, always in this order):
 ``tp``   tensor (a.k.a. model) parallelism
 ``sp``   sequence/context parallelism — ring attention
 ``ep``   expert parallelism for MoE layers
-``pp``   pipeline parallelism — not yet ported
+``pp``   pipeline parallelism — GPipe over the axis (``pipeline_apply``)
 =======  =====================================================================
-
-The pipeline schedules and ``HostAllReduceGroup`` are not yet ported: each
-of their names raises ``NotImplementedError`` on access.
 """
 
 # Lazy re-exports (PEP 562): importing this package loads no torch.distributed
@@ -52,18 +56,18 @@ _EXPORTS = {
     "ring_attention": "ring_attention",
     "ring_attention_sharded": "ring_attention",
     "ring_attention_local": "ring_attention",
-    "HostAllReduceGroup": None,
-    "pipeline_apply": None,
-    "Pipeline1F1B": None,
-    "schedule_1f1b": None,
-    "stack_stage_params": None,
-    "split_microbatches": None,
-    "merge_microbatches": None,
+    "HostAllReduceGroup": "hostreduce",
+    "pipeline_apply": "pipeline_parallel",
+    "pipeline_apply_local": "pipeline_parallel",
+    "module_stage": "pipeline_parallel",
+    "Pipeline1F1B": "pipeline_parallel",
+    "schedule_1f1b": "pipeline_parallel",
+    "stack_stage_params": "pipeline_parallel",
+    "split_microbatches": "pipeline_parallel",
+    "merge_microbatches": "pipeline_parallel",
+    "hostreduce": None,
+    "pipeline_parallel": None,
 }
-
-#: exports whose machinery is not yet ported: each raises on access
-_UNPORTED = {"HostAllReduceGroup", "pipeline_apply", "Pipeline1F1B", "schedule_1f1b",
-             "stack_stage_params", "split_microbatches", "merge_microbatches"}
 
 
 def __getattr__(name):
@@ -71,10 +75,6 @@ def __getattr__(name):
 
     if name not in _EXPORTS:
         raise AttributeError(name)
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            "{} is not yet ported to tensorflowonspark_tpu_torch; it comes with the "
-            "model-axes slices".format(name))
     submodule = _EXPORTS[name] or name
     mod = importlib.import_module("tensorflowonspark_tpu_torch.parallel." + submodule)
     return mod if _EXPORTS[name] is None else getattr(mod, name)

@@ -12,6 +12,8 @@ from tensorflowonspark_tpu_torch.train.optim import (  # noqa: F401
     sgd,
 )
 from tensorflowonspark_tpu_torch.train.strategy import (  # noqa: F401
+    BucketedOverlap,
+    PackedLoopCache,
     SyncDataParallel,
     TrainState,
     run_steps,

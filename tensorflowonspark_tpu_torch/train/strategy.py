@@ -49,11 +49,19 @@ version's donated state).
 ``lax.scan`` does in one XLA program. On a CUDA device its counterpart is a
 train step captured once in a CUDA graph and replayed: one launch a step
 in place of the ~2,000 the eager step issues from the host. On the CPU the
-loop runs the eager step K times.
+loop runs the eager step K times. :class:`PackedLoopCache` keeps one loop
+a window size for the adaptive feed, all replaying one captured step.
+
+:class:`BucketedOverlap` is the other gradient-sync path: a step of
+microbatches whose gradients a comm thread reduces bucket by bucket over
+the host (``parallel.hostreduce``) while the card runs the next
+microbatch's backward.
 """
 
 import inspect
 import logging
+import threading
+import time
 
 import torch
 from torch.autograd.profiler import record_function
@@ -469,15 +477,35 @@ class _CapturedLoop:
     its ``launches`` count the warm-up steps' launches and the capture's,
     and the replays' kernels are read from a profiler trace
     (``ops/kernel_trace.py``).
+
+    The captured step is apart from the window size: :meth:`with_steps`
+    gives a loop of another size over the same step (its warm-up count,
+    graph and pool), as :class:`PackedLoopCache` builds one a bucket.
     """
 
     #: eager steps before the capture: the first builds the kernels and
     #: sets up cuBLAS, NCCL and the workspaces; the second runs them warm
     WARMUP = 2
 
-    def __init__(self, body, wants_step, num_steps, packed, device):
-        self.body, self.wants_step = body, wants_step
-        self.num_steps, self.packed, self.device = num_steps, packed, device
+    def __init__(self, body, wants_step, num_steps, packed, device, step=None):
+        self.num_steps, self.packed = num_steps, packed
+        self.step = step if step is not None else _CapturedStep(body, wants_step, device)
+
+    def with_steps(self, num_steps):
+        """A loop of ``num_steps`` steps a call that replays this loop's
+        captured step."""
+        return _CapturedLoop(None, None, int(num_steps), self.packed, None, self.step)
+
+    def __call__(self, state, batches):
+        return self.step.run(state, _window(batches, self.num_steps, self.packed))
+
+
+class _CapturedStep:
+    """The warm-up steps, the capture and the replays of one train step
+    (see :class:`_CapturedLoop`)."""
+
+    def __init__(self, body, wants_step, device):
+        self.body, self.wants_step, self.device = body, wants_step, device
         self.module = None
 
     def _reset(self, state):
@@ -524,15 +552,14 @@ class _CapturedLoop:
             self.static[k].copy_(v, non_blocking=True)
         self.graph.replay()
 
-    def __call__(self, state, batches):
-        window = _window(batches, self.num_steps, self.packed)
+    def run(self, state, window):
         if state.module is not self.module:
             self._reset(state)
         if self.step_t is not None:
             self.step_t.fill_(state.step)
         metrics = None
         for batch in window:
-            if self.warm < self.WARMUP:
+            if self.warm < _CapturedLoop.WARMUP:
                 metrics = self._eager(state, batch)
             else:
                 if self.graph is None:
@@ -553,6 +580,365 @@ def _adopt_model_state(module, model_state):
         for name, value in model_state.items():
             if value is not buffers[name]:
                 buffers[name].copy_(value)
+
+
+class BucketedOverlap:
+    """Bucketed gradient sync overlapping the host all-reduce with backprop.
+
+    The step splits into microbatches, and gradient synchronization moves
+    onto a dedicated comm thread: as each microbatch's backward is queued,
+    the comm thread waits for it (a CUDA event recorded after that backward,
+    not a device sync, so the card runs the next microbatch meanwhile),
+    copies its gradients bucket by bucket into pinned host buffers on a copy
+    stream, and runs one deterministic host all-reduce a bucket through a
+    :class:`~tensorflowonspark_tpu_torch.parallel.hostreduce.HostAllReduceGroup`.
+    Buckets are byte-bounded and hold one dtype each. The host accumulates
+    the reduced buckets in microbatch order, and the optimizer applies their
+    mean once a step. On the CPU the gradients are ready when their
+    ``autograd.grad`` returns and are copied as they are.
+
+    ``overlap=False`` runs the *identical* work in the same order but joins
+    the comm thread after every microbatch — the same gradients, copies,
+    sums and reductions, differing only in host-side fencing, so loss
+    trajectories are bitwise equal with overlap on or off.
+
+    Each microbatch's gradients are fresh tensors (``torch.autograd.grad``,
+    never ``.grad`` accumulated in place): the comm thread may still be
+    copying microbatch i's while microbatch i + 1's backward runs. The
+    optimizer updates the parameters in place only after :meth:`step` has
+    drained the comm thread, so no copy in flight reads them.
+
+    Scope: data parallelism over parameters that are replicated across the
+    processes of the host group — pure dp (each process steps its own
+    replica, like the reference's ``MultiWorkerMirroredStrategy``) and dp×tp
+    (the module holds this rank's tp blocks; the group is then the ``dp``
+    ranks of this rank's tp position, one group a position, e.g.
+    ``HostAllReduceGroup(dp_index, dp_size, process_group=mesh.get_group(
+    "dp"))``, and each rank's blocks stay its blocks). FSDP is NOT
+    supported: each process holds only a partition of its replica, so a
+    host all-reduce of its shards would not be a replica's gradient; the
+    constructor rejects that composition by axis name.
+
+    ``loss_fn(module, batch) -> loss`` (or ``(loss, aux)`` with
+    ``has_aux``; the aux metrics are dropped, as in the JAX version). Per
+    step stats land in :attr:`last_stats` and the ``comm_overlap_fraction``
+    gauge::
+
+        group = HostAllReduceGroup(rank, world)
+        sched = BucketedOverlap(strategy, loss_fn, optimizer, group=group)
+        state, metrics = sched.step(state, microbatches)
+    """
+
+    def __init__(self, strategy, loss_fn, optimizer, group=None,
+                 bucket_bytes=1 << 22, overlap=True, has_aux=False):
+        import queue
+
+        if getattr(strategy, "fsdp", False):
+            raise ValueError(
+                "BucketedOverlap cannot sync params sharded along mesh "
+                "axes ('fsdp',): each process holds only a partition of "
+                "its replica, and FSDP params already sync through the "
+                "strategy's reduce-scatter/all-gather. Supported "
+                "compositions: replicated params (pure dp) and tp-sharded "
+                "params (dp x tp) — only the replicated dp axis is "
+                "all-reduced host-side."
+            )
+        self.strategy = strategy
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.group = group
+        self.bucket_bytes = int(bucket_bytes)
+        self.overlap = overlap
+        self.has_aux = has_aux
+        self.last_stats = {}
+        self._buckets = None  # list of (dtype, [grad indices]) once shapes known
+        self._pinned = None  # one pinned host buffer a bucket (CUDA)
+        self._copy_stream = None
+        # bounded: a stalled all-reduce worker should backpressure the
+        # dispatch loop, not let gradient buckets pile up unboundedly
+        self._jobs = queue.Queue(maxsize=32)
+        self._worker = None
+        self._worker_err = None
+
+    # -- bucket partition ------------------------------------------------------
+
+    def _partition(self, grads):
+        """Partition flat gradient indices into byte-bounded buckets, one
+        dtype per bucket (payloads concatenate raw)."""
+        buckets = []
+        cur, cur_bytes, cur_dtype = [], 0, None
+        order = sorted(range(len(grads)), key=lambda i: str(grads[i].dtype))
+        for i in order:
+            g = grads[i]
+            dt, nbytes = str(g.dtype), g.numel() * g.element_size()
+            if cur and (dt != cur_dtype or cur_bytes + nbytes > self.bucket_bytes):
+                buckets.append((cur_dtype, cur))
+                cur, cur_bytes = [], 0
+            cur.append(i)
+            cur_bytes += nbytes
+            cur_dtype = dt
+        if cur:
+            buckets.append((cur_dtype, cur))
+        return buckets
+
+    # -- comm thread -----------------------------------------------------------
+
+    def _fetch(self, b, leaves, ready):
+        """Bucket ``b``'s gradients as one flat host numpy array: on the
+        card copied into the bucket's pinned buffer on the copy stream (the
+        array is a view of it, valid until the bucket's next fetch), on the
+        CPU concatenated."""
+        if ready is None:
+            return torch.cat([g.reshape(-1) for g in leaves]).numpy()
+        pinned = self._pinned[b]
+        if pinned is None:
+            pinned = self._pinned[b] = torch.empty(sum(g.numel() for g in leaves), dtype=leaves[0].dtype,
+                                                   pin_memory=True)
+        self._copy_stream.wait_event(ready)
+        with torch.cuda.stream(self._copy_stream):
+            off = 0
+            for g in leaves:
+                pinned[off:off + g.numel()].copy_(g.reshape(-1), non_blocking=True)
+                off += g.numel()
+            copied = torch.cuda.Event()
+            copied.record(self._copy_stream)
+        copied.synchronize()
+        return pinned.numpy()
+
+    def _comm_loop(self):
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            grads, ready, acc, done, stats, record = job
+            try:
+                for b, (_dtype, idxs) in enumerate(self._buckets):
+                    t0 = time.perf_counter()
+                    if ready is not None:
+                        ready.synchronize()  # this microbatch's backward, not the device
+                    t1 = time.perf_counter()
+                    stats["device_wait_s"] += t1 - t0
+                    record["dw_end"] = t1
+                    flat = self._fetch(b, [grads[i] for i in idxs], ready)
+                    if self.group is not None:
+                        flat = self.group.allreduce_mean(flat)
+                    off = 0
+                    for i in idxs:
+                        n = grads[i].numel()
+                        part = flat[off:off + n].reshape(tuple(grads[i].shape))
+                        acc[i] = part.copy() if acc[i] is None else acc[i] + part
+                        off += n
+                    t2 = time.perf_counter()
+                    record["comm_spans"].append((t1, t2))
+                    stats["comm_busy_s"] += t2 - t1
+            except BaseException as e:  # surfaces at the next drain
+                self._worker_err = e
+            finally:
+                job = grads = None  # the microbatch's gradients are free once copied
+                done.set()
+
+    def _ensure_worker(self):
+        if self._worker is None or not self._worker.is_alive():
+            self._worker = threading.Thread(
+                target=self._comm_loop, name="grad-comm", daemon=True
+            )
+            self._worker.start()
+
+    def _check_err(self):
+        if self._worker_err is not None:
+            err, self._worker_err = self._worker_err, None
+            raise RuntimeError("gradient comm thread failed") from err
+
+    # -- the step --------------------------------------------------------------
+
+    def step(self, state, microbatches):
+        """One optimizer step over ``microbatches`` (a non-empty list of
+        batches, each already on the device via ``strategy.shard_batch``).
+        Returns ``(state, metrics)`` with the loss averaged over
+        microbatches and ranks."""
+        if not microbatches:
+            raise ValueError("step needs at least one microbatch")
+        self._ensure_worker()
+        self._check_err()
+        module = state.module
+        module.train()
+        names, params = zip(*[(n, p) for n, p in module.named_parameters() if p.requires_grad])
+        cuda = params[0].device.type == "cuda"
+        stats = {"comm_busy_s": 0.0, "device_wait_s": 0.0, "blocked_s": 0.0}
+        losses, dones, records = [], [], []
+        acc = [None] * len(params)
+        t_step0 = time.perf_counter()
+        for batch in microbatches:
+            dispatch_ts = time.perf_counter()
+            out = self.loss_fn(module, batch)
+            loss = out[0] if self.has_aux else out
+            # fresh gradient tensors a microbatch: the comm thread reads them
+            # while the next microbatch's backward runs
+            grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(params[0].device))
+            if self._buckets is None:
+                self._buckets = self._partition(grads)
+                self._pinned = [None] * len(self._buckets)
+                if cuda:
+                    self._copy_stream = torch.cuda.Stream(params[0].device)
+                logger.info(
+                    "bucketed overlap: %d grad arrays -> %d bucket(s) <= %d bytes",
+                    len(grads), len(self._buckets), self.bucket_bytes,
+                )
+            losses.append(loss.detach())
+            done = threading.Event()
+            dones.append(done)
+            record = {"dispatch_ts": dispatch_ts, "comm_spans": [], "dw_end": 0.0}
+            records.append(record)
+            self._jobs.put((grads, ready, acc, done, stats, record))
+            del grads
+            if not self.overlap:
+                t0 = time.perf_counter()
+                done.wait()
+                stats["blocked_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for done in dones:
+            done.wait()
+        stats["blocked_s"] += time.perf_counter() - t0
+        self._check_err()
+
+        scale = 1.0 / len(microbatches)
+        device = params[0].device
+        grads = {n: torch.from_numpy(a).to(device) * scale for n, a in zip(names, acc)}
+        self.optimizer.update(dict(zip(names, params)), grads, state.opt_state)
+        state.step += 1
+        loss = torch.stack(losses).mean()
+        if self.group is not None and self.group.world > 1:
+            loss_mean = torch.from_numpy(self.group.allreduce_mean(
+                loss.float().cpu().numpy().reshape(1)))[0]
+        else:
+            loss_mean = loss
+        stats["step_s"] = time.perf_counter() - t_step0
+        # measured overlap: comm seconds that ran while backprop work from a
+        # later microbatch was queued on the card. Job i's comm is hidden
+        # where its spans fall inside [dispatch of job i+1, last grad-ready
+        # time]; before that window nothing later is queued, after it the
+        # device is idle. overlap=False joins the comm thread before
+        # dispatching the next microbatch, so the window is empty and the
+        # fraction is exactly 0 — same work, same order, only fencing.
+        window_end = max((r["dw_end"] for r in records), default=0.0)
+        hidden = 0.0
+        for i, rec in enumerate(records):
+            if i + 1 >= len(records):
+                break  # last job's comm has nothing behind it to hide under
+            window_start = records[i + 1]["dispatch_ts"]
+            for s, e in rec["comm_spans"]:
+                hidden += max(0.0, min(e, window_end) - max(s, window_start))
+        stats["hidden_comm_s"] = hidden
+        stats["overlap_fraction"] = (
+            min(1.0, hidden / stats["comm_busy_s"])
+            if stats["comm_busy_s"] > 0
+            else 0.0
+        )
+        stats["buckets"] = len(self._buckets)
+        self.last_stats = stats
+        from tensorflowonspark_tpu_torch import obs
+        from tensorflowonspark_tpu_torch.obs import tracing as obs_tracing
+
+        obs.gauge(
+            "comm_overlap_fraction",
+            help="fraction of host all-reduce time hidden behind device backprop",
+        ).set(stats["overlap_fraction"])
+        if obs_tracing.active():
+            # publish the comm thread's measured intervals as retroactive
+            # spans on the dedicated comm track: perf_counter -> wall via a
+            # single anchor, comm_window marking where later backprop could
+            # hide each bucket — tracemerge recomputes the overlap fraction
+            # from exactly these drawn spans to corroborate the gauge
+            anchor = time.time() - time.perf_counter()
+            for i, rec in enumerate(records):
+                for s, e in rec["comm_spans"]:
+                    obs_tracing.record_span(
+                        "comm_allreduce", ts=anchor + s, dur_s=e - s,
+                        track="comm", microbatch=i,
+                    )
+                if i + 1 < len(records) and window_end > records[i + 1]["dispatch_ts"]:
+                    win0 = records[i + 1]["dispatch_ts"]
+                    obs_tracing.record_span(
+                        "comm_window", ts=anchor + win0, dur_s=window_end - win0,
+                        track="comm_window", microbatch=i,
+                    )
+        metrics = {"loss": loss_mean, "step": state.step}
+        return state, metrics
+
+    def close(self):
+        """Stop the comm thread (the group is the caller's to close)."""
+        if self._worker is not None and self._worker.is_alive():
+            self._jobs.put(None)
+            self._worker.join(timeout=10)
+        self._worker = None
+
+
+class PackedLoopCache:
+    """Per-K cache of packed train loops for the adaptive feed.
+
+    The :class:`~tensorflowonspark_tpu_torch.data.autotune.FeedAutotuner`
+    varies the packed-window size K at runtime, but
+    :meth:`SyncDataParallel.compile_train_loop` builds a loop for a static
+    ``num_steps`` — so each bucket gets its own loop, built on first use and
+    reused forever after. Every build increments the
+    ``feed_recompiles_total`` counter, so the trade shows up in
+    ``TFCluster.metrics()``.
+
+    On the card every bucket's loop replays ONE captured train step
+    (:meth:`_CapturedLoop.with_steps`): one warm-up, one CUDA graph and one
+    private pool for the whole cache, since the windows run one after
+    another, so more buckets take no more device memory than one. On the
+    CPU each bucket's loop runs the eager step K times::
+
+        cache = PackedLoopCache(strategy, loss_fn, optimizer, mutable=True)
+        for window in autotuned_prefetch(pipe, strategy, tuner=tuner):
+            state, metrics = cache.run(state, window)
+    """
+
+    def __init__(self, strategy, loss_fn, optimizer, has_aux=False, mutable=False):
+        self.strategy = strategy
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.has_aux = has_aux
+        self.mutable = mutable
+        self._loops = {}
+
+    def loop_for(self, num_steps):
+        """The packed loop for window size ``num_steps``."""
+        compiled = self._loops.get(num_steps)
+        if compiled is None:
+            from tensorflowonspark_tpu_torch import obs
+
+            obs.counter(
+                "feed_recompiles_total",
+                help="packed train-loop compilations (bounded by the bucket set)",
+            ).inc()
+            logger.info("building packed train loop for window K=%d", num_steps)
+            shared = next(iter(self._loops.values()), None)
+            if isinstance(shared, _CapturedLoop):
+                compiled = shared.with_steps(num_steps)
+            else:
+                compiled = self.strategy.compile_train_loop(
+                    self.loss_fn, self.optimizer, num_steps,
+                    has_aux=self.has_aux, mutable=self.mutable,
+                    donate="state", packed=True,
+                )
+            self._loops[num_steps] = compiled
+        return compiled
+
+    def run(self, state, window):
+        """Run one :class:`~tensorflowonspark_tpu_torch.data.autotune.AutotunedWindow`
+        (or any object with ``.data``/``.k``) through its bucket's loop."""
+        return self.loop_for(window.k)(state, window.data)
+
+    @property
+    def compiled_sizes(self):
+        """The buckets built so far (sorted)."""
+        return sorted(self._loops)
 
 
 def run_steps(step_fn, state, batches, engine=None, save_every_n=None, hooks=()):

@@ -481,6 +481,13 @@ from tensorflowonspark_tpu_torch.examples.segmentation import segmentation_spark
 from tensorflowonspark_tpu_torch.examples.mnist import mnist_estimator
 from tensorflowonspark_tpu_torch.examples.utils import stop_cluster
 assert "tensorflowonspark_tpu_torch.examples.segmentation.segmentation_spark" in names
+# pipeline parallelism, the host all-reduce group, bucketed overlap and the
+# per-K packed-loop cache
+from tensorflowonspark_tpu_torch.parallel import (HostAllReduceGroup, Pipeline1F1B, merge_microbatches,
+    pipeline_apply, pipeline_apply_local, schedule_1f1b, split_microbatches, stack_stage_params)
+from tensorflowonspark_tpu_torch.train import BucketedOverlap, PackedLoopCache
+assert {"tensorflowonspark_tpu_torch.parallel.pipeline_parallel",
+        "tensorflowonspark_tpu_torch.parallel.hostreduce"} <= set(names)
 print("imported", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))

@@ -403,3 +403,26 @@ def test_online_mirror_with_key_ids_matches_plain_forward(causal):
     assert bool(rows.any()) and not bool(rows.all())
     np.testing.assert_allclose(o[rows].numpy(), o_ref[rows].numpy(), atol=2e-5)
     np.testing.assert_allclose(lse[rows].numpy(), lse_ref[rows].numpy(), atol=2e-5)
+
+
+def test_launch_counts_stay_exact_when_threads_launch_at_once():
+    """The wrappers count under a lock (``Pipeline1F1B``'s stage threads
+    launch at once): 8 threads x 2,000 counts with a short switch interval
+    lose none."""
+    import sys
+    import threading
+
+    before = fa.flash_fwd.launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [fa._count(fa.flash_fwd) for _ in range(2000)])
+                   for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert fa.flash_fwd.launches - before == 16000

@@ -469,3 +469,129 @@ def job_sp_logits(ctx, variables, cfg, batch, axes):
     with torch.no_grad():
         logits = state.module(mine["tokens"], positions=mine.get("positions"), segment_ids=mine.get("segment_ids"))
     return {"logits": logits, "sp_index": i, "sp": n}
+
+
+def tanh_stage(params, x):
+    """The JAX package's pipeline tests' stage: ``tanh(x @ w)``."""
+    return torch.tanh(x @ params["w"])
+
+
+def job_pipeline(ctx, cases):
+    """``pipeline_apply`` of :func:`tanh_stage` on each case's mesh
+    (``{name: (axes, batch_axis, stacked w [P, d, d], microbatches [M, b,
+    d])}``), every rank on the whole inputs: the output, this rank's stage
+    and the gradient of ``sum(out²)`` for its row (the other rows'
+    gradients must be zero on it)."""
+    from tensorflowonspark_tpu_torch.parallel import collectives, pipeline_apply
+
+    out = {}
+    for name, (axes, batch_axis, w, x) in cases.items():
+        mesh = ctx.mesh(axes)
+        stacked = {"w": torch.as_tensor(w).clone().requires_grad_()}
+        y = pipeline_apply(tanh_stage, stacked, torch.as_tensor(x), mesh, batch_axis=batch_axis)
+        (g,) = torch.autograd.grad((y ** 2).sum(), [stacked["w"]])
+        stage = collectives.axis_index("pp", mesh)
+        others = torch.cat([g[:stage], g[stage + 1:]])
+        out[name] = {"y": y.detach(), "stage": stage, "grad_row": g[stage],
+                     "other_rows_zero": bool((others == 0).all())}
+    return out
+
+
+def job_hostgroup(ctx):
+    """``HostAllReduceGroup`` bootstrapped through the world (no
+    ``root_address``): over the whole world, and one group a ``tp``
+    position over the ``dp`` ranks of a ``{"dp": 2, "tp": 2}`` mesh; each on
+    distinct per-rank payloads."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.parallel import HostAllReduceGroup, collectives
+
+    rank, world = ctx.process_id, dist.get_world_size()
+    with HostAllReduceGroup(rank, world) as group:
+        whole = group.allreduce_mean(np.arange(8, dtype=np.float32) + 10.0 * rank)
+    mesh = ctx.mesh({"dp": 2, "tp": 2})
+    dp = mesh.get_group("dp")
+    with HostAllReduceGroup(dist.get_rank(dp), dist.get_world_size(dp), process_group=dp) as group:
+        per_tp = group.allreduce_mean(np.arange(4, dtype=np.float32) * (rank + 1))
+    return {"world": whole, "dp": per_tp, "tp_index": collectives.axis_index("tp", mesh),
+            "fsdp_refusal": _fsdp_refusal(ctx)}
+
+
+def _fsdp_refusal(ctx):
+    from tensorflowonspark_tpu_torch.train import BucketedOverlap, SyncDataParallel, optim
+
+    strategy = SyncDataParallel(ctx.mesh({"dp": 2, "fsdp": 2}), fsdp=True)
+    try:
+        BucketedOverlap(strategy, mlp_loss, optim.adam(1e-2))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def job_overlap_mlp(ctx, w1, w2, batches, steps):
+    """The JAX package's 2-rank overlap world: an exact mean of distinct
+    per-rank payloads through a ``HostAllReduceGroup`` bootstrapped over the
+    world, then ``BucketedOverlap`` of the MLP on this rank's microbatches
+    (``batches[rank]``), ``steps`` Adam steps with overlap on and off."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.parallel import HostAllReduceGroup
+    from tensorflowonspark_tpu_torch.train import BucketedOverlap, SyncDataParallel, optim
+
+    rank, world = ctx.process_id, dist.get_world_size()
+    out = {}
+    with HostAllReduceGroup(rank, world) as group:
+        reduced = group.allreduce_mean(np.arange(8, dtype=np.float32) + 10.0 * rank)
+        expect = np.mean([np.arange(8, dtype=np.float32) + 10.0 * r for r in range(world)], axis=0)
+        out["reduce_exact"] = bool(np.array_equal(reduced, expect))
+        strategy = SyncDataParallel("cpu")
+        for overlap in (True, False):
+            opt = optim.adam(1e-2)
+            state = strategy.create_state(lambda: Mlp(w1, w2), opt)
+            sched = BucketedOverlap(strategy, mlp_loss, opt, group=group, bucket_bytes=1 << 14,
+                                    overlap=overlap)
+            mbs = [strategy.shard_batch(b) for b in batches[rank]]
+            losses = []
+            for _ in range(steps):
+                state, metrics = sched.step(state, mbs)
+                losses.append(float(metrics["loss"]))
+            sched.close()
+            out["losses_on" if overlap else "losses_off"] = losses
+    return out
+
+
+def job_overlap_tp(ctx, variables, cfg, batches, steps, lr):
+    """``BucketedOverlap`` of the transformer on a ``{"dp": 2, "tp": 2}``
+    mesh (built from this rank's tp blocks of the JAX model's ``variables``),
+    one host group a tp position over the dp ranks, each rank on its data
+    rows of the microbatches ``batches``: the losses, the full (gathered)
+    parameters after ``steps`` SGD steps, and the module's blocks before and
+    after."""
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.parallel import HostAllReduceGroup
+    from tensorflowonspark_tpu_torch.train import BucketedOverlap, optim
+
+    axes = {"dp": 2, "tp": 2}
+    mesh = ctx.mesh(axes)
+    strategy = _axes_strategy(mesh, axes)
+    model = transformer.create_model(mesh=mesh, **cfg)
+    opt = optim.sgd(lr)
+    state = strategy.create_state(lambda: convert.load_variables(model, {"params": variables}), opt)
+    shapes = {n: tuple(p.shape) for n, p in state.module.named_parameters()}
+    loss_fn = transformer.make_loss_fn(model)
+    mbs = [strategy.shard_batch(_lm_rows(mesh, b)) for b in batches]
+    dp = mesh.get_group("dp")
+    losses = []
+    with HostAllReduceGroup(dist.get_rank(dp), dist.get_world_size(dp), process_group=dp) as group:
+        sched = BucketedOverlap(strategy, loss_fn, opt, group=group, has_aux=True)
+        for _ in range(steps):
+            state, metrics = sched.step(state, mbs)
+            losses.append(float(metrics["loss"]))
+        sched.close()
+    return {"losses": losses, "params": _full_params(state), "model_specs": dict(state.module.model_specs),
+            "shapes_kept": shapes == {n: tuple(p.shape) for n, p in state.module.named_parameters()}}
