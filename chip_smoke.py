@@ -78,6 +78,18 @@ and the script exits non-zero:
                   that the check must catch; a diagonal and an off-diagonal
                   hop's forward, dq and dk/dv ms beside their bounds (the
                   hop's attended pairs).
+   ``kernel_headdim`` B5-B7 at head dims the kernels are not compiled
+                  for, D = 32, 48 (zero-padded to the D = 64 kernels) and
+                  96 (to D = 128), beside D = 64 and 128, at [B·H=64,
+                  L=2048, D] on the slab's segments, causal, bf16 and f32:
+                  every launch against its plain version at the flash
+                  limits above, one launch a call, a 1% dk fault caught at
+                  each padded width; kernel and plain ms, the bound at the
+                  real D and at the padded one; a layer's forward and
+                  backward, device ms queued behind a spin, through the
+                  autograd function (each operand padded once) and
+                  through the three wrappers each padding its own;
+                  D = 256 refused, with no launch.
 5. ``slice``      the port's ResNet path: ``TFCluster.run`` on the local
                   backend, one executor, the port's ``resnet_spark.main_fun``
                   on full ResNet-50, bf16, ``bn_impl="pallas"``, batch 64, 5
@@ -119,6 +131,17 @@ and the script exits non-zero:
                   against stated limits; then, in each dtype, a 1% dk fault
                   in the dk/dv kernel's output that the gradient limit
                   must catch.
+   ``slice_lm_defaults`` the port's transformer example at its own
+                  defaults (d_model 256, 8 heads of 32: the padding route,
+                  2 layers, d_ff 1024, vocab 1024, seq 256, batch 8, bf16)
+                  through ``TFCluster.run``: 20 eager steps, then 20
+                  through the loop (K = 5, call 3 traced), as
+                  ``slice_lm`` / ``slice_lm_loop`` (losses finite, a launch
+                  a layer a step of each flash wrapper, tokens/s); then
+                  ``compare_lm_defaults``: ``compare_lm``'s step, limits
+                  and faults at those defaults, on each of the first 16
+                  batches (its bf16 loss and gradient limits
+                  ``LM_DEFAULTS_BF16_TOLS``).
    ``compare_loop`` for each slice, 5 captured steps (the train loop)
                   against 5 eager steps from the same weights on the same 5
                   batches, cuDNN deterministic: every parameter, BN
@@ -377,7 +400,8 @@ and the script exits non-zero:
                   recover phase and the real-data slice launched it, and
                   (the flash kernels) the pack-plane LM leg, the fully
                   sharded leg (``slice_fsdp``), the model-axes legs
-                  (``slice_axes``: tp, the mixture, remat), the ring, the
+                  (``slice_axes``: tp, the mixture, remat), the example at its defaults
+                  (``slice_lm_defaults``, eager, loop, traced), the ring, the
                   1F1B and GPipe steps and the overlap ranks did, and (the
                   flash forward) the LM server did; the BN kernels also on
                   ``loop_cache``'s run and in its traced window.
@@ -395,7 +419,10 @@ traced loop call; ``launches_axes_tp`` / ``device_launches_axes_tp_traced_call``
 / ``launches_axes_moe`` / ``launches_axes_remat``: the flash wrappers' on
 ``slice_axes``'s tp side (and the card's in its traced call), its mixture
 leg and its remat leg; ``launches_axes_sp`` /
-``device_launches_axes_sp_traced_call``: its sp side's;
+``device_launches_axes_sp_traced_call``: its sp side's; ``launches_lm_defaults`` / ``launches_lm_defaults_loop``
+/ ``device_launches_lm_defaults_traced_call``: ``slice_lm_defaults``'s;
+``headdim``: ``kernel_headdim``'s ms, plain ms and bounds by head dim and
+dtype;
 ``launches_ring`` / ``device_launches_ring_traced`` / ``ring_hop_ms``:
 ``kernel_ring``'s packed case, the wrappers', the card's and a diagonal and
 an off-diagonal hop's ms beside their bounds; ``launches_pipeline_1f1b`` /
@@ -487,6 +514,21 @@ FLASH_TABLE = [
     ("flash_bwd_dkv", "tensorflowonspark_tpu/ops/flash_attention.py:151", 4, 6, 2),
 ]
 FLASH_SOURCE = "tensorflowonspark_tpu_torch/csrc/flash_attention.cu"
+#: the kernel_headdim phase: head dims the kernels are not compiled for
+#: (zero-padded to the next compiled one) and the compiled ones beside them
+HEADDIM_PADDED, HEADDIM_NATIVE = (32, 48, 96), (64, 128)
+#: the slice_lm_defaults phase: steps of the example at its own defaults,
+#: eager and through the loop (K = STEPS, the third call traced)
+LM_DEFAULTS_STEPS = 20
+#: compare_lm_defaults: the batches its step is compared on, and its bf16
+#: loss and gradient limits. The 2-layer model at head dim 32 and 256
+#: tokens reads its loss up to 2.3e-4 apart (the forward kernel rounds p
+#: at each key block's running max, its plain version at the final one;
+#: 7.6e-6 at full width), its gradients 1.42e-3 to 1.51e-3, over the
+#: example's first 16 batches; the dk fault moves the whole gradient to
+#: 1.84e-3 to 1.98e-3 and is held by the q, k, v projection gradients, as
+#: at full width.
+LM_DEFAULTS_COMPARE_BATCHES, LM_DEFAULTS_BF16_TOLS = 16, (5e-4, 2e-3)
 #: kernel vs plain version, f32 outputs (lse everywhere, every output of the
 #: f32 line): the same f32 math summed in another order, within this much
 #: of the largest reference value (floor 1)
@@ -1112,6 +1154,115 @@ def phase_flash_kernel(torch, F, fa, seg_slice):
     return totals
 
 
+def queued_ms(torch, fn, calls=20, spin_cycles=100_000_000):
+    """Device ms a call of ``fn`` over ``calls`` calls queued behind a spin
+    (~50 ms) that outlasts their host work: the card runs them back to
+    back, the host's launch gaps hidden (L2 warm)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def phase_kernel_headdim(torch, fa, seg_slice):
+    """B5-B7 at head dims the kernels are not compiled for (module
+    docstring, ``kernel_headdim``), beside the compiled ones: each launch
+    against its plain version at the flash limits, on the LM slab's shape
+    and segments, causal, bf16 and f32; a 1% dk fault caught at each padded
+    width; a head dim of 256 refused without a launch. Returns
+    ``{wrapper: {"<d>_<dtype>": {"ms", "plain_ms", "bound_ms", "bound_by",
+    "bound_ms_padded_width", "max_abs_err"}}}``."""
+    from tensorflowonspark_tpu_torch.examples.resnet.bench_bn import time_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' einsums in full f32
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB > L2
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    heads = LM["n_heads"]
+    seg = seg_slice[:LM_BATCH, :LM_SEQ].contiguous()
+    pairs = attended_pairs(seg.cpu()) * heads
+    x = torch.zeros(2, 128, 256, device="cuda", dtype=torch.bfloat16)
+    before = fa.launch_counts()
+    try:
+        fa.flash_fwd(x, x, x, None, 0.0625, True, 1)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or fa.launch_counts() != before:
+        raise AssertionError("kernel_headdim: head dim 256 was not refused ({}, launches {} -> {})".format(
+            refused, before, fa.launch_counts()))
+    out = {name: {} for name, *_ in FLASH_TABLE}
+    for d in sorted(HEADDIM_PADDED + HEADDIM_NATIVE):
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            shape = (LM_BATCH * heads, LM_SEQ, d)
+            q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
+            scale = 1.0 / math.sqrt(d)
+            o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, seg, scale, True, heads)
+            delta = (do.float() * o_ref.float()).sum(-1)
+            args = (seg, scale, True, heads)
+            bwd = (seg, do, lse_ref, delta, scale, True, heads)
+            cases = {
+                "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *args), lambda: fa.flash_fwd_plain(q, k, v, *args)),
+                "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, *bwd),
+                                 lambda: fa.flash_bwd_dq_plain(q, k, v, *bwd)),
+                "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, *bwd),
+                                  lambda: fa.flash_bwd_dkv_plain(q, k, v, *bwd)),
+            }
+            line = {"phase": "kernel_headdim", "shape": list(shape), "dtype": dtype_name, "causal": True,
+                    "padded_to": fa.head_width(d), "refused_256": refused}
+            for name, (kernel, plain) in cases.items():
+                n0 = fa.launch_counts()[name]
+                got, want = kernel(), plain()
+                launched = fa.launch_counts()[name] - n0
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                torch.cuda.synchronize()
+                err, failures, readings = flash_errors(name, got, want)
+                if launched != 1 or any(g.shape != shape for g in got if g.dim() == 3):
+                    failures.append("{} launches, shapes {}".format(launched, [tuple(g.shape) for g in got]))
+                control = None
+                if name == "flash_bwd_dkv" and d in HEADDIM_PADDED:
+                    fault_err, caught, control = flash_errors(name, (got[0].float() * 1.01,) + got[1:], want)
+                    control = dict(control, max_abs_err=fault_err)
+                    if not caught:
+                        failures.append("a 1% dk fault passed the check ({})".format(control))
+                if failures:
+                    raise AssertionError("kernel_headdim {} {} at {}: {}".format(name, dtype_name, shape, failures))
+                b_ms, b_by = flash_bound(name, seg, heads, LM_SEQ, d, q.element_size(), pairs)
+                res = {"ms": time_ms(torch, kernel, flush), "plain_ms": time_ms(torch, plain, flush),
+                       "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                       "bound_ms_padded_width": flash_bound(name, seg, heads, LM_SEQ, fa.head_width(d),
+                                                            q.element_size(), pairs)[0]}
+                out[name]["{}_{}".format(d, dtype_name)] = res
+                line[name] = dict(res, elem_err=readings["elem"], norm_err=readings["norm"],
+                                  dk_fault=control)
+            # a layer's attention forward and backward as the model runs
+            # it (the autograd function: q, k, v and dO padded once for the
+            # three launches) and as each wrapper pads its own operands
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+            def shared():
+                torch.autograd.grad(fa._FlashAttention.apply(qg, kg, vg, seg, scale, True, heads), (qg, kg, vg), do)
+
+            def each():
+                o, lse = fa.flash_fwd(q, k, v, *args)
+                dlt = (do.float() * o.float()).sum(-1)
+                fa.flash_bwd_dq(q, k, v, seg, do, lse, dlt, scale, True, heads)
+                fa.flash_bwd_dkv(q, k, v, seg, do, lse, dlt, scale, True, heads)
+
+            line["layer_ms"] = {"pads_shared": queued_ms(torch, shared), "pads_each_launch": queued_ms(torch, each)}
+            emit(line)
+            del q, k, v, do, o_ref, lse_ref, delta, cases, qg, kg, vg
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_flash_causal(torch, F, fa):
     """The bf16 kernels at the slice's shape without segment ids (pure
     causal, every causal block visited): the forward, dq and dk/dv against
@@ -1411,27 +1562,43 @@ def phase_kernel_ring(torch, fa, ra, seg_slice):
     return out
 
 
-def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1, pack_workers=0):
+def lm_defaults():
+    """The transformer example's own defaults: ``(model config, seq_len,
+    batch_size, dtype)``."""
+    from tensorflowonspark_tpu_torch.examples.transformer import transformer_spark
+
+    args = transformer_spark.build_parser().parse_args([])
+    cfg = {k: getattr(args, k) for k in ("vocab_size", "d_model", "n_layers", "n_heads", "d_ff")}
+    return cfg, args.seq_len, args.batch_size, args.dtype
+
+
+def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1, pack_workers=0, defaults=False):
     """The port's LM path through the user's entry points; with
     ``steps_per_loop`` K > 1 its loop path, traced as in :func:`phase_slice`;
     with ``pack_workers`` its text plane packing in forked workers
-    (``slice_lm_pack``). Returns each flash wrapper's launches in the run (6
-    a step for :func:`wrapper_calls` steps), on the loop path the traced
-    call's device launches of each flash kernel (6 a replayed step), and the
+    (``slice_lm_pack``); with ``defaults`` the example at its own defaults
+    (``slice_lm_defaults``: only the data, the steps and the loop set).
+    Returns each flash wrapper's launches in the run (a layer a step for
+    :func:`wrapper_calls` steps), on the loop path the traced call's device
+    launches of each flash kernel (a layer a replayed step), and the
     losses."""
     from tensorflowonspark_tpu_torch import TFCluster, util
     from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
     from tensorflowonspark_tpu_torch.examples.transformer import transformer_spark
 
-    args = transformer_spark.build_parser().parse_args([
+    model_args = [] if defaults else [
         "--vocab_size", str(LM["vocab_size"]), "--d_model", str(LM["d_model"]),
         "--n_layers", str(LM["n_layers"]), "--n_heads", str(LM["n_heads"]),
         "--d_ff", str(LM["d_ff"]), "--seq_len", str(LM_SEQ), "--batch_size", str(LM_BATCH),
-        "--dtype", "bfloat16", "--tokenizer", "byte", "--train_steps", str(steps),
+        "--dtype", "bfloat16", "--tokenizer", "byte"]
+    args = transformer_spark.build_parser().parse_args(model_args + [
+        "--train_steps", str(steps),
         "--log_steps", "1", "--data_dir", data_dir, "--steps_per_loop", str(steps_per_loop),
         "--trace_call", str(TRACE_CALL if steps_per_loop > 1 else 0),
         "--pack_workers", str(pack_workers),
     ])
+    cfg = {k: getattr(args, k) for k in ("vocab_size", "d_model", "n_layers", "n_heads", "d_ff")}
+    seq, rows = args.seq_len, args.batch_size
     fa.reset_launch_counts()  # the trainer's counts start at 0 in its fresh process
     t0 = time.perf_counter()
     sc = LocalSparkContext(num_executors=1)
@@ -1462,14 +1629,17 @@ def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1, pack_workers=0)
             "flash_attention_{}_launches_total".format(name[len("flash_"):]), {}).get("value", 0))
         for name, *_ in FLASH_TABLE
     }
-    want = LM["n_layers"] * wrapper_calls(steps, steps_per_loop)
+    want = cfg["n_layers"] * wrapper_calls(steps, steps_per_loop)
     efficiency = metrics["gauges"].get("text_pack_efficiency", {}).get("value")
     name = "slice_lm_pack" if pack_workers else "slice_lm" if steps_per_loop == 1 else "slice_lm_loop"
+    if defaults:
+        name = "slice_lm_defaults" + ("_loop" if steps_per_loop > 1 else "")
     line = {"phase": name, "model": "transformer", "pack_workers": pack_workers,
-            "config": dict(LM, seq_len=LM_SEQ), "dtype": "bfloat16", "batch": LM_BATCH, "steps": steps,
+            "config": dict(cfg, seq_len=seq), "head_dim": cfg["d_model"] // cfg["n_heads"],
+            "dtype": args.dtype, "batch": rows, "steps": steps,
             "steps_per_loop": steps_per_loop, "logged_steps": [e["step"] for e in events],
             "losses": losses, "call_s": [e["dur_s"] for e in events],
-            "tokens_per_sec_after_first_call": LM_BATCH * LM_SEQ * steps_per_loop * len(timed) / sum(timed),
+            "tokens_per_sec_after_first_call": rows * seq * steps_per_loop * len(timed) / sum(timed),
             "packing_efficiency": efficiency, "launches": launches,
             "expected_launches": want, "wall_s": wall}
     if pack_workers:
@@ -1478,12 +1648,12 @@ def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1, pack_workers=0)
     bad = {k: v for k, v in launches.items() if v != want}
     trace = None
     if steps_per_loop > 1 and not bad:
-        trace = loop_trace(events, [name for name, *_ in FLASH_TABLE], LM["n_layers"], steps_per_loop)
+        trace = loop_trace(events, [name for name, *_ in FLASH_TABLE], cfg["n_layers"], steps_per_loop)
         line.update(traced_call=TRACE_CALL, device_trace=trace)
     emit(line)
     if bad:
         raise AssertionError("flash kernel wrapper launches {} != {} x {} steps".format(
-            bad, LM["n_layers"], wrapper_calls(steps, steps_per_loop)))
+            bad, cfg["n_layers"], wrapper_calls(steps, steps_per_loop)))
     if not (isinstance(efficiency, float) and 0 < efficiency <= 1):
         raise AssertionError("packing efficiency {} outside (0, 1]".format(efficiency))
     if pack_workers and not line["pack_plane"]:
@@ -1491,12 +1661,12 @@ def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1, pack_workers=0)
     return launches, trace and trace["launches"], losses
 
 
-def _lm_grads(torch, fa, transformer, dtype_name, impl, batch):
+def _lm_grads(torch, fa, transformer, dtype_name, impl, batch, cfg=LM):
     """Loss, all parameter gradients (flattened), the last layer's attention
     projection gradients (``{"q", "k", "v"}`` weights) and flash launches
     of one LM training forward and backward (weights seed 0)."""
     model = transformer.create_model(
-        dtype=dtype_name, attention=impl, generator=torch.Generator().manual_seed(0), **LM
+        dtype=dtype_name, attention=impl, generator=torch.Generator().manual_seed(0), **cfg
     ).cuda().train()
     before = fa.launch_counts()
     loss, _ = transformer.make_loss_fn(model)(model, batch)
@@ -1504,7 +1674,7 @@ def _lm_grads(torch, fa, transformer, dtype_name, impl, batch):
     torch.cuda.synchronize()
     after = fa.launch_counts()
     grad = torch.cat([p.grad.float().flatten() for p in model.parameters()])
-    last = getattr(model, "layer_{}".format(LM["n_layers"] - 1)).attn
+    last = getattr(model, "layer_{}".format(cfg["n_layers"] - 1)).attn
     attn = {name: getattr(last, name).weight.grad.float() for name in ("q", "k", "v")}
     del model, last
     torch.cuda.empty_cache()
@@ -1549,10 +1719,15 @@ def dk_fault(fa):
         fa.flash_bwd_dkv = real
 
 
-def phase_compare_lm(torch, fa, transformer, host_batch):
+def phase_compare_lm(torch, fa, transformer, host_batches, cfg=LM, name="compare_lm",
+                     bf16_tols=(LM_BF16_LOSS_TOL, LM_BF16_GRAD_TOL)):
     """One LM train step through the flash kernels against a reference step
     on the same weights and packed batch, then the same step with a 1% fault
-    in dk, each against stated limits.
+    in dk, each against stated limits, on each of ``host_batches``
+    (``cfg``: the LM's width, one batch; the example's defaults in
+    ``compare_lm_defaults``, head dim 32 through the padding route, over
+    several batches, its bf16 loss and gradients held to ``bf16_tols``).
+    Every batch is read before any is checked.
 
     float32 (TF32 off): against plain attention, the dense f32 math; the
     loss and the relative difference of all parameter gradients, which the
@@ -1571,12 +1746,41 @@ def phase_compare_lm(torch, fa, transformer, host_batch):
     same on both sides, and dq, dk, dv reach the weights in one product."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    loss_tol, grad_tol = bf16_tols
+    readings = [_compare_lm_batch(torch, fa, transformer, host_batch, cfg, name, bf16_tols, index)
+                for index, host_batch in enumerate(host_batches)]
+    failures = []
+    for index, (f32, bf16) in enumerate(readings):
+        checks = [
+            ("f32 loss", f32["finite"] and f32["loss_diff"] <= 1e-4),
+            ("f32 gradients", f32["grad_rel_diff"] <= 1e-4),
+            ("f32 dk fault caught", f32["control_grad_rel_diff"] > 1e-4),
+            ("bf16 loss", bf16["finite"] and bf16["loss_diff"] <= loss_tol),
+            ("bf16 gradients", bf16["grad_rel_diff"] <= grad_tol),
+            ("bf16 projection gradients",
+             max(bf16["last_attn_grad_rel_diff"].values()) <= LM_BF16_ATTN_GRAD_TOL),
+            ("bf16 dk fault caught",
+             max(bf16["control_last_attn_grad_rel_diff"].values()) > LM_BF16_ATTN_GRAD_TOL),
+            ("same forward", bf16["loss_diff_plain_backward"] == 0.0),
+        ]
+        failed = [check for check, ok in checks if not ok]
+        if failed:
+            failures.append("batch {}: {} (f32 {}, bf16 {})".format(index, failed, f32, bf16))
+    if failures:
+        raise AssertionError("{} failed: {}".format(name, "; ".join(failures)))
+
+
+def _compare_lm_batch(torch, fa, transformer, host_batch, cfg, name, bf16_tols, index):
+    """:func:`phase_compare_lm`'s readings on one batch, emitted: ``(f32,
+    bf16)``."""
     batch = {k: torch.as_tensor(v).cuda() for k, v in host_batch.items()}
-    n = LM["n_layers"]
+    n = cfg["n_layers"]
     kernels = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
     bwd_plain = {"flash_fwd": n, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     none = dict.fromkeys(kernels, 0)
-    run = lambda dtype, impl="flash": _lm_grads(torch, fa, transformer, dtype, impl, batch)  # noqa: E731
+    run = lambda dtype, impl="flash": _lm_grads(torch, fa, transformer, dtype, impl, batch, cfg)  # noqa: E731
+    shape = {"config": cfg, "head_dim": cfg["d_model"] // cfg["n_heads"], "batch": list(batch["tokens"].shape),
+             "batch_index": index}
 
     lk, gk, _, nk = run("float32")
     lp, gp, _, np_ = run("float32", "plain")
@@ -1586,7 +1790,7 @@ def phase_compare_lm(torch, fa, transformer, host_batch):
         raise AssertionError("flash launches: kernels {} plain {}".format(nk, np_))
     f32 = {"loss_diff": abs(lk - lp), "grad_rel_diff": _rel(gk, gp),
            "control_grad_rel_diff": _rel(gf, gp), "finite": math.isfinite(lk)}
-    emit({"phase": "compare_lm", "dtype": "float32", "tf32": False,
+    emit({"phase": name, **shape, "dtype": "float32", "tf32": False,
           "reference": "plain attention", "loss_kernels": lk, "loss_reference": lp,
           "loss_tolerance": 1e-4, "grad_tolerance": 1e-4, "control": "dk x 1.01", **f32})
     del gk, gp, gf
@@ -1606,28 +1810,45 @@ def phase_compare_lm(torch, fa, transformer, host_batch):
             "control_grad_rel_diff": _rel(gf, gp),
             "control_last_attn_grad_rel_diff": {n: _rel(af[n], ab[n]) for n in af},
             "loss_diff_plain_backward": abs(lk - lb)}
-    emit({"phase": "compare_lm", "dtype": "bfloat16", "tf32": False,
+    emit({"phase": name, **shape, "dtype": "bfloat16", "tf32": False,
           "reference": "plain versions (last_attn: plain backward, forward kernel)",
-          "loss_kernels": lk, "loss_reference": lp, "loss_tolerance": LM_BF16_LOSS_TOL,
-          "grad_tolerance": LM_BF16_GRAD_TOL, "attn_grad_tolerance": LM_BF16_ATTN_GRAD_TOL,
+          "loss_kernels": lk, "loss_reference": lp, "loss_tolerance": bf16_tols[0],
+          "grad_tolerance": bf16_tols[1], "attn_grad_tolerance": LM_BF16_ATTN_GRAD_TOL,
           "control": "dk x 1.01", **bf16})
     del gk, gp, gf, ak, ab, af
+    return f32, bf16
 
-    checks = [
-        ("f32 loss", f32["finite"] and f32["loss_diff"] <= 1e-4),
-        ("f32 gradients", f32["grad_rel_diff"] <= 1e-4),
-        ("f32 dk fault caught", f32["control_grad_rel_diff"] > 1e-4),
-        ("bf16 loss", bf16["finite"] and bf16["loss_diff"] <= LM_BF16_LOSS_TOL),
-        ("bf16 gradients", bf16["grad_rel_diff"] <= LM_BF16_GRAD_TOL),
-        ("bf16 projection gradients",
-         max(bf16["last_attn_grad_rel_diff"].values()) <= LM_BF16_ATTN_GRAD_TOL),
-        ("bf16 dk fault caught",
-         max(bf16["control_last_attn_grad_rel_diff"].values()) > LM_BF16_ATTN_GRAD_TOL),
-        ("same forward", bf16["loss_diff_plain_backward"] == 0.0),
-    ]
-    failed = [name for name, ok in checks if not ok]
-    if failed:
-        raise AssertionError("compare_lm failed: {} (f32 {}, bf16 {})".format(failed, f32, bf16))
+
+def lm_defaults_batches(data_dir):
+    """The first ``LM_DEFAULTS_COMPARE_BATCHES`` packed batches of the
+    example at its own defaults from the corpus (executor 0 of 1: every
+    shard, seed 0)."""
+    from tensorflowonspark_tpu_torch import tfrecord
+    from tensorflowonspark_tpu_torch.data import TextPipeline, Tokenizer
+
+    _, seq, rows, _ = lm_defaults()
+    stream = iter(TextPipeline(tfrecord.list_shards(data_dir), Tokenizer(kind="byte"), seq_len=seq + 1,
+                               batch_size=rows, seed=0, epochs=None, pack_workers=0))
+    batches = [next(stream) for _ in range(LM_DEFAULTS_COMPARE_BATCHES)]
+    stream.close()
+    return batches
+
+
+def phase_slice_lm_defaults(torch, fa, transformer, data_dir):
+    """The transformer example at its own defaults (module docstring,
+    ``slice_lm_defaults``): eager and through the loop, then one step
+    through the kernels against their plain versions. Returns the eager
+    run's and the loop run's wrapper launches and the traced call's device
+    launches."""
+    cfg, _, _, dtype = lm_defaults()
+    if dtype != "bfloat16" or cfg["d_model"] // cfg["n_heads"] in fa.HEAD_DIMS:
+        raise AssertionError("the example's defaults ({}, {}) no longer need the padding route".format(cfg, dtype))
+    launches, _, _ = phase_slice_lm(torch, fa, data_dir, LM_DEFAULTS_STEPS, defaults=True)
+    loop_launches, traced, _ = phase_slice_lm(torch, fa, data_dir, LM_DEFAULTS_STEPS, STEPS, defaults=True)
+    torch.cuda.empty_cache()
+    phase_compare_lm(torch, fa, transformer, lm_defaults_batches(data_dir), cfg, "compare_lm_defaults",
+                     LM_DEFAULTS_BF16_TOLS)
+    return launches, loop_launches, traced
 
 
 def _snapshot(torch, state):
@@ -4055,6 +4276,7 @@ def main():
     flash_totals = phase_flash_kernel(torch, F, fa, seg_slice)
     phase_flash_causal(torch, F, fa)
     ring = timed("kernel_ring", phase_kernel_ring, torch, fa, ring_attention, seg_slice)
+    headdim = timed("kernel_headdim", phase_kernel_headdim, torch, fa, seg_slice)
     del seg_slice
     torch.cuda.empty_cache()  # hand the trainer child the card's memory
     launches, _ = phase_slice(torch, fused_bn)
@@ -4063,7 +4285,10 @@ def main():
     torch.cuda.empty_cache()
     flash_launches, _, lm_losses = phase_slice_lm(torch, fa, data_dir, STEPS)
     loop_flash_launches, traced_flash_launches, _ = phase_slice_lm(torch, fa, data_dir, LOOP_STEPS, STEPS)
-    phase_compare_lm(torch, fa, transformer, lm_batch)
+    phase_compare_lm(torch, fa, transformer, [lm_batch])
+    torch.cuda.empty_cache()
+    defaults_launches, defaults_loop_launches, defaults_traced = timed(
+        "slice_lm_defaults", phase_slice_lm_defaults, torch, fa, transformer, data_dir)
     torch.cuda.empty_cache()
     phase_compare_loop(torch, resnet, transformer, lm_batch)
     torch.cuda.empty_cache()
@@ -4121,6 +4346,8 @@ def main():
         {"name": name, "route": "cuda", "source": FLASH_SOURCE,
          "launched": (flash_launches[name] > 0 and loop_flash_launches[name] > 0
                       and traced_flash_launches[name] > 0 and pack_launches[name] > 0
+                      and defaults_launches[name] > 0 and defaults_loop_launches[name] > 0
+                      and defaults_traced[name] > 0
                       and fsdp_launches[name] > 0 and fsdp_traced[name] > 0
                       and axes_launches[name] > 0 and axes_traced[name] > 0 and moe_launches[name] > 0
                       and remat_launches[name] > 0 and sp_launches[name] > 0 and sp_traced[name] > 0
@@ -4155,6 +4382,10 @@ def main():
          "launches_axes_tp": axes_launches[name], "device_launches_axes_tp_traced_call": axes_traced[name],
          "launches_axes_moe": moe_launches[name], "launches_axes_remat": remat_launches[name],
          "launches_axes_sp": sp_launches[name], "device_launches_axes_sp_traced_call": sp_traced[name],
+         "launches_lm_defaults": defaults_launches[name],
+         "launches_lm_defaults_loop": defaults_loop_launches[name],
+         "device_launches_lm_defaults_traced_call": defaults_traced[name],
+         "headdim": headdim[name],
          "launches_ring": ring["launches"][name], "device_launches_ring_traced": ring["traced"][name],
          "ring_hop_max_abs_err": ring["max_abs_err"][name],
          "ring_hop_ms": {kind: dict(ring["hop_ms"][kind][name], pairs=ring["hop_ms"][kind]["pairs"])

@@ -53,7 +53,12 @@ beside its data-parallel leg on the same 8 rows (``transformer_sp``). With
 rows of ``LONG_SEQ`` tokens (``transformer_sp_long``): its step ms (host
 clock, a sync after each step), tokens/s, each rank's peak memory, and its
 first loss against the same rows' on one rank at full length (no ring, the
-flash kernels), within ``LONG_LOSS_TOL`` relative.
+flash kernels), within ``LONG_LOSS_TOL`` relative. ``--sp`` also trains
+the LM with 8 experts on ``sp`` = world and ``dp`` = world/2 × ``sp`` = 2
+(``transformer_moe_sp``: each rank routes its block of every row, groups
+of ``min(256, seq / world)`` tokens) and the LM with ``attention="flash"``
+on ``sp`` = world (``transformer_flash_sp``: every rank attends the whole
+sequence, gathered), each beside its own data-parallel leg.
 
 ``--models`` picks the models (default ``resnet50,transformer``); ``--tp``,
 ``--ep`` and ``--sp`` add theirs.
@@ -122,6 +127,12 @@ def _legs(model, world, fsdp):
         legs.append(("ep{}".format(world), {"dp": 1, "ep": world}, False))
         if half:
             legs.append(("dp{}_ep2".format(world // 2), {"dp": world // 2, "ep": 2}, False))
+    elif model == "transformer_moe_sp":
+        legs.append(("moe8_sp{}".format(world), {"dp": 1, "sp": world}, False))
+        if half:
+            legs.append(("moe8_dp{}_sp2".format(world // 2), {"dp": world // 2, "sp": 2}, False))
+    elif model == "transformer_flash_sp":
+        legs.append(("flash_sp{}".format(world), {"dp": 1, "sp": world}, False))
     elif model == "transformer_sp":
         legs.append(("sp{}".format(world), {"dp": 1, "sp": world}, False))
         if half:
@@ -135,7 +146,7 @@ def _legs(model, world, fsdp):
     return legs
 
 
-def _models(size, device, dtype_name, names):
+def _models(size, device, dtype_name, names, world=1):
     """``{name: (build(mesh), loss_fn, optimizer factory, loop kwargs,
     global batch maker(rng, world))}`` for the slices' models in
     ``names``: ``resnet50`` and ``transformer`` (a per-rank batch a rank),
@@ -172,6 +183,8 @@ def _models(size, device, dtype_name, names):
     # groups of 256 tokens at full size (the JAX default), of a row at the
     # small: a divisor of every rank's token count on every leg
     moe = dict(moe_experts=EXPERTS, moe_group_size=min(256, dims["transformer"]["seq"]))
+    # on sp a group must divide every rank's block of the sequence
+    moe_sp = dict(moe, moe_group_size=min(256, dims["transformer"]["seq"] // world))
 
     def lm_batch(rng, world, rows=None, seq=None):
         n, length = rows or dims["transformer"]["batch"] * world, (seq or dims["transformer"]["seq"]) + 1
@@ -195,6 +208,12 @@ def _models(size, device, dtype_name, names):
                             lambda rng, world: lm_batch(rng, world, rows)),
         "transformer_sp": (lm_build, transformer.make_loss_fn(None), lambda: optim.adamw(3e-4),
                            dict(has_aux=True), lambda rng, world: lm_batch(rng, world, rows)),
+        "transformer_moe_sp": (lambda mesh=None: lm_build(mesh, **moe_sp), transformer.make_loss_fn(None),
+                               lambda: optim.adamw(3e-4), dict(has_aux=True),
+                               lambda rng, world: lm_batch(rng, world, rows)),
+        "transformer_flash_sp": (lambda mesh=None: lm_build(mesh, attention="flash"),
+                                 transformer.make_loss_fn(None), lambda: optim.adamw(3e-4), dict(has_aux=True),
+                                 lambda rng, world: lm_batch(rng, world, rows)),
         "transformer_sp_long": (lambda mesh=None: lm_build(mesh, max_seq_len=LONG_SEQ[size]),
                                 transformer.make_loss_fn(None), lambda: optim.adamw(3e-4), dict(has_aux=True),
                                 lambda rng, world: lm_batch(rng, world, LONG_ROWS, LONG_SEQ[size])),
@@ -251,7 +270,7 @@ def _rank(rank, world, port, args, out_path):
 
     results = []
     for name, (build, loss_fn, make_opt, kw, make_batch) in _models(args.size, device, args.dtype,
-                                                                    args.models).items():
+                                                                    args.models, world).items():
         rng = np.random.default_rng(11)
         glob = [make_batch(rng, world) for _ in range(k)]
         dp_losses = None
@@ -754,7 +773,9 @@ def main(argv=None):
                         help="add the 8-expert LM on ep=world and dp=world/2 x ep=2 (transformer_moe)")
     parser.add_argument("--sp", action="store_true",
                         help="add the LM sequence-parallel on sp=world, dp=world/2 x sp=2, tp=2 x sp=world/2 "
-                             "and fsdp=2 x sp=world/2 (transformer_sp)")
+                             "and fsdp=2 x sp=world/2 (transformer_sp), the 8-expert LM on sp=world and "
+                             "dp=world/2 x sp=2 (transformer_moe_sp) and flash attention over the whole "
+                             "sequence on sp=world (transformer_flash_sp)")
     parser.add_argument("--sp_long", action="store_true",
                         help="add the long-context leg: sp=world on {} rows of {} tokens".format(
                             LONG_ROWS, LONG_SEQ["full"]))
@@ -770,7 +791,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     args.dtype = args.dtype or ("bfloat16" if args.platform == "gpu" else "float32")
     args.models = [m for m in args.models.split(",") if m] + ["transformer_tp"] * args.tp + \
-        ["transformer_moe"] * args.ep + ["transformer_sp"] * args.sp
+        ["transformer_moe"] * args.ep + ["transformer_sp", "transformer_moe_sp", "transformer_flash_sp"] * args.sp
     if args.platform == "gpu" and torch.cuda.device_count() < args.world:
         raise SystemExit("sync_dp_check: --world {} needs {} CUDA devices, found {}".format(
             args.world, args.world, torch.cuda.device_count()))

@@ -18,7 +18,8 @@ Usage (one executor, one H100; the model's full width)::
         --seq_len 2048 --batch_size 8 --dtype bfloat16 --tokenizer byte \\
         --train_steps 5 --log_steps 1
 
-The kernels take head dims 64 and 128 (``d_model / n_heads``).
+The kernels take any head dim up to 128 (``d_model / n_heads``; the
+example's defaults give 32, zero-padded to the D = 64 kernels).
 ``--steps_per_loop K`` runs K steps a call through
 ``SyncDataParallel.compile_train_loop``, as the JAX example does: on the
 card the step is captured once in a CUDA graph and replayed (the first two

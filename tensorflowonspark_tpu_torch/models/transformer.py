@@ -13,11 +13,12 @@ variables name for name.
 
 Attention goes through :func:`_dispatch_attention`: ``flash`` runs the
 port's CUDA kernels (:mod:`~tensorflowonspark_tpu_torch.ops.flash_attention`;
-their plain versions on a CPU tensor), ``plain`` the dense reference,
-``ring`` ring attention over the mesh's ``sp`` axis
+their plain versions on a CPU tensor; any head dim up to 128), ``plain`` the
+dense reference, ``ring`` ring attention over the mesh's ``sp`` axis
 (:mod:`~tensorflowonspark_tpu_torch.parallel.ring_attention`; the flash
 call without one), and ``auto`` the ring on an ``sp`` mesh, else the
-kernels on a CUDA tensor and the dense reference on the CPU.
+kernels on a CUDA tensor and the dense reference on the CPU. ``plain`` and
+``flash`` on an ``sp`` mesh attend over the whole sequence, gathered.
 
 ``moe_experts > 0`` swaps every block's MLP for :class:`MoeMlp`, the JAX
 package's switch-routed mixture of experts; ``remat`` recomputes each
@@ -36,12 +37,13 @@ sharding (``Transformer._constrain``) for XLA; here a rank holds the
 activations of its rows whole, except along ``sp``: on a mesh with an
 ``sp`` axis each rank holds its block of the sequence (``L / sp`` tokens,
 ``parallel.sharding.sequence_chunk``) through the embedding, the norms and
-the MLP, and attention is the ring over the ``sp`` group. The default
+the MLP, and attention is the ring over the ``sp`` group (or, with
+``plain``/``flash``, the whole sequence gathered over it). The default
 positions are then the block's global ones, and :func:`make_loss_fn` gives
 the JAX loss: the mean over the real tokens of the rows that the ``sp``
 group holds (each rank's gradient is its tokens' share of it, which the
-strategy sums over ``sp``). A mixture of experts on an ``sp`` mesh is not
-ported and raises.
+strategy sums over ``sp``). A mixture of experts routes a rank's block on
+its own when ``moe_group_size`` divides the block (:class:`MoeMlp`).
 """
 
 import dataclasses
@@ -116,10 +118,18 @@ def _dispatch_attention(q, k, v, impl, segment_ids=None, sp_group=None):
     call); ``auto``: the ring when the sequence is split over ``sp``, else
     the kernels on a CUDA tensor at every length and plain on the CPU. The
     kernels mask ragged sequence tails, so no padding is needed (the JAX
-    package pads to a multiple of 128). With the sequence split over
-    ``sp``, ``plain`` and ``flash`` would attend within a rank's block only
-    and raise (the JAX package's ``plain`` there runs on the whole
-    sequence).
+    package pads to a multiple of 128).
+
+    With the sequence split over ``sp``, ``plain`` and ``flash`` attend
+    over the whole sequence, as the JAX package's do there: ``q``, ``k``,
+    ``v`` and the ids are gathered over the group along the sequence, every
+    rank attends the whole of it, and keeps its own block of the output
+    (``gather_from_region`` / ``split_to_region``: the backward hands each
+    rank the whole output's gradient and keeps its block of dq, dk, dv).
+    The last block's padding (``sharding.sequence_chunk``: token 0,
+    segment 0) lies at the end of the gathered sequence, where the causal
+    mask and the fence keep it from every real query, as the JAX package's
+    pad-run-slice does.
 
     ``segment_ids`` (``int [B, L]``, 0 = padding) fences packed sequences
     block-diagonally on every path."""
@@ -132,8 +142,14 @@ def _dispatch_attention(q, k, v, impl, segment_ids=None, sp_group=None):
 
         return ring_attention(q, k, v, sp_group, causal=True, segment_ids=segment_ids)
     if sp_group is not None:
-        raise ValueError("attention={!r} on a sequence split over sp attends within a rank's block; "
-                         "use 'ring' or 'auto'".format(impl))
+        from tensorflowonspark_tpu_torch.parallel import collectives
+
+        whole = [collectives.gather_from_region(t, sp_group, 2) for t in (q, k, v)]
+        ids = None
+        if segment_ids is not None:
+            ids = collectives.gather_blocks(segment_ids, sp_group).movedim(0, 1).flatten(1, 2)
+        out = _dispatch_attention(*whole, impl, segment_ids=ids)
+        return collectives.split_to_region(out, sp_group, 2)
     use_flash = impl == "flash" or (impl == "auto" and q.device.type == "cuda")
     if not use_flash:
         return plain_attention(q, k, v, causal=True, segment_ids=segment_ids)
@@ -317,6 +333,18 @@ class MoeMlp(nn.Module):
     are over the global batch: with more than one data rank the counts and
     probabilities are summed over the data group (``global_sum``).
 
+    On a sequence split over ``sp`` a rank routes its block of each row
+    alone. Its groups of ``moe_group_size`` consecutive tokens are the JAX
+    package's when that size divides the block and the block's real tokens
+    (so it divides the sequence and no group spans two rows or two
+    blocks); any other size raises. ``valid`` (``[B, L]``, 0 on the last
+    block's padding, ``sharding.sequence_chunk``) keeps the padding out of
+    the balancing loss: it fills groups of its own, after every real token,
+    so it moves no real token's place. The counts, probabilities and token
+    count are summed over the data group and then over ``sp``; the
+    probabilities' gradient is the data group's sum, as without ``sp``
+    (the strategy sums the ranks' gradients over ``sp``).
+
     Over ``ep`` the experts are split, and ``ep`` is not a data axis: every
     rank of an ``ep`` group holds the same tokens. Each routes all of them
     with the replicated router, runs its ``E/ep`` experts on their slice of
@@ -341,6 +369,7 @@ class MoeMlp(nn.Module):
         cut = dict((dim, (parts, index)) for dim, parts, index in self.cuts["wi"])
         parts, index = cut.get(0, (1, 0))
         self.experts = slice(index * (e // parts), (index + 1) * (e // parts))
+        self.sp_group = blocks.sp_group
         self.aux = None
 
     @torch.no_grad()
@@ -349,7 +378,7 @@ class MoeMlp(nn.Module):
             _draw_(getattr(self, n), shape, self.cuts[n],
                    lambda w, s=shape: _trunc_normal_(w, s[0] * s[1], generator))
 
-    def forward(self, x):
+    def forward(self, x, valid=None):
         from tensorflowonspark_tpu_torch.parallel import collectives
 
         cfg = self.cfg
@@ -357,9 +386,12 @@ class MoeMlp(nn.Module):
         e = cfg.moe_experts
         b, length, d = x.shape
         tokens = b * length
-        group = min(cfg.moe_group_size or tokens, tokens)
-        while tokens % group:
-            group -= 1
+        if self.sp_group is not None:
+            group = sp_group_size(cfg.moe_group_size, length)
+        else:
+            group = min(cfg.moe_group_size or tokens, tokens)
+            while tokens % group:
+                group -= 1
         n_groups = tokens // group
         capacity = max(1, int(cfg.moe_capacity_factor * group / e))
 
@@ -378,13 +410,28 @@ class MoeMlp(nn.Module):
 
         # load-balancing loss (Switch eq. 4) over the global batch
         counts, probs, n = onehot.sum((0, 1)), gates.sum((0, 1)), float(tokens)
-        if collectives.data_size() > 1:
+        if valid is not None:  # the sp padding routes, but counts nowhere
+            w = valid.reshape(n_groups, group, 1).to(gates.dtype)
+            counts, probs, n = (onehot * w).sum((0, 1)), (gates * w).sum((0, 1)), w.sum()
+        data = collectives.data_size() > 1
+        groups = ([collectives.data_group()] if data else []) + ([self.sp_group] if self.sp_group is not None else [])
+        if groups:
             import torch.distributed as dist
 
-            counts = counts.clone()
-            dist.all_reduce(counts, group=collectives.data_group())
-            probs = collectives.global_sum(probs, collectives.data_group())
-            n *= collectives.data_size()
+            # a count of valid tokens rides with the expert counts; the
+            # token count without one stays on the host (no copy to the
+            # card while a CUDA graph is captured)
+            totals = torch.cat([counts, n.reshape(1)]) if valid is not None else counts.clone()
+            for g in groups:
+                dist.all_reduce(totals, group=g)
+            if valid is not None:
+                counts, n = totals[:-1], totals[-1]
+            else:
+                counts, n = totals, n * math.prod(dist.get_world_size(g) for g in groups)
+            if data:
+                probs = collectives.global_sum(probs, collectives.data_group())
+            if self.sp_group is not None:
+                probs = collectives.reduce_from_region(probs, self.sp_group)
         self.aux = e * torch.sum((counts / n) * (probs / n))
 
         local = dispatch[:, :, self.experts]
@@ -395,6 +442,18 @@ class MoeMlp(nn.Module):
         out_e = torch.einsum("gecf,efd->gecd", h, self.wo.to(dt))  # [G_n, E, C, D]
         yg = torch.einsum("gtec,gecd->gtd", combine.to(dt), out_e)
         return _close(yg.reshape(b, length, d), self.group)
+
+
+def sp_group_size(group_size, length):
+    """The MoE token group of a rank that holds a block of ``length``
+    tokens of each row, on a sequence split over ``sp``: ``group_size``,
+    which must divide the block (a group that spans blocks is not ported)."""
+    if not group_size or length % group_size:
+        raise ValueError(
+            "a mixture of experts on a sequence split over sp routes each rank's block alone: "
+            "moe_group_size={} must divide the block length {} (a group spanning two blocks is not "
+            "ported)".format(group_size, length))
+    return group_size
 
 
 class Block(nn.Module):
@@ -408,10 +467,11 @@ class Block(nn.Module):
         else:
             self.mlp = Mlp(cfg, blocks, prefix + "mlp.")
 
-    def forward(self, x, positions, segment_ids=None):
+    def forward(self, x, positions, segment_ids=None, valid=None):
         x = x + self.attn(self.ln1(x), positions, segment_ids)
-        ffn = self.moe if hasattr(self, "moe") else self.mlp
-        return x + ffn(self.ln2(x))
+        if hasattr(self, "moe"):
+            return x + self.moe(self.ln2(x), valid)
+        return x + self.mlp(self.ln2(x))
 
 
 class Transformer(nn.Module):
@@ -444,10 +504,9 @@ class Transformer(nn.Module):
             from tensorflowonspark_tpu_torch.parallel.sharding import sequence_shard
 
             self.sp_rank = sequence_shard(mesh)[0]
-        if self.sp_group is not None and cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "a mixture of experts on a sequence split over sp is not yet ported to "
-                "tensorflowonspark_tpu_torch (its balancing loss is per rank's tokens)")
+        #: the last input shape whose MoE routing on sp was checked
+        #: (:func:`_check_sp_routing`)
+        self.sp_routing_checked = None
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model)
         for i in range(cfg.n_layers):
             self.add_module("layer_{}".format(i), Block(cfg, blocks, "layer_{}.".format(i)))
@@ -476,8 +535,17 @@ class Transformer(nn.Module):
         aux = [m.aux for m in self.modules() if isinstance(m, MoeMlp)]
         return sum(aux) / len(aux) if aux else None
 
-    def forward(self, tokens, positions=None, segment_ids=None):
+    def forward(self, tokens, positions=None, segment_ids=None, valid=None):
+        """Logits ``[B, L, vocab]`` f32. ``valid`` (``[B, L]``, 0 on the
+        padding of the last ``sp`` block; None: every position is real)
+        keeps that padding out of the MoE balancing loss."""
         cfg = self.cfg
+        if cfg.moe_experts > 0 and self.sp_group is not None:
+            # the same on every rank of the group: they all check, or none
+            shape = (tuple(tokens.shape), valid is None)
+            if shape != self.sp_routing_checked:
+                _check_sp_routing(cfg.moe_group_size, tokens.shape[1], valid, self.sp_group)
+                self.sp_routing_checked = shape
         x = F.embedding(tokens, self.embed.weight).to(cfg.compute_dtype)
         if positions is None:
             # on a sequence split over sp, this rank's block starts at its
@@ -492,16 +560,37 @@ class Transformer(nn.Module):
 
                 # no RNG in a block: nothing to replay, and the RNG state
                 # cannot be read inside a CUDA-graph capture
-                x = checkpoint(layer, x, positions, segment_ids, use_reentrant=False,
+                x = checkpoint(layer, x, positions, segment_ids, valid, use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                x = layer(x, positions, segment_ids)
+                x = layer(x, positions, segment_ids, valid)
         logits = self.lm_head(_open(self.ln_f(x), self.head_group))
         if self.head_group is not None:
             from tensorflowonspark_tpu_torch.parallel.collectives import gather_from_region
 
             logits = gather_from_region(logits, self.head_group, -1)
         return logits.float()
+
+
+def _check_sp_routing(group_size, length, valid, sp_group):
+    """Raise unless the ranks' blocks route as the JAX package's whole
+    sequence does: ``group_size`` divides the block and each block's real
+    tokens. The real counts are gathered over ``sp_group`` (every rank
+    raises, or none) and read on the host. The model checks each input
+    shape once (a CUDA graph's capture follows eager warm-up steps of its
+    shape), so a later batch of another row length cut to the same block
+    length is not checked again."""
+    sp_group_size(group_size, length)
+    if valid is None:
+        return
+    from tensorflowonspark_tpu_torch.parallel.collectives import gather_blocks
+
+    real = gather_blocks(valid[0].sum().to(torch.int32).reshape(1), sp_group).flatten().tolist()
+    if any(n % group_size for n in real):
+        raise ValueError(
+            "a mixture of experts on a sequence split over sp: the blocks hold {} real tokens of {}, and "
+            "moe_group_size={} does not divide them all (a group would span the end of a row; pick a "
+            "size that divides the sequence length)".format(real, length, group_size))
 
 
 #: path-regex → PartitionSpec-template rules for tensor parallelism, on the
@@ -609,17 +698,21 @@ def make_loss_fn(model):
     batch is this rank's block, ``parallel.sharding.sequence_chunk``) the
     loss is the mean over the real tokens of all the group's blocks: its
     value is that mean on every rank of the group, its gradient this
-    rank's tokens' share (the strategy sums the gradients over ``sp``)."""
+    rank's tokens' share (the strategy sums the gradients over ``sp``).
+    The block's ``valid`` (added where the last block is padded) goes to
+    the model."""
     del model  # the module arrives with each call
 
     def loss_fn(module, batch):
         tokens = batch["tokens"]
         seg = batch.get("segment_ids")
         pos = batch.get("positions")
+        valid = batch.get("valid")
         logits = module(
             tokens[:, :-1],
             positions=None if pos is None else pos[:, :-1],
             segment_ids=None if seg is None else seg[:, :-1],
+            valid=None if valid is None else valid[:, :-1],
         )
         targets = tokens[:, 1:].long()
         losses = F.cross_entropy(

@@ -53,10 +53,15 @@ ragged tail instead (rows past L are never stored, keys past L get exactly
 zero weight), so every L runs unpadded and gives the rows the padded run
 gives.
 
+**Head dims.** The kernels are compiled for D = 64 and 128
+(:data:`HEAD_DIMS`); any other D up to 128 runs at the next of them, its
+operands zero-padded and its outputs sliced back, which is exact
+(:func:`padded_fwd` and its two siblings, beside the wrappers).
+
 **Dispatch.** Each wrapper takes its plain PyTorch version (the ``*_plain``
 functions, the reference for tests and ``chip_smoke.py``) only when its
 input lies on the CPU; on a CUDA tensor it launches the kernel or raises
-(unsupported head dim or dtype, failed build, refused launch), and counts
+(head dim above 128, unsupported dtype, failed build, refused launch), and counts
 the launch in its ``launches`` attribute (under CUDA graph capture, the
 launch into the graph; a replay calls no wrapper, and
 ``ops/kernel_trace.py`` counts its kernels from a trace). The kernels are compiled with
@@ -79,7 +84,9 @@ from tensorflowonspark_tpu_torch.ops import cuda_build
 #: the TPU kernels' finite masked-score sentinel (−inf would turn a fully
 #: masked block's running-max correction into NaN)
 NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
-#: head dims the kernels are compiled for
+#: head dims the kernels are compiled for; a launch at another head dim up
+#: to the largest runs at the next of them, its operands zero-padded
+#: (:func:`head_width`)
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -156,8 +163,7 @@ def _check(q, seg, heads, like=(), rows=(), seg_k=None, out_dtype=None):
     if q.dim() != 3:
         raise ValueError("expected [BH, L, D] operands, got {}".format(tuple(q.shape)))
     bh, length, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError("flash attention kernels take head_dim in {}, got {}".format(HEAD_DIMS, d))
+    head_width(d)
     if q.dtype not in _DTYPES:
         raise TypeError("flash attention kernels take float32 or bfloat16, got {}".format(q.dtype))
     for t in (q,) + tuple(like):
@@ -181,6 +187,16 @@ def _check(q, seg, heads, like=(), rows=(), seg_k=None, out_dtype=None):
     if out_dtype not in (q.dtype, torch.float32):
         raise TypeError("flash attention kernels write {} or float32 outputs, not {}".format(q.dtype, out_dtype))
     return out_dtype
+
+
+def head_width(d):
+    """The compiled head dim that a launch at head dim ``d`` runs at: the
+    smallest of :data:`HEAD_DIMS` not below it. Raises past the largest."""
+    for width in HEAD_DIMS:
+        if 1 <= d <= width:
+            return width
+    raise ValueError("flash attention kernels take head_dim 1..{} (compiled for {}, smaller ones "
+                     "zero-padded up to the next), got {}".format(HEAD_DIMS[-1], HEAD_DIMS, d))
 
 
 _STATUS = {-1: "unsupported head dim or dtype",
@@ -310,16 +326,65 @@ def flash_bwd_dkv_plain(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_
     return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
 
 
+# -- head-dim padding ----------------------------------------------------------
+#
+# The kernels are compiled for the head dims of HEAD_DIMS. Another head dim
+# runs at the next compiled one, its [BH, L, D] operands zero-padded there,
+# and its outputs sliced back: the padded columns add 0 to every score; dq =
+# ds·K, dk = dsᵀ·Q and dv = pᵀ·dO are zero there because K, Q and dO are; lse
+# and delta (taken by the caller over the real D) do not change. The caller's
+# ``scale`` (from the real D) goes to the kernel as it is. ``launch`` is the
+# kernel's launch, or on the CPU its plain version, which tests hold against
+# the JAX package's kernels at the real D. A caller that launches several
+# kernels on one operand pads it once (widen_heads) and narrows their
+# outputs (narrow_heads); the wrappers then pad nothing.
+
+
+def _widen(t, width):
+    return t if t.shape[-1] == width else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def widen_heads(t):
+    """``t`` zero-padded along its last dim to the head width the kernels
+    run it at, on the card (:func:`head_width`); as it is on the CPU."""
+    return _widen(t, head_width(t.shape[-1])) if _on_card(t) else t
+
+
+def narrow_heads(t, d):
+    """``t`` cut back to head dim ``d`` (a kernel's output on operands
+    from :func:`widen_heads`)."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
+def padded_fwd(launch, q, k, v, seg, scale, causal, heads, seg_k=None, out_dtype=None):
+    """:func:`flash_fwd` through ``launch`` at the compiled head width."""
+    d = q.shape[-1]
+    width = head_width(d)
+    o, lse = launch(*(_widen(t, width) for t in (q, k, v)), seg, scale, causal, heads, seg_k, out_dtype)
+    return narrow_heads(o, d), lse
+
+
+def padded_bwd_dq(launch, q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None, out_dtype=None):
+    """:func:`flash_bwd_dq` through ``launch`` at the compiled head width."""
+    d = q.shape[-1]
+    width = head_width(d)
+    q, k, v, do = (_widen(t, width) for t in (q, k, v, do))
+    return narrow_heads(launch(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, out_dtype), d)
+
+
+def padded_bwd_dkv(launch, q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None, out_dtype=None):
+    """:func:`flash_bwd_dkv` through ``launch`` at the compiled head width."""
+    d = q.shape[-1]
+    width = head_width(d)
+    q, k, v, do = (_widen(t, width) for t in (q, k, v, do))
+    dk, dv = launch(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, out_dtype)
+    return narrow_heads(dk, d), narrow_heads(dv, d)
+
+
 # -- kernel wrappers ----------------------------------------------------------
 
 
-def flash_fwd(q, k, v, seg, scale, causal, heads, seg_k=None, out_dtype=None):
-    """``(o [BH, L, D], lse [BH, L] f32)`` of attention over ``[BH, L, D]``
-    operands (replaces ``_fwd_kernel``); ``seg_k``: the keys' segment ids
-    (default ``seg``); ``o`` in ``out_dtype`` (the input's, or f32)."""
-    if not _on_card(q):
-        return flash_fwd_plain(q, k, v, seg, scale, causal, heads, seg_k, out_dtype)
-    out_dtype = _check(q, seg, heads, like=(k, v), seg_k=seg_k, out_dtype=out_dtype)
+def _launch_fwd(q, k, v, seg, scale, causal, heads, seg_k, out_dtype):
     lib = _load()
     bh, length, d = q.shape
     o = torch.empty(q.shape, device=q.device, dtype=out_dtype)
@@ -333,11 +398,7 @@ def flash_fwd(q, k, v, seg, scale, causal, heads, seg_k=None, out_dtype=None):
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None, out_dtype=None):
-    """``dq [BH, L, D]`` in ``out_dtype`` (replaces ``_bwd_dq_kernel``)."""
-    if not _on_card(q):
-        return flash_bwd_dq_plain(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, out_dtype)
-    out_dtype = _check(q, seg, heads, like=(k, v, do), rows=(lse, delta), seg_k=seg_k, out_dtype=out_dtype)
+def _launch_bwd_dq(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, out_dtype):
     lib = _load()
     bh, length, d = q.shape
     dq = torch.empty(q.shape, device=q.device, dtype=out_dtype)
@@ -350,12 +411,7 @@ def flash_bwd_dq(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None,
     return dq
 
 
-def flash_bwd_dkv(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None, out_dtype=None):
-    """``(dk, dv)``, each ``[BH, L, D]`` in ``out_dtype`` (replaces
-    ``_bwd_dkv_kernel``)."""
-    if not _on_card(q):
-        return flash_bwd_dkv_plain(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, out_dtype)
-    out_dtype = _check(q, seg, heads, like=(k, v, do), rows=(lse, delta), seg_k=seg_k, out_dtype=out_dtype)
+def _launch_bwd_dkv(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, out_dtype):
     lib = _load()
     bh, length, d = q.shape
     dk, dv = (torch.empty(q.shape, device=q.device, dtype=out_dtype) for _ in range(2))
@@ -366,6 +422,34 @@ def flash_bwd_dkv(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None
     ), "flash_bwd_dkv")
     _count(flash_bwd_dkv)
     return dk, dv
+
+
+def flash_fwd(q, k, v, seg, scale, causal, heads, seg_k=None, out_dtype=None):
+    """``(o [BH, L, D], lse [BH, L] f32)`` of attention over ``[BH, L, D]``
+    operands (replaces ``_fwd_kernel``); ``seg_k``: the keys' segment ids
+    (default ``seg``); ``o`` in ``out_dtype`` (the input's, or f32)."""
+    if not _on_card(q):
+        return flash_fwd_plain(q, k, v, seg, scale, causal, heads, seg_k, out_dtype)
+    out_dtype = _check(q, seg, heads, like=(k, v), seg_k=seg_k, out_dtype=out_dtype)
+    return padded_fwd(_launch_fwd, q, k, v, seg, scale, causal, heads, seg_k, out_dtype)
+
+
+def flash_bwd_dq(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None, out_dtype=None):
+    """``dq [BH, L, D]`` in ``out_dtype`` (replaces ``_bwd_dq_kernel``)."""
+    if not _on_card(q):
+        return flash_bwd_dq_plain(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, out_dtype)
+    out_dtype = _check(q, seg, heads, like=(k, v, do), rows=(lse, delta), seg_k=seg_k, out_dtype=out_dtype)
+    return padded_bwd_dq(_launch_bwd_dq, q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, out_dtype)
+
+
+def flash_bwd_dkv(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None, out_dtype=None):
+    """``(dk, dv)``, each ``[BH, L, D]`` in ``out_dtype`` (replaces
+    ``_bwd_dkv_kernel``)."""
+    if not _on_card(q):
+        return flash_bwd_dkv_plain(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, out_dtype)
+    out_dtype = _check(q, seg, heads, like=(k, v, do), rows=(lse, delta), seg_k=seg_k, out_dtype=out_dtype)
+    return padded_bwd_dkv(_launch_bwd_dkv, q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k,
+                          out_dtype)
 
 
 _COUNT_LOCK = threading.Lock()
@@ -403,24 +487,29 @@ def reset_launch_counts():
 class _FlashAttention(torch.autograd.Function):
     """The JAX package's ``_flash_attention_bhld`` custom VJP: saves
     ``q, k, v, seg, o, lse``; ``delta = rowsum(dO·O)`` in f32 is plain
-    tensor math between the kernels; segment ids get no gradient."""
+    tensor math between the kernels; segment ids get no gradient. At a head
+    dim the kernels are not compiled for, q, k, v are padded once in the
+    forward and saved padded, dO once in the backward (o's padded columns
+    are zero, so ``delta`` is the real D's)."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg, scale, causal, heads):
+        d = q.shape[-1]
+        q, k, v = (widen_heads(t) for t in (q, k, v))
         o, lse = flash_fwd(q, k, v, seg, scale, causal, heads)
         ctx.save_for_backward(q, k, v, seg, o, lse)
-        ctx.args = (scale, causal, heads)
-        return o
+        ctx.args = (scale, causal, heads, d)
+        return narrow_heads(o, d)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, seg, o, lse = ctx.saved_tensors
-        scale, causal, heads = ctx.args
-        do = do.contiguous()
+        scale, causal, heads, d = ctx.args
+        do = widen_heads(do.contiguous())
         delta = (do.float() * o.float()).sum(-1)
         dq = flash_bwd_dq(q, k, v, seg, do, lse, delta, scale, causal, heads)
         dk, dv = flash_bwd_dkv(q, k, v, seg, do, lse, delta, scale, causal, heads)
-        return dq, dk, dv, None, None, None, None
+        return narrow_heads(dq, d), narrow_heads(dk, d), narrow_heads(dv, d), None, None, None, None
 
 
 def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):

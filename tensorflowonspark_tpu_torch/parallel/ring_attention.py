@@ -100,7 +100,10 @@ class _Member:
     kernel launches, the forward's merge and the backward's accumulation."""
 
     def __init__(self, q, seg, my, n, causal, scale, heads):
-        self.q, self.seg, self.my, self.n = q, seg, my, n
+        # the queries padded once to the kernels' head width (on the card),
+        # the held blocks and dO once a hop / a backward
+        self.d, self.q = q.shape[-1], fa.widen_heads(q)
+        self.seg, self.my, self.n = seg, my, n
         self.causal, self.scale, self.heads = causal, scale, heads
         self.o = self.lse = self.dq = None
 
@@ -110,8 +113,9 @@ class _Member:
         mask = hop_mask(self.n, self.my, s, self.causal)
         if mask is None:
             return
-        o, lse = fa.flash_fwd(self.q, k, v, self.seg, self.scale, mask, self.heads, seg_k=seg_k,
-                              out_dtype=torch.float32)
+        o, lse = fa.flash_fwd(self.q, fa.widen_heads(k), fa.widen_heads(v), self.seg, self.scale, mask,
+                              self.heads, seg_k=seg_k, out_dtype=torch.float32)
+        o = fa.narrow_heads(o, self.d)
         if self.o is None:
             self.o, self.lse = o, lse
             return
@@ -121,7 +125,7 @@ class _Member:
 
     def backward_begin(self, o, lse, do):
         """The backward's row statistics from the final output and lse."""
-        self.do, self.lse = do, lse
+        self.do, self.lse = fa.widen_heads(do), lse
         self.delta = (do.float() * o.float()).sum(-1)
         self.dq = None
 
@@ -132,8 +136,10 @@ class _Member:
         if mask is None:
             return None
         args = (self.seg, self.do, self.lse, self.delta, self.scale, mask, self.heads)
-        dq = fa.flash_bwd_dq(self.q, k, v, *args, seg_k=seg_k, out_dtype=torch.float32)
-        dk, dv = fa.flash_bwd_dkv(self.q, k, v, *args, seg_k=seg_k, out_dtype=torch.float32)
+        k, v = fa.widen_heads(k), fa.widen_heads(v)
+        dq = fa.narrow_heads(fa.flash_bwd_dq(self.q, k, v, *args, seg_k=seg_k, out_dtype=torch.float32), self.d)
+        dk, dv = (fa.narrow_heads(t, self.d)
+                  for t in fa.flash_bwd_dkv(self.q, k, v, *args, seg_k=seg_k, out_dtype=torch.float32))
         if self.dq is None:
             self.dq = dq
         else:

@@ -108,8 +108,11 @@ def sequence_chunk(batch, index, count):
     the loss's shift by one runs on the block as on the whole row. The last
     block is padded with token 0, segment id 0 and position 0, and a
     ``mask`` of 0 there (added when the batch has none), so its padding is
-    neither attended by a real token nor counted in the loss. Numpy arrays
-    or tensors; ``count`` 1 returns the batch as it is."""
+    neither attended by a real token nor counted in the loss. A padded
+    split also carries ``valid``: 1 where a block's token is one of the
+    row's inputs, 0 on the padding (the mixture of experts keeps the
+    padding out of its balancing loss by it). Numpy arrays or tensors;
+    ``count`` 1 returns the batch as it is."""
     if count == 1:
         return batch
     import numpy as np
@@ -117,8 +120,11 @@ def sequence_chunk(batch, index, count):
     length = batch["tokens"].shape[1] - 1
     c = -(-length // count)
     out = dict(batch)
-    if c * count > length and "mask" not in batch:
-        out["mask"] = np.ones(batch["tokens"].shape, np.int32)
+    if c * count > length:
+        if "mask" not in batch:
+            out["mask"] = np.ones(batch["tokens"].shape, np.int32)
+        out["valid"] = np.ones(batch["tokens"].shape, np.int32)
+        out["valid"][:, length] = 0
     for key, v in out.items():
         v = v[:, index * c:index * c + c + 1]
         if v.shape[1] < c + 1:

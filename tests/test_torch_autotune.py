@@ -155,20 +155,36 @@ def test_autotuned_windows_deliver_the_source_batches_for_any_bucket_set(n):
                 np.testing.assert_array_equal(a[key], b[key])
 
 
-def test_injected_link_latency_moves_the_window_to_the_top_bucket():
+def test_injected_link_latency_moves_the_window_to_the_top_bucket(monkeypatch):
     """``data.device_link`` sleeps inside the timed placement (probes and
     windows): at 60 ms a transfer the fixed-cost share is near 1 at every
     bucket, so the controller climbs to the top bucket, and the delivery
-    stays byte for byte."""
+    stays byte for byte.
+
+    The tuner's clock is this thread's CPU time plus the injected sleeps:
+    the link's cost as the test defines it. A wall clock also reads the
+    host's scheduler stalls, and under a loaded host one stalled 1 MB
+    window reads as a slow stream that argues for a smaller bucket."""
+    import time
+    import types
+
+    slept = [0.0]
+
+    def sleep(seconds):
+        slept[0] += seconds
+        time.sleep(seconds)
+
+    monkeypatch.setattr(autotune, "time", types.SimpleNamespace(sleep=sleep, perf_counter=time.perf_counter))
     plan = chaos.ChaosPlan(seed=0).site("data.device_link", probability=1.0, delay_s=0.06)
     chaos.install(plan, propagate=False)
     try:
         host = [{"x": np.full((8, 128, 256), i, np.float32)} for i in range(10)]
-        tuner = autotune.FeedAutotuner(buckets=(1, 2, 4), alpha=0.7, reprobe_every=1, down_patience=1)
+        tuner = autotune.FeedAutotuner(buckets=(1, 2, 4), alpha=0.7, reprobe_every=1, down_patience=1,
+                                       clock=lambda: time.thread_time() + slept[0])
         got, ks = _delivered(host, tuner)
     finally:
         chaos.uninstall()
-    assert plan.fired("data.device_link") > 0
+    assert plan.fired("data.device_link") > 0 and slept[0] >= 0.06 * plan.fired("data.device_link")
     assert max(ks) == 4 and sum(ks) == 10
     for i, batch in enumerate(got):
         np.testing.assert_array_equal(batch["x"], host[i]["x"])

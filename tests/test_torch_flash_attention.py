@@ -135,8 +135,9 @@ def test_plain_attention_matches_jax_plain_attention(dtype):
 
 
 def test_cpu_tensors_take_the_plain_versions_at_any_head_dim():
-    """The CPU path is the plain versions at any head dim (the kernels take
-    64 and 128 only, and raise on a CUDA tensor of another)."""
+    """The CPU path is the plain versions at any head dim (the kernels run
+    any head dim up to 128 through the padding route, and raise on a CUDA
+    tensor of a larger one)."""
     q, k, v = _qkv(7, length=40, d=16)
     out = fa.flash_attention(_t(q), _t(k), _t(v), causal=True)
     want = plain_attention(_t(q), _t(k), _t(v), causal=True)
@@ -426,3 +427,132 @@ def test_launch_counts_stay_exact_when_threads_launch_at_once():
     finally:
         sys.setswitchinterval(interval)
     assert fa.flash_fwd.launches - before == 16000
+
+
+# -- head dims the kernels are not compiled for: the padding route -------------
+
+
+def test_head_width_pads_up_to_the_next_compiled_width():
+    assert [fa.head_width(d) for d in (1, 32, 48, 64, 65, 96, 128)] == [64, 64, 64, 64, 128, 128, 128]
+    for d in (0, 129, 256):
+        with pytest.raises(ValueError, match="head_dim 1..128"):
+            fa.head_width(d)
+
+
+@pytest.mark.parametrize("d", [32, 48, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padding_route_matches_pallas_interpret_at_the_real_head_dim(d, causal):
+    """The launch functions' route for a head dim the kernels are not
+    compiled for: the operands zero-padded to the next compiled width, the
+    kernel (here its plain version) run there with the real D's scale, the
+    outputs sliced back. O, lse, dq, dk, dv against the JAX package's
+    Pallas kernels at the real D, in interpret mode."""
+    bh, length = B * H, 192
+    rng = np.random.default_rng(d)
+    q, k, v, do = (rng.standard_normal((bh, length, d)).astype(np.float32) for _ in range(4))
+    seg = _segments(B, length, ((0, 70), (70, 161)))
+    scale = 1 / math.sqrt(d)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    jseg = jnp.asarray(np.repeat(seg, H, axis=0))
+    jo, jlse = jfa._flash_fwd(jq, jk, jv, jseg, scale, causal, 64, 64, True)
+    jdq, jdk, jdv = jfa._flash_bwd(jq, jk, jv, jseg, jdo, jo, jlse, scale, causal, 64, 64, True)
+
+    tq, tk, tv, tdo, tseg = _t(q), _t(k), _t(v), _t(do), _t(seg)
+    o, lse = fa.padded_fwd(fa.flash_fwd_plain, tq, tk, tv, tseg, scale, causal, H)
+    assert o.shape == (bh, length, d)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :, 0], atol=2e-5)
+    delta = (tdo * o).sum(-1)  # over the real D, as the autograd function takes it
+    bwd = (tseg, tdo, lse, delta, scale, causal, H)
+    dq = fa.padded_bwd_dq(fa.flash_bwd_dq_plain, tq, tk, tv, *bwd)
+    dk, dv = fa.padded_bwd_dkv(fa.flash_bwd_dkv_plain, tq, tk, tv, *bwd)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        assert got.shape == (bh, length, d)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [32, 96])
+@pytest.mark.parametrize("ring", [False, True], ids=["flash", "ring"])
+def test_autograd_and_ring_pad_each_operand_once(monkeypatch, d, ring):
+    """The card's route through the autograd function and the ring's
+    members: q, k, v and dO padded to the compiled width once (not once a
+    kernel), every kernel launched there, the outputs cut back. Here the
+    CPU takes it (``widen_heads`` pads) and matches the unpadded run: O,
+    dq, dk, dv within 1e-5; the autograd function pads 4 operands a step."""
+    from tensorflowonspark_tpu_torch.parallel.ring_attention import ring_attention_local
+
+    rng = np.random.default_rng(d)
+    q, k, v, do = (rng.standard_normal((B, H, 64, d)).astype(np.float32) for _ in range(4))
+    seg = _t(_segments(B, 64, ((0, 20), (20, 57))))
+
+    def run():
+        tq, tk, tv = (_t(x, requires_grad=True) for x in (q, k, v))
+        if ring:
+            o = ring_attention_local(tq, tk, tv, 4, causal=True, segment_ids=seg)
+        else:
+            o = fa.flash_attention(tq, tk, tv, causal=True, segment_ids=seg)
+        o.backward(_t(do))
+        return o.detach(), tq.grad, tk.grad, tv.grad
+
+    want = run()
+    pads, widths = [], []
+    monkeypatch.setattr(fa, "widen_heads", lambda t: pads.append(t.shape) or fa._widen(t, fa.head_width(d)))
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        monkeypatch.setattr(fa, name, lambda q, *a, _real=getattr(fa, name), **kw:
+                            widths.append(q.shape[-1]) or _real(q, *a, **kw))
+    got = run()
+    assert set(widths) == {fa.head_width(d)} and len(widths) >= 3
+    if not ring:
+        assert len(pads) == 4
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=0)
+
+
+def _padded_wrappers(monkeypatch):
+    """Make the CPU wrappers take the padding route the card takes (the
+    plain versions at the compiled width), so a whole model runs it."""
+    monkeypatch.setattr(fa, "flash_fwd", lambda *a, **kw: fa.padded_fwd(fa.flash_fwd_plain, *a, **kw))
+    monkeypatch.setattr(fa, "flash_bwd_dq", lambda *a, **kw: fa.padded_bwd_dq(fa.flash_bwd_dq_plain, *a, **kw))
+    monkeypatch.setattr(fa, "flash_bwd_dkv",
+                        lambda *a, **kw: fa.padded_bwd_dkv(fa.flash_bwd_dkv_plain, *a, **kw))
+
+
+def test_lm_at_the_examples_defaults_matches_the_jax_package(monkeypatch):
+    """The transformer example's own defaults (d_model 256, 8 heads of 32,
+    2 layers, d_ff 1024, vocab 1024, 256 tokens, batch 8) with
+    ``attention="flash"`` through the padding route, on weights converted
+    from the JAX model: the loss within 1e-5 and every gradient within
+    1e-5 of the JAX package's (its flash kernels in interpret mode)."""
+    from tensorflowonspark_tpu.models import transformer as jtransformer
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.examples.transformer import transformer_spark
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    args = transformer_spark.build_parser().parse_args([])
+    cfg = dict(vocab_size=args.vocab_size, d_model=args.d_model, n_layers=args.n_layers, n_heads=args.n_heads,
+               d_ff=args.d_ff, max_seq_len=args.seq_len, attention="flash", dtype="float32")
+    assert cfg["d_model"] // cfg["n_heads"] == 32 and args.batch_size == 8 and args.seq_len == 256
+    jmodel = jtransformer.create_model(**cfg)
+    params = jax.jit(jtransformer.make_init_fn(jmodel, sample_len=16))(jax.random.PRNGKey(0))["params"]
+    params = jax.tree.map(lambda a: np.array(a), jax.device_get(params))
+    rng = np.random.default_rng(16)
+    tokens = rng.integers(1, args.vocab_size, (args.batch_size, args.seq_len + 1)).astype(np.int32)
+    seg = np.ones_like(tokens)
+    seg[:, 100:] = 2
+    seg[:, 240:] = 0
+    pos = np.where(seg == 2, np.arange(tokens.shape[1]) - 100, np.arange(tokens.shape[1])).astype(np.int32)
+    batch = {"tokens": tokens, "segment_ids": seg, "positions": pos}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jtransformer.make_loss_fn(jmodel), has_aux=True))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    want = convert.convert_variables({"params": jax.tree.map(np.asarray, jgrads)})
+
+    _padded_wrappers(monkeypatch)
+    model = convert.load_variables(transformer.create_model(**cfg), {"params": params})
+    loss, _ = transformer.make_loss_fn(model)(model, {k: torch.as_tensor(v) for k, v in batch.items()})
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=1e-5, rtol=0)
+    grads = dict(model.named_parameters())
+    assert set(grads) == set(want)
+    for name, g in want.items():
+        np.testing.assert_allclose(grads[name].grad.numpy(), g.numpy(), atol=1e-5, rtol=0, err_msg=name)

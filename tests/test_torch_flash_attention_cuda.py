@@ -93,6 +93,9 @@ def _close(name, got, want):
     (2, 4, 2048, 128, True, "packed"),     # D=128 at the slice's length
     (1, 8, 2048, 64, True, "reused"),      # rows whose first visited block is fully masked
     (1, 8, 2048, 64, False, "packed"),     # not causal, fenced: the whole row range is a candidate
+    (2, 2, 256, 32, True, "packed"),       # D=32: zero-padded to the D=64 kernels
+    (1, 3, 200, 48, True, "packed"),       # D=48, ragged: padded to 64
+    (2, 2, 256, 96, False, "packed"),      # D=96: padded to the D=128 kernels
 ])
 def test_kernels_match_plain_versions_on_card(dtype, b, heads, length, d, causal, segmented):
     _card()
@@ -166,14 +169,16 @@ def test_bf16_check_catches_a_one_percent_fault_on_card(output):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 96])
+@pytest.mark.parametrize("d", [160, 256])
 def test_unsupported_head_dim_raises_on_card(d):
-    """A CUDA tensor never reaches the plain version: an unsupported head
-    dim raises."""
+    """A CUDA tensor never reaches the plain version: a head dim above the
+    largest compiled one raises, and launches nothing."""
     _card()
     q = torch.randn(2, 128, d, device="cuda")
+    before = fa.launch_counts()
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd(q, q, q, None, 0.1, True, 1)
+    assert fa.launch_counts() == before
 
 
 @pytest.mark.cuda

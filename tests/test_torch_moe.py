@@ -19,12 +19,22 @@ bitwise.
 from a rank's own tokens (2 rows of 16 under ``dp = 2``), the JAX package
 from the global batch's; with 16 both cut the same groups.
 
+On a sequence split over ``sp`` a rank routes its block alone: the MoE
+transformer with groups of 8 on ``{"dp": 2, "sp": 2}`` and ``{"sp": 2}``
+(a world of 2 ranks), and with groups of 2 on ``{"sp": 4}`` over 30
+inputs a row (the last block holds 6 real tokens and 2 of padding, which
+stay out of the balancing loss), at the same limits; a group size that
+does not divide a block, or a block's real tokens, is refused by name on
+every rank.
+
 The step is held by its gradients, not by AdamW's first update: that
 update is about ``lr * sign(g)``, and an expert weight that few tokens
 reach has a gradient near Adam's epsilon, where the update turns on the
 gradient's last bits (one element of 8,192 moved 1.04e-5 apart from the
 JAX package's while its gradient agreed within 1e-8; ROADMAP §C C8).
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +53,9 @@ from torch_world_util import run_world
 LM = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4, d_ff=64, max_seq_len=32, moe_experts=4,
           moe_group_size=16, dtype="float32", attention="plain")
 EP = {"ep4": {"dp": 1, "ep": 4}, "dp2_ep2": {"dp": 2, "ep": 2}, "tp2_ep2": {"dp": 1, "tp": 2, "ep": 2}}
+#: sp meshes of the MoE transformer: (axes, moe_group_size, tokens a row);
+#: ``sp2`` runs in a world of 2 ranks
+SP = {"dp2_sp2": ({"dp": 2, "sp": 2}, 8, 17), "sp2": ({"sp": 2}, 8, 17), "sp4_pad": ({"sp": 4}, 2, 31)}
 
 
 def _np(tree):
@@ -106,15 +119,30 @@ def test_param_specs_put_the_experts_on_ep():
     assert specs["layer_0.moe.router.weight"] == (None, None)
 
 
+def _jax_step(params, tokens, **cfg):
+    model = jtransformer.create_model(**cfg)
+    (loss, metrics), grads = jax.value_and_grad(jtransformer.make_loss_fn(model), has_aux=True)(
+        params, {"tokens": jnp.asarray(tokens)})
+    return {"batch": {"tokens": tokens}, "loss": float(loss), "moe_aux": float(metrics["moe_aux"]),
+            "grads": convert.convert_variables({"params": _np(grads)})}
+
+
 @pytest.fixture(scope="module")
 def ref():
     model = jtransformer.create_model(**LM)
     params = _np(jax.jit(jtransformer.make_init_fn(model, sample_len=8))(jax.random.PRNGKey(0))["params"])
-    batch = {"tokens": np.random.default_rng(0).integers(0, 128, (4, 17)).astype(np.int32)}
-    (loss, metrics), grads = jax.value_and_grad(jtransformer.make_loss_fn(model), has_aux=True)(
-        params, {"tokens": jnp.asarray(batch["tokens"])})
-    return {"params": params, "batch": batch, "loss": float(loss), "moe_aux": float(metrics["moe_aux"]),
-            "grads": convert.convert_variables({"params": _np(grads)})}
+    out = dict(_jax_step(params, np.random.default_rng(0).integers(0, 128, (4, 17)).astype(np.int32), **LM),
+               params=params)
+    out["sp"] = {name: _jax_step(params, np.random.default_rng(1).integers(0, 128, (4, n)).astype(np.int32),
+                                 **dict(LM, moe_group_size=g))
+                 for name, (_, g, n) in SP.items()}
+    return out
+
+
+def _sp_spec(ref, names):
+    return {"sp_" + name: ("job_axes_step", dict(variables=ref["params"], cfg=dict(LM, moe_group_size=SP[name][1]),
+                                                 batches=[ref["sp"][name]["batch"]], axes=SP[name][0]))
+            for name in names}
 
 
 @pytest.fixture(scope="module")
@@ -124,12 +152,71 @@ def world(ref, tmp_path_factory):
     v, batch = ref["params"], ref["batch"]
     spec = {"step_" + name: ("job_axes_step", dict(variables=v, cfg=LM, batches=[batch], axes=axes))
             for name, axes in EP.items()}
+    spec.update(_sp_spec(ref, ("dp2_sp2", "sp4_pad")))
+    pad = ref["sp"]["sp4_pad"]["batch"]
+    spec["checks"] = ("job_sp_routing_checks", dict(
+        variables=v, cfg=dict(LM, moe_group_size=2), axes={"sp": 4},
+        batches=[pad, pad, pad, {"tokens": pad["tokens"][:, :-8]}, pad]))
+    for name, g, batch in (("block", 16, pad), ("real", 4, pad)):
+        spec["refuse_" + name] = ("job_error", dict(job="job_axes_step", kw=dict(
+            variables=v, cfg=dict(LM, moe_group_size=g), batches=[batch], axes={"sp": 4})))
     spec.update({
         "save_ep": ("job_axes_save", dict(root=root, variables=v, cfg=LM, batch=batch, axes=EP["ep4"], step_no=1)),
         "ep_on_dp": ("job_axes_restore", dict(path=root + "/ckpt_1", variables=v, cfg=LM, axes={"dp": 4})),
         "ep_on_dp_ep": ("job_axes_restore", dict(path=root + "/ckpt_1", variables=v, cfg=LM, axes=EP["dp2_ep2"])),
     })
     return run_world(tmp, spec)
+
+
+@pytest.fixture(scope="module")
+def world2(ref, tmp_path_factory):
+    return run_world(tmp_path_factory.mktemp("moe_sp2"), _sp_spec(ref, ("sp2",)), world=2)
+
+
+@pytest.mark.parametrize("name", sorted(SP))
+def test_sp_train_step_matches_the_jax_model(ref, world, world2, name):
+    """The MoE transformer with its sequence split over sp: each rank
+    routes its block's groups, the balancing loss sums its counts and
+    probabilities over dp and sp (``sp4_pad``: without the last block's
+    padding). Loss and ``moe_aux`` within 1e-5, every gradient within
+    1e-6."""
+    want = ref["sp"][name]
+    for r, got in enumerate(world2 if name == "sp2" else world):
+        step = got["sp_" + name]
+        np.testing.assert_allclose(step["losses"], [want["loss"]], atol=1e-5, rtol=0, err_msg="rank %d" % r)
+        np.testing.assert_allclose(step["metrics"]["moe_aux"], want["moe_aux"], atol=1e-5, rtol=0)
+        assert step["metrics"]["moe_aux"] >= 0.99
+        assert set(step["grads"]) == set(want["grads"])
+        for key, g in want["grads"].items():
+            np.testing.assert_allclose(step["grads"][key].numpy(), g.numpy(), atol=1e-6, rtol=0,
+                                       err_msg="rank %d %s" % (r, key))
+
+
+@pytest.mark.parametrize("name, match", [
+    ("block", r"moe_group_size=16 must divide the block length 8"),
+    ("real", r"the blocks hold \[8, 8, 8, 6\] real tokens of 8, and moe_group_size=4"),
+])
+def test_a_group_spanning_two_blocks_or_a_row_end_on_sp_is_refused(world, name, match):
+    """A group of 16 on blocks of 8 would span two ranks' blocks, and a
+    group of 4 on a last block of 6 real tokens (30 inputs a row) the end
+    of a row: every rank refuses by name, none hangs."""
+    for got in world:
+        assert got["refuse_" + name] is not None
+        assert re.search(match, got["refuse_" + name]), got["refuse_" + name]
+
+
+def test_sp_routing_is_checked_once_an_input_shape(world):
+    """The routing check (an all-gather and a read on the host) runs for a
+    new input shape only: three batches of blocks of 8, one of blocks of 6,
+    then blocks of 8 again."""
+    for got in world:
+        assert got["checks"] == [1, 1, 1, 2, 3]
+
+
+def test_sp_group_size_names_the_group_and_the_block():
+    assert transformer.sp_group_size(8, 16) == 8
+    with pytest.raises(ValueError, match="moe_group_size=6 must divide the block length 16"):
+        transformer.sp_group_size(6, 16)
 
 
 @pytest.mark.parametrize("name", sorted(EP))

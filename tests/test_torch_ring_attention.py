@@ -17,7 +17,11 @@ and ``{"tp": 2, "sp": 2}``: the logits of a ``TextPipeline`` slab at L = 46
 against the JAX model on the same meshes (2e-5), one AdamW step's loss,
 gradients and parameters against the JAX package's (1e-5), and a
 checkpoint saved under ``dp × sp`` resharded onto ``dp`` and back, bitwise.
-The plain versions of the flash kernels with key-side segment ids are held
+``attention="plain"``/``"flash"`` on sp attend the whole sequence, gathered:
+the slab's logits on ``dp2 × sp2``, ``sp4`` (L = 46, a padded last block)
+and ``sp2`` (a world of 2 ranks) against the JAX model with plain attention
+on the same mesh (2e-5), and one AdamW step on ``dp2 × sp2`` and ``sp2``
+(1e-5). The plain versions of the flash kernels with key-side segment ids are held
 against the JAX package's Pallas kernels (``interpret=True``) on one
 off-diagonal block pair.
 """
@@ -45,6 +49,9 @@ from torch_world_util import run_world
 
 CFG = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, d_ff=64, dtype="float32")
 SP_MESHES = {"dp2_sp2": {"dp": 2, "sp": 2}, "tp2_sp2": {"tp": 2, "sp": 2}}
+#: meshes of whole-sequence ``plain``/``flash`` attention (``sp2`` in a
+#: world of 2 ranks)
+WHOLE_MESHES = {"dp2_sp2": {"dp": 2, "sp": 2}, "sp4": {"sp": 4}, "sp2": {"sp": 2}}
 
 
 def _jmesh(axes):
@@ -167,12 +174,19 @@ def ref(tmp_path_factory):
         logits[name] = np.asarray(jax.jit(ring.apply)({"params": params}, jnp.asarray(slab["tokens"]),
                                                       positions=jnp.asarray(slab["positions"]),
                                                       segment_ids=jnp.asarray(slab["segment_ids"])))
+    plain_logits = {}
+    for name, axes in WHOLE_MESHES.items():
+        whole = jtransformer.create_model(mesh=_jmesh(axes), attention="plain", **CFG)
+        plain_logits[name] = np.asarray(jax.jit(whole.apply)({"params": params}, jnp.asarray(slab["tokens"]),
+                                                             positions=jnp.asarray(slab["positions"]),
+                                                             segment_ids=jnp.asarray(slab["segment_ids"])))
     batch = _packed_batch()
     (loss, _), grads = jax.jit(jax.value_and_grad(jtransformer.make_loss_fn(model), has_aux=True))(
         params, {k: jnp.asarray(v) for k, v in batch.items()})
     tx = optax.adamw(1e-3)
     updates, _ = tx.update(grads, tx.init(params), params)
-    return {"params": params, "slab": slab, "logits": logits, "batch": batch, "loss": float(loss),
+    return {"params": params, "slab": slab, "logits": logits, "plain_logits": plain_logits, "batch": batch,
+            "loss": float(loss),
             "grads": convert.convert_variables({"params": _np(grads)}),
             "stepped": convert.convert_variables({"params": _np(optax.apply_updates(params, updates))})}
 
@@ -186,6 +200,7 @@ def world(ref, tmp_path_factory):
     for name, axes in SP_MESHES.items():
         spec["logits_" + name] = ("job_sp_logits", dict(variables=v, cfg=cfg, batch=ref["slab"], axes=axes))
         spec["step_" + name] = ("job_axes_step", dict(variables=v, cfg=cfg, batches=[ref["batch"]], axes=axes))
+    spec.update(_whole_spec(ref, ("dp2_sp2", "sp4")))
     spec.update({
         "save_sp": ("job_axes_save", dict(root=a, variables=v, cfg=cfg, batch=ref["batch"], axes={"dp": 2, "sp": 2},
                                           step_no=1)),
@@ -195,6 +210,28 @@ def world(ref, tmp_path_factory):
         "dp_on_sp": ("job_axes_restore", dict(path=b + "/ckpt_1", variables=v, cfg=cfg, axes={"dp": 2, "sp": 2})),
     })
     return run_world(tmp, spec)
+
+
+def _whole_spec(ref, names):
+    """Jobs of whole-sequence ``plain``/``flash`` attention on the meshes
+    ``names``: the slab's logits, and one step where the mesh has dp or
+    only 2 sp ranks."""
+    spec = {}
+    for impl in ("plain", "flash"):
+        cfg = dict(CFG, attention=impl)
+        for name in names:
+            axes = WHOLE_MESHES[name]
+            spec["whole_{}_{}".format(impl, name)] = ("job_sp_logits", dict(
+                variables=ref["params"], cfg=cfg, batch=ref["slab"], axes=axes))
+            if name != "sp4":
+                spec["whole_step_{}_{}".format(impl, name)] = ("job_axes_step", dict(
+                    variables=ref["params"], cfg=cfg, batches=[ref["batch"]], axes=axes))
+    return spec
+
+
+@pytest.fixture(scope="module")
+def world2(ref, tmp_path_factory):
+    return run_world(tmp_path_factory.mktemp("sp2"), _whole_spec(ref, ("sp2",)), world=2)
 
 
 @pytest.fixture(scope="module")
@@ -358,14 +395,43 @@ def test_hop_schedule_launches_n_n_plus_1_over_2_causal():
     assert len(ra.hop_schedule(4, False)) == 16
 
 
+def _sp_blocks(results, key, length):
+    """The whole sequence's logits from the ranks' blocks (in sp order),
+    the last block's padding cut off."""
+    blocks = {}
+    for got in results:
+        blocks[got[key]["sp_index"]] = got[key]["logits"].numpy()
+    return np.concatenate([blocks[i] for i in sorted(blocks)], axis=1)[:, :length]
+
+
 @pytest.mark.parametrize("impl", ["plain", "flash"])
-def test_a_sequence_split_over_sp_refuses_block_local_attention(impl):
-    """With the sequence split over sp a rank holds only its block, so
-    ``plain``/``flash`` would attend within it: they raise (the JAX
-    package's ``plain`` there runs on the whole sequence)."""
-    q = torch.zeros(1, 2, 8, 16)
-    with pytest.raises(ValueError, match="ring"):
-        transformer._dispatch_attention(q, q, q, impl, sp_group=object())
+@pytest.mark.parametrize("name", sorted(WHOLE_MESHES))
+def test_whole_sequence_attention_on_sp_matches_the_jax_model(ref, world, world2, impl, name):
+    """``attention="plain"``/``"flash"`` on an sp mesh attend over the
+    whole sequence, gathered, as the JAX package's ``plain`` does there:
+    the slab's logits within 2e-5 of the JAX model on the same mesh (on
+    ``sp4`` L = 46 does not divide: the last block is padded)."""
+    ranks = world2 if name == "sp2" else world
+    real = ref["slab"]["segment_ids"] > 0
+    logits = _sp_blocks(ranks, "whole_{}_{}".format(impl, name), real.shape[1])
+    np.testing.assert_allclose(logits[real], ref["plain_logits"][name][real], atol=2e-5)
+
+
+@pytest.mark.parametrize("impl", ["plain", "flash"])
+@pytest.mark.parametrize("name", ["dp2_sp2", "sp2"])
+def test_one_adamw_step_of_whole_sequence_attention_on_sp_matches_the_jax_package(ref, world, world2, impl, name):
+    """One AdamW step with ``plain``/``flash`` attention on an sp mesh (23
+    inputs a row: sp does not divide them): the loss, the gradients and the
+    stepped parameters within 1e-5 of the JAX package's."""
+    for r, got in enumerate(world2 if name == "sp2" else world):
+        got = got["whole_step_{}_{}".format(impl, name)]
+        np.testing.assert_allclose(got["losses"], [ref["loss"]], atol=1e-5, rtol=0, err_msg="rank %d" % r)
+        for key, want in ref["grads"].items():
+            np.testing.assert_allclose(got["grads"][key].numpy(), want.numpy(), atol=1e-5, rtol=0,
+                                       err_msg="rank %d grad %s" % (r, key))
+        for key, want in ref["stepped"].items():
+            np.testing.assert_allclose(got["params"][key].numpy(), want.numpy(), atol=1e-5, rtol=0,
+                                       err_msg="rank %d %s" % (r, key))
 
 
 def test_sequence_chunk_overlaps_one_target_and_pads_the_last_block():

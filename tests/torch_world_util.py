@@ -459,16 +459,59 @@ def job_ring(ctx, cases):
 
 def job_sp_logits(ctx, variables, cfg, batch, axes):
     """The transformer (the JAX model's weights) on ``ctx.mesh(axes)``, every
-    rank on all rows and its block of the sequence (L divisible by sp):
-    its block of the logits and its sp index."""
-    from tensorflowonspark_tpu_torch.parallel import collectives
+    rank on all rows and its block of the sequence
+    (``sharding.sequence_chunk``: the last block padded when sp does not
+    divide L): its block of the logits and its sp index."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch.parallel import collectives, sharding
 
     mesh, _, _, _, state = _lm_state(ctx, variables, cfg, axes)
     n, i = collectives.axis_size("sp", mesh), collectives.axis_index("sp", mesh)
-    mine = {k: torch.as_tensor(v).chunk(n, 1)[i].contiguous() for k, v in batch.items()}
+    # one more column: sequence_chunk cuts [B, L + 1] rows into blocks of inputs
+    mine = sharding.sequence_chunk({k: np.pad(np.asarray(v), ((0, 0), (0, 1))) for k, v in batch.items()}, i, n)
+    mine = {k: torch.as_tensor(v[:, :-1]).contiguous() for k, v in mine.items()}
     with torch.no_grad():
-        logits = state.module(mine["tokens"], positions=mine.get("positions"), segment_ids=mine.get("segment_ids"))
+        logits = state.module(mine["tokens"], positions=mine.get("positions"), segment_ids=mine.get("segment_ids"),
+                              valid=mine.get("valid"))
     return {"logits": logits, "sp_index": i, "sp": n}
+
+
+def job_sp_routing_checks(ctx, variables, cfg, batches, axes):
+    """The loss of the transformer on ``ctx.mesh(axes)`` for each of
+    ``batches``, in turn, without gradients: after each, how many times the
+    model has checked its MoE routing on sp."""
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    calls = []
+    real = transformer._check_sp_routing
+
+    def counted(*args):
+        calls.append(args)
+        return real(*args)
+
+    transformer._check_sp_routing = counted
+    try:
+        mesh, _, model, _, state = _lm_state(ctx, variables, cfg, axes)
+        loss_fn = transformer.make_loss_fn(model)
+        out = []
+        for b in batches:
+            with torch.no_grad():
+                loss_fn(state.module, {k: torch.as_tensor(v) for k, v in _lm_rows(mesh, b).items()})
+            out.append(len(calls))
+    finally:
+        transformer._check_sp_routing = real
+    return out
+
+
+def job_error(ctx, job, kw):
+    """Run job ``job`` with ``kw``: the message of the ``ValueError`` it
+    raises (None if it raises none)."""
+    try:
+        globals()[job](ctx, **kw)
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def tanh_stage(params, x):
