@@ -79,17 +79,19 @@ and the script exits non-zero:
                   hop's forward, dq and dk/dv ms beside their bounds (the
                   hop's attended pairs).
    ``kernel_headdim`` B5-B7 at head dims the kernels are not compiled
-                  for, D = 32, 48 (zero-padded to the D = 64 kernels) and
-                  96 (to D = 128), beside D = 64 and 128, at [B·H=64,
-                  L=2048, D] on the slab's segments, causal, bf16 and f32:
-                  every launch against its plain version at the flash
-                  limits above, one launch a call, a 1% dk fault caught at
-                  each padded width; kernel and plain ms, the bound at the
-                  real D and at the padded one; a layer's forward and
-                  backward, device ms queued behind a spin, through the
-                  autograd function (each operand padded once) and
-                  through the three wrappers each padding its own;
-                  D = 256 refused, with no launch.
+                  for, D = 32, 48 (zero-padded to the D = 64 kernels), 96
+                  (to D = 128), 160 and 192 (to D = 256), beside D = 64,
+                  128 and 256, at [B·H=64, L=2048, D] up to D = 128 and
+                  at the D = 256 LM's 2 heads, [B·H=16, L=2048, D], above,
+                  on the slab's segments, causal, bf16 and f32: every
+                  launch against its plain version at the flash limits
+                  above, one launch a call, a 1% dk fault caught at each
+                  padded width; kernel and plain ms, the bound at the real
+                  D and at the padded one, SDPA's ms at D = 256; a layer's
+                  forward and backward, device ms queued behind a spin,
+                  through the autograd function (each operand padded
+                  once) and through the three wrappers each padding its
+                  own; D = 320 refused, with no launch.
 5. ``slice``      the port's ResNet path: ``TFCluster.run`` on the local
                   backend, one executor, the port's ``resnet_spark.main_fun``
                   on full ResNet-50, bf16, ``bn_impl="pallas"``, batch 64, 5
@@ -142,6 +144,13 @@ and the script exits non-zero:
                   and faults at those defaults, on each of the first 16
                   batches (its bf16 loss and gradient limits
                   ``LM_DEFAULTS_BF16_TOLS``).
+   ``slice_lm_d256`` the LM slice with 2 heads of 256 (``LM_D256``: the
+                  D = 256 kernels, no padding) through ``TFCluster.run``,
+                  eager and through the loop, as ``slice_lm`` /
+                  ``slice_lm_loop`` (``slice_lm_d256`` /
+                  ``slice_lm_d256_loop``); then ``compare_lm_d256``:
+                  ``compare_lm``'s step, limits and faults on the slice's
+                  batch at that width.
    ``compare_loop`` for each slice, 5 captured steps (the train loop)
                   against 5 eager steps from the same weights on the same 5
                   batches, cuDNN deterministic: every parameter, BN
@@ -251,9 +260,10 @@ and the script exits non-zero:
                   --deterministic``, twice: run A uninterrupted through
                   ``TFCluster.run``, run B through ``--auto_recover 1``
                   (``TFCluster.run_with_recovery``) with the ``node.kill``
-                  chaos site killing the trainer once, mid-run, at a
-                  heartbeat placed from run A's timeline. One relaunch, the
-                  second life resumed from a checkpoint (step >= 10), both
+                  chaos site killing the trainer once, mid-run, at the
+                  first heartbeat after its checkpoint of step 70 or later
+                  is committed. One relaunch, the second life resumed from
+                  a checkpoint at or past that one, both
                   final checkpoints manifest-verified and B's bitwise equal
                   to A's; checkpoint bytes, the blocking save's median
                   seconds, restore seconds, seconds from the kill to the
@@ -401,10 +411,24 @@ and the script exits non-zero:
                   (the flash kernels) the pack-plane LM leg, the fully
                   sharded leg (``slice_fsdp``), the model-axes legs
                   (``slice_axes``: tp, the mixture, remat), the example at its defaults
-                  (``slice_lm_defaults``, eager, loop, traced), the ring, the
+                  (``slice_lm_defaults``, eager, loop, traced), the LM at
+                  head dim 256 (``slice_lm_d256``, eager, loop, traced:
+                  the ``<wrapper>_d256`` entries), the ring, the
                   1F1B and GPipe steps and the overlap ranks did, and (the
                   flash forward) the LM server did; the BN kernels also on
                   ``loop_cache``'s run and in its traced window.
+
+Order: phases 1-4 (the build and the kernels' own times) run alone. Then
+three processes run side by side (``trainer_phases`` here;
+``sharded_phases`` and ``host_phases`` each in one of their own,
+``phase_child``, their lines printed here once they end, with
+``<name>_seconds``): here phases 5-8, ``slice_lm_defaults``,
+``slice_lm_d256``, ``compare_loop``, ``pipeline``, 9, ``slice_lm_pack``
+and ``serve_lm``; ``slice_fsdp``, ``slice_axes``, ``overlap``,
+``loop_cache`` and 10; and phases 11-17 but those two (feeders, data
+planes, clients, small models: the card idle most of their time). The
+rates of phases 5 on are taken with the other two running; the recover
+phase's kill waits for a checkpoint, not for a time.
 
 Then one JSON line with every kernel's measurements (``launches``: its
 wrapper's on the eager path; ``launches_loop_path``: its wrapper's on the
@@ -432,7 +456,9 @@ an off-diagonal hop's ms beside their bounds; ``launches_pipeline_1f1b`` /
 ``device_launches_loop_cache_traced_window``: ``loop_cache``'s;
 ``launches_serving``: the flash forward's wrapper's over
 ``serve_lm``'s traffic; ``launches_segmentation``: its wrapper's in
-``slice_seg``'s trainer), the ``nvidia-smi``
+``slice_seg``'s trainer; and the ``<wrapper>_d256`` entries, the same
+wrappers at head dim 256: ``slice_lm_d256``'s launches, ``kernel_headdim``'s
+D = 256 bf16 numbers a step of that LM, SDPA's beside them), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script fails before printing anything.
 """
@@ -455,13 +481,11 @@ BATCH, IMAGE, STEPS = 64, 224, 5
 #: the two eager warm-up steps and the capture), the third traced
 LOOP_STEPS, TRACE_CALL = 20, 3
 #: the recover phase: the example with a checkpoint every 10 steps (the
-#: newest 3 kept), a kill placed KILL_AT of the way from run A's first
-#: checkpoint to its last call, on a heartbeat of HEARTBEAT_S; run A must
-#: leave RECOVER_MIN_ROOM_S between the two. 200 steps leave ~15 s of room
-#: on an H100 (300 left ~24 s): run B's first life starts up to 3 s off run
-#: A's
-RECOVER_STEPS, RECOVER_EVERY, RECOVER_KEEP = 200, 10, 3
-HEARTBEAT_S, KILL_AT, RECOVER_MIN_ROOM_S = 0.25, 0.35, 6.0
+#: newest 3 kept); run B's trainer is killed at its first heartbeat (every
+#: HEARTBEAT_S) once its checkpoint of step RECOVER_KILL_STEP or later is
+#: committed, so the kill lands mid-run wherever the host sets the pace
+RECOVER_STEPS, RECOVER_EVERY, RECOVER_KEEP, RECOVER_KILL_STEP = 200, 10, 3, 70
+HEARTBEAT_S = 0.25
 #: the slice_axes phase: eager steps and timed turns of its tp leg
 AXES_EAGER, AXES_PAIRS = 3, 3
 #: the pipeline phase: 1F1B over PIPE_STAGES stages of PIPE_BLOCKS LM
@@ -515,8 +539,11 @@ FLASH_TABLE = [
 ]
 FLASH_SOURCE = "tensorflowonspark_tpu_torch/csrc/flash_attention.cu"
 #: the kernel_headdim phase: head dims the kernels are not compiled for
-#: (zero-padded to the next compiled one) and the compiled ones beside them
-HEADDIM_PADDED, HEADDIM_NATIVE = (32, 48, 96), (64, 128)
+#: (zero-padded to the next compiled one) and the compiled ones beside them,
+#: and a head dim past the largest, which must be refused
+HEADDIM_PADDED, HEADDIM_NATIVE, HEADDIM_REFUSED = (32, 48, 96, 160, 192), (64, 128, 256), 320
+#: the LM slice at head dim 256 (slice_lm_d256): 2 heads of 256
+LM_D256 = dict(LM, n_heads=2)
 #: the slice_lm_defaults phase: steps of the example at its own defaults,
 #: eager and through the loop (K = STEPS, the third call traced)
 LM_DEFAULTS_STEPS = 20
@@ -1052,6 +1079,32 @@ def _sdpa_backend(torch, F, q, k, v, mask):
     raise RuntimeError("no SDPA backend takes a boolean mask here")
 
 
+def sdpa_yardsticks(torch, F, q, k, v, do, seg, heads):
+    """SDPA's forward and its backward (dq, dk, dv) on the kernels' ``[BH,
+    L, D]`` operands, causal with the segment fence as a boolean mask, on
+    the first fused backend that takes them (:func:`_sdpa_backend`):
+    ``(forward, backward, backend)``."""
+    from torch.nn.attention import sdpa_kernel
+
+    bh, length, d = q.shape
+    q4, k4, v4, do4 = (t.view(bh // heads, heads, length, d) for t in (q, k, v, do))
+    pos = torch.arange(length, device=q.device)
+    mask = ((pos[:, None] >= pos[None, :])[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]
+    backend = _sdpa_backend(torch, F, q4, k4, v4, mask)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    with sdpa_kernel([backend]):
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+
+    def forward():
+        with sdpa_kernel([backend]):
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+    def backward():
+        return torch.autograd.grad(out, (qg, kg, vg), do4, retain_graph=True)
+
+    return forward, backward, backend
+
+
 def phase_flash_kernel(torch, F, fa, seg_slice):
     """Each flash kernel against its plain version, bf16 at the slice's
     shape and f32 at [16, 1024, 64], causal with the corpus's segments. On
@@ -1059,8 +1112,6 @@ def phase_flash_kernel(torch, F, fa, seg_slice):
     output (O, dq, dk) off by 1%, and O with a kv block dropped. Returns the
     bf16 line's numbers per LM step (6 layers)."""
     from tensorflowonspark_tpu_torch.examples.resnet.bench_bn import time_ms
-
-    from torch.nn.attention import sdpa_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' einsums in full f32
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB > L2
@@ -1077,21 +1128,7 @@ def phase_flash_kernel(torch, F, fa, seg_slice):
         delta = (do.float() * o_ref.float()).sum(-1)
         args = (seg, scale, True, heads)
         bwd = (seg, do, lse_ref, delta, scale, True, heads)
-        q4, k4, v4, do4 = (t.view(b, heads, length, d) for t in (q, k, v, do))
-        pos = torch.arange(length, device="cuda")
-        mask = ((pos[:, None] >= pos[None, :])[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]
-        backend = _sdpa_backend(torch, F, q4, k4, v4, mask)
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
-        with sdpa_kernel([backend]):
-            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
-
-        def library_fwd():
-            with sdpa_kernel([backend]):
-                return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
-
-        def library_bwd():
-            return torch.autograd.grad(out, (qg, kg, vg), do4, retain_graph=True)
-
+        library_fwd, library_bwd, backend = sdpa_yardsticks(torch, F, q, k, v, do, seg, heads)
         cases = {
             "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *args),
                           lambda: fa.flash_fwd_plain(q, k, v, *args), library_fwd),
@@ -1149,7 +1186,7 @@ def phase_flash_kernel(torch, F, fa, seg_slice):
                 totals[name] = {"ms": n_layers * ms, "plain_ms": n_layers * plain_ms,
                                 "library_ms": n_layers * library_ms, "bound_ms": n_layers * b_ms,
                                 "bound_by": b_by, "max_abs_err": err}
-        del q, k, v, do, q4, k4, v4, do4, qg, kg, vg, out, o_ref, lse_ref, delta, mask
+        del q, k, v, do, o_ref, lse_ref, delta, cases, library_fwd, library_bwd
         torch.cuda.empty_cache()
     return totals
 
@@ -1170,23 +1207,23 @@ def queued_ms(torch, fn, calls=20, spin_cycles=100_000_000):
     return start.elapsed_time(end) / calls
 
 
-def phase_kernel_headdim(torch, fa, seg_slice):
+def phase_kernel_headdim(torch, F, fa, seg_slice):
     """B5-B7 at head dims the kernels are not compiled for (module
     docstring, ``kernel_headdim``), beside the compiled ones: each launch
     against its plain version at the flash limits, on the LM slab's shape
-    and segments, causal, bf16 and f32; a 1% dk fault caught at each padded
-    width; a head dim of 256 refused without a launch. Returns
-    ``{wrapper: {"<d>_<dtype>": {"ms", "plain_ms", "bound_ms", "bound_by",
-    "bound_ms_padded_width", "max_abs_err"}}}``."""
+    and segments (8 heads up to D = 128, the D = 256 LM's 2 heads above),
+    causal, bf16 and f32; a 1% dk fault caught at each padded width; a head
+    dim past 256 refused without a launch; at D = 256 SDPA's time on the
+    same operands. Returns ``{wrapper: {"<d>_<dtype>": {"ms", "plain_ms",
+    "bound_ms", "bound_by", "bound_ms_padded_width", "max_abs_err"[,
+    "library_ms", "library"]}}}``."""
     from tensorflowonspark_tpu_torch.examples.resnet.bench_bn import time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' einsums in full f32
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB > L2
     gen = torch.Generator(device="cuda").manual_seed(2)
-    heads = LM["n_heads"]
     seg = seg_slice[:LM_BATCH, :LM_SEQ].contiguous()
-    pairs = attended_pairs(seg.cpu()) * heads
-    x = torch.zeros(2, 128, 256, device="cuda", dtype=torch.bfloat16)
+    x = torch.zeros(2, 128, HEADDIM_REFUSED, device="cuda", dtype=torch.bfloat16)
     before = fa.launch_counts()
     try:
         fa.flash_fwd(x, x, x, None, 0.0625, True, 1)
@@ -1194,10 +1231,12 @@ def phase_kernel_headdim(torch, fa, seg_slice):
     except ValueError as e:
         refused = str(e)
     if refused is None or fa.launch_counts() != before:
-        raise AssertionError("kernel_headdim: head dim 256 was not refused ({}, launches {} -> {})".format(
-            refused, before, fa.launch_counts()))
+        raise AssertionError("kernel_headdim: head dim {} was not refused ({}, launches {} -> {})".format(
+            HEADDIM_REFUSED, refused, before, fa.launch_counts()))
     out = {name: {} for name, *_ in FLASH_TABLE}
     for d in sorted(HEADDIM_PADDED + HEADDIM_NATIVE):
+        heads = LM["n_heads"] if d <= 128 else LM_D256["n_heads"]
+        pairs = attended_pairs(seg.cpu()) * heads
         for dtype_name in ("bfloat16", "float32"):
             dtype = getattr(torch, dtype_name)
             shape = (LM_BATCH * heads, LM_SEQ, d)
@@ -1214,8 +1253,12 @@ def phase_kernel_headdim(torch, fa, seg_slice):
                 "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, *bwd),
                                   lambda: fa.flash_bwd_dkv_plain(q, k, v, *bwd)),
             }
+            library = None
+            if d == 256:
+                library_fwd, library_bwd, backend = sdpa_yardsticks(torch, F, q, k, v, do, seg, heads)
+                library = {"flash_fwd": library_fwd, "flash_bwd_dq": library_bwd, "flash_bwd_dkv": library_bwd}
             line = {"phase": "kernel_headdim", "shape": list(shape), "dtype": dtype_name, "causal": True,
-                    "padded_to": fa.head_width(d), "refused_256": refused}
+                    "padded_to": fa.head_width(d), "refused_{}".format(HEADDIM_REFUSED): refused}
             for name, (kernel, plain) in cases.items():
                 n0 = fa.launch_counts()[name]
                 got, want = kernel(), plain()
@@ -1239,6 +1282,9 @@ def phase_kernel_headdim(torch, fa, seg_slice):
                        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
                        "bound_ms_padded_width": flash_bound(name, seg, heads, LM_SEQ, fa.head_width(d),
                                                             q.element_size(), pairs)[0]}
+                if library:
+                    res.update(library_ms=time_ms(torch, library[name], flush), library="sdpa {} {}".format(
+                        backend.name, "forward" if name == "flash_fwd" else "backward (dq+dk+dv)"))
                 out[name]["{}_{}".format(d, dtype_name)] = res
                 line[name] = dict(res, elem_err=readings["elem"], norm_err=readings["norm"],
                                   dk_fault=control)
@@ -1258,7 +1304,7 @@ def phase_kernel_headdim(torch, fa, seg_slice):
 
             line["layer_ms"] = {"pads_shared": queued_ms(torch, shared), "pads_each_launch": queued_ms(torch, each)}
             emit(line)
-            del q, k, v, do, o_ref, lse_ref, delta, cases, qg, kg, vg
+            del q, k, v, do, o_ref, lse_ref, delta, cases, qg, kg, vg, library
             torch.cuda.empty_cache()
     return out
 
@@ -1572,12 +1618,13 @@ def lm_defaults():
     return cfg, args.seq_len, args.batch_size, args.dtype
 
 
-def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1, pack_workers=0, defaults=False):
+def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1, pack_workers=0, defaults=False, width=LM):
     """The port's LM path through the user's entry points; with
     ``steps_per_loop`` K > 1 its loop path, traced as in :func:`phase_slice`;
     with ``pack_workers`` its text plane packing in forked workers
     (``slice_lm_pack``); with ``defaults`` the example at its own defaults
-    (``slice_lm_defaults``: only the data, the steps and the loop set).
+    (``slice_lm_defaults``: only the data, the steps and the loop set);
+    ``width`` the model's (``LM_D256``: ``slice_lm_d256``).
     Returns each flash wrapper's launches in the run (a layer a step for
     :func:`wrapper_calls` steps), on the loop path the traced call's device
     launches of each flash kernel (a layer a replayed step), and the
@@ -1587,9 +1634,9 @@ def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1, pack_workers=0,
     from tensorflowonspark_tpu_torch.examples.transformer import transformer_spark
 
     model_args = [] if defaults else [
-        "--vocab_size", str(LM["vocab_size"]), "--d_model", str(LM["d_model"]),
-        "--n_layers", str(LM["n_layers"]), "--n_heads", str(LM["n_heads"]),
-        "--d_ff", str(LM["d_ff"]), "--seq_len", str(LM_SEQ), "--batch_size", str(LM_BATCH),
+        "--vocab_size", str(width["vocab_size"]), "--d_model", str(width["d_model"]),
+        "--n_layers", str(width["n_layers"]), "--n_heads", str(width["n_heads"]),
+        "--d_ff", str(width["d_ff"]), "--seq_len", str(LM_SEQ), "--batch_size", str(LM_BATCH),
         "--dtype", "bfloat16", "--tokenizer", "byte"]
     args = transformer_spark.build_parser().parse_args(model_args + [
         "--train_steps", str(steps),
@@ -1632,8 +1679,9 @@ def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1, pack_workers=0,
     want = cfg["n_layers"] * wrapper_calls(steps, steps_per_loop)
     efficiency = metrics["gauges"].get("text_pack_efficiency", {}).get("value")
     name = "slice_lm_pack" if pack_workers else "slice_lm" if steps_per_loop == 1 else "slice_lm_loop"
-    if defaults:
-        name = "slice_lm_defaults" + ("_loop" if steps_per_loop > 1 else "")
+    if defaults or width is not LM:
+        name = ("slice_lm_defaults" if defaults else "slice_lm_d{}".format(cfg["d_model"] // cfg["n_heads"])) + (
+            "_loop" if steps_per_loop > 1 else "")
     line = {"phase": name, "model": "transformer", "pack_workers": pack_workers,
             "config": dict(cfg, seq_len=seq), "head_dim": cfg["d_model"] // cfg["n_heads"],
             "dtype": args.dtype, "batch": rows, "steps": steps,
@@ -1848,6 +1896,18 @@ def phase_slice_lm_defaults(torch, fa, transformer, data_dir):
     torch.cuda.empty_cache()
     phase_compare_lm(torch, fa, transformer, lm_defaults_batches(data_dir), cfg, "compare_lm_defaults",
                      LM_DEFAULTS_BF16_TOLS)
+    return launches, loop_launches, traced
+
+
+def phase_slice_lm_d256(torch, fa, transformer, data_dir, lm_batch):
+    """The LM slice at 2 heads of 256 (module docstring, ``slice_lm_d256``):
+    eager and through the loop, then ``compare_lm``'s step on the slice's
+    batch. Returns the eager run's and the loop run's wrapper launches and
+    the traced call's device launches."""
+    launches, _, _ = phase_slice_lm(torch, fa, data_dir, STEPS, width=LM_D256)
+    loop_launches, traced, _ = phase_slice_lm(torch, fa, data_dir, LOOP_STEPS, STEPS, width=LM_D256)
+    torch.cuda.empty_cache()
+    phase_compare_lm(torch, fa, transformer, [lm_batch], LM_D256, "compare_lm_d256")
     return launches, loop_launches, traced
 
 
@@ -2673,13 +2733,15 @@ def phase_recover(torch, fused_bn, work):
     --checkpoint_steps 10``, cuDNN deterministic), twice. Run A
     uninterrupted through ``TFCluster.run``; run B through the example's
     ``--auto_recover 1`` (``TFCluster.run_with_recovery``) with a chaos plan
-    arming ``node.kill`` on executor 0, once-latched, at a heartbeat placed
-    from run A's own timeline (``KILL_AT`` of the way from its first
-    checkpoint to its last call). Both runs trace into flight shards
-    (``TOS_TRACE_DIR``): the kill, each life's ``ckpt_restore`` /
-    ``ckpt_save`` / ``train_step`` spans. Fails unless B relaunched once,
-    its second life resumed at a step >= ``RECOVER_EVERY``, both final
-    checkpoints pass ``manifest.verify``, and B's final checkpoint equals
+    arming ``node.kill`` on executor 0, once-latched: the latch is held
+    until the checkpoint of step ``RECOVER_KILL_STEP`` or later is
+    committed (a thread here watches the model directory), so the kill
+    lands at the next heartbeat, mid-run, however fast the host. Both runs
+    trace into flight shards (``TOS_TRACE_DIR``): the kill, each life's
+    ``ckpt_restore`` / ``ckpt_save`` / ``train_step`` spans. Fails unless B
+    relaunched once, its second life resumed at a step >= the checkpoint
+    that armed the kill, both final checkpoints pass ``manifest.verify``,
+    and B's final checkpoint equals
     A's bitwise, tensor for tensor, and in ``step``. Returns each BN
     wrapper's launches in run A (its counts start at 0 in the fresh
     trainer)."""
@@ -2728,29 +2790,39 @@ def phase_recover(torch, fused_bn, work):
         lives_a = _trainer_lives(flight, os.path.join(dirs["a"], "trace"))
         if len(lives_a) != 1:
             raise AssertionError("run A: expected one trainer life, found {}".format(len(lives_a)))
-        start_a, recs_a = lives_a[0]
-        saves_a = _spans(recs_a, "ckpt_save")
-        calls_a = _spans(recs_a, "train_step")
-        first_save = min(r["ts"] + r["dur_s"] for r in saves_a)
-        last_call = max(r["ts"] for r in calls_a)
-        room = last_call - first_save
-        if room < RECOVER_MIN_ROOM_S:
-            raise AssertionError("run A leaves {:.2f} s between its first checkpoint and its last call, "
-                                 "too little to place the kill".format(room))
-        kill_into_life = first_save - start_a + KILL_AT * room
-        after_beats = int(math.ceil(kill_into_life / HEARTBEAT_S))
+        saves_a = _spans(lives_a[0][1], "ckpt_save")
 
-        # run B: killed once, relaunched by run_with_recovery, resumed
+        # run B: killed once, relaunched by run_with_recovery, resumed. The
+        # latch exists from the start, which holds the kill back, until the
+        # watcher sees a checkpoint of step RECOVER_KILL_STEP or later
         os.environ[flight.TRACE_DIR_ENV] = os.path.join(dirs["b"], "trace")
         model_b = os.path.join(dirs["b"], "model")
         latch = os.path.join(dirs["b"], "killed.latch")
+        os.makedirs(dirs["b"])
+        with open(latch, "w"):
+            pass
+        armed, done = {}, threading.Event()
+
+        def arm():
+            while not done.wait(0.02):
+                steps = [int(d[len("ckpt_"):]) for d in (os.listdir(model_b) if os.path.isdir(model_b) else [])
+                         if d.startswith("ckpt_") and d[len("ckpt_"):].isdigit()]
+                if steps and max(steps) >= RECOVER_KILL_STEP:
+                    armed["step"] = max(steps)
+                    os.remove(latch)
+                    return
+
         chaos.install(chaos.ChaosPlan(seed=0).site("node.kill", probability=1.0, max_count=1, victim=0,
-                                                   after_beats=after_beats, once_path=latch))
+                                                   once_path=latch))
+        watcher = threading.Thread(target=arm, name="recover-arm", daemon=True)
         t0 = time.perf_counter()
         sc = LocalSparkContext(num_executors=1)
+        watcher.start()
         try:
             relaunches = resnet_spark.main(argv(model_b) + ["--auto_recover", "1"], sc=sc)
         finally:
+            done.set()
+            watcher.join()
             sc.stop()
             chaos.uninstall()
         wall_b = time.perf_counter() - t0
@@ -2780,8 +2852,8 @@ def phase_recover(torch, fused_bn, work):
         "phase": "recover", "model": "resnet50", "dtype": "bfloat16", "bn_impl": "pallas", "batch": BATCH,
         "image": IMAGE, "steps": RECOVER_STEPS, "steps_per_loop": STEPS, "checkpoint_steps": RECOVER_EVERY,
         "keep_checkpoints": RECOVER_KEEP, "cudnn_deterministic": True, "heartbeat_s": HEARTBEAT_S,
-        "kill_after_beats": after_beats, "kill_planned_s_into_life": kill_into_life,
-        "room_s": room, "relaunches": relaunches, "kills": len(kills), "lives": len(lives_b),
+        "kill_armed_at_checkpoint": armed.get("step"), "relaunches": relaunches, "kills": len(kills),
+        "lives": len(lives_b),
         "resumed_at_step": resumed,
         "checkpoint_bytes": sum(os.path.getsize(os.path.join(paths["a"], n)) for n in os.listdir(paths["a"]))
         if os.path.isdir(paths["a"]) else None,
@@ -2800,8 +2872,9 @@ def phase_recover(torch, fused_bn, work):
     if relaunches != 1 or len(kills) != 1 or len(second) != 1:
         raise AssertionError("recover: {} relaunch(es), {} kill(s), {} life after the kill (want 1 each)".format(
             relaunches, len(kills), len(second)))
-    if resumed is None or resumed < RECOVER_EVERY:
-        raise AssertionError("recover: the second life resumed at step {}, not from a checkpoint".format(resumed))
+    if resumed is None or resumed < max(RECOVER_EVERY, armed.get("step", 0)):
+        raise AssertionError("recover: the second life resumed at step {}, not from a checkpoint at or past the "
+                             "kill's ({})".format(resumed, armed.get("step")))
     if not all(v[0] and v[1] == "verified" for v in verified.values()):
         raise AssertionError("recover: final checkpoints fail verify: {}".format(verified))
     if diff:
@@ -4190,6 +4263,178 @@ def phase_estimator_mnist(torch, work):
         raise AssertionError("estimator_mnist: {}".format(line))
 
 
+def trainer_phases(torch, fa, fused_bn, resnet, transformer, here, data_dir, lm_batch):
+    """The ResNet and LM slices, the comparisons on their steps and the LM
+    server, in this process while :func:`sharded_phases` and
+    :func:`host_phases` run beside them. Returns the launch counts (and
+    losses) the kernels lines read, by name."""
+    n = {}
+    n["launches"], _ = phase_slice(torch, fused_bn)
+    n["loop_launches"], n["traced_launches"] = phase_slice(torch, fused_bn, LOOP_STEPS, STEPS)
+    phase_compare(torch, fused_bn, resnet)
+    torch.cuda.empty_cache()
+    n["flash_launches"], _, n["lm_losses"] = phase_slice_lm(torch, fa, data_dir, STEPS)
+    n["loop_flash_launches"], n["traced_flash_launches"], _ = phase_slice_lm(torch, fa, data_dir, LOOP_STEPS, STEPS)
+    phase_compare_lm(torch, fa, transformer, [lm_batch])
+    torch.cuda.empty_cache()
+    n["defaults_launches"], n["defaults_loop_launches"], n["defaults_traced"] = timed(
+        "slice_lm_defaults", phase_slice_lm_defaults, torch, fa, transformer, data_dir)
+    torch.cuda.empty_cache()
+    n["d256_launches"], n["d256_loop_launches"], n["d256_traced"] = timed(
+        "slice_lm_d256", phase_slice_lm_d256, torch, fa, transformer, data_dir, lm_batch)
+    torch.cuda.empty_cache()
+    phase_compare_loop(torch, resnet, transformer, lm_batch)
+    torch.cuda.empty_cache()
+    n["pipe_launches"], n["pipe_traced"], n["gpipe_launches"] = timed("pipeline", phase_pipeline, torch, fa,
+                                                                      transformer)
+    torch.cuda.empty_cache()
+    phase_ckpt_engine(torch, resnet, os.path.join(here, "build", "chip_smoke_ckpt"))
+    n["pack_launches"], _, n["pack_losses"] = timed("slice_lm_pack", phase_slice_lm, torch, fa, data_dir,
+                                                    LM_PACK_STEPS, 1, LM_PACK_WORKERS)
+    serve_work = os.path.join(here, "build", "chip_smoke_serve_lm")
+    os.makedirs(serve_work, exist_ok=True)
+    n["serve_launches"] = timed("serve_lm", phase_serve_lm, torch, fa, lm_batch, serve_work)
+    torch.cuda.empty_cache()
+    return n
+
+
+def sharded_phases(torch, fa, fused_bn, here):
+    """The LM on its sharded and model axes, the two-rank overlap, the loop
+    cache and the recovery, in a process of their own
+    (:class:`PhaseProcess`). Returns their launch counts by name."""
+    data_dir, lm_batch = lm_corpus(here)
+    n = {}
+    n["fsdp_launches"], n["fsdp_traced"] = timed("slice_fsdp", phase_slice_fsdp, torch, fa, data_dir,
+                                                 os.path.join(here, "build", "chip_smoke_fsdp"))
+    (n["axes_launches"], n["axes_traced"], n["moe_launches"], n["remat_launches"], n["sp_launches"],
+     n["sp_traced"]) = timed("slice_axes", phase_slice_axes, torch, fa, data_dir,
+                             os.path.join(here, "build", "chip_smoke_axes"))
+    torch.cuda.empty_cache()  # hand the overlap ranks the card's memory
+    n["overlap_launches"], n["overlap_traced"] = timed("overlap", phase_overlap, torch, fa, here, lm_batch,
+                                                       os.path.join(here, "build", "chip_smoke_overlap"))
+    n["cache_launches"], n["cache_traced"] = timed("loop_cache", phase_loop_cache_child, here,
+                                                   os.path.join(here, "build", "chip_smoke_loop_cache"))
+    n["recover_launches"] = timed("recover", phase_recover, torch, fused_bn,
+                                  os.path.join(here, "build", "chip_smoke_recover"))
+    return n
+
+
+def host_phases(torch, fa, fused_bn, here):
+    """The MNIST, real-data, serving and segmentation phases, whose feeders,
+    data planes, clients and small models keep the host busy and leave the
+    card idle most of the time, in a process of their own
+    (:class:`PhaseProcess`). Returns their launch counts by name."""
+    mnist_work = os.path.join(here, "build", "chip_smoke_mnist")
+    n = {}
+    timed("mnist_compare", phase_mnist_compare, torch)
+    bundle, n["mnist_launches"] = timed("slice_mnist", phase_slice_mnist, torch, mnist_work)
+    timed("pipeline_mnist", phase_pipeline_mnist, torch, mnist_work)
+    timed("parallel_mnist", phase_parallel_mnist, torch, bundle)
+    n["real_launches"] = timed("real", phase_real, torch, fused_bn, here,
+                               os.path.join(here, "build", "chip_smoke_real"))
+    serve_work = os.path.join(here, "build", "chip_smoke_serve")
+    os.makedirs(serve_work, exist_ok=True)
+    bundle = timed("serve", phase_serve, torch, serve_work)
+    timed("infer_cli", phase_infer_cli, torch, here, bundle,
+          os.path.join(here, "build", "chip_smoke_real", "eval"), serve_work)
+    torch.cuda.empty_cache()
+    phase_serving_mesh(here, serve_work)
+    seg_work = os.path.join(here, "build", "chip_smoke_seg")
+    os.makedirs(seg_work, exist_ok=True)
+    timed("seg_compare", phase_seg_compare, torch)
+    torch.cuda.empty_cache()
+    n["seg_launches"] = timed("slice_seg", phase_slice_seg, torch, seg_work)
+    timed("estimator_mnist", phase_estimator_mnist, torch, seg_work)
+    return n
+
+
+def phase_child(name, here, out_path, t0, started):
+    """The phases of ``name`` (:func:`sharded_phases` or :func:`host_phases`)
+    in a process of their own (``python3 -c 'import chip_smoke;
+    chip_smoke.phase_child(...)'``), their lines' ``t_s`` on the script's
+    clock (``t0``: the parent's start; ``perf_counter`` is the host's
+    monotonic clock), then ``<name>_seconds`` from ``started`` (when the
+    parent started this process); writes what they return to
+    ``out_path``."""
+    global _T0
+    _T0 = t0
+    import torch
+
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.ops import fused_bn
+
+    got = {"sharded_phases": sharded_phases, "host_phases": host_phases}[name](torch, fa, fused_bn, here)
+    emit({"phase": name + "_seconds", "seconds": time.perf_counter() - started})
+    with open(out_path, "w") as f:
+        json.dump(got, f)
+
+
+class PhaseProcess:
+    """:func:`phase_child` of ``name`` started now, beside this process's
+    phases. Its standard output goes to a file that :meth:`join` prints here
+    once it has ended, so no line of two processes tears another; its
+    errors go to this process's. It stays in this process's group, so what
+    ends the script's group ends it too; :meth:`stop` kills it and every
+    process under it unless it ended."""
+
+    def __init__(self, here, name):
+        self.name = name
+        work = os.path.join(here, "build", "chip_smoke_" + name)
+        os.makedirs(work, exist_ok=True)
+        self.out_path = os.path.join(work, "result.json")
+        self.lines_path = os.path.join(work, "lines.out")
+        if os.path.exists(self.out_path):
+            os.remove(self.out_path)
+        self._lines = open(self.lines_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.phase_child({!r}, {!r}, {!r}, {!r}, {!r})".format(
+                name, here, self.out_path, _T0, time.perf_counter())],
+            cwd=here, stdout=self._lines)
+        self._relayed = False
+
+    def _relay(self):
+        if self._relayed:
+            return
+        self._relayed = True
+        self._lines.close()
+        with open(self.lines_path) as f:
+            for line in f:
+                print(line.rstrip("\n"), flush=True)
+
+    def join(self, timeout):
+        """Wait for the phases; print their lines; return their results, or
+        raise if they failed."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            self.stop()
+        if rc != 0 or not os.path.exists(self.out_path):
+            raise AssertionError("{}: exit {} (their errors are above)".format(self.name, rc))
+        with open(self.out_path) as f:
+            return json.load(f)
+
+    def stop(self):
+        import signal
+
+        if self.proc.poll() is None:
+            for pid in [self.proc.pid] + _descendants(self.proc.pid):
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, signal.SIGKILL)
+            self.proc.wait()
+        self._relay()
+
+
+def _descendants(pid):
+    """The processes under ``pid``, from ``/proc``'s child lists."""
+    found = []
+    with contextlib.suppress(OSError):
+        for task in os.listdir("/proc/{}/task".format(pid)):
+            with open("/proc/{}/task/{}/children".format(pid, task)) as f:
+                for child in f.read().split():
+                    found += [int(child)] + _descendants(int(child))
+    return found
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4276,96 +4521,60 @@ def main():
     flash_totals = phase_flash_kernel(torch, F, fa, seg_slice)
     phase_flash_causal(torch, F, fa)
     ring = timed("kernel_ring", phase_kernel_ring, torch, fa, ring_attention, seg_slice)
-    headdim = timed("kernel_headdim", phase_kernel_headdim, torch, fa, seg_slice)
+    headdim = timed("kernel_headdim", phase_kernel_headdim, torch, F, fa, seg_slice)
     del seg_slice
     torch.cuda.empty_cache()  # hand the trainer child the card's memory
-    launches, _ = phase_slice(torch, fused_bn)
-    loop_launches, traced_launches = phase_slice(torch, fused_bn, LOOP_STEPS, STEPS)
-    phase_compare(torch, fused_bn, resnet)
-    torch.cuda.empty_cache()
-    flash_launches, _, lm_losses = phase_slice_lm(torch, fa, data_dir, STEPS)
-    loop_flash_launches, traced_flash_launches, _ = phase_slice_lm(torch, fa, data_dir, LOOP_STEPS, STEPS)
-    phase_compare_lm(torch, fa, transformer, [lm_batch])
-    torch.cuda.empty_cache()
-    defaults_launches, defaults_loop_launches, defaults_traced = timed(
-        "slice_lm_defaults", phase_slice_lm_defaults, torch, fa, transformer, data_dir)
-    torch.cuda.empty_cache()
-    phase_compare_loop(torch, resnet, transformer, lm_batch)
-    torch.cuda.empty_cache()
-    fsdp_launches, fsdp_traced = timed("slice_fsdp", phase_slice_fsdp, torch, fa, data_dir,
-                                       os.path.join(here, "build", "chip_smoke_fsdp"))
-    axes_launches, axes_traced, moe_launches, remat_launches, sp_launches, sp_traced = timed(
-        "slice_axes", phase_slice_axes, torch, fa, data_dir, os.path.join(here, "build", "chip_smoke_axes"))
-    torch.cuda.empty_cache()
-    pipe_launches, pipe_traced, gpipe_launches = timed("pipeline", phase_pipeline, torch, fa, transformer)
-    torch.cuda.empty_cache()  # hand the overlap ranks the card's memory
-    overlap_launches, overlap_traced = timed("overlap", phase_overlap, torch, fa, here, lm_batch,
-                                             os.path.join(here, "build", "chip_smoke_overlap"))
-    cache_launches, cache_traced = timed("loop_cache", phase_loop_cache_child, here,
-                                         os.path.join(here, "build", "chip_smoke_loop_cache"))
-    torch.cuda.empty_cache()
-    work = os.path.join(here, "build", "chip_smoke_ckpt")
-    phase_ckpt_engine(torch, resnet, work)
-    recover_launches = phase_recover(torch, fused_bn, work)
-    mnist_work = os.path.join(here, "build", "chip_smoke_mnist")
-    timed("mnist_compare", phase_mnist_compare, torch)
-    bundle, mnist_launches = timed("slice_mnist", phase_slice_mnist, torch, mnist_work)
-    timed("pipeline_mnist", phase_pipeline_mnist, torch, mnist_work)
-    timed("parallel_mnist", phase_parallel_mnist, torch, bundle)
-    real_launches = timed("real", phase_real, torch, fused_bn, here, os.path.join(here, "build", "chip_smoke_real"))
-    pack_launches, _, pack_losses = timed("slice_lm_pack", phase_slice_lm, torch, fa, data_dir, LM_PACK_STEPS, 1,
-                                          LM_PACK_WORKERS)
+    # the kernels' times are taken: the other phases run from here in three
+    # processes side by side, this one and two of their own
+    others = [PhaseProcess(here, "sharded_phases"), PhaseProcess(here, "host_phases")]
+    try:
+        n = trainer_phases(torch, fa, fused_bn, resnet, transformer, here, data_dir, lm_batch)
+        for other in others:
+            n.update(other.join(timeout=1100))
+    finally:
+        for other in others:
+            other.stop()
     # the same weights on the same packed stream: the eager steps the thread
     # packer fed (slice_lm) and those the pack plane fed
+    pack_losses, lm_losses = n["pack_losses"], n["lm_losses"]
     gap = max(abs(a - b) / abs(b) for a, b in zip(pack_losses, lm_losses))
     emit({"phase": "slice_lm_pack_vs_slice_lm", "losses": pack_losses[:len(lm_losses)],
           "slice_lm_losses": lm_losses, "max_rel_gap": gap})
     if gap > 1e-3:
         raise AssertionError("slice_lm_pack: losses {} against slice_lm's {}".format(pack_losses, lm_losses))
-    serve_work = os.path.join(here, "build", "chip_smoke_serve")
-    os.makedirs(serve_work, exist_ok=True)
-    torch.cuda.empty_cache()
-    bundle = timed("serve", phase_serve, torch, serve_work)
-    serve_launches = timed("serve_lm", phase_serve_lm, torch, fa, lm_batch, serve_work)
-    timed("infer_cli", phase_infer_cli, torch, here, bundle,
-          os.path.join(here, "build", "chip_smoke_real", "eval"), serve_work)
-    torch.cuda.empty_cache()
-    phase_serving_mesh(here, serve_work)
-    seg_work = os.path.join(here, "build", "chip_smoke_seg")
-    os.makedirs(seg_work, exist_ok=True)
-    timed("seg_compare", phase_seg_compare, torch)
-    torch.cuda.empty_cache()
-    seg_launches = timed("slice_seg", phase_slice_seg, torch, seg_work)
-    timed("estimator_mnist", phase_estimator_mnist, torch, seg_work)
     emit({"phase": "kernels", "kernels": [
         {"name": name, "route": route, "source": source,
-         "launched": (launches[name] > 0 and loop_launches[name] > 0 and traced_launches[name] > 0
-                      and recover_launches[name] > 0 and real_launches[name] > 0
-                      and cache_launches[name] > 0 and cache_traced[name] > 0)}
+         "launched": (n["launches"][name] > 0 and n["loop_launches"][name] > 0 and n["traced_launches"][name] > 0
+                      and n["recover_launches"][name] > 0 and n["real_launches"][name] > 0
+                      and n["cache_launches"][name] > 0 and n["cache_traced"][name] > 0)}
         for name, _, _, _, route, source in KERNEL_TABLE] + [
         {"name": name, "route": "cuda", "source": FLASH_SOURCE,
-         "launched": (flash_launches[name] > 0 and loop_flash_launches[name] > 0
-                      and traced_flash_launches[name] > 0 and pack_launches[name] > 0
-                      and defaults_launches[name] > 0 and defaults_loop_launches[name] > 0
-                      and defaults_traced[name] > 0
-                      and fsdp_launches[name] > 0 and fsdp_traced[name] > 0
-                      and axes_launches[name] > 0 and axes_traced[name] > 0 and moe_launches[name] > 0
-                      and remat_launches[name] > 0 and sp_launches[name] > 0 and sp_traced[name] > 0
+         "launched": (n["flash_launches"][name] > 0 and n["loop_flash_launches"][name] > 0
+                      and n["traced_flash_launches"][name] > 0 and n["pack_launches"][name] > 0
+                      and n["defaults_launches"][name] > 0 and n["defaults_loop_launches"][name] > 0
+                      and n["defaults_traced"][name] > 0
+                      and n["fsdp_launches"][name] > 0 and n["fsdp_traced"][name] > 0
+                      and n["axes_launches"][name] > 0 and n["axes_traced"][name] > 0 and n["moe_launches"][name] > 0
+                      and n["remat_launches"][name] > 0 and n["sp_launches"][name] > 0 and n["sp_traced"][name] > 0
                       and ring["launches"][name] > 0 and ring["traced"][name] > 0
-                      and pipe_launches[name] > 0 and pipe_traced[name] > 0 and gpipe_launches[name] > 0
-                      and overlap_launches[name] > 0 and overlap_traced[name] > 0
-                      and (name != "flash_fwd" or serve_launches[name] > 0))}
+                      and n["pipe_launches"][name] > 0 and n["pipe_traced"][name] > 0 and n["gpipe_launches"][name] > 0
+                      and n["overlap_launches"][name] > 0 and n["overlap_traced"][name] > 0
+                      and (name != "flash_fwd" or n["serve_launches"][name] > 0))}
+        for name, *_ in FLASH_TABLE] + [
+        {"name": name + "_d256", "route": "cuda", "source": FLASH_SOURCE,
+         "launched": n["d256_launches"][name] > 0 and n["d256_loop_launches"][name] > 0 and n["d256_traced"][name] > 0}
         for name, *_ in FLASH_TABLE], "script_s": time.perf_counter() - t_start})
+    d256 = {name: headdim[name]["256_bfloat16"] for name, *_ in FLASH_TABLE}
     emit({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
-         "launches": launches[name], "launches_loop_path": loop_launches[name],
-         "device_launches_traced_loop_call": traced_launches[name],
-         "launches_recover_path": recover_launches[name],
-         "launches_mnist_path": mnist_launches[name],
-         "launches_slice_real": real_launches[name],
-         "launches_segmentation": seg_launches[name],
-         "launches_loop_cache": cache_launches[name],
-         "device_launches_loop_cache_traced_window": cache_traced[name],
+         "launches": n["launches"][name], "launches_loop_path": n["loop_launches"][name],
+         "device_launches_traced_loop_call": n["traced_launches"][name],
+         "launches_recover_path": n["recover_launches"][name],
+         "launches_mnist_path": n["mnist_launches"][name],
+         "launches_slice_real": n["real_launches"][name],
+         "launches_segmentation": n["seg_launches"][name],
+         "launches_loop_cache": n["cache_launches"][name],
+         "device_launches_loop_cache_traced_window": n["cache_traced"][name],
          "max_abs_err": totals[name]["max_abs_err"],
          "ms": totals[name]["ms"], "plain_ms": totals[name]["plain_ms"],
          "bound_ms": totals[name]["bound_ms"], "bound_by": totals[name]["bound_by"],
@@ -4374,33 +4583,45 @@ def main():
                 "layers".format(BATCH, IMAGE)}
         for name, replaces, _, _, route, source in KERNEL_TABLE] + [
         {"name": name, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
-         "launches": flash_launches[name], "launches_loop_path": loop_flash_launches[name],
-         "device_launches_traced_loop_call": traced_flash_launches[name],
-         "launches_mnist_path": mnist_launches[name],
-         "launches_slice_lm_pack": pack_launches[name],
-         "launches_fsdp": fsdp_launches[name], "device_launches_fsdp_traced_call": fsdp_traced[name],
-         "launches_axes_tp": axes_launches[name], "device_launches_axes_tp_traced_call": axes_traced[name],
-         "launches_axes_moe": moe_launches[name], "launches_axes_remat": remat_launches[name],
-         "launches_axes_sp": sp_launches[name], "device_launches_axes_sp_traced_call": sp_traced[name],
-         "launches_lm_defaults": defaults_launches[name],
-         "launches_lm_defaults_loop": defaults_loop_launches[name],
-         "device_launches_lm_defaults_traced_call": defaults_traced[name],
+         "launches": n["flash_launches"][name], "launches_loop_path": n["loop_flash_launches"][name],
+         "device_launches_traced_loop_call": n["traced_flash_launches"][name],
+         "launches_mnist_path": n["mnist_launches"][name],
+         "launches_slice_lm_pack": n["pack_launches"][name],
+         "launches_fsdp": n["fsdp_launches"][name], "device_launches_fsdp_traced_call": n["fsdp_traced"][name],
+         "launches_axes_tp": n["axes_launches"][name], "device_launches_axes_tp_traced_call": n["axes_traced"][name],
+         "launches_axes_moe": n["moe_launches"][name], "launches_axes_remat": n["remat_launches"][name],
+         "launches_axes_sp": n["sp_launches"][name], "device_launches_axes_sp_traced_call": n["sp_traced"][name],
+         "launches_lm_defaults": n["defaults_launches"][name],
+         "launches_lm_defaults_loop": n["defaults_loop_launches"][name],
+         "device_launches_lm_defaults_traced_call": n["defaults_traced"][name],
          "headdim": headdim[name],
          "launches_ring": ring["launches"][name], "device_launches_ring_traced": ring["traced"][name],
          "ring_hop_max_abs_err": ring["max_abs_err"][name],
          "ring_hop_ms": {kind: dict(ring["hop_ms"][kind][name], pairs=ring["hop_ms"][kind]["pairs"])
                          for kind in ("diagonal", "off_diagonal")},
-         "launches_segmentation": seg_launches[name],
-         "launches_pipeline_1f1b": pipe_launches[name], "device_launches_pipeline_1f1b_traced": pipe_traced[name],
-         "launches_pipeline_gpipe": gpipe_launches[name],
-         "launches_overlap": overlap_launches[name], "device_launches_overlap_traced_step": overlap_traced[name],
-         **({"launches_serving": serve_launches[name]} if name == "flash_fwd" else {}),
+         "launches_segmentation": n["seg_launches"][name],
+         "launches_pipeline_1f1b": n["pipe_launches"][name],
+         "device_launches_pipeline_1f1b_traced": n["pipe_traced"][name],
+         "launches_pipeline_gpipe": n["gpipe_launches"][name],
+         "launches_overlap": n["overlap_launches"][name],
+         "device_launches_overlap_traced_step": n["overlap_traced"][name],
+         **({"launches_serving": n["serve_launches"][name]} if name == "flash_fwd" else {}),
          "max_abs_err": flash_totals[name]["max_abs_err"],
          "ms": flash_totals[name]["ms"], "plain_ms": flash_totals[name]["plain_ms"],
          "bound_ms": flash_totals[name]["bound_ms"], "bound_by": flash_totals[name]["bound_by"],
          "library_ms": flash_totals[name]["library_ms"],
          "per": "transformer LM step, batch {}, seq {}, bf16, causal with packed segments: "
                 "sum over its {} attention layers".format(LM_BATCH, LM_SEQ, LM["n_layers"])}
+        for name, replaces, *_ in FLASH_TABLE] + [
+        {"name": name + "_d256", "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
+         "instance": "{}_wgmma_kernel<256, 2>".format(name),
+         "launches": n["d256_launches"][name], "launches_loop_path": n["d256_loop_launches"][name],
+         "device_launches_traced_loop_call": n["d256_traced"][name],
+         "max_abs_err": d256[name]["max_abs_err"],
+         **{key: LM["n_layers"] * d256[name][key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "bound_by": d256[name]["bound_by"], "library": d256[name]["library"],
+         "per": "transformer LM step at {} heads of 256, batch {}, seq {}, bf16, causal with packed segments: "
+                "sum over its {} attention layers".format(LM_D256["n_heads"], LM_BATCH, LM_SEQ, LM["n_layers"])}
         for name, replaces, *_ in FLASH_TABLE]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

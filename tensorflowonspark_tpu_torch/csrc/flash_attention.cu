@@ -24,9 +24,13 @@
 // of that work is masked, and the bytes (3.35 TB/s) bound the data's own
 // work.
 //
-// float32 (simple first): one CTA of 4 warps per (bh, 64-row block). Q/dO
-// or K/V tiles are staged in shared memory, scores and accumulators live in
-// shared memory as f32, and the products take a plain FMA path (no TF32).
+// Head dims: D = 64, 128 and 256 are compiled (the wrapper pads any other D
+// up to 256 with zeros to the next of them).
+//
+// float32 (simple first): one CTA of 4 warps per (bh, 64-row block; 32 rows
+// at D = 256, so that its tiles fit in shared memory). Q/dO or K/V tiles are
+// staged in shared memory, scores and accumulators live in shared memory as
+// f32, and the products take a plain FMA path (no TF32).
 //
 // bf16 (the Hopper design, forward and backward): one warpgroup a CTA,
 // `wgmma` products (m64n64k16, f32 accumulators in registers), operands fed
@@ -47,6 +51,9 @@
 //   dk/dv: K, V resident; the ring carries (Q, dO). Scores are computed
 //          transposed, S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come
 //          out in the A operand layout of dV += P^T dO and dK += dS^T Q.
+// At D = 256 a 64 x 256 f32 accumulator is 128 registers a thread and a
+// tile 32 KB: one CTA an SM (kMinCtas), and dk/dv split into a dv pass and
+// a dk pass on the grid's z (kSplitDkv), each with one accumulator.
 // The bf16 kernels never visit a block pair that the causal mask or the
 // segment fence empties (visit_list: a block pair is skipped when the
 // [min, max] segment-id ranges of its two blocks do not overlap, which is
@@ -123,16 +130,24 @@ __host__ __device__ constexpr size_t round128(size_t n) { return (n + 127) / 128
 // one per-row vector of 64 words
 constexpr size_t kVecBytes = round128(sizeof(float) * kBlock);
 
+// Rows of a q block and of a kv block of the float32 kernels: 64, or 32
+// above D = 128, where three 64-row [64][D + 1] f32 tiles and a [64][D]
+// accumulator alone would pass the 227 KB a CTA can hold (at D = 256: 277,
+// 359 and 423 KB for the forward, dq and dk/dv; at 32 rows 137, 174 and
+// 206 KB).
+template <int D> constexpr int kRowsF32 = D > 128 ? 32 : 64;
+
 // Shared-memory plan of one CTA of the float32 kernels: `tiles` input
-// tiles [64][D + 1] (an odd row stride, so the FMA path's column walks hit
-// 32 distinct banks), `scores` f32 [64][64] buffers (p and ds overwrite
-// their scores in place), `accs` f32 [64][D] accumulators and 4 per-row
-// vectors of 64 words.
+// tiles [R][D + 1] (R = kRowsF32<D>; an odd row stride, so the FMA path's
+// column walks hit 32 distinct banks), `scores` f32 [R][R] buffers (p and ds
+// overwrite their scores in place), `accs` f32 [R][D] accumulators and 4
+// per-row vectors of 64 words.
 template <int D> struct Plan {
+  static constexpr int kRows = kRowsF32<D>;
   static constexpr int kTileLd = D + 1;
-  static constexpr size_t kTile = round128(sizeof(float) * kBlock * kTileLd);
-  static constexpr size_t kScore = round128(sizeof(float) * kBlock * kBlock);
-  static constexpr size_t kAcc = round128(sizeof(float) * kBlock * D);
+  static constexpr size_t kTile = round128(sizeof(float) * kRows * kTileLd);
+  static constexpr size_t kScore = round128(sizeof(float) * kRows * kRows);
+  static constexpr size_t kAcc = round128(sizeof(float) * kRows * D);
   static constexpr size_t kVec = 4 * kVecBytes;
   static constexpr size_t bytes(int tiles, int scores, int accs) {
     return tiles * kTile + scores * kScore + accs * kAcc + kVec;
@@ -149,46 +164,57 @@ struct Carver {
   }
 };
 
-// Rows [row0, row0 + 64) of a [L, D] matrix into a [64][ld] tile; rows past
+// Rows [row0, row0 + R) of a [L, D] matrix into a [R][ld] tile; rows past
 // L read as zeros.
-template <int D>
+template <int D, int R>
 __device__ void load_tile(float* dst, int ld, const float* src, int row0, int L) {
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
     int r = i / D, c = i % D;
     dst[r * ld + c] = row0 + r < L ? src[(size_t)(row0 + r) * D + c] : 0.0f;
   }
 }
 
-// 64 entries of a per-row vector from `src` (length L) at row0; `fill` past L.
-template <typename U>
+// N entries of a per-row vector from `src` (length L) at row0; `fill` past L.
+template <int N, typename U>
 __device__ void load_vec(U* dst, const U* src, int row0, int L, U fill) {
-  for (int i = threadIdx.x; i < kBlock; i += kThreads) dst[i] = row0 + i < L ? src[row0 + i] : fill;
+  for (int i = threadIdx.x; i < N; i += kThreads) dst[i] = row0 + i < L ? src[row0 + i] : fill;
 }
 
-// C[64][N] (+)= A[64][K] . B[K][N] over shared memory, f32 FMA. A(i, k) is
+// C[M][N] (+)= A[M][K] . B[K][N] over shared memory, f32 FMA. A(i, k) is
 // A[k * lda + i] when A_COL (A stored transposed) else A[i * lda + k];
 // B(k, j) is B[j * ldb + k] when B_COL else B[k * ldb + j]. Thread t owns
-// column j = t % N of rows g, g + G, g + 2G, ... (G = 128 / N row groups,
-// g = t / N); a warp shares its rows, so A reads broadcast and B reads walk
+// columns j = t % TN + TN c (TN = min(N, 128) threads along a row, N / TN
+// columns each) of rows g, g + G, g + 2G, ... (G = 128 / TN row groups,
+// g = t / TN); a warp shares its rows, so A reads broadcast and B reads walk
 // distinct banks.
-template <int N, int K, bool A_COL, bool B_COL, bool ACCUM>
+template <int M, int N, int K, bool A_COL, bool B_COL, bool ACCUM>
 __device__ void tile_mm(const float* A, int lda, const float* B, int ldb, float* C, int ldc) {
-  constexpr int G = kThreads / N;
-  constexpr int R = kBlock / G;
-  const int j = threadIdx.x % N, g = threadIdx.x / N;
-  float acc[R];
+  constexpr int TN = N < kThreads ? N : kThreads;
+  constexpr int CJ = N / TN;
+  constexpr int G = kThreads / TN;
+  constexpr int R = M / G;
+  const int j0 = threadIdx.x % TN, g = threadIdx.x / TN;
+  float acc[R][CJ];
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = ACCUM ? C[(g + r * G) * ldc + j] : 0.0f;
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) acc[r][c] = ACCUM ? C[(g + r * G) * ldc + j0 + c * TN] : 0.0f;
   for (int k = 0; k < K; ++k) {
-    const float b = B_COL ? B[j * ldb + k] : B[k * ldb + j];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = g + r * G;
-      acc[r] = fmaf(A_COL ? A[k * lda + i] : A[i * lda + k], b, acc[r]);
+    for (int c = 0; c < CJ; ++c) {
+      const int j = j0 + c * TN;
+      const float b = B_COL ? B[j * ldb + k] : B[k * ldb + j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = g + r * G;
+        acc[r][c] = fmaf(A_COL ? A[k * lda + i] : A[i * lda + k], b, acc[r][c]);
+      }
     }
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) C[(g + r * G) * ldc + j] = acc[r];
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < CJ; ++c) C[(g + r * G) * ldc + j0 + c * TN] = acc[r][c];
 }
 
 // The masked, scaled score of (query qi, key kj): -inf past L (no weight at
@@ -210,6 +236,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  float* __restrict__ lse, int L, int heads, float scale, bool causal) {
   static_assert(std::is_same<T, float>::value, "bf16 takes flash_fwd_wgmma_kernel");
   using P = Plan<D>;
+  constexpr int R = P::kRows, kLaneCols = R / 32, kWarpRows = R / 4;
   extern __shared__ __align__(128) char smem[];
   Carver cv{smem};
   T* qs = cv.take<T>(P::kTile);
@@ -223,43 +250,53 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   int* seg_q = cv.take<int>(kVecBytes);
   int* seg_k = cv.take<int>(kVecBytes);
 
-  const int bh = blockIdx.x, q0 = blockIdx.y * kBlock;
+  const int bh = blockIdx.x, q0 = blockIdx.y * R;
   const size_t base = (size_t)bh * L * D;
   const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
   const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_tile<D>(qs, P::kTileLd, q + base, q0, L);
-  if (seg_b) load_vec(seg_q, seg_b, q0, L, -1);
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) acc[i] = 0.0f;
-  for (int i = threadIdx.x; i < kBlock; i += kThreads) { m_row[i] = kNegBig; l_row[i] = 0.0f; }
+  load_tile<D, R>(qs, P::kTileLd, q + base, q0, L);
+  if (seg_b) load_vec<R>(seg_q, seg_b, q0, L, -1);
+  for (int i = threadIdx.x; i < R * D; i += kThreads) acc[i] = 0.0f;
+  for (int i = threadIdx.x; i < R; i += kThreads) { m_row[i] = kNegBig; l_row[i] = 0.0f; }
 
-  const int n_kv = (L + kBlock - 1) / kBlock;
+  const int n_kv = (L + R - 1) / R;
   // causal: kv blocks strictly above the diagonal contribute nothing
   const int kv_end = causal ? min(n_kv, (int)blockIdx.y + 1) : n_kv;
   for (int kb = 0; kb < kv_end; ++kb) {
-    const int k0 = kb * kBlock;
+    const int k0 = kb * R;
     __syncthreads();  // the previous block is done with ks / vs / ps
-    load_tile<D>(ks, P::kTileLd, k + base, k0, L);
-    load_tile<D>(vs, P::kTileLd, v + base, k0, L);
-    if (seg_b) load_vec(seg_k, seg_kb, k0, L, -1);
+    load_tile<D, R>(ks, P::kTileLd, k + base, k0, L);
+    load_tile<D, R>(vs, P::kTileLd, v + base, k0, L);
+    if (seg_b) load_vec<R>(seg_k, seg_kb, k0, L, -1);
     __syncthreads();
-    tile_mm<kBlock, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, kBlock);
+    tile_mm<R, R, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, R);
     __syncthreads();
-    // online softmax: warp w folds rows [16w, 16w + 16), lanes 2 columns each
-    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+    // online softmax: warp w folds rows [w R / 4, (w + 1) R / 4), a lane
+    // takes columns lane, lane + 32, ...
+    for (int r = warp * kWarpRows; r < (warp + 1) * kWarpRows; ++r) {
       const int qi = q0 + r;
-      float x0 = masked_score(s[r * kBlock + lane], scale, qi, k0 + lane, L, causal, seg_b, seg_q[r], seg_k[lane]);
-      float x1 = masked_score(s[r * kBlock + lane + 32], scale, qi, k0 + lane + 32, L, causal, seg_b, seg_q[r],
-                              seg_k[lane + 32]);
+      float x[kLaneCols], x_max = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) {
+        const int col = lane + 32 * c;
+        x[c] = masked_score(s[r * R + col], scale, qi, k0 + col, L, causal, seg_b, seg_q[r], seg_k[col]);
+        x_max = fmaxf(x_max, x[c]);
+      }
       const float m_old = m_row[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+      const float m_new = fmaxf(m_old, warp_max(x_max));
       const float corr = expf(m_old - m_new);
-      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      const float row_sum = warp_sum(p0 + p1);
+      float p[kLaneCols], p_sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) {
+        p[c] = expf(x[c] - m_new);
+        p_sum += p[c];
+      }
+      const float row_sum = warp_sum(p_sum);
       __syncwarp();  // every lane has read its scores before ps (= s) is written
-      ps[r * kBlock + lane] = p0;
-      ps[r * kBlock + lane + 32] = p1;
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) ps[r * R + lane + 32 * c] = p[c];
       for (int c = lane; c < D; c += 32) acc[r * D + c] *= corr;
       if (lane == 0) {
         l_row[r] = l_row[r] * corr + row_sum;
@@ -267,10 +304,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
     }
     __syncthreads();
-    tile_mm<D, kBlock, false, false, true>(ps, kBlock, vs, P::kTileLd, acc, D);
+    tile_mm<R, D, R, false, false, true>(ps, R, vs, P::kTileLd, acc, D);
   }
   __syncthreads();
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+  for (int r = warp * kWarpRows; r < (warp + 1) * kWarpRows; ++r) {
     const int qi = q0 + r;
     if (qi >= L) break;
     const float denom = fmaxf(l_row[r], 1e-30f);
@@ -289,6 +326,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     bool causal) {
   static_assert(std::is_same<T, float>::value, "bf16 takes flash_bwd_dq_wgmma_kernel");
   using P = Plan<D>;
+  constexpr int R = P::kRows;
   extern __shared__ __align__(128) char smem[];
   Carver cv{smem};
   T* qs = cv.take<T>(P::kTile);
@@ -304,43 +342,43 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   int* seg_q = cv.take<int>(kVecBytes);
   int* seg_k = cv.take<int>(kVecBytes);
 
-  const int bh = blockIdx.x, q0 = blockIdx.y * kBlock;
+  const int bh = blockIdx.x, q0 = blockIdx.y * R;
   const size_t base = (size_t)bh * L * D;
   const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
   const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
 
-  load_tile<D>(qs, P::kTileLd, q + base, q0, L);
-  load_tile<D>(dos, P::kTileLd, dout + base, q0, L);
-  load_vec(lse_r, lse + (size_t)bh * L, q0, L, 0.0f);
-  load_vec(delta_r, delta + (size_t)bh * L, q0, L, 0.0f);
-  if (seg_b) load_vec(seg_q, seg_b, q0, L, -1);
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) acc[i] = 0.0f;
+  load_tile<D, R>(qs, P::kTileLd, q + base, q0, L);
+  load_tile<D, R>(dos, P::kTileLd, dout + base, q0, L);
+  load_vec<R>(lse_r, lse + (size_t)bh * L, q0, L, 0.0f);
+  load_vec<R>(delta_r, delta + (size_t)bh * L, q0, L, 0.0f);
+  if (seg_b) load_vec<R>(seg_q, seg_b, q0, L, -1);
+  for (int i = threadIdx.x; i < R * D; i += kThreads) acc[i] = 0.0f;
 
-  const int n_kv = (L + kBlock - 1) / kBlock;
+  const int n_kv = (L + R - 1) / R;
   const int kv_end = causal ? min(n_kv, (int)blockIdx.y + 1) : n_kv;
   for (int kb = 0; kb < kv_end; ++kb) {
-    const int k0 = kb * kBlock;
+    const int k0 = kb * R;
     __syncthreads();
-    load_tile<D>(ks, P::kTileLd, k + base, k0, L);
-    load_tile<D>(vs, P::kTileLd, v + base, k0, L);
-    if (seg_b) load_vec(seg_k, seg_kb, k0, L, -1);
+    load_tile<D, R>(ks, P::kTileLd, k + base, k0, L);
+    load_tile<D, R>(vs, P::kTileLd, v + base, k0, L);
+    if (seg_b) load_vec<R>(seg_k, seg_kb, k0, L, -1);
     __syncthreads();
-    tile_mm<kBlock, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, kBlock);
-    tile_mm<kBlock, D, false, true, false>(dos, P::kTileLd, vs, P::kTileLd, dp, kBlock);
+    tile_mm<R, R, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, R);
+    tile_mm<R, R, D, false, true, false>(dos, P::kTileLd, vs, P::kTileLd, dp, R);
     __syncthreads();
     // ds = p * (dp - delta) * scale, p recomputed from the saved lse; each
     // thread reads then overwrites its own entries
-    for (int i = threadIdx.x; i < kBlock * kBlock; i += kThreads) {
-      const int r = i / kBlock, c = i % kBlock;
+    for (int i = threadIdx.x; i < R * R; i += kThreads) {
+      const int r = i / R, c = i % R;
       const float x = masked_score(s[i], scale, q0 + r, k0 + c, L, causal, seg_b, seg_q[r], seg_k[c]);
       const float p = expf(x - lse_r[r]);
-      dss[r * kBlock + c] = p * (dp[i] - delta_r[r]) * scale;
+      dss[r * R + c] = p * (dp[i] - delta_r[r]) * scale;
     }
     __syncthreads();
-    tile_mm<D, kBlock, false, false, true>(dss, kBlock, ks, P::kTileLd, acc, D);
+    tile_mm<R, D, R, false, false, true>(dss, R, ks, P::kTileLd, acc, D);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, c = i % D;
     if (q0 + r < L) dq[base + (size_t)(q0 + r) * D + c] = acc[i];
   }
@@ -356,6 +394,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      float scale, bool causal) {
   static_assert(std::is_same<T, float>::value, "bf16 takes flash_bwd_dkv_wgmma_kernel");
   using P = Plan<D>;
+  constexpr int R = P::kRows;
   extern __shared__ __align__(128) char smem[];
   Carver cv{smem};
   T* ks = cv.take<T>(P::kTile);
@@ -373,46 +412,46 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   int* seg_q = cv.take<int>(kVecBytes);
   int* seg_k = cv.take<int>(kVecBytes);
 
-  const int bh = blockIdx.x, k0 = blockIdx.y * kBlock;
+  const int bh = blockIdx.x, k0 = blockIdx.y * R;
   const size_t base = (size_t)bh * L * D;
   const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
   const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
 
-  load_tile<D>(ks, P::kTileLd, k + base, k0, L);
-  load_tile<D>(vs, P::kTileLd, v + base, k0, L);
-  if (seg_b) load_vec(seg_k, seg_kb, k0, L, -1);
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) dk_acc[i] = dv_acc[i] = 0.0f;
+  load_tile<D, R>(ks, P::kTileLd, k + base, k0, L);
+  load_tile<D, R>(vs, P::kTileLd, v + base, k0, L);
+  if (seg_b) load_vec<R>(seg_k, seg_kb, k0, L, -1);
+  for (int i = threadIdx.x; i < R * D; i += kThreads) dk_acc[i] = dv_acc[i] = 0.0f;
 
-  const int n_q = (L + kBlock - 1) / kBlock;
+  const int n_q = (L + R - 1) / R;
   // causal: q blocks strictly above this kv block contribute nothing
   const int q_begin = causal ? (int)blockIdx.y : 0;
   for (int qb = q_begin; qb < n_q; ++qb) {
-    const int q0 = qb * kBlock;
+    const int q0 = qb * R;
     __syncthreads();
-    load_tile<D>(qs, P::kTileLd, q + base, q0, L);
-    load_tile<D>(dos, P::kTileLd, dout + base, q0, L);
-    load_vec(lse_r, lse + (size_t)bh * L, q0, L, 0.0f);
-    load_vec(delta_r, delta + (size_t)bh * L, q0, L, 0.0f);
-    if (seg_b) load_vec(seg_q, seg_b, q0, L, -1);
+    load_tile<D, R>(qs, P::kTileLd, q + base, q0, L);
+    load_tile<D, R>(dos, P::kTileLd, dout + base, q0, L);
+    load_vec<R>(lse_r, lse + (size_t)bh * L, q0, L, 0.0f);
+    load_vec<R>(delta_r, delta + (size_t)bh * L, q0, L, 0.0f);
+    if (seg_b) load_vec<R>(seg_q, seg_b, q0, L, -1);
     __syncthreads();
-    tile_mm<kBlock, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, kBlock);
-    tile_mm<kBlock, D, false, true, false>(dos, P::kTileLd, vs, P::kTileLd, dp, kBlock);
+    tile_mm<R, R, D, false, true, false>(qs, P::kTileLd, ks, P::kTileLd, s, R);
+    tile_mm<R, R, D, false, true, false>(dos, P::kTileLd, vs, P::kTileLd, dp, R);
     __syncthreads();
     // rows are queries, columns keys; queries past L carry no weight
-    for (int i = threadIdx.x; i < kBlock * kBlock; i += kThreads) {
-      const int r = i / kBlock, c = i % kBlock;
+    for (int i = threadIdx.x; i < R * R; i += kThreads) {
+      const int r = i / R, c = i % R;
       const float x = masked_score(s[i], scale, q0 + r, k0 + c, L, causal, seg_b, seg_q[r], seg_k[c]);
       const float p = q0 + r < L ? expf(x - lse_r[r]) : 0.0f;
       const float ds = p * (dp[i] - delta_r[r]) * scale;
-      ps[r * kBlock + c] = p;
-      dss[r * kBlock + c] = ds;
+      ps[r * R + c] = p;
+      dss[r * R + c] = ds;
     }
     __syncthreads();
-    tile_mm<D, kBlock, true, false, true>(ps, kBlock, dos, P::kTileLd, dv_acc, D);
-    tile_mm<D, kBlock, true, false, true>(dss, kBlock, qs, P::kTileLd, dk_acc, D);
+    tile_mm<R, D, R, true, false, true>(ps, R, dos, P::kTileLd, dv_acc, D);
+    tile_mm<R, D, R, true, false, true>(dss, R, qs, P::kTileLd, dk_acc, D);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, c = i % D;
     if (k0 + r < L) {
       dk[base + (size_t)(k0 + r) * D + c] = dk_acc[i];
@@ -428,7 +467,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* seg, cons
   auto kern = flash_fwd_kernel<T, D>;
   cudaError_t err = allow_smem<flash_fwd_kernel<T, D>>(smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh, (L + kBlock - 1) / kBlock);
+  dim3 grid(bh, (L + Plan<D>::kRows - 1) / Plan<D>::kRows);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                          static_cast<const T*>(v), seg, seg_kv, static_cast<T*>(o), lse, L, heads,
                                          scale, causal != 0);
@@ -443,7 +482,7 @@ int launch_dq(const void* q, const void* k, const void* v, const int* seg, const
   auto kern = flash_bwd_dq_kernel<T, D>;
   cudaError_t err = allow_smem<flash_bwd_dq_kernel<T, D>>(smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh, (L + kBlock - 1) / kBlock);
+  dim3 grid(bh, (L + Plan<D>::kRows - 1) / Plan<D>::kRows);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                          static_cast<const T*>(v), seg, seg_kv, static_cast<const T*>(dout), lse,
                                          delta, static_cast<T*>(dq), L, heads, scale, causal != 0);
@@ -458,7 +497,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const int* seg, cons
   auto kern = flash_bwd_dkv_kernel<T, D>;
   cudaError_t err = allow_smem<flash_bwd_dkv_kernel<T, D>>(smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh, (L + kBlock - 1) / kBlock);
+  dim3 grid(bh, (L + Plan<D>::kRows - 1) / Plan<D>::kRows);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                          static_cast<const T*>(v), seg, seg_kv, static_cast<const T*>(dout), lse,
                                          delta, static_cast<T*>(dk), static_cast<T*>(dv), L, heads, scale,
@@ -712,6 +751,18 @@ template <int D, int STAGES, int RESIDENT> struct RingPlan {
   static size_t bytes(int n_blk) { return kSwizzleAtom + kList + 2 * (size_t)n_blk * 4; }
 };
 
+// CTAs an SM that the bf16 kernels are built for: 2 up to D = 128; at
+// D = 256 one, since a tile is 32 KB and a CTA holds 5 (forward) or 6
+// (backward) of them, 160 or 192 KB of the SM's 227, and the 64 x 256 f32
+// accumulator takes 128 of a thread's 255 registers.
+template <int D> constexpr int kMinCtas = D > 128 ? 1 : 2;
+
+// dk and dv of one kv block would take 2 x 128 accumulator registers a
+// thread at D = 256, past the 255 a thread can have: there the grid's z
+// splits them, CTA z = 0 computing dv and z = 1 dk, each recomputing S^T
+// (see flash_bwd_dkv_wgmma_kernel).
+template <int D> constexpr bool kSplitDkv = D > 128;
+
 __device__ __forceinline__ char* align_atom(char* p) {
   return p + ((kSwizzleAtom - (smem_u32(p) & (kSwizzleAtom - 1))) & (kSwizzleAtom - 1));
 }
@@ -732,7 +783,7 @@ __device__ __forceinline__ void init_barriers(uint64_t* bars, int n) {
 }
 
 template <int D, int STAGES>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kMinCtas<D>)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
                        const int* __restrict__ seg_kv, void* __restrict__ o, float* __restrict__ lse, int L,
@@ -901,7 +952,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
 }
 
 template <int D, int STAGES>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kMinCtas<D>)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                           const int* __restrict__ seg, const int* __restrict__ seg_kv,
@@ -1033,8 +1084,19 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid
     }
 }
 
+// dk/dv. Up to D = 128 a CTA accumulates both dk and dv of its kv block.
+// At D = 256 the two accumulators would need 256 registers a thread before
+// any score fragment, so the work is split in two passes run side by side
+// as the grid's z (kSplitDkv): CTA z = 0 accumulates dv = P^T dO, z = 1
+// dk = dS^T Q, each in one 128-register accumulator, the budget of the
+// forward and dq at that width. Both recompute S^T = K Q^T (5 products a
+// block pair instead of 4) and stream Q, dO; the dv pass skips dP^T. Two
+// warpgroups owning half of D each would recompute S^T and dP^T both (6
+// products) and need a 256-thread ring, block skip and barrier protocol;
+// the split keeps the one-warpgroup design of the narrower kernels and
+// doubles the CTAs, at one CTA an SM.
 template <int D, int STAGES>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kMinCtas<D>)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                            const int* __restrict__ seg, const int* __restrict__ seg_kv,
@@ -1125,11 +1187,20 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
   __syncthreads();  // the ring's row vectors are in shared memory
   mbar_wait(&bars[0], 0);
 
-  float dk_acc[D / 64][32], dv_acc[D / 64][32];
+  // the accumulators: dv in [0], dk in [kAccs - 1] (one array, the pass's,
+  // when the grid splits them)
+  constexpr bool kSplit = kSplitDkv<D>;
+  constexpr int kAccs = kSplit ? 1 : 2;
+  const bool want_dv = !kSplit || blockIdx.z == 0, want_dk = !kSplit || blockIdx.z == 1;
+  float accs[kAccs][D / 64][32];
+  float(&dv_acc)[D / 64][32] = accs[0];
+  float(&dk_acc)[D / 64][32] = accs[kAccs - 1];
 #pragma unroll
-  for (int pn = 0; pn < D / 64; ++pn)
+  for (int a = 0; a < kAccs; ++a)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[pn][i] = dv_acc[pn][i] = 0.0f;
+    for (int pn = 0; pn < D / 64; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) accs[a][pn][i] = 0.0f;
 
   for (int it = 0; it < n_vis; ++it) {
     const int s = it % STAGES, q0 = list[it] * kBlock;
@@ -1143,8 +1214,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     pin(sc);
     pin(dp);
     wg_fence();
-    tile_abt<D>(sc, ks, qs(s));   // S^T = K Q^T
-    tile_abt<D>(dp, vs, dos(s));  // dP^T = V dO^T
+    tile_abt<D>(sc, ks, qs(s));                // S^T = K Q^T
+    if (want_dk) tile_abt<D>(dp, vs, dos(s));  // dP^T = V dO^T
     wg_commit();
     wg_wait_all();
     pin(sc);
@@ -1172,17 +1243,16 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     pin(pf);
     pin(dsf);
     wg_fence();
-    tile_fb<D>(dv_acc, pf, dos(s));  // dV += P^T dO
-    tile_fb<D>(dk_acc, dsf, qs(s));  // dK += dS^T Q
+    if (want_dv) tile_fb<D>(dv_acc, pf, dos(s));  // dV += P^T dO
+    if (want_dk) tile_fb<D>(dk_acc, dsf, qs(s));  // dK += dS^T Q
     wg_commit();
     wg_wait_all();
     pin(pf);
     pin(dsf);
 #pragma unroll
-    for (int pn = 0; pn < D / 64; ++pn) {
-      pin(dk_acc[pn]);
-      pin(dv_acc[pn]);
-    }
+    for (int a = 0; a < kAccs; ++a)
+#pragma unroll
+      for (int pn = 0; pn < D / 64; ++pn) pin(accs[a][pn]);
     __syncthreads();  // every thread is done with stage s
     if (refill) issue(s, list[it + STAGES], ahead);
   }
@@ -1195,8 +1265,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
       const int r = k0 + acc_row(i);
       if (r < L) {
         const size_t at = base + (size_t)r * D + pn * 64 + acc_col(i);
-        store_pair(dk, out_f32, at, dk_acc[pn][i], dk_acc[pn][i + 1]);
-        store_pair(dv, out_f32, at, dv_acc[pn][i], dv_acc[pn][i + 1]);
+        if (want_dk) store_pair(dk, out_f32, at, dk_acc[pn][i], dk_acc[pn][i + 1]);
+        if (want_dv) store_pair(dv, out_f32, at, dv_acc[pn][i], dv_acc[pn][i + 1]);
       }
     }
 }
@@ -1244,8 +1314,9 @@ int make_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N], int bh, int 
   return 0;
 }
 
-// Ring depth: 3 stages at D = 64, 2 at D = 128. A backward CTA holds 64 KB
-// or 96 KB of tiles (3 or 2 CTAs an SM), a forward CTA 56 KB or 80 KB.
+// Ring depth: 3 stages at D = 64, 2 at D = 128 and 256. A backward CTA holds
+// 64, 96 or 192 KB of tiles (3, 2 or 1 CTAs an SM), a forward CTA 56, 80 or
+// 160 KB.
 template <int D> constexpr int kStages = D == 64 ? 3 : 2;
 
 template <int D>
@@ -1294,67 +1365,74 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const int* seg
   auto kern = flash_bwd_dkv_wgmma_kernel<D, S>;
   cudaError_t err = allow_smem<flash_bwd_dkv_wgmma_kernel<D, S>>(smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(bh, n_blk), kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], seg, seg_kv, lse, delta, dk, dv, L,
-                                                     heads, scale, causal != 0, out_f32 != 0);
+  kern<<<dim3(bh, n_blk, kSplitDkv<D> ? 2 : 1), kThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], seg, seg_kv, lse, delta, dk, dv, L, heads, scale, causal != 0, out_f32 != 0);
   return (int)cudaGetLastError();
 }
 
 // Unsupported head dim or dtype: the wrapper checks first, so this is a guard.
 constexpr int kUnsupported = -1;
 
+// fn(std::integral_constant<int, D>{}) at a compiled head dim D, for
+// dtype 0 (float32) or 1 (bfloat16); kUnsupported for any other.
+template <typename Fn>
+int at_head_dim(int D, int dtype, Fn fn) {
+  if (dtype != 0 && dtype != 1) return kUnsupported;
+  switch (D) {
+    case 64:
+      return fn(std::integral_constant<int, 64>{});
+    case 128:
+      return fn(std::integral_constant<int, 128>{});
+    case 256:
+      return fn(std::integral_constant<int, 256>{});
+    default:
+      return kUnsupported;
+  }
+}
+
 }  // namespace
 
-// C interface for ctypes. dtype: 0 = float32, 1 = bfloat16; seg may be null
-// (no fence), seg_k null means the keys' ids are seg; out_f32 makes the bf16
-// kernels write f32 outputs (the f32 kernels always do). Returns 0 or a
-// cudaError_t code (kUnsupported for a bad D/dtype, kNoTensorMap when the
-// driver's tensor-map encoder is missing or refuses).
+// C interface for ctypes. dtype: 0 = float32, 1 = bfloat16; D: 64, 128 or
+// 256; seg may be null (no fence), seg_k null means the keys' ids are seg;
+// out_f32 makes the bf16 kernels write f32 outputs (the f32 kernels always
+// do). Returns 0 or a cudaError_t code (kUnsupported for a bad D/dtype,
+// kNoTensorMap when the CUDA driver's tensor-map encoder is missing or refuses).
 extern "C" {
 
 int tos_flash_fwd(const void* q, const void* k, const void* v, const int* seg, const int* seg_k, void* o, float* lse,
                   int bh, int heads, int L, int D, int dtype, float scale, int causal, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64)
-    return launch_fwd_wgmma<64>(q, k, v, seg, seg_k, o, lse, bh, heads, L, scale, causal, out_f32, st);
-  if (dtype == 1 && D == 128)
-    return launch_fwd_wgmma<128>(q, k, v, seg, seg_k, o, lse, bh, heads, L, scale, causal, out_f32, st);
-  if (dtype == 0 && D == 64)
-    return launch_fwd<float, 64>(q, k, v, seg, seg_k, o, lse, bh, heads, L, scale, causal, st);
-  if (dtype == 0 && D == 128)
-    return launch_fwd<float, 128>(q, k, v, seg, seg_k, o, lse, bh, heads, L, scale, causal, st);
-  return kUnsupported;
+  return at_head_dim(D, dtype, [&](auto dim) {
+    constexpr int kD = decltype(dim)::value;
+    return dtype == 1 ? launch_fwd_wgmma<kD>(q, k, v, seg, seg_k, o, lse, bh, heads, L, scale, causal, out_f32, st)
+                      : launch_fwd<float, kD>(q, k, v, seg, seg_k, o, lse, bh, heads, L, scale, causal, st);
+  });
 }
 
 int tos_flash_bwd_dq(const void* q, const void* k, const void* v, const int* seg, const int* seg_k, const void* dout,
                      const float* lse, const float* delta, void* dq, int bh, int heads, int L, int D, int dtype,
                      float scale, int causal, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64)
-    return launch_dq_wgmma<64>(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, scale, causal, out_f32, st);
-  if (dtype == 1 && D == 128)
-    return launch_dq_wgmma<128>(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, scale, causal, out_f32, st);
-  if (dtype == 0 && D == 64)
-    return launch_dq<float, 64>(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, scale, causal, st);
-  if (dtype == 0 && D == 128)
-    return launch_dq<float, 128>(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, scale, causal, st);
-  return kUnsupported;
+  return at_head_dim(D, dtype, [&](auto dim) {
+    constexpr int kD = decltype(dim)::value;
+    return dtype == 1 ? launch_dq_wgmma<kD>(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, scale, causal,
+                                            out_f32, st)
+                      : launch_dq<float, kD>(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, scale, causal,
+                                             st);
+  });
 }
 
 int tos_flash_bwd_dkv(const void* q, const void* k, const void* v, const int* seg, const int* seg_k,
                       const void* dout, const float* lse, const float* delta, void* dk, void* dv, int bh, int heads,
                       int L, int D, int dtype, float scale, int causal, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64)
-    return launch_dkv_wgmma<64>(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, scale, causal, out_f32,
-                                st);
-  if (dtype == 1 && D == 128)
-    return launch_dkv_wgmma<128>(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, scale, causal,
-                                 out_f32, st);
-  if (dtype == 0 && D == 64)
-    return launch_dkv<float, 64>(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, scale, causal, st);
-  if (dtype == 0 && D == 128)
-    return launch_dkv<float, 128>(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, scale, causal, st);
-  return kUnsupported;
+  return at_head_dim(D, dtype, [&](auto dim) {
+    constexpr int kD = decltype(dim)::value;
+    return dtype == 1 ? launch_dkv_wgmma<kD>(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, scale,
+                                             causal, out_f32, st)
+                      : launch_dkv<float, kD>(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, scale,
+                                              causal, st);
+  });
 }
 
 }  // extern "C"

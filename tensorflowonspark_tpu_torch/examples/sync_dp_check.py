@@ -58,7 +58,12 @@ the LM with 8 experts on ``sp`` = world and ``dp`` = world/2 × ``sp`` = 2
 (``transformer_moe_sp``: each rank routes its block of every row, groups
 of ``min(256, seq / world)`` tokens) and the LM with ``attention="flash"``
 on ``sp`` = world (``transformer_flash_sp``: every rank attends the whole
-sequence, gathered), each beside its own data-parallel leg.
+sequence, gathered), each beside its own data-parallel leg; and the
+8-expert LM with groups that span two ``sp`` blocks, which routes the
+whole sequence on every rank (the gathered route of ``MoeMlp``): groups of
+``2 · seq / world`` on ``sp`` = world (``transformer_moe_sp_span``) and of
+a whole row on ``dp`` = world/2 × ``sp`` = 2 (``transformer_moe_dp_sp_span``),
+each beside its own data-parallel leg on the same groups.
 
 ``--models`` picks the models (default ``resnet50,transformer``); ``--tp``,
 ``--ep`` and ``--sp`` add theirs.
@@ -131,6 +136,11 @@ def _legs(model, world, fsdp):
         legs.append(("moe8_sp{}".format(world), {"dp": 1, "sp": world}, False))
         if half:
             legs.append(("moe8_dp{}_sp2".format(world // 2), {"dp": world // 2, "sp": 2}, False))
+    elif model == "transformer_moe_sp_span":
+        legs.append(("moe8_sp{}_span".format(world), {"dp": 1, "sp": world}, False))
+    elif model == "transformer_moe_dp_sp_span":
+        if half:
+            legs.append(("moe8_dp{}_sp2_span".format(world // 2), {"dp": world // 2, "sp": 2}, False))
     elif model == "transformer_flash_sp":
         legs.append(("flash_sp{}".format(world), {"dp": 1, "sp": world}, False))
     elif model == "transformer_sp":
@@ -183,8 +193,12 @@ def _models(size, device, dtype_name, names, world=1):
     # groups of 256 tokens at full size (the JAX default), of a row at the
     # small: a divisor of every rank's token count on every leg
     moe = dict(moe_experts=EXPERTS, moe_group_size=min(256, dims["transformer"]["seq"]))
-    # on sp a group must divide every rank's block of the sequence
+    # on sp a group that divides every rank's block of the sequence (the
+    # local route), and groups of two blocks of sp = world or of sp = 2 (the
+    # gathered route)
     moe_sp = dict(moe, moe_group_size=min(256, dims["transformer"]["seq"] // world))
+    moe_span = dict(moe, moe_group_size=2 * dims["transformer"]["seq"] // world)
+    moe_dp_span = dict(moe, moe_group_size=dims["transformer"]["seq"])
 
     def lm_batch(rng, world, rows=None, seq=None):
         n, length = rows or dims["transformer"]["batch"] * world, (seq or dims["transformer"]["seq"]) + 1
@@ -211,6 +225,12 @@ def _models(size, device, dtype_name, names, world=1):
         "transformer_moe_sp": (lambda mesh=None: lm_build(mesh, **moe_sp), transformer.make_loss_fn(None),
                                lambda: optim.adamw(3e-4), dict(has_aux=True),
                                lambda rng, world: lm_batch(rng, world, rows)),
+        "transformer_moe_sp_span": (lambda mesh=None: lm_build(mesh, **moe_span), transformer.make_loss_fn(None),
+                                    lambda: optim.adamw(3e-4), dict(has_aux=True),
+                                    lambda rng, world: lm_batch(rng, world, rows)),
+        "transformer_moe_dp_sp_span": (lambda mesh=None: lm_build(mesh, **moe_dp_span),
+                                       transformer.make_loss_fn(None), lambda: optim.adamw(3e-4),
+                                       dict(has_aux=True), lambda rng, world: lm_batch(rng, world, rows)),
         "transformer_flash_sp": (lambda mesh=None: lm_build(mesh, attention="flash"),
                                  transformer.make_loss_fn(None), lambda: optim.adamw(3e-4), dict(has_aux=True),
                                  lambda rng, world: lm_batch(rng, world, rows)),
@@ -247,6 +267,7 @@ def _rank(rank, world, port, args, out_path):
     import torch
     import torch.distributed as dist
 
+    from tensorflowonspark_tpu_torch.models.transformer import MoeMlp
     from tensorflowonspark_tpu_torch.ops import flash_attention, fused_bn
     from tensorflowonspark_tpu_torch.parallel import build_mesh, sharding
 
@@ -349,6 +370,10 @@ def _rank(rank, world, port, args, out_path):
                 "param_bytes_per_rank": sum(p.numel() * p.element_size() for p in loop_state.module.parameters()),
                 "optimizer_state_bytes_per_rank": sum(
                     t.numel() * t.element_size() for t in _tensors(loop_state.opt_state)),
+                # the MoE layers' route on sp: null local, else the real
+                # tokens of a row that every rank routes (the gathered route)
+                "moe_sp_real": list({m.sp_real for m in loop_state.module.modules()
+                                     if isinstance(m, MoeMlp) and m.sp_group is not None}),
                 "loop_launches": {key: n for key, n in runs["loop"][2].items() if n},
                 "eager_launches": {key: n for key, n in runs["eager"][2].items() if n},
                 "step_ms": {side: {"median": statistics.median(w), "min": min(w), "max": max(w)}
@@ -774,8 +799,10 @@ def main(argv=None):
     parser.add_argument("--sp", action="store_true",
                         help="add the LM sequence-parallel on sp=world, dp=world/2 x sp=2, tp=2 x sp=world/2 "
                              "and fsdp=2 x sp=world/2 (transformer_sp), the 8-expert LM on sp=world and "
-                             "dp=world/2 x sp=2 (transformer_moe_sp) and flash attention over the whole "
-                             "sequence on sp=world (transformer_flash_sp)")
+                             "dp=world/2 x sp=2 (transformer_moe_sp), flash attention over the whole "
+                             "sequence on sp=world (transformer_flash_sp) and the 8-expert LM with groups "
+                             "spanning two sp blocks on sp=world and dp=world/2 x sp=2 "
+                             "(transformer_moe_sp_span, transformer_moe_dp_sp_span)")
     parser.add_argument("--sp_long", action="store_true",
                         help="add the long-context leg: sp=world on {} rows of {} tokens".format(
                             LONG_ROWS, LONG_SEQ["full"]))
@@ -791,7 +818,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     args.dtype = args.dtype or ("bfloat16" if args.platform == "gpu" else "float32")
     args.models = [m for m in args.models.split(",") if m] + ["transformer_tp"] * args.tp + \
-        ["transformer_moe"] * args.ep + ["transformer_sp", "transformer_moe_sp", "transformer_flash_sp"] * args.sp
+        ["transformer_moe"] * args.ep + ["transformer_sp", "transformer_moe_sp", "transformer_flash_sp",
+                                         "transformer_moe_sp_span", "transformer_moe_dp_sp_span"] * args.sp
     if args.platform == "gpu" and torch.cuda.device_count() < args.world:
         raise SystemExit("sync_dp_check: --world {} needs {} CUDA devices, found {}".format(
             args.world, args.world, torch.cuda.device_count()))
@@ -829,6 +857,8 @@ def main(argv=None):
             continue
         failed |= bool(line["loop_vs_eager_mismatches"] or line["tensors_off_rank0"]
                        or len(set(line["losses_by_rank"])) != 1)
+        if line["leg"].endswith("_span"):  # its groups cross sp blocks: the gathered route
+            failed |= not line["moe_sp_real"] or None in line["moe_sp_real"]
         if args.dtype == "float32" and line.get("loss_rel_gap_to_dp", 0) > REL_TOL:
             failed = True
     if failed:

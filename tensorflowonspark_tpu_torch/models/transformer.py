@@ -13,7 +13,7 @@ variables name for name.
 
 Attention goes through :func:`_dispatch_attention`: ``flash`` runs the
 port's CUDA kernels (:mod:`~tensorflowonspark_tpu_torch.ops.flash_attention`;
-their plain versions on a CPU tensor; any head dim up to 128), ``plain`` the
+their plain versions on a CPU tensor; any head dim up to 256), ``plain`` the
 dense reference, ``ring`` ring attention over the mesh's ``sp`` axis
 (:mod:`~tensorflowonspark_tpu_torch.parallel.ring_attention`; the flash
 call without one), and ``auto`` the ring on an ``sp`` mesh, else the
@@ -43,7 +43,8 @@ positions are then the block's global ones, and :func:`make_loss_fn` gives
 the JAX loss: the mean over the real tokens of the rows that the ``sp``
 group holds (each rank's gradient is its tokens' share of it, which the
 strategy sums over ``sp``). A mixture of experts routes a rank's block on
-its own when ``moe_group_size`` divides the block (:class:`MoeMlp`).
+its own when ``moe_group_size`` divides the block and each block's real
+tokens, and otherwise routes the whole sequence, gathered (:class:`MoeMlp`).
 """
 
 import dataclasses
@@ -171,13 +172,16 @@ class _Blocks:
     def __init__(self, mesh=None, specs=None):
         self.mesh, self.specs = mesh, specs or {}
         #: the ``sp`` group when the mesh splits the sequence (more than one
-        #: member), else None
-        self.sp_group = None
+        #: member), else None, and this rank's block index along it
+        self.sp_group, self.sp_rank = None, 0
         if mesh is not None and "sp" in mesh.mesh_dim_names:
             from tensorflowonspark_tpu_torch.parallel import collectives
 
             if collectives.axis_size("sp", mesh) > 1:
+                from tensorflowonspark_tpu_torch.parallel.sharding import sequence_shard
+
                 self.sp_group = collectives.axes_group(mesh, "sp")
+                self.sp_rank = sequence_shard(mesh)[0]
 
     def cut(self, name):
         """``((port dim, parts, index), ...)``: this rank's block of
@@ -333,17 +337,26 @@ class MoeMlp(nn.Module):
     are over the global batch: with more than one data rank the counts and
     probabilities are summed over the data group (``global_sum``).
 
-    On a sequence split over ``sp`` a rank routes its block of each row
-    alone. Its groups of ``moe_group_size`` consecutive tokens are the JAX
-    package's when that size divides the block and the block's real tokens
-    (so it divides the sequence and no group spans two rows or two
-    blocks); any other size raises. ``valid`` (``[B, L]``, 0 on the last
-    block's padding, ``sharding.sequence_chunk``) keeps the padding out of
-    the balancing loss: it fills groups of its own, after every real token,
-    so it moves no real token's place. The counts, probabilities and token
-    count are summed over the data group and then over ``sp``; the
-    probabilities' gradient is the data group's sum, as without ``sp``
-    (the strategy sums the ranks' gradients over ``sp``).
+    On a sequence split over ``sp`` the groups are the JAX package's, which
+    groups the flattened ``[B·L]`` real tokens, in one of two routes that
+    the model picks once an input shape (:func:`_check_sp_routing`,
+    :attr:`sp_real`). The local route, where ``moe_group_size`` divides the
+    block and each block's real tokens (so no group spans two blocks or a
+    row end): a rank routes its block of each row alone, and ``valid``
+    (``[B, L]``, 0 on the last block's padding, ``sharding.sequence_chunk``)
+    keeps the padding, which fills groups of its own after every real token,
+    out of the balancing loss. Otherwise the gathered route: every rank
+    gathers the whole sequence (``gather_from_region``, whose backward keeps
+    this rank's slice), drops the last block's padding, groups the real
+    ``B·L`` tokens by the rule above, runs the experts on all of them (the
+    whole layer's expert work on every rank), pads the output back and keeps
+    its own block by a plain slice, so its expert and router gradients are
+    its own tokens' (the strategy sums them over ``sp``). In both, the
+    balancing loss counts each real token on the rank that holds it: the
+    counts, probabilities and token count are summed over the data group
+    and then over ``sp``, and the probabilities' gradient is the data
+    group's sum, as without ``sp`` (the strategy sums the ranks' gradients
+    over ``sp``).
 
     Over ``ep`` the experts are split, and ``ep`` is not a data axis: every
     rank of an ``ep`` group holds the same tokens. Each routes all of them
@@ -369,7 +382,11 @@ class MoeMlp(nn.Module):
         cut = dict((dim, (parts, index)) for dim, parts, index in self.cuts["wi"])
         parts, index = cut.get(0, (1, 0))
         self.experts = slice(index * (e // parts), (index + 1) * (e // parts))
-        self.sp_group = blocks.sp_group
+        self.sp_group, self.sp_rank = blocks.sp_group, blocks.sp_rank
+        #: on ``sp``: the real tokens of a row of the whole sequence when the
+        #: layer takes the gathered route, None for the local route (set by
+        #: the model, :func:`_check_sp_routing`)
+        self.sp_real = None
         self.aux = None
 
     @torch.no_grad()
@@ -384,14 +401,19 @@ class MoeMlp(nn.Module):
         cfg = self.cfg
         dt = cfg.compute_dtype
         e = cfg.moe_experts
+        gathered = self.sp_group is not None and self.sp_real is not None
+        if gathered:
+            block = x.shape[1]
+            start = self.sp_rank * block
+            x = collectives.gather_from_region(x, self.sp_group, 1)[:, :self.sp_real]
+            # the balancing loss counts this rank's real tokens
+            valid = torch.zeros(x.shape[:2], device=x.device)
+            valid[:, start:start + block] = 1.0
         b, length, d = x.shape
         tokens = b * length
-        if self.sp_group is not None:
-            group = sp_group_size(cfg.moe_group_size, length)
-        else:
-            group = min(cfg.moe_group_size or tokens, tokens)
-            while tokens % group:
-                group -= 1
+        group = min(cfg.moe_group_size or tokens, tokens)
+        while tokens % group:
+            group -= 1
         n_groups = tokens // group
         capacity = max(1, int(cfg.moe_capacity_factor * group / e))
 
@@ -440,20 +462,22 @@ class MoeMlp(nn.Module):
             "gtec,gtd->gecd", local.to(dt), _open(xg, self.group).to(dt))  # [G_n, E, C, D]
         h = F.gelu(torch.einsum("gecd,edf->gecf", expert_in, self.wi.to(dt)), approximate="tanh")
         out_e = torch.einsum("gecf,efd->gecd", h, self.wo.to(dt))  # [G_n, E, C, D]
-        yg = torch.einsum("gtec,gecd->gtd", combine.to(dt), out_e)
-        return _close(yg.reshape(b, length, d), self.group)
+        y = torch.einsum("gtec,gecd->gtd", combine.to(dt), out_e).reshape(b, length, d)
+        if gathered:  # this rank's block, the padding's output zero
+            y = F.pad(y, (0, 0, 0, max(0, start + block - length)))[:, start:start + block]
+        return _close(y, self.group)
 
 
-def sp_group_size(group_size, length):
-    """The MoE token group of a rank that holds a block of ``length``
-    tokens of each row, on a sequence split over ``sp``: ``group_size``,
-    which must divide the block (a group that spans blocks is not ported)."""
-    if not group_size or length % group_size:
-        raise ValueError(
-            "a mixture of experts on a sequence split over sp routes each rank's block alone: "
-            "moe_group_size={} must divide the block length {} (a group spanning two blocks is not "
-            "ported)".format(group_size, length))
-    return group_size
+def sp_group_size(group_size, block, real=()):
+    """The MoE token group of the local route on a sequence split over
+    ``sp`` (:class:`MoeMlp`), for ranks that hold blocks of ``block``
+    tokens of each row, ``real`` of them real in each block:
+    ``group_size`` when it divides the block and every count of ``real``,
+    so that no group spans two blocks or a row end; else None, the
+    gathered route."""
+    if group_size and block % group_size == 0 and all(n % group_size == 0 for n in real):
+        return group_size
+    return None
 
 
 class Block(nn.Module):
@@ -498,12 +522,7 @@ class Transformer(nn.Module):
                                 if any(model_spec(s))}
         blocks = _Blocks(mesh, self.model_specs)
         #: the ``sp`` group when the sequence is split over it, else None
-        self.sp_group = blocks.sp_group
-        self.sp_rank = 0
-        if self.sp_group is not None:
-            from tensorflowonspark_tpu_torch.parallel.sharding import sequence_shard
-
-            self.sp_rank = sequence_shard(mesh)[0]
+        self.sp_group, self.sp_rank = blocks.sp_group, blocks.sp_rank
         #: the last input shape whose MoE routing on sp was checked
         #: (:func:`_check_sp_routing`)
         self.sp_routing_checked = None
@@ -544,7 +563,10 @@ class Transformer(nn.Module):
             # the same on every rank of the group: they all check, or none
             shape = (tuple(tokens.shape), valid is None)
             if shape != self.sp_routing_checked:
-                _check_sp_routing(cfg.moe_group_size, tokens.shape[1], valid, self.sp_group)
+                real = _check_sp_routing(cfg.moe_group_size, tokens.shape[1], valid, self.sp_group)
+                for m in self.modules():
+                    if isinstance(m, MoeMlp):
+                        m.sp_real = real
                 self.sp_routing_checked = shape
         x = F.embedding(tokens, self.embed.weight).to(cfg.compute_dtype)
         if positions is None:
@@ -573,24 +595,25 @@ class Transformer(nn.Module):
 
 
 def _check_sp_routing(group_size, length, valid, sp_group):
-    """Raise unless the ranks' blocks route as the JAX package's whole
-    sequence does: ``group_size`` divides the block and each block's real
-    tokens. The real counts are gathered over ``sp_group`` (every rank
-    raises, or none) and read on the host. The model checks each input
-    shape once (a CUDA graph's capture follows eager warm-up steps of its
-    shape), so a later batch of another row length cut to the same block
-    length is not checked again."""
-    sp_group_size(group_size, length)
-    if valid is None:
-        return
-    from tensorflowonspark_tpu_torch.parallel.collectives import gather_blocks
+    """The MoE route of ranks that hold blocks of ``length`` tokens of each
+    row over ``sp_group`` (:class:`MoeMlp`): None for the local route, where
+    ``group_size`` divides the block and each block's real tokens, else the
+    real tokens of a row of the whole sequence, for the gathered route. The
+    real counts are gathered over ``sp_group`` (every rank picks the same
+    route) and read on the host. The model checks each input shape once (a
+    CUDA graph's capture follows eager warm-up steps of its shape), so a
+    later batch of another row length cut to the same block length keeps
+    the first one's route and real length."""
+    import torch.distributed as dist
 
-    real = gather_blocks(valid[0].sum().to(torch.int32).reshape(1), sp_group).flatten().tolist()
-    if any(n % group_size for n in real):
-        raise ValueError(
-            "a mixture of experts on a sequence split over sp: the blocks hold {} real tokens of {}, and "
-            "moe_group_size={} does not divide them all (a group would span the end of a row; pick a "
-            "size that divides the sequence length)".format(real, length, group_size))
+    real = [length] * dist.get_world_size(sp_group)
+    if valid is not None:
+        from tensorflowonspark_tpu_torch.parallel.collectives import gather_blocks
+
+        real = gather_blocks(valid[0].sum().to(torch.int32).reshape(1), sp_group).flatten().tolist()
+    if sp_group_size(group_size, length, real) is not None:
+        return None
+    return sum(real)
 
 
 #: path-regex → PartitionSpec-template rules for tensor parallelism, on the

@@ -32,8 +32,9 @@ leaves; the packed-sequence fence masks most of it, and then the bytes
 (3.35 TB/s) bound the data's own work.
 
 **Design.** float32 (right and simple first): one CTA of 4 warps per (bh,
-64-row block), tiles, scores and accumulators staged in shared memory,
-products on a plain FMA path (never TF32). The three bf16 kernels are built
+64-row block; 32 rows at D = 256, where 64-row tiles pass the 227 KB of
+shared memory a CTA can hold), tiles, scores and accumulators staged in
+shared memory, products on a plain FMA path (never TF32). The three bf16 kernels are built
 for Hopper: one warpgroup a CTA, ``wgmma`` products with f32 accumulators
 in registers, TMA loads into 128-byte-swizzled tiles through an
 ``mbarrier`` ring of 2–3 stages (the next block's tiles in flight while the
@@ -43,7 +44,11 @@ never visited. The forward keeps its online softmax in the accumulators'
 registers, in the log2 domain, with P rounded to bf16 as the register
 operand of O += P·V; dk/dv computes its scores transposed, so that Pᵀ and
 dSᵀ come out of the accumulators as the next product's register operand.
-Every CTA owns its output rows, so the sums are deterministic.
+At D = 256 a 64 × 256 f32 accumulator takes 128 of a thread's 255
+registers, so a CTA holds one: the bf16 kernels run one CTA an SM, and
+dk/dv runs as two passes side by side (the grid's z: dv, then dk), each
+recomputing Sᵀ. Every CTA owns its output rows, so the sums are
+deterministic.
 
 **No block rule.** The JAX package needs blocks that tile L exactly
 (``_pick_block``: Pallas pads a ragged block with garbage), and its
@@ -53,15 +58,16 @@ ragged tail instead (rows past L are never stored, keys past L get exactly
 zero weight), so every L runs unpadded and gives the rows the padded run
 gives.
 
-**Head dims.** The kernels are compiled for D = 64 and 128
-(:data:`HEAD_DIMS`); any other D up to 128 runs at the next of them, its
+**Head dims.** The kernels are compiled for D = 64, 128 and 256
+(:data:`HEAD_DIMS`); any other D up to 256 runs at the next of them, its
 operands zero-padded and its outputs sliced back, which is exact
-(:func:`padded_fwd` and its two siblings, beside the wrappers).
+(:func:`padded_fwd` and its two siblings, beside the wrappers). A head dim
+above 256 raises.
 
 **Dispatch.** Each wrapper takes its plain PyTorch version (the ``*_plain``
 functions, the reference for tests and ``chip_smoke.py``) only when its
 input lies on the CPU; on a CUDA tensor it launches the kernel or raises
-(head dim above 128, unsupported dtype, failed build, refused launch), and counts
+(head dim above 256, unsupported dtype, failed build, refused launch), and counts
 the launch in its ``launches`` attribute (under CUDA graph capture, the
 launch into the graph; a replay calls no wrapper, and
 ``ops/kernel_trace.py`` counts its kernels from a trace). The kernels are compiled with
@@ -87,7 +93,7 @@ NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 #: head dims the kernels are compiled for; a launch at another head dim up
 #: to the largest runs at the next of them, its operands zero-padded
 #: (:func:`head_width`)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 SOURCE = os.path.join(cuda_build.CSRC, "flash_attention.cu")

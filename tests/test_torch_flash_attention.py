@@ -136,7 +136,7 @@ def test_plain_attention_matches_jax_plain_attention(dtype):
 
 def test_cpu_tensors_take_the_plain_versions_at_any_head_dim():
     """The CPU path is the plain versions at any head dim (the kernels run
-    any head dim up to 128 through the padding route, and raise on a CUDA
+    any head dim up to 256 through the padding route, and raise on a CUDA
     tensor of a larger one)."""
     q, k, v = _qkv(7, length=40, d=16)
     out = fa.flash_attention(_t(q), _t(k), _t(v), causal=True)
@@ -434,8 +434,9 @@ def test_launch_counts_stay_exact_when_threads_launch_at_once():
 
 def test_head_width_pads_up_to_the_next_compiled_width():
     assert [fa.head_width(d) for d in (1, 32, 48, 64, 65, 96, 128)] == [64, 64, 64, 64, 128, 128, 128]
-    for d in (0, 129, 256):
-        with pytest.raises(ValueError, match="head_dim 1..128"):
+    assert [fa.head_width(d) for d in (129, 160, 192, 255, 256)] == [256] * 5
+    for d in (0, 257, 512):
+        with pytest.raises(ValueError, match="head_dim 1..256"):
             fa.head_width(d)
 
 
@@ -469,6 +470,74 @@ def test_padding_route_matches_pallas_interpret_at_the_real_head_dim(d, causal):
     for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
         assert got.shape == (bh, length, d)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [160, 192, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("route", ["plain", "padded"])
+def test_wide_head_dims_match_pallas_interpret_at_a_ragged_length(route, causal, d):
+    """Head dims above 128 at a ragged L = 200 with packed segments and a
+    padded tail: the plain versions at the real D (the CPU path) and the
+    padding route to the D = 256 kernels' width (their plain versions
+    there; D = 256 pads nothing) against the JAX package's Pallas kernels
+    at the real D in interpret mode (blocks of 40, which tile 200). O,
+    lse, dq, dk and dv within 2e-5."""
+    bh, length = B * H, 200
+    rng = np.random.default_rng(d + causal)
+    q, k, v, do = (rng.standard_normal((bh, length, d)).astype(np.float32) for _ in range(4))
+    seg = _segments(B, length, ((0, 70), (70, 133), (133, 181)))
+    scale = 1 / math.sqrt(d)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    jseg = jnp.asarray(np.repeat(seg, H, axis=0))
+    jo, jlse = jfa._flash_fwd(jq, jk, jv, jseg, scale, causal, 40, 40, True)
+    jdq, jdk, jdv = jfa._flash_bwd(jq, jk, jv, jseg, jdo, jo, jlse, scale, causal, 40, 40, True)
+
+    tq, tk, tv, tdo, tseg = _t(q), _t(k), _t(v), _t(do), _t(seg)
+    if route == "plain":
+        fwd, bwd_dq, bwd_dkv = fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv
+    else:
+        fwd = lambda *a: fa.padded_fwd(fa.flash_fwd_plain, *a)  # noqa: E731
+        bwd_dq = lambda *a: fa.padded_bwd_dq(fa.flash_bwd_dq_plain, *a)  # noqa: E731
+        bwd_dkv = lambda *a: fa.padded_bwd_dkv(fa.flash_bwd_dkv_plain, *a)  # noqa: E731
+    o, lse = fwd(tq, tk, tv, tseg, scale, causal, H)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :, 0], atol=2e-5, rtol=0)
+    bwd = (tseg, tdo, lse, (tdo * o).sum(-1), scale, causal, H)
+    dq = bwd_dq(tq, tk, tv, *bwd)
+    dk, dv = bwd_dkv(tq, tk, tv, *bwd)
+    for name, got, want in (("dq", dq, jdq), ("dk", dk, jdk), ("dv", dv, jdv)):
+        assert got.shape == (bh, length, d)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0, err_msg=name)
+
+
+def test_ring_at_head_dim_192_matches_whole_sequence_plain_attention(monkeypatch):
+    """``ring_attention_local`` on 4 members at D = 192, each member's
+    operands padded once to the D = 256 kernels' width as on the card
+    (``widen_heads``; their plain versions here), causal with packed
+    segments: O, dq, dk and dv against the port's dense ``plain_attention``
+    over the whole sequence within 2e-5."""
+    from tensorflowonspark_tpu_torch.parallel.ring_attention import ring_attention_local
+
+    d = 192
+    rng = np.random.default_rng(19)
+    q, k, v, do = (rng.standard_normal((B, H, 96, d)).astype(np.float32) for _ in range(4))
+    seg = _t(_segments(B, 96, ((0, 30), (30, 71), (71, 90))))
+
+    def run(fn):
+        tq, tk, tv = (_t(x, requires_grad=True) for x in (q, k, v))
+        o = fn(tq, tk, tv)
+        o.backward(_t(do))
+        return o.detach(), tq.grad, tk.grad, tv.grad
+
+    want = run(lambda *t: plain_attention(*t, causal=True, segment_ids=seg))
+    widths = []
+    monkeypatch.setattr(fa, "widen_heads", lambda t: widths.append(fa.head_width(t.shape[-1]))
+                        or fa._widen(t, fa.head_width(t.shape[-1])))
+    got = run(lambda *t: ring_attention_local(*t, 4, causal=True, segment_ids=seg))
+    assert set(widths) == {256}
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5, rtol=0, err_msg=name)
 
 
 @pytest.mark.parametrize("d", [32, 96])
@@ -549,6 +618,44 @@ def test_lm_at_the_examples_defaults_matches_the_jax_package(monkeypatch):
 
     _padded_wrappers(monkeypatch)
     model = convert.load_variables(transformer.create_model(**cfg), {"params": params})
+    loss, _ = transformer.make_loss_fn(model)(model, {k: torch.as_tensor(v) for k, v in batch.items()})
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=1e-5, rtol=0)
+    grads = dict(model.named_parameters())
+    assert set(grads) == set(want)
+    for name, g in want.items():
+        np.testing.assert_allclose(grads[name].grad.numpy(), g.numpy(), atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_lm_at_head_dim_256_matches_the_jax_package():
+    """The port's transformer at ``d_model 256, n_heads 1`` (head dim 256,
+    the D = 256 kernels' own width: nothing padded), 2 layers, with
+    ``attention="flash"`` (the kernels' plain versions on the CPU) on
+    weights converted from the JAX model: the loss within 1e-5 and every
+    gradient within 1e-5 of the JAX package's (its flash kernels in
+    interpret mode), on a packed batch."""
+    from tensorflowonspark_tpu.models import transformer as jtransformer
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    cfg = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=1, d_ff=512, max_seq_len=128,
+               attention="flash", dtype="float32")
+    jmodel = jtransformer.create_model(**cfg)
+    params = jax.jit(jtransformer.make_init_fn(jmodel, sample_len=16))(jax.random.PRNGKey(0))["params"]
+    params = jax.tree.map(lambda a: np.array(a), jax.device_get(params))
+    rng = np.random.default_rng(17)
+    tokens = rng.integers(1, cfg["vocab_size"], (4, 129)).astype(np.int32)
+    seg = np.ones_like(tokens)
+    seg[:, 50:] = 2
+    seg[:, 120:] = 0
+    pos = np.where(seg == 2, np.arange(tokens.shape[1]) - 50, np.arange(tokens.shape[1])).astype(np.int32)
+    batch = {"tokens": tokens, "segment_ids": seg, "positions": pos}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jtransformer.make_loss_fn(jmodel), has_aux=True))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    want = convert.convert_variables({"params": jax.tree.map(np.asarray, jgrads)})
+
+    model = convert.load_variables(transformer.create_model(**cfg), {"params": params})
+    assert model.cfg.head_dim == 256 and fa.head_width(model.cfg.head_dim) == 256
     loss, _ = transformer.make_loss_fn(model)(model, {k: torch.as_tensor(v) for k, v in batch.items()})
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=1e-5, rtol=0)

@@ -96,6 +96,12 @@ def _close(name, got, want):
     (2, 2, 256, 32, True, "packed"),       # D=32: zero-padded to the D=64 kernels
     (1, 3, 200, 48, True, "packed"),       # D=48, ragged: padded to 64
     (2, 2, 256, 96, False, "packed"),      # D=96: padded to the D=128 kernels
+    (1, 2, 256, 256, True, "packed"),      # D=256
+    (2, 1, 200, 256, False, "packed"),     # D=256, ragged, not causal
+    (1, 3, 200, 256, True, "reused"),      # D=256, ragged, a first visited block fully masked
+    (1, 2, 2048, 256, True, "packed"),     # D=256 at the slice's length
+    (2, 2, 256, 160, True, "packed"),      # D=160: padded to the D=256 kernels
+    (1, 3, 200, 192, False, "pad_row"),    # D=192, ragged, a row of padding: padded to 256
 ])
 def test_kernels_match_plain_versions_on_card(dtype, b, heads, length, d, causal, segmented):
     _card()
@@ -169,7 +175,7 @@ def test_bf16_check_catches_a_one_percent_fault_on_card(output):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [320, 512])
 def test_unsupported_head_dim_raises_on_card(d):
     """A CUDA tensor never reaches the plain version: a head dim above the
     largest compiled one raises, and launches nothing."""
@@ -182,7 +188,7 @@ def test_unsupported_head_dim_raises_on_card(d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_key_ids_and_f32_outputs_on_card(d):
     """A ring hop's launch: the keys carry ids of their own (every query id
     among them, so every row attends a key) and the bf16 kernels write f32

@@ -362,7 +362,9 @@ def job_axes_step(ctx, variables, cfg, batches, axes, fsdp=False):
         losses.append(float(metrics["loss"]))
     cut = set(state.blocks.specs) if state.blocks is not None else set()
     grads = {n: p.grad.clone() for n, p in state.module.named_parameters()}
+    routes = {m.sp_real for m in state.module.modules() if isinstance(m, transformer.MoeMlp)}
     return {"losses": losses, "metrics": {k: float(v) for k, v in metrics.items() if k != "step"},
+            "sp_real": routes.pop() if len(routes) == 1 else None,
             "params": _full_params(state),
             "grads": state.blocks.full_tree(grads) if state.blocks is not None else grads,
             "replicated_grads": {n: p.grad.clone() for n, p in state.module.named_parameters() if n not in cut},
@@ -480,7 +482,8 @@ def job_sp_logits(ctx, variables, cfg, batch, axes):
 def job_sp_routing_checks(ctx, variables, cfg, batches, axes):
     """The loss of the transformer on ``ctx.mesh(axes)`` for each of
     ``batches``, in turn, without gradients: after each, how many times the
-    model has checked its MoE routing on sp."""
+    model has checked its MoE routing on sp, and the route its layers took
+    (``"local"``, or ``"gathered"`` with the real tokens of a row)."""
     from tensorflowonspark_tpu_torch.models import transformer
 
     calls = []
@@ -498,7 +501,9 @@ def job_sp_routing_checks(ctx, variables, cfg, batches, axes):
         for b in batches:
             with torch.no_grad():
                 loss_fn(state.module, {k: torch.as_tensor(v) for k, v in _lm_rows(mesh, b).items()})
-            out.append(len(calls))
+            routes = {m.sp_real for m in state.module.modules() if isinstance(m, transformer.MoeMlp)}
+            (sp_real,) = routes
+            out.append([len(calls), "local" if sp_real is None else "gathered {}".format(sp_real)])
     finally:
         transformer._check_sp_routing = real
     return out
