@@ -81,17 +81,19 @@ and the script exits non-zero:
    ``kernel_headdim`` B5-B7 at head dims the kernels are not compiled
                   for, D = 32, 48 (zero-padded to the D = 64 kernels), 96
                   (to D = 128), 160 and 192 (to D = 256), beside D = 64,
-                  128 and 256, at [B·H=64, L=2048, D] up to D = 128 and
-                  at the D = 256 LM's 2 heads, [B·H=16, L=2048, D], above,
-                  on the slab's segments, causal, bf16 and f32: every
-                  launch against its plain version at the flash limits
-                  above, one launch a call, a 1% dk fault caught at each
-                  padded width; kernel and plain ms, the bound at the real
-                  D and at the padded one, SDPA's ms at D = 256; a layer's
-                  forward and backward, device ms queued behind a spin,
-                  through the autograd function (each operand padded
-                  once) and through the three wrappers each padding its
-                  own; D = 320 refused, with no launch.
+                  128 and 256, and D = 320, 384, 512 and 1024 (the
+                  split-D kernels), at [B·H=64, L=2048, D] up to D = 128,
+                  at the D = 256 LM's 2 heads, [B·H=16, L=2048, D], up to
+                  256 and at the D = 512 LM's one head, [B·H=8, L=2048, D],
+                  above, on the slab's segments, causal, bf16 and f32:
+                  every launch against its plain version at the flash
+                  limits above, one launch a call, a 1% dk fault caught at
+                  each padded and each split-D width; kernel and plain ms,
+                  the bound at the real D and at the padded one, SDPA's ms
+                  from D = 256 (its backend named); a layer's forward and
+                  backward, device ms queued behind a spin, through the
+                  autograd function (each operand padded once) and through
+                  the three wrappers each padding its own.
 5. ``slice``      the port's ResNet path: ``TFCluster.run`` on the local
                   backend, one executor, the port's ``resnet_spark.main_fun``
                   on full ResNet-50, bf16, ``bn_impl="pallas"``, batch 64, 5
@@ -151,6 +153,10 @@ and the script exits non-zero:
                   ``slice_lm_d256_loop``); then ``compare_lm_d256``:
                   ``compare_lm``'s step, limits and faults on the slice's
                   batch at that width.
+   ``slice_lm_d512`` the LM slice with one head of 512 (``LM_D512``: the
+                  split-D kernels) through ``TFCluster.run``, eager and
+                  through the loop (call 3 traced), as ``slice_lm_d256``;
+                  then ``compare_lm_d512`` at that width.
    ``compare_loop`` for each slice, 5 captured steps (the train loop)
                   against 5 eager steps from the same weights on the same 5
                   batches, cuDNN deterministic: every parameter, BN
@@ -412,8 +418,9 @@ and the script exits non-zero:
                   sharded leg (``slice_fsdp``), the model-axes legs
                   (``slice_axes``: tp, the mixture, remat), the example at its defaults
                   (``slice_lm_defaults``, eager, loop, traced), the LM at
-                  head dim 256 (``slice_lm_d256``, eager, loop, traced:
-                  the ``<wrapper>_d256`` entries), the ring, the
+                  head dim 256 and 512 (``slice_lm_d256`` /
+                  ``slice_lm_d512``, eager, loop, traced: the
+                  ``<wrapper>_d256`` / ``_d512`` entries), the ring, the
                   1F1B and GPipe steps and the overlap ranks did, and (the
                   flash forward) the LM server did; the BN kernels also on
                   ``loop_cache``'s run and in its traced window.
@@ -423,7 +430,8 @@ three processes run side by side (``trainer_phases`` here;
 ``sharded_phases`` and ``host_phases`` each in one of their own,
 ``phase_child``, their lines printed here once they end, with
 ``<name>_seconds``): here phases 5-8, ``slice_lm_defaults``,
-``slice_lm_d256``, ``compare_loop``, ``pipeline``, 9, ``slice_lm_pack``
+``slice_lm_d256``, ``slice_lm_d512``, ``compare_loop``, ``pipeline``, 9,
+``slice_lm_pack``
 and ``serve_lm``; ``slice_fsdp``, ``slice_axes``, ``overlap``,
 ``loop_cache`` and 10; and phases 11-17 but those two (feeders, data
 planes, clients, small models: the card idle most of their time). The
@@ -456,9 +464,10 @@ an off-diagonal hop's ms beside their bounds; ``launches_pipeline_1f1b`` /
 ``device_launches_loop_cache_traced_window``: ``loop_cache``'s;
 ``launches_serving``: the flash forward's wrapper's over
 ``serve_lm``'s traffic; ``launches_segmentation``: its wrapper's in
-``slice_seg``'s trainer; and the ``<wrapper>_d256`` entries, the same
-wrappers at head dim 256: ``slice_lm_d256``'s launches, ``kernel_headdim``'s
-D = 256 bf16 numbers a step of that LM, SDPA's beside them), the ``nvidia-smi``
+``slice_seg``'s trainer; and the ``<wrapper>_d256`` and ``<wrapper>_d512``
+entries, the same wrappers at head dim 256 and 512 (the split-D kernels):
+``slice_lm_d256``'s / ``slice_lm_d512``'s launches, ``kernel_headdim``'s
+D = 256 / 512 bf16 numbers a step of that LM, SDPA's beside them), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script fails before printing anything.
 """
@@ -539,11 +548,14 @@ FLASH_TABLE = [
 ]
 FLASH_SOURCE = "tensorflowonspark_tpu_torch/csrc/flash_attention.cu"
 #: the kernel_headdim phase: head dims the kernels are not compiled for
-#: (zero-padded to the next compiled one) and the compiled ones beside them,
-#: and a head dim past the largest, which must be refused
-HEADDIM_PADDED, HEADDIM_NATIVE, HEADDIM_REFUSED = (32, 48, 96, 160, 192), (64, 128, 256), 320
+#: (zero-padded to the next compiled one), the compiled ones beside them,
+#: and head dims above 256 (the split-D kernels, which take any width)
+HEADDIM_PADDED, HEADDIM_NATIVE, HEADDIM_SPLIT = (32, 48, 96, 160, 192), (64, 128, 256), (320, 384, 512, 1024)
 #: the LM slice at head dim 256 (slice_lm_d256): 2 heads of 256
 LM_D256 = dict(LM, n_heads=2)
+#: the LM slice at head dim 512 (slice_lm_d512): one head of 512, the
+#: split-D kernels
+LM_D512 = dict(LM, n_heads=1)
 #: the slice_lm_defaults phase: steps of the example at its own defaults,
 #: eager and through the loop (K = STEPS, the third call traced)
 LM_DEFAULTS_STEPS = 20
@@ -1211,31 +1223,21 @@ def phase_kernel_headdim(torch, F, fa, seg_slice):
     """B5-B7 at head dims the kernels are not compiled for (module
     docstring, ``kernel_headdim``), beside the compiled ones: each launch
     against its plain version at the flash limits, on the LM slab's shape
-    and segments (8 heads up to D = 128, the D = 256 LM's 2 heads above),
-    causal, bf16 and f32; a 1% dk fault caught at each padded width; a head
-    dim past 256 refused without a launch; at D = 256 SDPA's time on the
-    same operands. Returns ``{wrapper: {"<d>_<dtype>": {"ms", "plain_ms",
-    "bound_ms", "bound_by", "bound_ms_padded_width", "max_abs_err"[,
-    "library_ms", "library"]}}}``."""
+    and segments (8 heads up to D = 128, the D = 256 LM's 2 heads up to
+    256, the D = 512 LM's one head above), causal, bf16 and f32; a 1% dk
+    fault caught at each padded and each split-D width; from D = 256 SDPA's
+    time on the same operands (its backend named). Returns ``{wrapper:
+    {"<d>_<dtype>": {"ms", "plain_ms", "bound_ms", "bound_by",
+    "bound_ms_padded_width", "max_abs_err"[, "library_ms", "library"]}}}``."""
     from tensorflowonspark_tpu_torch.examples.resnet.bench_bn import time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' einsums in full f32
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB > L2
     gen = torch.Generator(device="cuda").manual_seed(2)
     seg = seg_slice[:LM_BATCH, :LM_SEQ].contiguous()
-    x = torch.zeros(2, 128, HEADDIM_REFUSED, device="cuda", dtype=torch.bfloat16)
-    before = fa.launch_counts()
-    try:
-        fa.flash_fwd(x, x, x, None, 0.0625, True, 1)
-        refused = None
-    except ValueError as e:
-        refused = str(e)
-    if refused is None or fa.launch_counts() != before:
-        raise AssertionError("kernel_headdim: head dim {} was not refused ({}, launches {} -> {})".format(
-            HEADDIM_REFUSED, refused, before, fa.launch_counts()))
     out = {name: {} for name, *_ in FLASH_TABLE}
-    for d in sorted(HEADDIM_PADDED + HEADDIM_NATIVE):
-        heads = LM["n_heads"] if d <= 128 else LM_D256["n_heads"]
+    for d in sorted(HEADDIM_PADDED + HEADDIM_NATIVE + HEADDIM_SPLIT):
+        heads = LM["n_heads"] if d <= 128 else LM_D256["n_heads"] if d <= 256 else LM_D512["n_heads"]
         pairs = attended_pairs(seg.cpu()) * heads
         for dtype_name in ("bfloat16", "float32"):
             dtype = getattr(torch, dtype_name)
@@ -1254,11 +1256,11 @@ def phase_kernel_headdim(torch, F, fa, seg_slice):
                                   lambda: fa.flash_bwd_dkv_plain(q, k, v, *bwd)),
             }
             library = None
-            if d == 256:
+            if d >= 256:
                 library_fwd, library_bwd, backend = sdpa_yardsticks(torch, F, q, k, v, do, seg, heads)
                 library = {"flash_fwd": library_fwd, "flash_bwd_dq": library_bwd, "flash_bwd_dkv": library_bwd}
             line = {"phase": "kernel_headdim", "shape": list(shape), "dtype": dtype_name, "causal": True,
-                    "padded_to": fa.head_width(d), "refused_{}".format(HEADDIM_REFUSED): refused}
+                    "padded_to": fa.head_width(d), "split_d": d > fa.HEAD_DIMS[-1]}
             for name, (kernel, plain) in cases.items():
                 n0 = fa.launch_counts()[name]
                 got, want = kernel(), plain()
@@ -1270,7 +1272,7 @@ def phase_kernel_headdim(torch, F, fa, seg_slice):
                 if launched != 1 or any(g.shape != shape for g in got if g.dim() == 3):
                     failures.append("{} launches, shapes {}".format(launched, [tuple(g.shape) for g in got]))
                 control = None
-                if name == "flash_bwd_dkv" and d in HEADDIM_PADDED:
+                if name == "flash_bwd_dkv" and d in HEADDIM_PADDED + HEADDIM_SPLIT:
                     fault_err, caught, control = flash_errors(name, (got[0].float() * 1.01,) + got[1:], want)
                     control = dict(control, max_abs_err=fault_err)
                     if not caught:
@@ -1624,7 +1626,8 @@ def phase_slice_lm(torch, fa, data_dir, steps, steps_per_loop=1, pack_workers=0,
     with ``pack_workers`` its text plane packing in forked workers
     (``slice_lm_pack``); with ``defaults`` the example at its own defaults
     (``slice_lm_defaults``: only the data, the steps and the loop set);
-    ``width`` the model's (``LM_D256``: ``slice_lm_d256``).
+    ``width`` the model's (``LM_D256``: ``slice_lm_d256``; ``LM_D512``:
+    ``slice_lm_d512``).
     Returns each flash wrapper's launches in the run (a layer a step for
     :func:`wrapper_calls` steps), on the loop path the traced call's device
     launches of each flash kernel (a layer a replayed step), and the
@@ -1899,15 +1902,16 @@ def phase_slice_lm_defaults(torch, fa, transformer, data_dir):
     return launches, loop_launches, traced
 
 
-def phase_slice_lm_d256(torch, fa, transformer, data_dir, lm_batch):
-    """The LM slice at 2 heads of 256 (module docstring, ``slice_lm_d256``):
-    eager and through the loop, then ``compare_lm``'s step on the slice's
-    batch. Returns the eager run's and the loop run's wrapper launches and
-    the traced call's device launches."""
-    launches, _, _ = phase_slice_lm(torch, fa, data_dir, STEPS, width=LM_D256)
-    loop_launches, traced, _ = phase_slice_lm(torch, fa, data_dir, LOOP_STEPS, STEPS, width=LM_D256)
+def phase_slice_lm_width(torch, fa, transformer, data_dir, lm_batch, width, name):
+    """The LM slice at another head width (module docstring,
+    ``slice_lm_d256`` / ``slice_lm_d512``): eager and through the loop, then
+    ``compare_lm``'s step on the slice's batch (``compare_lm_d256`` /
+    ``compare_lm_d512``). Returns the eager run's and the loop run's wrapper
+    launches and the traced call's device launches."""
+    launches, _, _ = phase_slice_lm(torch, fa, data_dir, STEPS, width=width)
+    loop_launches, traced, _ = phase_slice_lm(torch, fa, data_dir, LOOP_STEPS, STEPS, width=width)
     torch.cuda.empty_cache()
-    phase_compare_lm(torch, fa, transformer, [lm_batch], LM_D256, "compare_lm_d256")
+    phase_compare_lm(torch, fa, transformer, [lm_batch], width, "compare_" + name)
     return launches, loop_launches, traced
 
 
@@ -4280,9 +4284,11 @@ def trainer_phases(torch, fa, fused_bn, resnet, transformer, here, data_dir, lm_
     n["defaults_launches"], n["defaults_loop_launches"], n["defaults_traced"] = timed(
         "slice_lm_defaults", phase_slice_lm_defaults, torch, fa, transformer, data_dir)
     torch.cuda.empty_cache()
-    n["d256_launches"], n["d256_loop_launches"], n["d256_traced"] = timed(
-        "slice_lm_d256", phase_slice_lm_d256, torch, fa, transformer, data_dir, lm_batch)
-    torch.cuda.empty_cache()
+    for key, width in (("d256", LM_D256), ("d512", LM_D512)):
+        name = "lm_" + key
+        n[key + "_launches"], n[key + "_loop_launches"], n[key + "_traced"] = timed(
+            "slice_" + name, phase_slice_lm_width, torch, fa, transformer, data_dir, lm_batch, width, name)
+        torch.cuda.empty_cache()
     phase_compare_loop(torch, resnet, transformer, lm_batch)
     torch.cuda.empty_cache()
     n["pipe_launches"], n["pipe_traced"], n["gpipe_launches"] = timed("pipeline", phase_pipeline, torch, fa,
@@ -4561,10 +4567,12 @@ def main():
                       and n["overlap_launches"][name] > 0 and n["overlap_traced"][name] > 0
                       and (name != "flash_fwd" or n["serve_launches"][name] > 0))}
         for name, *_ in FLASH_TABLE] + [
-        {"name": name + "_d256", "route": "cuda", "source": FLASH_SOURCE,
-         "launched": n["d256_launches"][name] > 0 and n["d256_loop_launches"][name] > 0 and n["d256_traced"][name] > 0}
-        for name, *_ in FLASH_TABLE], "script_s": time.perf_counter() - t_start})
-    d256 = {name: headdim[name]["256_bfloat16"] for name, *_ in FLASH_TABLE}
+        {"name": name + "_" + key, "route": "cuda", "source": FLASH_SOURCE,
+         "launched": (n[key + "_launches"][name] > 0 and n[key + "_loop_launches"][name] > 0
+                      and n[key + "_traced"][name] > 0)}
+        for key in ("d256", "d512") for name, *_ in FLASH_TABLE], "script_s": time.perf_counter() - t_start})
+    wide = {(key, name): headdim[name]["{}_bfloat16".format(key[1:])]
+            for key in ("d256", "d512") for name, *_ in FLASH_TABLE}
     emit({"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": n["launches"][name], "launches_loop_path": n["loop_launches"][name],
@@ -4613,16 +4621,17 @@ def main():
          "per": "transformer LM step, batch {}, seq {}, bf16, causal with packed segments: "
                 "sum over its {} attention layers".format(LM_BATCH, LM_SEQ, LM["n_layers"])}
         for name, replaces, *_ in FLASH_TABLE] + [
-        {"name": name + "_d256", "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
-         "instance": "{}_wgmma_kernel<256, 2>".format(name),
-         "launches": n["d256_launches"][name], "launches_loop_path": n["d256_loop_launches"][name],
-         "device_launches_traced_loop_call": n["d256_traced"][name],
-         "max_abs_err": d256[name]["max_abs_err"],
-         **{key: LM["n_layers"] * d256[name][key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
-         "bound_by": d256[name]["bound_by"], "library": d256[name]["library"],
-         "per": "transformer LM step at {} heads of 256, batch {}, seq {}, bf16, causal with packed segments: "
-                "sum over its {} attention layers".format(LM_D256["n_heads"], LM_BATCH, LM_SEQ, LM["n_layers"])}
-        for name, replaces, *_ in FLASH_TABLE]})
+        {"name": name + "_" + key, "route": "cuda", "source": FLASH_SOURCE, "replaces": replaces,
+         "instance": ("{}_wgmma_kernel<256, 2>" if key == "d256" else "{}_split_wgmma_kernel").format(name),
+         "launches": n[key + "_launches"][name], "launches_loop_path": n[key + "_loop_launches"][name],
+         "device_launches_traced_loop_call": n[key + "_traced"][name],
+         "max_abs_err": wide[key, name]["max_abs_err"],
+         **{k: LM["n_layers"] * wide[key, name][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "bound_by": wide[key, name]["bound_by"], "library": wide[key, name]["library"],
+         "per": "transformer LM step at {} head(s) of {}, batch {}, seq {}, bf16, causal with packed segments: "
+                "sum over its {} attention layers".format(width["n_heads"], width["d_model"] // width["n_heads"],
+                                                         LM_BATCH, LM_SEQ, LM["n_layers"])}
+        for key, width in (("d256", LM_D256), ("d512", LM_D512)) for name, replaces, *_ in FLASH_TABLE]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -25,7 +25,12 @@
 // work.
 //
 // Head dims: D = 64, 128 and 256 are compiled (the wrapper pads any other D
-// up to 256 with zeros to the next of them).
+// up to 256 with zeros to the next of them). Above 256 the split-D kernels
+// take D as a launch argument, any multiple of 8 (the wrapper pads another
+// to the next): the grid's z splits the output columns into chunks of 256,
+// and the score products loop over 64-column panels of D (see "Split-D"
+// below). No upper bound: a chunk's shared memory and registers do not
+// grow with D; its work does (the scores are recomputed for each chunk).
 //
 // float32 (simple first): one CTA of 4 warps per (bh, 64-row block; 32 rows
 // at D = 256, so that its tiles fit in shared memory). Q/dO or K/V tiles are
@@ -502,6 +507,326 @@ int launch_dkv(const void* q, const void* k, const void* v, const int* seg, cons
                                          static_cast<const T*>(v), seg, seg_kv, static_cast<const T*>(dout), lse,
                                          delta, static_cast<T*>(dk), static_cast<T*>(dv), L, heads, scale,
                                          causal != 0);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Split-D float32 kernels (D > 256, any D): the same arithmetic as the
+// kernels above, with D a launch argument. The scores S = sum_p Q_p K_p^T
+// are summed over 64-column panels of D (a panel of each operand staged at
+// a time), and each CTA owns one chunk of kChunk output columns (the
+// grid's z), so its tiles and accumulators keep the size of the D = 256
+// kernels' whatever D is: 32-row blocks, [32][65] panels, [32][257] chunk
+// tiles, [32][256] accumulators. Each chunk's CTA recomputes the scores;
+// only chunk 0 writes lse. dk and dv of a kv block stay in one CTA (two
+// accumulators, 174 KB of shared memory).
+
+// Output columns a split-D CTA owns (the grid's z indexes the chunks).
+constexpr int kChunk = 256;
+
+// Shared-memory plan of a split-D float32 CTA: `panels` [R][65] panels,
+// `chunks` [R][kChunk + 1] tiles, `scores` [R][R] buffers, `accs`
+// [R][kChunk] accumulators and 4 per-row vectors of 64 words.
+struct SplitPlanF32 {
+  static constexpr int kRows = 32;
+  static constexpr int kPanelLd = 64 + 1;
+  static constexpr int kChunkLd = kChunk + 1;
+  static constexpr size_t kPanel = round128(sizeof(float) * kRows * kPanelLd);
+  static constexpr size_t kChunkTile = round128(sizeof(float) * kRows * kChunkLd);
+  static constexpr size_t kScore = round128(sizeof(float) * kRows * kRows);
+  static constexpr size_t kAcc = round128(sizeof(float) * kRows * kChunk);
+  static constexpr size_t bytes(int panels, int chunks, int scores, int accs) {
+    return panels * kPanel + chunks * kChunkTile + scores * kScore + accs * kAcc + 4 * kVecBytes;
+  }
+};
+
+// Columns [col0, col0 + W) of rows [row0, row0 + R) of a [L, D] matrix
+// into a [R][ld] tile; entries past L or past D read as zeros.
+template <int W, int R>
+__device__ void load_cols(float* dst, int ld, const float* src, int D, int row0, int col0, int L) {
+  for (int i = threadIdx.x; i < R * W; i += kThreads) {
+    const int r = i / W, c = i % W;
+    dst[r * ld + c] = row0 + r < L && col0 + c < D ? src[(size_t)(row0 + r) * D + col0 + c] : 0.0f;
+  }
+}
+
+// s (+)= A_p B_p^T over one 64-column panel, the first panel setting s.
+template <int R>
+__device__ __forceinline__ void panel_abt(const float* a, const float* b, float* s, bool first) {
+  constexpr int ld = SplitPlanF32::kPanelLd;
+  if (first)
+    tile_mm<R, R, 64, false, true, false>(a, ld, b, ld, s, R);
+  else
+    tile_mm<R, R, 64, false, true, true>(a, ld, b, ld, s, R);
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_split_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                       const int* __restrict__ seg, const int* __restrict__ seg_kv, float* __restrict__ o,
+                       float* __restrict__ lse, int L, int D, int heads, float scale, bool causal) {
+  using P = SplitPlanF32;
+  constexpr int R = P::kRows, kLaneCols = R / 32, kWarpRows = R / 4;
+  extern __shared__ __align__(128) char smem[];
+  Carver cv{smem};
+  float* qs = cv.take<float>(P::kPanel);
+  float* ks = cv.take<float>(P::kPanel);
+  float* vs = cv.take<float>(P::kChunkTile);
+  float* s = cv.take<float>(P::kScore);
+  float* ps = s;  // p overwrites its scores in place
+  float* acc = cv.take<float>(P::kAcc);
+  float* m_row = cv.take<float>(kVecBytes);
+  float* l_row = cv.take<float>(kVecBytes);
+  int* seg_q = cv.take<int>(kVecBytes);
+  int* seg_k = cv.take<int>(kVecBytes);
+
+  const int bh = blockIdx.x, q0 = blockIdx.y * R, c0 = blockIdx.z * kChunk, n_pan = (D + 63) / 64;
+  const size_t base = (size_t)bh * L * D;
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
+  const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (seg_b) load_vec<R>(seg_q, seg_b, q0, L, -1);
+  for (int i = threadIdx.x; i < R * kChunk; i += kThreads) acc[i] = 0.0f;
+  for (int i = threadIdx.x; i < R; i += kThreads) { m_row[i] = kNegBig; l_row[i] = 0.0f; }
+
+  const int n_kv = (L + R - 1) / R;
+  const int kv_end = causal ? min(n_kv, (int)blockIdx.y + 1) : n_kv;
+  for (int kb = 0; kb < kv_end; ++kb) {
+    const int k0 = kb * R;
+    for (int p = 0; p < n_pan; ++p) {
+      __syncthreads();  // the previous panels (and block) are read
+      load_cols<64, R>(qs, P::kPanelLd, q + base, D, q0, 64 * p, L);
+      load_cols<64, R>(ks, P::kPanelLd, k + base, D, k0, 64 * p, L);
+      if (p == 0 && seg_b) load_vec<R>(seg_k, seg_kb, k0, L, -1);
+      __syncthreads();
+      panel_abt<R>(qs, ks, s, p == 0);  // S (+)= Q_p K_p^T
+    }
+    load_cols<kChunk, R>(vs, P::kChunkLd, v + base, D, k0, c0, L);
+    __syncthreads();
+    for (int r = warp * kWarpRows; r < (warp + 1) * kWarpRows; ++r) {
+      const int qi = q0 + r;
+      float x[kLaneCols], x_max = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) {
+        const int col = lane + 32 * c;
+        x[c] = masked_score(s[r * R + col], scale, qi, k0 + col, L, causal, seg_b, seg_q[r], seg_k[col]);
+        x_max = fmaxf(x_max, x[c]);
+      }
+      const float m_old = m_row[r];
+      const float m_new = fmaxf(m_old, warp_max(x_max));
+      const float corr = expf(m_old - m_new);
+      float p[kLaneCols], p_sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) {
+        p[c] = expf(x[c] - m_new);
+        p_sum += p[c];
+      }
+      const float row_sum = warp_sum(p_sum);
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) ps[r * R + lane + 32 * c] = p[c];
+      for (int c = lane; c < kChunk; c += 32) acc[r * kChunk + c] *= corr;
+      if (lane == 0) {
+        l_row[r] = l_row[r] * corr + row_sum;
+        m_row[r] = m_new;
+      }
+    }
+    __syncthreads();
+    tile_mm<R, kChunk, R, false, false, true>(ps, R, vs, P::kChunkLd, acc, kChunk);  // O_c += P V_c
+  }
+  __syncthreads();
+  for (int r = warp * kWarpRows; r < (warp + 1) * kWarpRows; ++r) {
+    const int qi = q0 + r;
+    if (qi >= L) break;
+    const float denom = fmaxf(l_row[r], 1e-30f);
+    for (int c = lane; c < kChunk && c0 + c < D; c += 32) o[base + (size_t)qi * D + c0 + c] = acc[r * kChunk + c] / denom;
+    if (lane == 0 && blockIdx.z == 0) lse[(size_t)bh * L + qi] = m_row[r] + logf(denom);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_split_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                          const int* __restrict__ seg, const int* __restrict__ seg_kv, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
+                          int L, int D, int heads, float scale, bool causal) {
+  using P = SplitPlanF32;
+  constexpr int R = P::kRows;
+  extern __shared__ __align__(128) char smem[];
+  Carver cv{smem};
+  float* qs = cv.take<float>(P::kPanel);
+  float* dos = cv.take<float>(P::kPanel);
+  float* ks = cv.take<float>(P::kPanel);
+  float* vs = cv.take<float>(P::kPanel);
+  float* kc = cv.take<float>(P::kChunkTile);
+  float* s = cv.take<float>(P::kScore);
+  float* dp = cv.take<float>(P::kScore);
+  float* dss = s;  // ds overwrites its scores in place
+  float* acc = cv.take<float>(P::kAcc);
+  float* lse_r = cv.take<float>(kVecBytes);
+  float* delta_r = cv.take<float>(kVecBytes);
+  int* seg_q = cv.take<int>(kVecBytes);
+  int* seg_k = cv.take<int>(kVecBytes);
+
+  const int bh = blockIdx.x, q0 = blockIdx.y * R, c0 = blockIdx.z * kChunk, n_pan = (D + 63) / 64;
+  const size_t base = (size_t)bh * L * D;
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
+  const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
+
+  load_vec<R>(lse_r, lse + (size_t)bh * L, q0, L, 0.0f);
+  load_vec<R>(delta_r, delta + (size_t)bh * L, q0, L, 0.0f);
+  if (seg_b) load_vec<R>(seg_q, seg_b, q0, L, -1);
+  for (int i = threadIdx.x; i < R * kChunk; i += kThreads) acc[i] = 0.0f;
+
+  const int n_kv = (L + R - 1) / R;
+  const int kv_end = causal ? min(n_kv, (int)blockIdx.y + 1) : n_kv;
+  for (int kb = 0; kb < kv_end; ++kb) {
+    const int k0 = kb * R;
+    for (int p = 0; p < n_pan; ++p) {
+      __syncthreads();
+      load_cols<64, R>(qs, P::kPanelLd, q + base, D, q0, 64 * p, L);
+      load_cols<64, R>(dos, P::kPanelLd, dout + base, D, q0, 64 * p, L);
+      load_cols<64, R>(ks, P::kPanelLd, k + base, D, k0, 64 * p, L);
+      load_cols<64, R>(vs, P::kPanelLd, v + base, D, k0, 64 * p, L);
+      if (p == 0 && seg_b) load_vec<R>(seg_k, seg_kb, k0, L, -1);
+      __syncthreads();
+      panel_abt<R>(qs, ks, s, p == 0);    // S (+)= Q_p K_p^T
+      panel_abt<R>(dos, vs, dp, p == 0);  // dP (+)= dO_p V_p^T
+    }
+    load_cols<kChunk, R>(kc, P::kChunkLd, k + base, D, k0, c0, L);
+    __syncthreads();
+    for (int i = threadIdx.x; i < R * R; i += kThreads) {
+      const int r = i / R, c = i % R;
+      const float x = masked_score(s[i], scale, q0 + r, k0 + c, L, causal, seg_b, seg_q[r], seg_k[c]);
+      const float p = expf(x - lse_r[r]);
+      dss[i] = p * (dp[i] - delta_r[r]) * scale;
+    }
+    __syncthreads();
+    tile_mm<R, kChunk, R, false, false, true>(dss, R, kc, P::kChunkLd, acc, kChunk);  // dQ_c += dS K_c
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * kChunk; i += kThreads) {
+    const int r = i / kChunk, c = i % kChunk;
+    if (q0 + r < L && c0 + c < D) dq[base + (size_t)(q0 + r) * D + c0 + c] = acc[i];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_split_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                           const int* __restrict__ seg, const int* __restrict__ seg_kv,
+                           const float* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int L,
+                           int D, int heads, float scale, bool causal) {
+  using P = SplitPlanF32;
+  constexpr int R = P::kRows;
+  extern __shared__ __align__(128) char smem[];
+  Carver cv{smem};
+  float* ks = cv.take<float>(P::kPanel);
+  float* vs = cv.take<float>(P::kPanel);
+  float* qs = cv.take<float>(P::kPanel);
+  float* dos = cv.take<float>(P::kPanel);
+  float* qc = cv.take<float>(P::kChunkTile);
+  float* doc = cv.take<float>(P::kChunkTile);
+  float* s = cv.take<float>(P::kScore);
+  float* dp = cv.take<float>(P::kScore);
+  float* ps = s;  // p and ds overwrite their scores in place
+  float* dss = dp;
+  float* dk_acc = cv.take<float>(P::kAcc);
+  float* dv_acc = cv.take<float>(P::kAcc);
+  float* lse_r = cv.take<float>(kVecBytes);
+  float* delta_r = cv.take<float>(kVecBytes);
+  int* seg_q = cv.take<int>(kVecBytes);
+  int* seg_k = cv.take<int>(kVecBytes);
+
+  const int bh = blockIdx.x, k0 = blockIdx.y * R, c0 = blockIdx.z * kChunk, n_pan = (D + 63) / 64;
+  const size_t base = (size_t)bh * L * D;
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
+  const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
+
+  if (seg_b) load_vec<R>(seg_k, seg_kb, k0, L, -1);
+  for (int i = threadIdx.x; i < R * kChunk; i += kThreads) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  const int n_q = (L + R - 1) / R;
+  const int q_begin = causal ? (int)blockIdx.y : 0;
+  for (int qb = q_begin; qb < n_q; ++qb) {
+    const int q0 = qb * R;
+    for (int p = 0; p < n_pan; ++p) {
+      __syncthreads();
+      load_cols<64, R>(qs, P::kPanelLd, q + base, D, q0, 64 * p, L);
+      load_cols<64, R>(dos, P::kPanelLd, dout + base, D, q0, 64 * p, L);
+      load_cols<64, R>(ks, P::kPanelLd, k + base, D, k0, 64 * p, L);
+      load_cols<64, R>(vs, P::kPanelLd, v + base, D, k0, 64 * p, L);
+      if (p == 0) {
+        load_vec<R>(lse_r, lse + (size_t)bh * L, q0, L, 0.0f);
+        load_vec<R>(delta_r, delta + (size_t)bh * L, q0, L, 0.0f);
+        if (seg_b) load_vec<R>(seg_q, seg_b, q0, L, -1);
+      }
+      __syncthreads();
+      panel_abt<R>(qs, ks, s, p == 0);    // S (+)= Q_p K_p^T (rows queries, columns keys)
+      panel_abt<R>(dos, vs, dp, p == 0);  // dP (+)= dO_p V_p^T
+    }
+    load_cols<kChunk, R>(qc, P::kChunkLd, q + base, D, q0, c0, L);
+    load_cols<kChunk, R>(doc, P::kChunkLd, dout + base, D, q0, c0, L);
+    __syncthreads();
+    for (int i = threadIdx.x; i < R * R; i += kThreads) {
+      const int r = i / R, c = i % R;
+      const float x = masked_score(s[i], scale, q0 + r, k0 + c, L, causal, seg_b, seg_q[r], seg_k[c]);
+      const float p = q0 + r < L ? expf(x - lse_r[r]) : 0.0f;
+      const float ds = p * (dp[i] - delta_r[r]) * scale;
+      ps[i] = p;
+      dss[i] = ds;
+    }
+    __syncthreads();
+    tile_mm<R, kChunk, R, true, false, true>(ps, R, doc, P::kChunkLd, dv_acc, kChunk);  // dV_c += P^T dO_c
+    tile_mm<R, kChunk, R, true, false, true>(dss, R, qc, P::kChunkLd, dk_acc, kChunk);  // dK_c += dS^T Q_c
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * kChunk; i += kThreads) {
+    const int r = i / kChunk, c = i % kChunk;
+    if (k0 + r < L && c0 + c < D) {
+      dk[base + (size_t)(k0 + r) * D + c0 + c] = dk_acc[i];
+      dv[base + (size_t)(k0 + r) * D + c0 + c] = dv_acc[i];
+    }
+  }
+}
+
+int split_chunks(int D) { return (D + kChunk - 1) / kChunk; }
+
+int launch_fwd_split(const void* q, const void* k, const void* v, const int* seg, const int* seg_kv, void* o,
+                     float* lse, int bh, int heads, int L, int D, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = SplitPlanF32::bytes(2, 1, 1, 1);
+  cudaError_t err = allow_smem<flash_fwd_split_kernel>(smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int R = SplitPlanF32::kRows;
+  flash_fwd_split_kernel<<<dim3(bh, (L + R - 1) / R, split_chunks(D)), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), seg, seg_kv,
+      static_cast<float*>(o), lse, L, D, heads, scale, causal != 0);
+  return (int)cudaGetLastError();
+}
+
+int launch_dq_split(const void* q, const void* k, const void* v, const int* seg, const int* seg_kv, const void* dout,
+                    const float* lse, const float* delta, void* dq, int bh, int heads, int L, int D, float scale,
+                    int causal, cudaStream_t stream) {
+  const size_t smem = SplitPlanF32::bytes(4, 1, 2, 1);
+  cudaError_t err = allow_smem<flash_bwd_dq_split_kernel>(smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int R = SplitPlanF32::kRows;
+  flash_bwd_dq_split_kernel<<<dim3(bh, (L + R - 1) / R, split_chunks(D)), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), seg, seg_kv,
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), L, D, heads, scale, causal != 0);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv_split(const void* q, const void* k, const void* v, const int* seg, const int* seg_kv,
+                     const void* dout, const float* lse, const float* delta, void* dk, void* dv, int bh, int heads,
+                     int L, int D, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = SplitPlanF32::bytes(4, 2, 2, 2);
+  cudaError_t err = allow_smem<flash_bwd_dkv_split_kernel>(smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int R = SplitPlanF32::kRows;
+  flash_bwd_dkv_split_kernel<<<dim3(bh, (L + R - 1) / R, split_chunks(D)), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), seg, seg_kv,
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), L, D, heads,
+      scale, causal != 0);
   return (int)cudaGetLastError();
 }
 
@@ -1271,6 +1596,485 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     }
 }
 
+// ---------------------------------------------------------------------------
+// Split-D bf16 kernels (D > 256): the wgmma designs above, with D a launch
+// argument. At D = 512 a whole-row accumulator would take 256 registers a
+// thread and a [64][D] tile 64 KB, so the grid's z splits D instead:
+//   - each CTA owns a chunk of kChunk = 256 output columns, so its one
+//     accumulator is the D = 256 kernels' (128 registers a thread);
+//   - the score products over the whole D run as a loop over 64-column
+//     panels (the TMA box), S = sum_p Q_p K_p^T accumulated in registers,
+//     so no operand is resident: a ring step carries one panel of each
+//     operand of the score products, then one step the chunk of the
+//     second product's B operand (V, K, dO or Q);
+//   - the forward and dq recompute the scores (and dP) for each chunk; dk
+//     and dv run as two passes a chunk on z (kSplitDkv's design: z = 2c
+//     dv, z = 2c + 1 dk). Chunk 0 alone writes lse.
+// The ring is kSplitStages steps of 32 KB (4 panels), mbarrier-completed
+// TMA loads as above; a step is released (every thread past it, then
+// refilled by thread 0) once its products have completed. The per-block
+// row vectors (the keys' ids; lse, delta and ids of a q block in dk/dv) sit
+// in a double buffer by the block's parity, stored by the threads at the
+// block's start: the first score step's barrier publishes them, and the
+// buffer is rewritten two blocks later, after every thread has read it.
+// The tensor maps take the real D (a multiple of 8: rows of 16-byte
+// multiples), so a panel that runs past D is filled with zeros by TMA and
+// no operand is padded; the chunk step loads only the panels inside D, and
+// the products on the rest write columns that are never stored.
+// Shared memory: 96 KB of ring, 2 CTAs an SM.
+
+constexpr int kStepPanels = kChunk / 64;
+constexpr int kStepBytes = kStepPanels * kPanelBytes;
+constexpr int kSplitStages = 3;
+
+struct SplitPlan {
+  static constexpr int kVec = kSplitStages * kStepBytes;  // RowVec[2], by block parity
+  static constexpr int kBars = kVec + 2 * (int)sizeof(RowVec);
+  static constexpr int kScratch = kBars + kSplitStages * 8;
+  static constexpr int kList = kScratch + 16;
+  static size_t bytes(int n_blk) { return kSwizzleAtom + kList + 2 * (size_t)n_blk * 4; }
+};
+
+// The ring of a split-D CTA: step t sits in stage t % kSplitStages.
+struct SplitRing {
+  char* base;
+  uint64_t* bars;
+  int n_steps;
+  __device__ char* stage(int t) const { return base + (t % kSplitStages) * kStepBytes; }
+  __device__ uint64_t* bar(int t) const { return &bars[t % kSplitStages]; }
+  __device__ void wait(int t) const { mbar_wait(bar(t), (t / kSplitStages) & 1); }
+};
+
+// The panels of columns [col0, col0 + 64 n) of a 64-row block into a step.
+__device__ __forceinline__ void load_panels(char* dst, const CUtensorMap* map, uint64_t* bar, int n, int col0,
+                                            int row0, int bh) {
+  for (int pn = 0; pn < n; ++pn) tma_load(dst + pn * kPanelBytes, map, bar, col0 + 64 * pn, row0, bh);
+}
+
+// The panels of a chunk at c0 that lie inside D.
+__device__ __forceinline__ int chunk_panels(int D, int c0) { return min(kStepPanels, (D - c0 + 63) / 64); }
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
+                             const int* __restrict__ seg_kv, void* __restrict__ o, float* __restrict__ lse, int L,
+                             int D, int heads, float scale, bool causal, bool out_f32) {
+  extern __shared__ char smem_raw[];
+  char* smem = align_atom(smem_raw);
+  RowVec* vec = reinterpret_cast<RowVec*>(smem + SplitPlan::kVec);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + SplitPlan::kBars);
+  int* scratch = reinterpret_cast<int*>(smem + SplitPlan::kScratch);
+  const int n_blk = (L + kBlock - 1) / kBlock;
+  int* flags = reinterpret_cast<int*>(smem + SplitPlan::kList);
+  int* list = flags + n_blk;
+
+  const int bh = blockIdx.x, qb = n_blk - 1 - (int)blockIdx.y, q0 = qb * kBlock, c0 = blockIdx.z * kChunk;
+  const int tid = threadIdx.x, n_pan = (D + 63) / 64, per = n_pan + 1, n_chunk = chunk_panels(D, c0);
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
+  const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
+
+  init_barriers(bars, kSplitStages);
+  int qi[2], seg_q[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qi[h] = q0 + acc_row(2 * h);
+    seg_q[h] = seg_b && qi[h] < L ? seg_b[qi[h]] : 0;
+  }
+  const float scale2 = scale * kLog2e;
+  const int n_vis = visit_list(seg_b, seg_kb, L, q0, 0, causal ? qb + 1 : n_blk, flags, list, scratch);
+
+  // step t of kv block list[t / per]: score panel p = t % per (Q_p, K_p),
+  // or at p = n_pan the block's V chunk
+  const SplitRing ring{smem, bars, n_vis * per};
+  auto issue = [&](int t) {
+    const int p = t % per, k0 = list[t / per] * kBlock;
+    char* dst = ring.stage(t);
+    if (p < n_pan) {
+      mbar_expect_tx(ring.bar(t), 2 * kPanelBytes);
+      tma_load(dst, &tm_q, ring.bar(t), 64 * p, q0, bh);
+      tma_load(dst + kPanelBytes, &tm_k, ring.bar(t), 64 * p, k0, bh);
+    } else {
+      mbar_expect_tx(ring.bar(t), n_chunk * kPanelBytes);
+      load_panels(dst, &tm_v, ring.bar(t), n_chunk, c0, k0, bh);
+    }
+  };
+  auto release = [&](int t) {
+    __syncthreads();  // every thread is done with step t's stage
+    if (tid == 0 && t + kSplitStages < ring.n_steps) issue(t + kSplitStages);
+  };
+  if (tid == 0)
+    for (int t = 0; t < kSplitStages && t < ring.n_steps; ++t) issue(t);
+
+  float acc[kStepPanels][32], m[2] = {kNegBig, kNegBig}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int pn = 0; pn < kStepPanels; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[pn][i] = 0.0f;
+
+  int t = 0;
+  for (int it = 0; it < n_vis; ++it) {
+    const int k0 = list[it] * kBlock;
+    int* kseg = vec[it & 1].seg;
+    if (tid < kBlock) kseg[tid] = seg_kb && k0 + tid < L ? seg_kb[k0 + tid] : -1;
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    for (int p = 0; p < n_pan; ++p, ++t) {
+      ring.wait(t);
+      pin(sc);
+      wg_fence();
+      tile_abt<64>(sc, ring.stage(t), ring.stage(t) + kPanelBytes);  // S += Q_p K_p^T
+      wg_commit();
+      wg_wait_all();
+      pin(sc);
+      release(t);
+    }
+    // the online softmax of flash_fwd_wgmma_kernel on this block's scores
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1, c = acc_col(i);
+      const int2 sk = seg_b ? *reinterpret_cast<const int2*>(&kseg[c]) : make_int2(0, 0);
+      const int sv[2] = {sk.x, sk.y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kj = k0 + c + e;
+        float x = sc[i + e] * scale2;
+        if ((causal && kj > qi[h]) || (seg_b && sv[e] != seg_q[h])) x = kNegBig;
+        if (kj >= L) x = -INFINITY;
+        sc[i + e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int pn = 0; pn < kStepPanels; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[pn][i] *= corr[(i >> 1) & 1];
+    uint32_t frag[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1;
+      const float p0 = exp2f(sc[i] - m[h]), p1 = exp2f(sc[i + 1] - m[h]);
+      l[h] += p0 + p1;
+      frag[i >> 3][(i & 7) >> 1] = pack_bf16(p0, p1);
+    }
+    ring.wait(t);
+    pin(frag);
+#pragma unroll
+    for (int pn = 0; pn < kStepPanels; ++pn) pin(acc[pn]);
+    wg_fence();
+    tile_fb<kChunk>(acc, frag, ring.stage(t));  // O_c += P V_c
+    wg_commit();
+    wg_wait_all();
+    pin(frag);
+#pragma unroll
+    for (int pn = 0; pn < kStepPanels; ++pn) pin(acc[pn]);
+    release(t++);
+  }
+
+  float den[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    den[h] = fmaxf(l[h], 1e-30f);
+  }
+  const size_t base = (size_t)bh * L * D;
+#pragma unroll
+  for (int pn = 0; pn < kStepPanels; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1, r = q0 + acc_row(i), col = c0 + pn * 64 + acc_col(i);
+      if (r < L && col < D)
+        store_pair(o, out_f32, base + (size_t)r * D + col, acc[pn][i] / den[h], acc[pn][i + 1] / den[h]);
+    }
+  if (tid % 4 == 0 && blockIdx.z == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (qi[h] < L) lse[(size_t)bh * L + qi[h]] = m[h] * kLn2 + logf(den[h]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                                const int* __restrict__ seg, const int* __restrict__ seg_kv,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                void* __restrict__ dq, int L, int D, int heads, float scale, bool causal,
+                                bool out_f32) {
+  extern __shared__ char smem_raw[];
+  char* smem = align_atom(smem_raw);
+  RowVec* vec = reinterpret_cast<RowVec*>(smem + SplitPlan::kVec);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + SplitPlan::kBars);
+  int* scratch = reinterpret_cast<int*>(smem + SplitPlan::kScratch);
+  const int n_blk = (L + kBlock - 1) / kBlock;
+  int* flags = reinterpret_cast<int*>(smem + SplitPlan::kList);
+  int* list = flags + n_blk;
+
+  const int bh = blockIdx.x, qb = n_blk - 1 - (int)blockIdx.y, q0 = qb * kBlock, c0 = blockIdx.z * kChunk;
+  const int tid = threadIdx.x, n_pan = (D + 63) / 64, per = n_pan + 1, n_chunk = chunk_panels(D, c0);
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
+  const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
+
+  init_barriers(bars, kSplitStages);
+  int qi[2], seg_q[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qi[h] = q0 + acc_row(2 * h);
+    const bool in = qi[h] < L;
+    lse2[h] = in ? lse[(size_t)bh * L + qi[h]] * kLog2e : 0.0f;
+    dlt[h] = in ? delta[(size_t)bh * L + qi[h]] : 0.0f;
+    seg_q[h] = seg_b && in ? seg_b[qi[h]] : 0;
+  }
+  const float scale2 = scale * kLog2e;
+  const int n_vis = visit_list(seg_b, seg_kb, L, q0, 0, causal ? qb + 1 : n_blk, flags, list, scratch);
+
+  // step t of kv block list[t / per]: score panel p = t % per (Q_p, K_p,
+  // dO_p, V_p), or at p = n_pan the block's K chunk
+  const SplitRing ring{smem, bars, n_vis * per};
+  auto issue = [&](int t) {
+    const int p = t % per, k0 = list[t / per] * kBlock;
+    char* dst = ring.stage(t);
+    if (p < n_pan) {
+      mbar_expect_tx(ring.bar(t), 4 * kPanelBytes);
+      tma_load(dst, &tm_q, ring.bar(t), 64 * p, q0, bh);
+      tma_load(dst + kPanelBytes, &tm_k, ring.bar(t), 64 * p, k0, bh);
+      tma_load(dst + 2 * kPanelBytes, &tm_do, ring.bar(t), 64 * p, q0, bh);
+      tma_load(dst + 3 * kPanelBytes, &tm_v, ring.bar(t), 64 * p, k0, bh);
+    } else {
+      mbar_expect_tx(ring.bar(t), n_chunk * kPanelBytes);
+      load_panels(dst, &tm_k, ring.bar(t), n_chunk, c0, k0, bh);
+    }
+  };
+  auto release = [&](int t) {
+    __syncthreads();
+    if (tid == 0 && t + kSplitStages < ring.n_steps) issue(t + kSplitStages);
+  };
+  if (tid == 0)
+    for (int t = 0; t < kSplitStages && t < ring.n_steps; ++t) issue(t);
+
+  float acc[kStepPanels][32];
+#pragma unroll
+  for (int pn = 0; pn < kStepPanels; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[pn][i] = 0.0f;
+
+  int t = 0;
+  for (int it = 0; it < n_vis; ++it) {
+    const int k0 = list[it] * kBlock;
+    int* kseg = vec[it & 1].seg;
+    if (tid < kBlock) kseg[tid] = seg_kb && k0 + tid < L ? seg_kb[k0 + tid] : -1;
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
+    for (int p = 0; p < n_pan; ++p, ++t) {
+      ring.wait(t);
+      char* st = ring.stage(t);
+      pin(sc);
+      pin(dp);
+      wg_fence();
+      tile_abt<64>(sc, st, st + kPanelBytes);                    // S += Q_p K_p^T
+      tile_abt<64>(dp, st + 2 * kPanelBytes, st + 3 * kPanelBytes);  // dP += dO_p V_p^T
+      wg_commit();
+      wg_wait_all();
+      pin(sc);
+      pin(dp);
+      release(t);
+    }
+    uint32_t frag[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1;
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = acc_col(i + e), kj = k0 + c;
+        const bool keep = kj < L && (!causal || kj <= qi[h]) && (!seg_b || kseg[c] == seg_q[h]);
+        const float p = keep ? exp2f(fmaf(sc[i + e], scale2, -lse2[h])) : 0.0f;
+        ds[e] = p * (dp[i + e] - dlt[h]) * scale;
+      }
+      frag[i >> 3][(i & 7) >> 1] = pack_bf16(ds[0], ds[1]);
+    }
+    ring.wait(t);
+    pin(frag);
+#pragma unroll
+    for (int pn = 0; pn < kStepPanels; ++pn) pin(acc[pn]);
+    wg_fence();
+    tile_fb<kChunk>(acc, frag, ring.stage(t));  // dQ_c += dS K_c
+    wg_commit();
+    wg_wait_all();
+    pin(frag);
+#pragma unroll
+    for (int pn = 0; pn < kStepPanels; ++pn) pin(acc[pn]);
+    release(t++);
+  }
+
+  const size_t base = (size_t)bh * L * D;
+#pragma unroll
+  for (int pn = 0; pn < kStepPanels; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = q0 + acc_row(i), col = c0 + pn * 64 + acc_col(i);
+      if (r < L && col < D) store_pair(dq, out_f32, base + (size_t)r * D + col, acc[pn][i], acc[pn][i + 1]);
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                                 const int* __restrict__ seg, const int* __restrict__ seg_kv,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 void* __restrict__ dk, void* __restrict__ dv, int L, int D, int heads, float scale,
+                                 bool causal, bool out_f32) {
+  extern __shared__ char smem_raw[];
+  char* smem = align_atom(smem_raw);
+  RowVec* vec = reinterpret_cast<RowVec*>(smem + SplitPlan::kVec);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + SplitPlan::kBars);
+  int* scratch = reinterpret_cast<int*>(smem + SplitPlan::kScratch);
+  const int n_blk = (L + kBlock - 1) / kBlock;
+  int* flags = reinterpret_cast<int*>(smem + SplitPlan::kList);
+  int* list = flags + n_blk;
+
+  // z = 2 c + pass: pass 0 accumulates dV of chunk c, pass 1 dK
+  const int bh = blockIdx.x, kb = blockIdx.y, k0 = kb * kBlock, c0 = (blockIdx.z >> 1) * kChunk;
+  const bool want_dk = blockIdx.z & 1;
+  const int tid = threadIdx.x, n_pan = (D + 63) / 64, per = n_pan + 1, n_chunk = chunk_panels(D, c0);
+  const int* seg_b = seg ? seg + (size_t)(bh / heads) * L : nullptr;  // the queries' ids
+  const int* seg_kb = seg ? (seg_kv ? seg_kv : seg) + (size_t)(bh / heads) * L : nullptr;  // the keys'
+  const float* lse_b = lse + (size_t)bh * L;
+  const float* delta_b = delta + (size_t)bh * L;
+
+  init_barriers(bars, kSplitStages);
+  const int n_vis = visit_list(seg_kb, seg_b, L, k0, causal ? kb : 0, n_blk, flags, list, scratch);
+
+  // step t of q block list[t / per]: score panel p = t % per (K_p, Q_p and,
+  // for dk, V_p, dO_p), or at p = n_pan the block's dO chunk (dv) or Q
+  // chunk (dk)
+  const SplitRing ring{smem, bars, n_vis * per};
+  auto issue = [&](int t) {
+    const int p = t % per, q0 = list[t / per] * kBlock;
+    char* dst = ring.stage(t);
+    if (p < n_pan) {
+      mbar_expect_tx(ring.bar(t), (want_dk ? 4 : 2) * kPanelBytes);
+      tma_load(dst, &tm_k, ring.bar(t), 64 * p, k0, bh);
+      tma_load(dst + kPanelBytes, &tm_q, ring.bar(t), 64 * p, q0, bh);
+      if (want_dk) {
+        tma_load(dst + 2 * kPanelBytes, &tm_v, ring.bar(t), 64 * p, k0, bh);
+        tma_load(dst + 3 * kPanelBytes, &tm_do, ring.bar(t), 64 * p, q0, bh);
+      }
+    } else {
+      mbar_expect_tx(ring.bar(t), n_chunk * kPanelBytes);
+      load_panels(dst, want_dk ? &tm_q : &tm_do, ring.bar(t), n_chunk, c0, q0, bh);
+    }
+  };
+  auto release = [&](int t) {
+    __syncthreads();
+    if (tid == 0 && t + kSplitStages < ring.n_steps) issue(t + kSplitStages);
+  };
+  if (tid == 0)
+    for (int t = 0; t < kSplitStages && t < ring.n_steps; ++t) issue(t);
+
+  // this thread's two kv rows and their ids
+  int kj[2], seg_k[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    kj[h] = k0 + acc_row(2 * h);
+    seg_k[h] = seg_kb && kj[h] < L ? seg_kb[kj[h]] : 0;
+  }
+  const float scale2 = scale * kLog2e;
+
+  float acc[kStepPanels][32];
+#pragma unroll
+  for (int pn = 0; pn < kStepPanels; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[pn][i] = 0.0f;
+
+  int t = 0;
+  for (int it = 0; it < n_vis; ++it) {
+    const int q0 = list[it] * kBlock;
+    RowVec& rows = vec[it & 1];
+    {
+      const int r = tid % kBlock, q = q0 + r;
+      const bool in = q < L;
+      if (tid < kBlock) {
+        rows.lse2[r] = in ? lse_b[q] * kLog2e : 0.0f;
+        rows.delta[r] = in ? delta_b[q] : 0.0f;
+      } else {
+        rows.seg[r] = seg_b && in ? seg_b[q] : -1;
+      }
+    }
+    // transposed scores: rows are this CTA's keys, columns the queries
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
+    for (int p = 0; p < n_pan; ++p, ++t) {
+      ring.wait(t);
+      char* st = ring.stage(t);
+      pin(sc);
+      pin(dp);
+      wg_fence();
+      tile_abt<64>(sc, st, st + kPanelBytes);                                 // S^T += K_p Q_p^T
+      if (want_dk) tile_abt<64>(dp, st + 2 * kPanelBytes, st + 3 * kPanelBytes);  // dP^T += V_p dO_p^T
+      wg_commit();
+      wg_wait_all();
+      pin(sc);
+      pin(dp);
+      release(t);
+    }
+    uint32_t frag[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1, c = acc_col(i);  // c is even: this pair is columns c, c + 1
+      const float2 l2 = *reinterpret_cast<const float2*>(&rows.lse2[c]);
+      const float2 dl = *reinterpret_cast<const float2*>(&rows.delta[c]);
+      const int2 sq = *reinterpret_cast<const int2*>(&rows.seg[c]);
+      const float lv[2] = {l2.x, l2.y}, dlt[2] = {dl.x, dl.y};
+      const int sv[2] = {sq.x, sq.y};
+      float w[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = q0 + c + e;
+        const bool keep = q < L && (!causal || kj[h] <= q) && (!seg_b || sv[e] == seg_k[h]);
+        const float p = keep ? exp2f(fmaf(sc[i + e], scale2, -lv[e])) : 0.0f;
+        w[e] = want_dk ? p * (dp[i + e] - dlt[e]) * scale : p;  // dS^T or P^T
+      }
+      frag[i >> 3][(i & 7) >> 1] = pack_bf16(w[0], w[1]);
+    }
+    ring.wait(t);
+    pin(frag);
+#pragma unroll
+    for (int pn = 0; pn < kStepPanels; ++pn) pin(acc[pn]);
+    wg_fence();
+    tile_fb<kChunk>(acc, frag, ring.stage(t));  // dV_c += P^T dO_c, or dK_c += dS^T Q_c
+    wg_commit();
+    wg_wait_all();
+    pin(frag);
+#pragma unroll
+    for (int pn = 0; pn < kStepPanels; ++pn) pin(acc[pn]);
+    release(t++);
+  }
+
+  const size_t base = (size_t)bh * L * D;
+  void* out = want_dk ? dk : dv;
+#pragma unroll
+  for (int pn = 0; pn < kStepPanels; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = k0 + acc_row(i), col = c0 + pn * 64 + acc_col(i);
+      if (r < L && col < D) store_pair(out, out_f32, base + (size_t)r * D + col, acc[pn][i], acc[pn][i + 1]);
+    }
+}
+
 // The driver's tensor-map encoder, fetched through the runtime (no -lcuda).
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -1370,8 +2174,55 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const int* seg
   return (int)cudaGetLastError();
 }
 
+int launch_fwd_split_wgmma(const void* q, const void* k, const void* v, const int* seg, const int* seg_kv, void* o,
+                           float* lse, int bh, int heads, int L, int D, float scale, int causal, int out_f32,
+                           cudaStream_t stream) {
+  CUtensorMap m[3];
+  if (int err = make_maps(m, {q, k, v}, bh, L, D)) return err;
+  const int n_blk = (L + kBlock - 1) / kBlock;
+  const size_t smem = SplitPlan::bytes(n_blk);
+  cudaError_t err = allow_smem<flash_fwd_split_wgmma_kernel>(smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_split_wgmma_kernel<<<dim3(bh, n_blk, split_chunks(D)), kThreads, smem, stream>>>(
+      m[0], m[1], m[2], seg, seg_kv, o, lse, L, D, heads, scale, causal != 0, out_f32 != 0);
+  return (int)cudaGetLastError();
+}
+
+int launch_dq_split_wgmma(const void* q, const void* k, const void* v, const int* seg, const int* seg_kv,
+                          const void* dout, const float* lse, const float* delta, void* dq, int bh, int heads, int L,
+                          int D, float scale, int causal, int out_f32, cudaStream_t stream) {
+  CUtensorMap m[4];
+  if (int err = make_maps(m, {q, k, v, dout}, bh, L, D)) return err;
+  const int n_blk = (L + kBlock - 1) / kBlock;
+  const size_t smem = SplitPlan::bytes(n_blk);
+  cudaError_t err = allow_smem<flash_bwd_dq_split_wgmma_kernel>(smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_split_wgmma_kernel<<<dim3(bh, n_blk, split_chunks(D)), kThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], seg, seg_kv, lse, delta, dq, L, D, heads, scale, causal != 0, out_f32 != 0);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv_split_wgmma(const void* q, const void* k, const void* v, const int* seg, const int* seg_kv,
+                           const void* dout, const float* lse, const float* delta, void* dk, void* dv, int bh,
+                           int heads, int L, int D, float scale, int causal, int out_f32, cudaStream_t stream) {
+  CUtensorMap m[4];
+  if (int err = make_maps(m, {q, k, v, dout}, bh, L, D)) return err;
+  const int n_blk = (L + kBlock - 1) / kBlock;
+  const size_t smem = SplitPlan::bytes(n_blk);
+  cudaError_t err = allow_smem<flash_bwd_dkv_split_wgmma_kernel>(smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_split_wgmma_kernel<<<dim3(bh, n_blk, 2 * split_chunks(D)), kThreads, smem, stream>>>(
+      m[0], m[1], m[2], m[3], seg, seg_kv, lse, delta, dk, dv, L, D, heads, scale, causal != 0, out_f32 != 0);
+  return (int)cudaGetLastError();
+}
+
 // Unsupported head dim or dtype: the wrapper checks first, so this is a guard.
 constexpr int kUnsupported = -1;
+
+// Head dims above the compiled ones run on the split-D kernels: any D > 256
+// that is a multiple of 8 (the tensor maps' 16-byte row stride); the
+// wrapper zero-pads another up to the next such D.
+bool split_head_dim(int D) { return D > 256 && D % 8 == 0; }
 
 // fn(std::integral_constant<int, D>{}) at a compiled head dim D, for
 // dtype 0 (float32) or 1 (bfloat16); kUnsupported for any other.
@@ -1393,7 +2244,7 @@ int at_head_dim(int D, int dtype, Fn fn) {
 }  // namespace
 
 // C interface for ctypes. dtype: 0 = float32, 1 = bfloat16; D: 64, 128 or
-// 256; seg may be null (no fence), seg_k null means the keys' ids are seg;
+// 256, or any multiple of 8 above 256 (the split-D kernels); seg may be null (no fence), seg_k null means the keys' ids are seg;
 // out_f32 makes the bf16 kernels write f32 outputs (the f32 kernels always
 // do). Returns 0 or a cudaError_t code (kUnsupported for a bad D/dtype,
 // kNoTensorMap when the CUDA driver's tensor-map encoder is missing or refuses).
@@ -1402,6 +2253,9 @@ extern "C" {
 int tos_flash_fwd(const void* q, const void* k, const void* v, const int* seg, const int* seg_k, void* o, float* lse,
                   int bh, int heads, int L, int D, int dtype, float scale, int causal, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (split_head_dim(D) && (dtype == 0 || dtype == 1))
+    return dtype == 1 ? launch_fwd_split_wgmma(q, k, v, seg, seg_k, o, lse, bh, heads, L, D, scale, causal, out_f32, st)
+                      : launch_fwd_split(q, k, v, seg, seg_k, o, lse, bh, heads, L, D, scale, causal, st);
   return at_head_dim(D, dtype, [&](auto dim) {
     constexpr int kD = decltype(dim)::value;
     return dtype == 1 ? launch_fwd_wgmma<kD>(q, k, v, seg, seg_k, o, lse, bh, heads, L, scale, causal, out_f32, st)
@@ -1413,6 +2267,10 @@ int tos_flash_bwd_dq(const void* q, const void* k, const void* v, const int* seg
                      const float* lse, const float* delta, void* dq, int bh, int heads, int L, int D, int dtype,
                      float scale, int causal, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (split_head_dim(D) && (dtype == 0 || dtype == 1))
+    return dtype == 1 ? launch_dq_split_wgmma(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, D, scale, causal,
+                                              out_f32, st)
+                      : launch_dq_split(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, D, scale, causal, st);
   return at_head_dim(D, dtype, [&](auto dim) {
     constexpr int kD = decltype(dim)::value;
     return dtype == 1 ? launch_dq_wgmma<kD>(q, k, v, seg, seg_k, dout, lse, delta, dq, bh, heads, L, scale, causal,
@@ -1426,6 +2284,11 @@ int tos_flash_bwd_dkv(const void* q, const void* k, const void* v, const int* se
                       const void* dout, const float* lse, const float* delta, void* dk, void* dv, int bh, int heads,
                       int L, int D, int dtype, float scale, int causal, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (split_head_dim(D) && (dtype == 0 || dtype == 1))
+    return dtype == 1 ? launch_dkv_split_wgmma(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, D, scale,
+                                               causal, out_f32, st)
+                      : launch_dkv_split(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, D, scale, causal,
+                                         st);
   return at_head_dim(D, dtype, [&](auto dim) {
     constexpr int kD = decltype(dim)::value;
     return dtype == 1 ? launch_dkv_wgmma<kD>(q, k, v, seg, seg_k, dout, lse, delta, dk, dv, bh, heads, L, scale,

@@ -1153,6 +1153,9 @@ class PinnedPlacer:
         out = {}
         with torch.cuda.stream(self.stream):
             for key in keys:
+                if not stacked and isinstance(batch[key], int):  # a host value stays on the host
+                    out[key] = batch[key]
+                    continue
                 parts = [np.asarray(b[key]) for b in batch] if stacked else [np.asarray(batch[key])]
                 shape = ((len(parts),) if stacked else ()) + parts[0].shape
                 dtype = torch.from_numpy(np.empty(0, parts[0].dtype)).dtype

@@ -18,8 +18,9 @@ Usage (one executor, one H100; the model's full width)::
         --seq_len 2048 --batch_size 8 --dtype bfloat16 --tokenizer byte \\
         --train_steps 5 --log_steps 1
 
-The kernels take any head dim up to 128 (``d_model / n_heads``; the
-example's defaults give 32, zero-padded to the D = 64 kernels).
+The kernels take any head dim (``d_model / n_heads``; the example's
+defaults give 32, zero-padded to the D = 64 kernels; above 256 the split-D
+kernels run it, e.g. ``--n_heads 1 --d_model 512``, one head of 512).
 ``--steps_per_loop K`` runs K steps a call through
 ``SyncDataParallel.compile_train_loop``, as the JAX example does: on the
 card the step is captured once in a CUDA graph and replayed (the first two

@@ -13,7 +13,7 @@ variables name for name.
 
 Attention goes through :func:`_dispatch_attention`: ``flash`` runs the
 port's CUDA kernels (:mod:`~tensorflowonspark_tpu_torch.ops.flash_attention`;
-their plain versions on a CPU tensor; any head dim up to 256), ``plain`` the
+their plain versions on a CPU tensor; any head dim), ``plain`` the
 dense reference, ``ring`` ring attention over the mesh's ``sp`` axis
 (:mod:`~tensorflowonspark_tpu_torch.parallel.ring_attention`; the flash
 call without one), and ``auto`` the ring on an ``sp`` mesh, else the
@@ -339,10 +339,10 @@ class MoeMlp(nn.Module):
 
     On a sequence split over ``sp`` the groups are the JAX package's, which
     groups the flattened ``[B·L]`` real tokens, in one of two routes that
-    the model picks once an input shape (:func:`_check_sp_routing`,
-    :attr:`sp_real`). The local route, where ``moe_group_size`` divides the
-    block and each block's real tokens (so no group spans two blocks or a
-    row end): a rank routes its block of each row alone, and ``valid``
+    the model picks for each input shape and row length
+    (:func:`_check_sp_routing`, :attr:`sp_real`). The local route, where
+    ``moe_group_size`` divides the block and each block's real tokens (so
+    no group spans two blocks or a row end): a rank routes its block of each row alone, and ``valid``
     (``[B, L]``, 0 on the last block's padding, ``sharding.sequence_chunk``)
     keeps the padding, which fills groups of its own after every real token,
     out of the balancing loss. Otherwise the gathered route: every rank
@@ -523,8 +523,8 @@ class Transformer(nn.Module):
         blocks = _Blocks(mesh, self.model_specs)
         #: the ``sp`` group when the sequence is split over it, else None
         self.sp_group, self.sp_rank = blocks.sp_group, blocks.sp_rank
-        #: the last input shape whose MoE routing on sp was checked
-        #: (:func:`_check_sp_routing`)
+        #: the last input shape and row length whose MoE routing on sp was
+        #: checked (:func:`_check_sp_routing`)
         self.sp_routing_checked = None
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model)
         for i in range(cfg.n_layers):
@@ -554,20 +554,28 @@ class Transformer(nn.Module):
         aux = [m.aux for m in self.modules() if isinstance(m, MoeMlp)]
         return sum(aux) / len(aux) if aux else None
 
-    def forward(self, tokens, positions=None, segment_ids=None, valid=None):
+    def forward(self, tokens, positions=None, segment_ids=None, valid=None, row_length=None):
         """Logits ``[B, L, vocab]`` f32. ``valid`` (``[B, L]``, 0 on the
         padding of the last ``sp`` block; None: every position is real)
-        keeps that padding out of the MoE balancing loss."""
+        keeps that padding out of the MoE balancing loss; ``row_length``
+        (a host int, ``sharding.sequence_chunk`` adds it beside ``valid``)
+        is the inputs of a whole row on ``sp``, from which every rank works
+        out the MoE route on its own."""
         cfg = self.cfg
         if cfg.moe_experts > 0 and self.sp_group is not None:
-            # the same on every rank of the group: they all check, or none
-            shape = (tuple(tokens.shape), valid is None)
-            if shape != self.sp_routing_checked:
-                real = _check_sp_routing(cfg.moe_group_size, tokens.shape[1], valid, self.sp_group)
+            if valid is not None and row_length is None:
+                raise ValueError("a padded block on sp needs the batch's row_length (sharding.sequence_chunk) "
+                                 "to route its mixture of experts")
+            key = (tuple(tokens.shape), row_length)
+            if key != self.sp_routing_checked:
+                import torch.distributed as dist
+
+                real = _check_sp_routing(cfg.moe_group_size, tokens.shape[1], dist.get_world_size(self.sp_group),
+                                         row_length)
                 for m in self.modules():
                     if isinstance(m, MoeMlp):
                         m.sp_real = real
-                self.sp_routing_checked = shape
+                self.sp_routing_checked = key
         x = F.embedding(tokens, self.embed.weight).to(cfg.compute_dtype)
         if positions is None:
             # on a sequence split over sp, this rank's block starts at its
@@ -594,23 +602,15 @@ class Transformer(nn.Module):
         return logits.float()
 
 
-def _check_sp_routing(group_size, length, valid, sp_group):
-    """The MoE route of ranks that hold blocks of ``length`` tokens of each
-    row over ``sp_group`` (:class:`MoeMlp`): None for the local route, where
-    ``group_size`` divides the block and each block's real tokens, else the
-    real tokens of a row of the whole sequence, for the gathered route. The
-    real counts are gathered over ``sp_group`` (every rank picks the same
-    route) and read on the host. The model checks each input shape once (a
-    CUDA graph's capture follows eager warm-up steps of its shape), so a
-    later batch of another row length cut to the same block length keeps
-    the first one's route and real length."""
-    import torch.distributed as dist
-
-    real = [length] * dist.get_world_size(sp_group)
-    if valid is not None:
-        from tensorflowonspark_tpu_torch.parallel.collectives import gather_blocks
-
-        real = gather_blocks(valid[0].sum().to(torch.int32).reshape(1), sp_group).flatten().tolist()
+def _check_sp_routing(group_size, length, n, row_length=None):
+    """The MoE route of the ``n`` ranks of an ``sp`` group that hold blocks
+    of ``length`` tokens of each row (:class:`MoeMlp`): None for the local
+    route, where ``group_size`` divides the block and each block's real
+    tokens, else the real tokens of a row of the whole sequence, for the
+    gathered route. Block i holds ``min(length, row_length - i·length)``
+    real tokens (every one without ``row_length``): a host computation, the
+    same on every rank."""
+    real = [length] * n if row_length is None else [max(0, min(length, row_length - i * length)) for i in range(n)]
     if sp_group_size(group_size, length, real) is not None:
         return None
     return sum(real)
@@ -722,8 +722,8 @@ def make_loss_fn(model):
     loss is the mean over the real tokens of all the group's blocks: its
     value is that mean on every rank of the group, its gradient this
     rank's tokens' share (the strategy sums the gradients over ``sp``).
-    The block's ``valid`` (added where the last block is padded) goes to
-    the model."""
+    The block's ``valid`` and ``row_length`` (added where the last block
+    is padded) go to the model."""
     del model  # the module arrives with each call
 
     def loss_fn(module, batch):
@@ -736,6 +736,7 @@ def make_loss_fn(model):
             positions=None if pos is None else pos[:, :-1],
             segment_ids=None if seg is None else seg[:, :-1],
             valid=None if valid is None else valid[:, :-1],
+            row_length=batch.get("row_length"),
         )
         targets = tokens[:, 1:].long()
         losses = F.cross_entropy(

@@ -47,8 +47,15 @@ dSᵀ come out of the accumulators as the next product's register operand.
 At D = 256 a 64 × 256 f32 accumulator takes 128 of a thread's 255
 registers, so a CTA holds one: the bf16 kernels run one CTA an SM, and
 dk/dv runs as two passes side by side (the grid's z: dv, then dk), each
-recomputing Sᵀ. Every CTA owns its output rows, so the sums are
-deterministic.
+recomputing Sᵀ. Above D = 256 the split-D kernels (``*_split_kernel``,
+``*_split_wgmma_kernel``) split D on the grid's z: each CTA owns a chunk
+of :data:`SPLIT_CHUNK` output columns (so its accumulator is the D = 256
+one), and the score products over the whole D run as a loop over
+:data:`SPLIT_PANEL`-column panels, ``S = Σ_p Q_p·K_pᵀ`` summed in f32, each
+chunk's CTA recomputing them; dk and dv are a pass each a chunk in bf16
+(:func:`flash_fwd_split_plain` and its two siblings are their plain
+mirrors, in the kernels' order). Every CTA owns its output rows and
+columns, so the sums are deterministic.
 
 **No block rule.** The JAX package needs blocks that tile L exactly
 (``_pick_block``: Pallas pads a ragged block with garbage), and its
@@ -58,16 +65,21 @@ ragged tail instead (rows past L are never stored, keys past L get exactly
 zero weight), so every L runs unpadded and gives the rows the padded run
 gives.
 
-**Head dims.** The kernels are compiled for D = 64, 128 and 256
-(:data:`HEAD_DIMS`); any other D up to 256 runs at the next of them, its
-operands zero-padded and its outputs sliced back, which is exact
-(:func:`padded_fwd` and its two siblings, beside the wrappers). A head dim
-above 256 raises.
+**Head dims.** Every head dim runs. The kernels are compiled for D = 64,
+128 and 256 (:data:`HEAD_DIMS`); any other D up to 256 runs at the next of
+them, its operands zero-padded and its outputs sliced back, which is exact
+(:func:`padded_fwd` and its two siblings, beside the wrappers). Above 256
+the split-D kernels take D as it is where it is a multiple of
+:data:`SPLIT_ALIGN` (the bf16 tensor maps' 16-byte rows; a panel that runs
+past D is read as zeros) and the next such width otherwise, zero-padded
+the same way. Their design has no upper bound: a CTA's shared memory and
+registers do not grow with D (its work does, the scores being recomputed
+for each chunk).
 
 **Dispatch.** Each wrapper takes its plain PyTorch version (the ``*_plain``
 functions, the reference for tests and ``chip_smoke.py``) only when its
 input lies on the CPU; on a CUDA tensor it launches the kernel or raises
-(head dim above 256, unsupported dtype, failed build, refused launch), and counts
+(head dim below 1, unsupported dtype, failed build, refused launch), and counts
 the launch in its ``launches`` attribute (under CUDA graph capture, the
 launch into the graph; a replay calls no wrapper, and
 ``ops/kernel_trace.py`` counts its kernels from a trace). The kernels are compiled with
@@ -94,6 +106,12 @@ NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 #: to the largest runs at the next of them, its operands zero-padded
 #: (:func:`head_width`)
 HEAD_DIMS = (64, 128, 256)
+#: above the largest of HEAD_DIMS the split-D kernels run any head dim that
+#: is a multiple of SPLIT_ALIGN; another is zero-padded to the next one
+SPLIT_ALIGN = 8
+#: output columns a split-D CTA owns, and the width of the panels its score
+#: products loop over (the kernels' kChunk and TMA box)
+SPLIT_CHUNK, SPLIT_PANEL = 256, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 SOURCE = os.path.join(cuda_build.CSRC, "flash_attention.cu")
@@ -133,16 +151,15 @@ def kernel_resources(log_path=None):
     """Registers and spill bytes of each compiled kernel, read from the
     ``-Xptxas -v`` log that :func:`build` writes beside the library:
     ``[{"kernel", "dtype", "head_dim", "registers", "spill_stores",
-    "spill_loads"}, ...]``."""
+    "spill_loads"}, ...]``.
+    The split-D kernels (any D above 256) report ``head_dim`` None."""
+    names = [k for fn in KERNELS for k in fn.kernel_names]
     out = []
     for entry in cuda_build.ptxas_report(log_path or cuda_build.library_path(SOURCE)[:-3] + ".log"):
         name = entry.pop("entry")
-        kernel = next((k for k in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                                   "flash_bwd_dkv_wgmma_kernel", "flash_fwd_kernel",
-                                   "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel") if k in name), name)
+        kernel = max((k for k in names if k in name), key=len, default=name)
         dim = re.search(r"I(?:f|13__nv_bfloat16)?Li(\d+)E", name)
-        out.append(dict(entry, kernel=kernel,
-                        dtype="float32" if re.search(r"IfLi\d+E", name) else "bfloat16",
+        out.append(dict(entry, kernel=kernel, dtype="bfloat16" if "wgmma" in kernel else "float32",
                         head_dim=int(dim.group(1)) if dim else None))
     return out
 
@@ -196,13 +213,18 @@ def _check(q, seg, heads, like=(), rows=(), seg_k=None, out_dtype=None):
 
 
 def head_width(d):
-    """The compiled head dim that a launch at head dim ``d`` runs at: the
-    smallest of :data:`HEAD_DIMS` not below it. Raises past the largest."""
+    """The head dim that a launch at head dim ``d`` runs at: the smallest of
+    :data:`HEAD_DIMS` not below it, or above the largest the split-D
+    kernels' width, ``d`` rounded up to a multiple of :data:`SPLIT_ALIGN`.
+    Raises below 1; no upper bound."""
+    if d < 1:
+        raise ValueError("flash attention kernels take any head_dim from 1 (compiled for {}, smaller ones "
+                         "zero-padded up to the next; above {} the split-D kernels at a multiple of {}), got {}"
+                         .format(HEAD_DIMS, HEAD_DIMS[-1], SPLIT_ALIGN, d))
     for width in HEAD_DIMS:
-        if 1 <= d <= width:
+        if d <= width:
             return width
-    raise ValueError("flash attention kernels take head_dim 1..{} (compiled for {}, smaller ones "
-                     "zero-padded up to the next), got {}".format(HEAD_DIMS[-1], HEAD_DIMS, d))
+    return -(-d // SPLIT_ALIGN) * SPLIT_ALIGN
 
 
 _STATUS = {-1: "unsupported head dim or dtype",
@@ -255,11 +277,12 @@ def visited_blocks(seg, causal, block=64, seg_k=None):
     return visit
 
 
-def _masked_scores(q, k, seg, scale, causal, heads, seg_k=None):
+def _masked_scores(q, k, seg, scale, causal, heads, seg_k=None, scores=None):
     """Dense f32 scores ``[BH, L, L]`` with the kernels' masks: the
     sentinel where the causal mask or the segment fence (the queries' ids
-    ``seg`` against the keys' ``seg_k``, default ``seg``) drops a score."""
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    ``seg`` against the keys' ``seg_k``, default ``seg``) drops a score.
+    ``scores``: the unscaled ``q·kᵀ`` when the caller has summed it already."""
+    s = (torch.einsum("bqd,bkd->bqk", q.float(), k.float()) if scores is None else scores) * scale
     length = q.shape[1]
     if causal:
         pos = torch.arange(length, device=q.device)
@@ -292,21 +315,89 @@ def flash_fwd_online_plain(q, k, v, seg, scale, causal, heads, seg_k=None, block
     ``(o, lse)``, ``o`` in f32: the reference that holds the kernel's f32
     output well below one bf16 rounding. Rows that attend no key hold
     garbage, as in the kernel."""
-    log2e = 1.0 / math.log(2.0)
-    s = _masked_scores(q, k, seg, scale * log2e, causal, heads, seg_k=seg_k)
-    bh, length, d = q.shape
-    m = torch.full((bh, length, 1), NEG_BIG, device=q.device)
-    l = torch.zeros((bh, length, 1), device=q.device)
-    acc = torch.zeros((bh, length, d), device=q.device)
+    s = _masked_scores(q, k, seg, scale / math.log(2.0), causal, heads, seg_k=seg_k)
+    return _online_softmax(s, v, q.dtype, block)
+
+
+def _online_softmax(s, v, dtype, block):
+    """``(o f32, lse)`` of log2-domain scores ``s`` ``[BH, L, L]`` over ``v``
+    by the forward kernels' online softmax over kv blocks of ``block``."""
+    bh, length, _ = s.shape
+    m = torch.full((bh, length, 1), NEG_BIG, device=s.device)
+    l = torch.zeros((bh, length, 1), device=s.device)
+    acc = torch.zeros((bh, length, v.shape[-1]), device=s.device)
     for k0 in range(0, length, block):
         x = s[:, :, k0:k0 + block]
         mx = torch.maximum(m, x.amax(-1, keepdim=True))
         corr, p = torch.exp2(m - mx), torch.exp2(x - mx)
         l = l * corr + p.sum(-1, keepdim=True)
-        acc = acc * corr + torch.einsum("bqk,bkd->bqd", p.to(q.dtype).float(), v[:, k0:k0 + block].float())
+        acc = acc * corr + torch.einsum("bqk,bkd->bqd", p.to(dtype).float(), v[:, k0:k0 + block].float())
         m = mx
     den = torch.clamp_min(l, 1e-30)
     return acc / den, (m * math.log(2.0) + torch.log(den)).squeeze(-1)
+
+
+# -- the split-D kernels' order (head dims above 256) ---------------------------
+#
+# The plain mirrors of the split-D kernels, in their order: the score
+# products S = Σ_p Q_p·K_pᵀ (and dP = Σ_p dO_p·V_pᵀ) summed in f32 over
+# SPLIT_PANEL-column panels of D, in panel order; then each chunk of
+# SPLIT_CHUNK output columns computed by itself from the recomputed scores
+# (the forward's online softmax over kv blocks of ``block`` keys for each
+# chunk; lse from chunk 0). Tests hold them against the JAX package's
+# Pallas kernels at the real D.
+
+
+def _panel_products(a, b, panel):
+    """``Σ_p a_p·b_pᵀ`` over ``panel``-wide column panels, in f32, in order."""
+    out = None
+    for c0 in range(0, a.shape[-1], panel):
+        part = torch.einsum("bqd,bkd->bqk", a[..., c0:c0 + panel].float(), b[..., c0:c0 + panel].float())
+        out = part if out is None else out + part
+    return out
+
+
+def _split_masked_scores(q, k, seg, scale, causal, heads, seg_k, panel):
+    s = _panel_products(q, k, panel)
+    return _masked_scores(q, k, seg, scale, causal, heads, seg_k=seg_k, scores=s)
+
+
+def flash_fwd_split_plain(q, k, v, seg, scale, causal, heads, seg_k=None, block=64, chunk=SPLIT_CHUNK,
+                          panel=SPLIT_PANEL):
+    """The split-D forward kernels' order: ``(o, lse)``, ``o`` in f32, each
+    chunk of output columns by :func:`flash_fwd_online_plain`'s online
+    softmax over the panel-summed scores (rows that attend no key hold
+    garbage, as in the kernels)."""
+    s = _split_masked_scores(q, k, seg, scale / math.log(2.0), causal, heads, seg_k, panel)
+    parts = [_online_softmax(s, v[..., c0:c0 + chunk], q.dtype, block) for c0 in range(0, v.shape[-1], chunk)]
+    return torch.cat([o for o, _ in parts], -1), parts[0][1]
+
+
+def _split_probs_and_ds(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, panel):
+    s = _split_masked_scores(q, k, seg, scale, causal, heads, seg_k, panel)
+    p = torch.exp(s - lse[:, :, None])
+    return p, p * (_panel_products(do, v, panel) - delta[:, :, None]) * scale
+
+
+def flash_bwd_dq_split_plain(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None, out_dtype=None,
+                             chunk=SPLIT_CHUNK, panel=SPLIT_PANEL):
+    """The split-D dq kernels' order: ``dq``, each chunk ``ds·K_c``."""
+    _, ds = _split_probs_and_ds(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, panel)
+    ds = ds.to(q.dtype).float()
+    return torch.cat([torch.einsum("bqk,bkd->bqd", ds, k[..., c0:c0 + chunk].float())
+                      for c0 in range(0, k.shape[-1], chunk)], -1).to(out_dtype or q.dtype)
+
+
+def flash_bwd_dkv_split_plain(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k=None, out_dtype=None,
+                              chunk=SPLIT_CHUNK, panel=SPLIT_PANEL):
+    """The split-D dk/dv kernels' order: ``(dk, dv)``, each chunk
+    ``dsᵀ·Q_c`` and ``pᵀ·dO_c``."""
+    p, ds = _split_probs_and_ds(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k, panel)
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    cols = range(0, q.shape[-1], chunk)
+    dk = torch.cat([torch.einsum("bqk,bqd->bkd", ds, q[..., c0:c0 + chunk].float()) for c0 in cols], -1)
+    dv = torch.cat([torch.einsum("bqk,bqd->bkd", p, do[..., c0:c0 + chunk].float()) for c0 in cols], -1)
+    return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
 
 
 def _probs_and_ds(q, k, v, seg, do, lse, delta, scale, causal, heads, seg_k):
@@ -472,9 +563,11 @@ def _count(wrapper):
 KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 for _fn in KERNELS:
     _fn.launches = 0
-    #: the device kernels it launches (f32, bf16), as a profiler trace
-    #: names them (``ops/kernel_trace.py`` counts a replayed graph's by them)
-    _fn.kernel_names = (_fn.__name__ + "_kernel", _fn.__name__ + "_wgmma_kernel")
+    #: the device kernels it launches (f32, bf16; then the split-D ones,
+    #: above D = 256), as a profiler trace names them
+    #: (``ops/kernel_trace.py`` counts a replayed graph's by them)
+    _fn.kernel_names = tuple(_fn.__name__ + suffix for suffix in
+                             ("_kernel", "_wgmma_kernel", "_split_kernel", "_split_wgmma_kernel"))
 
 
 def launch_counts():

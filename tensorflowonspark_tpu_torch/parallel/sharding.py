@@ -111,7 +111,10 @@ def sequence_chunk(batch, index, count):
     neither attended by a real token nor counted in the loss. A padded
     split also carries ``valid``: 1 where a block's token is one of the
     row's inputs, 0 on the padding (the mixture of experts keeps the
-    padding out of its balancing loss by it). Numpy arrays or tensors;
+    padding out of its balancing loss by it) and ``row_length``, the
+    row's inputs as a host ``int``, from which every rank works out each
+    block's real count on its own (the mixture of experts' route; batch
+    placement keeps host ints on the host). Numpy arrays or tensors;
     ``count`` 1 returns the batch as it is."""
     if count == 1:
         return batch
@@ -130,6 +133,8 @@ def sequence_chunk(batch, index, count):
         if v.shape[1] < c + 1:
             v = np.pad(np.asarray(v), ((0, 0), (0, c + 1 - v.shape[1])))
         out[key] = v
+    if "valid" in out:
+        out["row_length"] = int(length)
     return out
 
 
@@ -264,7 +269,8 @@ def shard_batch(batch, mesh):
     tensors) on the mesh's device: each rank is fed its own rows, so the
     leading dim is already split over the data axes."""
     device = mesh_device(mesh)
-    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+    return {k: v if isinstance(v, int) else torch.as_tensor(v).to(device, non_blocking=True)
+            for k, v in batch.items()}
 
 
 class ShardedParams:

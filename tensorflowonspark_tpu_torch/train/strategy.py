@@ -220,8 +220,11 @@ class SyncDataParallel:
         return {n: sharding.Sharding(self.mesh, s) for n, s in specs.items()}
 
     def shard_batch(self, batch):
-        """Place this process's batch (numpy arrays or tensors) on the device."""
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
+        """Place this process's batch (numpy arrays or tensors) on the
+        device; a host ``int`` (``sharding.sequence_chunk``'s
+        ``row_length``) stays as it is."""
+        return {k: v if isinstance(v, int) else torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
 
     def create_state(self, init_fn, optimizer, *init_args):
         """``init_fn(*init_args)`` builds the module; it moves to the device,
@@ -530,7 +533,9 @@ class _CapturedStep:
         return metrics
 
     def _capture(self, state, batch):
-        self.static = {k: torch.empty_like(v) for k, v in batch.items()}
+        # a host int steers the captured step's Python (the MoE route on
+        # sp): it is captured as it is, and a replay must bring the same
+        self.static = {k: torch.empty_like(v) if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         graph = torch.cuda.CUDAGraph()
         # thread_local: other threads of the trainer (the input pipeline,
@@ -542,14 +547,10 @@ class _CapturedStep:
         self.graph, self.out = graph, out
 
     def _replay(self, batch):
-        if batch.keys() != self.static.keys() or any(
-                v.shape != self.static[k].shape or v.dtype != self.static[k].dtype
-                for k, v in batch.items()):
-            raise ValueError("batch {} differs from the captured step's {}".format(
-                {k: (tuple(v.shape), v.dtype) for k, v in batch.items()},
-                {k: (tuple(v.shape), v.dtype) for k, v in self.static.items()}))
+        check_replay_batch(batch, self.static)
         for k, v in batch.items():
-            self.static[k].copy_(v, non_blocking=True)
+            if isinstance(v, torch.Tensor):
+                self.static[k].copy_(v, non_blocking=True)
         self.graph.replay()
 
     def run(self, state, window):
@@ -570,6 +571,21 @@ class _CapturedStep:
         # the graph's outputs are rewritten by the next replay
         metrics = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
         return state, _with_step(metrics, state.step)
+
+
+def check_replay_batch(batch, static):
+    """Raise ``ValueError`` unless ``batch`` can replay a step captured on
+    ``static``: the same keys, tensors of the same shapes and dtypes, and
+    host values (ints) equal to the captured ones, which the captured
+    step's Python read once (a row length decides the MoE route on sp:
+    another one would replay the old route)."""
+
+    def sig(v):
+        return (tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else v
+
+    if batch.keys() != static.keys() or any(sig(v) != sig(static[k]) for k, v in batch.items()):
+        raise ValueError("batch {} differs from the captured step's {}".format(
+            {k: sig(v) for k, v in batch.items()}, {k: sig(v) for k, v in static.items()}))
 
 
 def _adopt_model_state(module, model_state):

@@ -134,13 +134,16 @@ def test_plain_attention_matches_jax_plain_attention(dtype):
                                atol=2e-5 if dtype == "float32" else 2e-2)
 
 
-def test_cpu_tensors_take_the_plain_versions_at_any_head_dim():
+@pytest.mark.parametrize("d", [16, 300])
+def test_cpu_tensors_take_the_plain_versions_at_any_head_dim(d):
     """The CPU path is the plain versions at any head dim (the kernels run
-    any head dim up to 256 through the padding route, and raise on a CUDA
-    tensor of a larger one)."""
-    q, k, v = _qkv(7, length=40, d=16)
+    any head dim: up to 256 through the padding route, above it through
+    the split-D kernels), here one below the compiled widths and one above
+    256 that is not a multiple of 8."""
+    q, k, v = _qkv(7, length=40, d=d)
     out = fa.flash_attention(_t(q), _t(k), _t(v), causal=True)
     want = plain_attention(_t(q), _t(k), _t(v), causal=True)
+    assert out.shape == want.shape
     np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5)
 
 
@@ -267,6 +270,29 @@ def test_kernel_resources_reads_registers_and_spills_from_the_ptxas_log(tmp_path
          "spill_stores": 0, "spill_loads": 0},
         {"kernel": "flash_bwd_dkv_kernel", "dtype": "float32", "head_dim": 128, "registers": 255,
          "spill_stores": 12, "spill_loads": 16},
+    ]
+
+
+def test_kernel_resources_names_the_split_kernels(tmp_path):
+    """The split-D kernels (no template: any D above 256) by name and
+    dtype, with no head dim."""
+    log = tmp_path / "flash.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_132flash_bwd_dkv_split_wgmma_kernelE14CUtensorMap_stS0_S0_S0_PKiS2_PKfS4_PvS5_iiifbb'"
+        " for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 222 registers, used 1 barriers, 1080 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_122flash_fwd_split_kernelEPKfS1_S1_PKiS3_PfS4_iiifb' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, used 1 barriers, 424 bytes cmem[0]\n"
+    )
+    assert fa.kernel_resources(str(log)) == [
+        {"kernel": "flash_bwd_dkv_split_wgmma_kernel", "dtype": "bfloat16", "head_dim": None, "registers": 222,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "flash_fwd_split_kernel", "dtype": "float32", "head_dim": None, "registers": 96,
+         "spill_stores": 0, "spill_loads": 0},
     ]
 
 
@@ -433,10 +459,14 @@ def test_launch_counts_stay_exact_when_threads_launch_at_once():
 
 
 def test_head_width_pads_up_to_the_next_compiled_width():
+    """Up to 256 the next compiled width; above it the split-D kernels'
+    width, the next multiple of 8 (no upper bound); below 1 a refusal."""
     assert [fa.head_width(d) for d in (1, 32, 48, 64, 65, 96, 128)] == [64, 64, 64, 64, 128, 128, 128]
     assert [fa.head_width(d) for d in (129, 160, 192, 255, 256)] == [256] * 5
-    for d in (0, 257, 512):
-        with pytest.raises(ValueError, match="head_dim 1..256"):
+    assert [fa.head_width(d) for d in (257, 300, 320, 384, 511, 512, 1024, 4100)] == [
+        264, 304, 320, 384, 512, 512, 1024, 4104]
+    for d in (0, -3):
+        with pytest.raises(ValueError, match="any head_dim from 1"):
             fa.head_width(d)
 
 
@@ -663,3 +693,79 @@ def test_lm_at_head_dim_256_matches_the_jax_package():
     assert set(grads) == set(want)
     for name, g in want.items():
         np.testing.assert_allclose(grads[name].grad.numpy(), g.numpy(), atol=1e-5, rtol=0, err_msg=name)
+
+
+# -- head dims above 256: the split-D kernels -----------------------------------
+
+
+def _wide_case(d, causal, length=200, block=40):
+    """``[BH, L, D]`` operands and dO at head dim ``d`` with packed segments
+    and a padded tail at a ragged L, and the JAX package's Pallas kernels'
+    O, lse, dq, dk, dv on them at the real D in interpret mode (blocks of
+    ``block``, which tile L)."""
+    bh = B * H
+    rng = np.random.default_rng(d + causal)
+    q, k, v, do = (rng.standard_normal((bh, length, d)).astype(np.float32) for _ in range(4))
+    seg = _segments(B, length, ((0, 70), (70, 133), (133, 181)))
+    scale = 1 / math.sqrt(d)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    jseg = jnp.asarray(np.repeat(seg, H, axis=0))
+    jo, jlse = jfa._flash_fwd(jq, jk, jv, jseg, scale, causal, block, block, True)
+    jdq, jdk, jdv = jfa._flash_bwd(jq, jk, jv, jseg, jdo, jo, jlse, scale, causal, block, block, True)
+    want = {"o": np.asarray(jo), "lse": np.asarray(jlse)[:, :, 0], "dq": np.asarray(jdq), "dk": np.asarray(jdk),
+            "dv": np.asarray(jdv)}
+    return (_t(q), _t(k), _t(v), _t(do), _t(seg), scale), want
+
+
+@pytest.mark.parametrize("d", [300, 320, 384, 512])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("route", ["split", "padded"])
+def test_split_head_dims_match_pallas_interpret_at_a_ragged_length(route, causal, d):
+    """Head dims above 256 at a ragged L = 200 with packed segments and a
+    padded tail: the split-D kernels' plain mirrors (scores summed over
+    64-column panels, each 256-column chunk of the outputs by itself, in
+    the kernels' order) at the real D, and through the padding route to
+    the split-D width (D = 300 runs at 304; 320, 384 and 512 pad nothing),
+    against the JAX package's Pallas kernels at the real D in interpret
+    mode (blocks of 40). O and lse within 2e-5, dq, dk and dv within
+    1e-4."""
+    (tq, tk, tv, tdo, tseg, scale), want = _wide_case(d, causal)
+    fwd, bwd_dq, bwd_dkv = fa.flash_fwd_split_plain, fa.flash_bwd_dq_split_plain, fa.flash_bwd_dkv_split_plain
+    if route == "padded":
+        assert fa.head_width(d) == (304 if d == 300 else d)
+        fwd = lambda *a: fa.padded_fwd(  # noqa: E731
+            lambda *b: fa.flash_fwd_split_plain(*b[:7], seg_k=b[7]), *a)
+        bwd_dq = lambda *a: fa.padded_bwd_dq(fa.flash_bwd_dq_split_plain, *a)  # noqa: E731
+        bwd_dkv = lambda *a: fa.padded_bwd_dkv(fa.flash_bwd_dkv_split_plain, *a)  # noqa: E731
+    o, lse = fwd(tq, tk, tv, tseg, scale, causal, H)
+    assert o.shape == tq.shape
+    np.testing.assert_allclose(o.numpy(), want["o"], atol=2e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want["lse"], atol=2e-5, rtol=0)
+    bwd = (tseg, tdo, lse, (tdo * o).sum(-1), scale, causal, H)
+    dq = bwd_dq(tq, tk, tv, *bwd)
+    dk, dv = bwd_dkv(tq, tk, tv, *bwd)
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        assert got.shape == tq.shape
+        np.testing.assert_allclose(got.numpy(), want[name], atol=1e-4, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_split_mirror_matches_the_online_forward_and_the_dense_backward(d):
+    """The split-D mirrors against the one-chunk kernels' plain versions on
+    the same inputs: the forward against ``flash_fwd_online_plain`` (the
+    same online softmax; only the panel order of the score sums differs),
+    the backward against the dense ``flash_bwd_*_plain``, within 2e-5 (f32:
+    in bf16 the order of the score sums can move p across a rounding
+    boundary)."""
+    (tq, tk, tv, tdo, tseg, scale), _ = _wide_case(d, True, length=130, block=65)
+    o, lse = fa.flash_fwd_split_plain(tq, tk, tv, tseg, scale, True, H)
+    wo, wlse = fa.flash_fwd_online_plain(tq, tk, tv, tseg, scale, True, H)
+    np.testing.assert_allclose(o.numpy(), wo.numpy(), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), wlse.numpy(), atol=2e-5, rtol=0)
+    bwd = (tseg, tdo, lse, (tdo.float() * o).sum(-1), scale, True, H)
+    f32 = dict(out_dtype=torch.float32)
+    np.testing.assert_allclose(fa.flash_bwd_dq_split_plain(tq, tk, tv, *bwd, **f32).numpy(),
+                               fa.flash_bwd_dq_plain(tq, tk, tv, *bwd, **f32).numpy(), atol=2e-5, rtol=0)
+    for got, want in zip(fa.flash_bwd_dkv_split_plain(tq, tk, tv, *bwd, **f32),
+                         fa.flash_bwd_dkv_plain(tq, tk, tv, *bwd, **f32)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=0)

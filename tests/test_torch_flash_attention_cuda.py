@@ -102,6 +102,12 @@ def _close(name, got, want):
     (1, 2, 2048, 256, True, "packed"),     # D=256 at the slice's length
     (2, 2, 256, 160, True, "packed"),      # D=160: padded to the D=256 kernels
     (1, 3, 200, 192, False, "pad_row"),    # D=192, ragged, a row of padding: padded to 256
+    (1, 2, 256, 320, True, "packed"),      # D=320: the split-D kernels, a 256 and a 64-wide chunk
+    (2, 1, 200, 384, False, "pad_row"),    # D=384, ragged, not causal, a row of padding
+    (1, 3, 200, 512, True, "reused"),      # D=512, ragged, a first visited block fully masked
+    (1, 1, 2048, 512, True, "packed"),     # D=512 at the slice's length
+    (1, 2, 130, 300, True, "packed"),      # D=300: zero-padded to the split-D width 304
+    (1, 1, 256, 1024, True, "packed"),     # D=1024: four chunks
 ])
 def test_kernels_match_plain_versions_on_card(dtype, b, heads, length, d, causal, segmented):
     _card()
@@ -175,10 +181,11 @@ def test_bf16_check_catches_a_one_percent_fault_on_card(output):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("d", [0])
 def test_unsupported_head_dim_raises_on_card(d):
-    """A CUDA tensor never reaches the plain version: a head dim above the
-    largest compiled one raises, and launches nothing."""
+    """A CUDA tensor never reaches the plain version: a head dim the
+    kernels do not take (below 1: every head dim above runs) raises, and
+    launches nothing."""
     _card()
     q = torch.randn(2, 128, d, device="cuda")
     before = fa.launch_counts()
@@ -188,7 +195,7 @@ def test_unsupported_head_dim_raises_on_card(d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 320, 512])
 def test_key_ids_and_f32_outputs_on_card(d):
     """A ring hop's launch: the keys carry ids of their own (every query id
     among them, so every row attends a key) and the bf16 kernels write f32
@@ -234,15 +241,17 @@ def test_key_ids_and_f32_outputs_on_card(d):
 
 
 @pytest.mark.cuda
-def test_ring_of_four_matches_whole_sequence_flash_on_card():
+@pytest.mark.parametrize("d", [64, 512])
+def test_ring_of_four_matches_whole_sequence_flash_on_card(d):
     """The one-process ring (4 members, causal, packed) launches each
-    kernel 10 times a direction and matches whole-sequence flash."""
+    kernel 10 times a direction and matches whole-sequence flash; at
+    D = 512 through the split-D kernels, their hops with f32 outputs."""
     from tensorflowonspark_tpu_torch.ops.flash_attention import flash_attention
     from tensorflowonspark_tpu_torch.parallel.ring_attention import ring_attention_local
 
     _card()
     gen = torch.Generator().manual_seed(14)
-    b, heads, length, d = 2, 4, 512, 64
+    b, heads, length = 2, 4, 512
     q, k, v, do = (torch.randn(b, heads, length, d, generator=gen).cuda().to(torch.bfloat16) for _ in range(4))
     seg = _packed_segments(b, length, gen)
     outs = []

@@ -29,7 +29,9 @@ gathered route (every rank routes the whole sequence and keeps its block):
 groups of 16 on blocks of 8 and groups of 4 on a last block of 6 real
 tokens on ``{"sp": 4}``, and groups of 16 (a whole row) on blocks of 8 on
 ``{"dp": 2, "sp": 2}``, at the same limits. The route is picked once an
-input shape.
+input shape and row length: two batches of rows of 30 and 29 inputs, cut
+to the same blocks, each route their own real tokens (logits and loss
+within 1e-5 of the JAX model's whole-sequence forward).
 
 The step is held by its gradients, not by AdamW's first update: that
 update is about ``lr * sign(g)``, and an expert weight that few tokens
@@ -63,6 +65,9 @@ EP = {"ep4": {"dp": 1, "ep": 4}, "dp2_ep2": {"dp": 2, "ep": 2}, "tp2_ep2": {"dp"
 SP = {"dp2_sp2": ({"dp": 2, "sp": 2}, 8, 17), "sp2": ({"sp": 2}, 8, 17), "sp4_pad": ({"sp": 4}, 2, 31),
       "sp4_span_blocks": ({"sp": 4}, 16, 31), "sp4_span_row_end": ({"sp": 4}, 4, 31),
       "dp2_sp2_span": ({"dp": 2, "sp": 2}, 16, 17)}
+#: rows of 30 then 29 inputs, both cut to blocks of 8 on sp4, with groups of
+#: 16 (wider than a block: the gathered route)
+ROW_LENGTHS, ROW_LENGTHS_GROUP = (30, 29), 16
 #: the route each sp case takes (the real tokens of a row where gathered)
 ROUTES = {"dp2_sp2": None, "sp2": None, "sp4_pad": None, "sp4_span_blocks": 30, "sp4_span_row_end": 30,
           "dp2_sp2_span": 16}
@@ -146,6 +151,13 @@ def ref():
     out["sp"] = {name: _jax_step(params, np.random.default_rng(1).integers(0, 128, (4, n)).astype(np.int32),
                                  **dict(LM, moe_group_size=g))
                  for name, (_, g, n) in SP.items()}
+    model = jtransformer.create_model(**dict(LM, moe_group_size=ROW_LENGTHS_GROUP))
+    out["row_lengths"] = []
+    for n in ROW_LENGTHS:
+        tokens = np.random.default_rng(n).integers(0, 128, (4, n + 1)).astype(np.int32)
+        logits, _ = model.apply({"params": params}, jnp.asarray(tokens[:, :-1]), mutable=["losses"])
+        out["row_lengths"].append(dict(_jax_step(params, tokens, **dict(LM, moe_group_size=ROW_LENGTHS_GROUP)),
+                                       logits=np.asarray(logits)))
     return out
 
 
@@ -164,6 +176,9 @@ def world(ref, tmp_path_factory):
             for name, axes in EP.items()}
     spec.update(_sp_spec(ref, sorted(set(SP) - {"sp2"})))
     pad = ref["sp"]["sp4_pad"]["batch"]
+    spec["row_lengths"] = ("job_sp_batches", dict(
+        variables=v, cfg=dict(LM, moe_group_size=ROW_LENGTHS_GROUP), axes={"sp": 4},
+        batches=[want["batch"] for want in ref["row_lengths"]]))
     spec["checks"] = ("job_sp_routing_checks", dict(
         variables=v, cfg=dict(LM, moe_group_size=4), axes={"sp": 4},
         batches=[pad, pad, pad, {"tokens": pad["tokens"][:, :-14]}, pad]))
@@ -202,14 +217,34 @@ def test_sp_train_step_matches_the_jax_model(ref, world, world2, name):
 
 
 def test_sp_routing_is_checked_once_an_input_shape(world):
-    """The routing check (an all-gather and a read on the host) runs for a
-    new input shape only, and picks the route: with groups of 4, three
+    """The routing check (on the host, from the row length) runs for a new
+    input shape or row length only, and picks the route: with groups of 4, three
     batches of blocks of 8 whose last holds 6 real tokens (gathered: 30
     real tokens a row), one of four whole blocks of 4 (local), then blocks
     of 8 again."""
     gathered = "gathered 30"
     for got in world:
         assert got["checks"] == [[1, gathered], [1, gathered], [1, gathered], [2, "local"], [3, gathered]]
+
+
+def test_sp_route_follows_each_batch_row_length(ref, world):
+    """Two batches whose rows hold 30 and then 29 inputs, both cut to
+    blocks of 8 on sp4 (the same input shape), with groups of 16 (a group
+    spans blocks: the gathered route): each batch routes its own real
+    tokens (``row_length`` rides with the batch from
+    ``sharding.sequence_chunk``), so each one's logits and loss are the
+    JAX model's whole-sequence forward on the same weights (1e-5). A route
+    kept from the first batch would route one padding token a row of the
+    second."""
+    for r, got in enumerate(world):
+        for n, want, step in zip(ROW_LENGTHS, ref["row_lengths"], got["row_lengths"]):
+            assert step["sp_real"] == n, "rank %d" % r
+            i, block = step["sp_index"], step["logits"].shape[1]
+            real = max(0, min(block, n - i * block))
+            np.testing.assert_allclose(step["logits"][:, :real].numpy(), want["logits"][:, i * block:i * block + real],
+                                       atol=1e-5, rtol=0, err_msg="rank %d, rows of %d" % (r, n))
+            np.testing.assert_allclose(step["loss"], want["loss"], atol=1e-5, rtol=0,
+                                       err_msg="rank %d, rows of %d" % (r, n))
 
 
 def test_sp_group_size_names_the_group_and_the_block():

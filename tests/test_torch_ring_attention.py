@@ -443,7 +443,44 @@ def test_sequence_chunk_overlaps_one_target_and_pads_the_last_block():
     assert [b["tokens"][0].tolist() for b in blocks] == [[1, 2, 3, 4, 5], [5, 6, 7, 8, 9], [9, 10, 11, 0, 0]]
     assert blocks[2]["segment_ids"][0].tolist() == [1, 1, 1, 0, 0]
     assert blocks[2]["mask"][0].tolist() == [1, 1, 1, 0, 0] and blocks[0]["mask"].all()
+    # the row's inputs ride with every block as a host int (the MoE route)
+    assert [b["row_length"] for b in blocks] == [10] * 3 and type(blocks[0]["row_length"]) is int
+    assert "row_length" not in sharding.sequence_chunk(batch, 0, 2)  # 5 + 5: no padding
     # every target of the row is counted once: block i's targets are tokens[:, 1:] of its chunk
     targets = np.concatenate([b["tokens"][:, 1:][b["mask"][:, 1:] > 0] for b in blocks])
     assert sorted(targets.tolist()) == sorted(tokens[:, 1:].ravel().tolist())
     assert sharding.sequence_chunk(batch, 0, 1) is batch
+
+
+def test_ring_at_head_dim_320_matches_whole_sequence_plain_attention(monkeypatch):
+    """``ring_attention_local`` on 4 members at D = 320 (the split-D
+    kernels' own width: ``widen_heads`` pads nothing), its hops through the
+    wrappers with f32 outputs (the split-D mirrors here), causal with
+    packed segments: O, dq, dk and dv against the port's dense
+    ``plain_attention`` over the whole sequence within 2e-5."""
+    d, b, h = 320, 2, 2
+    rng = np.random.default_rng(32)
+    q, k, v, do = (rng.standard_normal((b, h, 96, d)).astype(np.float32) for _ in range(4))
+    ids = np.zeros((b, 96), np.int32)
+    ids[:, :30], ids[:, 30:71], ids[:, 71:90] = 1, 2, 3
+    seg = torch.tensor(ids)
+
+    def run(fn):
+        tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+        o = fn(tq, tk, tv)
+        o.backward(torch.tensor(do))
+        return o.detach(), tq.grad, tk.grad, tv.grad
+
+    want = run(lambda *t: ra.plain_attention(*t, causal=True, segment_ids=seg))
+    widths = []
+    monkeypatch.setattr(fa, "widen_heads", lambda t: widths.append(fa.head_width(t.shape[-1]))
+                        or fa._widen(t, fa.head_width(t.shape[-1])))
+    monkeypatch.setattr(fa, "flash_fwd", lambda q, k, v, seg, scale, causal, heads, seg_k=None, out_dtype=None:
+                        fa.flash_fwd_split_plain(q, k, v, seg, scale, causal, heads, seg_k=seg_k))
+    monkeypatch.setattr(fa, "flash_bwd_dq", fa.flash_bwd_dq_split_plain)
+    monkeypatch.setattr(fa, "flash_bwd_dkv", fa.flash_bwd_dkv_split_plain)
+    got = run(lambda *t: ra.ring_attention_local(*t, 4, causal=True, segment_ids=seg))
+    assert set(widths) == {320}
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5, rtol=0, err_msg=name)

@@ -340,6 +340,31 @@ def test_prefetchers_window_in_order_on_the_cpu():
     np.testing.assert_array_equal(stacks[1]["y"][2].numpy(), host[5]["y"])
 
 
+def test_host_ints_ride_placement_and_loop_windows_on_the_host():
+    """A batch's host ints (``sharding.sequence_chunk``'s ``row_length``)
+    stay ints through ``shard_batch`` and the loop's prefetcher."""
+    strategy = SyncDataParallel("cpu")
+    host = [{"x": np.full((2, 3), i, np.float32), "row_length": 30 - i} for i in range(4)]
+    assert strategy.shard_batch(host[0])["row_length"] == 30
+    windows = list(loop_prefetch(iter(host), strategy, num_steps=2))
+    assert [b["row_length"] for w in windows for b in w] == [30, 29, 28, 27]
+    assert all(type(b["row_length"]) is int and isinstance(b["x"], torch.Tensor) for w in windows for b in w)
+
+
+def test_a_captured_step_replays_only_its_own_host_values():
+    """The captured step's batch check (``check_replay_batch``): the same
+    keys, tensor shapes and dtypes, and host ints equal to the captured
+    ones; a batch of another row length would replay the route the capture
+    took for the first, so it raises."""
+    static = {"tokens": torch.zeros(2, 9, dtype=torch.int32), "row_length": 30}
+    strategy_mod.check_replay_batch({"tokens": torch.ones(2, 9, dtype=torch.int32), "row_length": 30}, static)
+    for bad in ({"tokens": torch.ones(2, 9, dtype=torch.int32), "row_length": 29},
+                {"tokens": torch.ones(2, 8, dtype=torch.int32), "row_length": 30},
+                {"tokens": torch.ones(2, 9, dtype=torch.int32)}):
+        with pytest.raises(ValueError, match="differs from the captured step"):
+            strategy_mod.check_replay_batch(bad, static)
+
+
 def test_eval_and_predict_steps_run_in_eval_mode_without_grad():
     """``compile_eval_step`` / ``compile_predict_step``: the module (or a
     TrainState's) in eval mode under no_grad, its mode restored after;

@@ -144,6 +144,21 @@ def test_wrappers_count_their_launches_and_a_trace_counts_the_replays(model, det
     assert fused_bn.bn_finish.launches == 0  # one rank: single launches
 
 
+@pytest.mark.cuda
+def test_a_captured_loop_keeps_host_ints_and_refuses_another_value():
+    """A batch's host int (``sharding.sequence_chunk``'s ``row_length``,
+    which steers the MoE route on sp) is captured as it is: a window whose
+    batches carry it trains through the capture and a replay, and a window
+    with another value raises before any replay."""
+    _card()
+    strategy, optimizer, state, loss_fn, batches, kw = _lm_parts(8)
+    loop = strategy.compile_train_loop(loss_fn, optimizer, 4, **kw)
+    state, metrics = loop(state, [dict(b, row_length=200) for b in batches[:4]])
+    assert state.step == 4 and torch.isfinite(metrics["loss"])
+    with pytest.raises(ValueError, match="differs from the captured step"):
+        loop(state, [dict(b, row_length=199) for b in batches[4:]])
+
+
 #: [R, C] bf16 shapes of both load paths: the stem, a stage-3 layer, odd C
 SPLIT_SHAPES = [(802816, 64), (12544, 1024), (3136, 2048), (3143, 37), (175, 3)]
 

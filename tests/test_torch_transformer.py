@@ -152,3 +152,46 @@ def test_ring_attention_raises():
     tokens = torch.randint(0, SMALL["vocab_size"], (2, 24), generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         np.testing.assert_allclose(ring(tokens).numpy(), plain(tokens).numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_lm_at_one_wide_head_matches_the_jax_package(monkeypatch, d):
+    """The port's transformer at one head of 320 and of 512 (``d_model`` =
+    the head dim, ``n_heads 1``), 2 layers, narrow vocab and d_ff, with
+    ``attention="flash"`` through the split-D kernels' plain mirrors on
+    weights converted from the JAX model: the loss within 1e-5 and every
+    gradient within 1e-5 of the JAX package's (its flash kernels in
+    interpret mode), on a packed batch."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    cfg = dict(vocab_size=128, d_model=d, n_layers=2, n_heads=1, d_ff=256, max_seq_len=128,
+               attention="flash", dtype="float32")
+    jmodel = jtransformer.create_model(**cfg)
+    params = jax.jit(jtransformer.make_init_fn(jmodel, sample_len=16))(jax.random.PRNGKey(0))["params"]
+    params = jax.tree.map(lambda a: np.array(a), jax.device_get(params))
+    rng = np.random.default_rng(d)
+    tokens = rng.integers(1, cfg["vocab_size"], (2, 129)).astype(np.int32)
+    seg = np.ones_like(tokens)
+    seg[:, 50:] = 2
+    seg[:, 120:] = 0
+    pos = np.where(seg == 2, np.arange(tokens.shape[1]) - 50, np.arange(tokens.shape[1])).astype(np.int32)
+    batch = {"tokens": tokens, "segment_ids": seg, "positions": pos}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jtransformer.make_loss_fn(jmodel), has_aux=True))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    want = convert.convert_variables({"params": jax.tree.map(np.asarray, jgrads)})
+
+    launches = []
+    monkeypatch.setattr(fa, "flash_fwd", lambda *a, **kw: launches.append("fwd") or fa.flash_fwd_split_plain(*a))
+    monkeypatch.setattr(fa, "flash_bwd_dq", lambda *a, **kw: launches.append("dq") or fa.flash_bwd_dq_split_plain(*a))
+    monkeypatch.setattr(fa, "flash_bwd_dkv",
+                        lambda *a, **kw: launches.append("dkv") or fa.flash_bwd_dkv_split_plain(*a))
+    model = convert.load_variables(transformer.create_model(**cfg), {"params": params})
+    assert model.cfg.head_dim == d == fa.head_width(d)
+    loss, _ = transformer.make_loss_fn(model)(model, {k: torch.as_tensor(v) for k, v in batch.items()})
+    loss.backward()
+    assert sorted(set(launches)) == ["dkv", "dq", "fwd"] and len(launches) == 6
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=1e-5, rtol=0)
+    grads = dict(model.named_parameters())
+    assert set(grads) == set(want)
+    for name, g in want.items():
+        np.testing.assert_allclose(grads[name].grad.numpy(), g.numpy(), atol=1e-5, rtol=0, err_msg=name)

@@ -472,11 +472,42 @@ def job_sp_logits(ctx, variables, cfg, batch, axes):
     n, i = collectives.axis_size("sp", mesh), collectives.axis_index("sp", mesh)
     # one more column: sequence_chunk cuts [B, L + 1] rows into blocks of inputs
     mine = sharding.sequence_chunk({k: np.pad(np.asarray(v), ((0, 0), (0, 1))) for k, v in batch.items()}, i, n)
-    mine = {k: torch.as_tensor(v[:, :-1]).contiguous() for k, v in mine.items()}
+    mine = {k: v if isinstance(v, int) else torch.as_tensor(v[:, :-1]).contiguous() for k, v in mine.items()}
     with torch.no_grad():
         logits = state.module(mine["tokens"], positions=mine.get("positions"), segment_ids=mine.get("segment_ids"),
-                              valid=mine.get("valid"))
+                              valid=mine.get("valid"), row_length=mine.get("row_length"))
     return {"logits": logits, "sp_index": i, "sp": n}
+
+
+def _host_batch(batch):
+    """Tensors of a host batch, its host ints (``row_length``) kept."""
+    return {k: v if isinstance(v, int) else torch.as_tensor(v) for k, v in batch.items()}
+
+
+def job_sp_batches(ctx, variables, cfg, batches, axes):
+    """The transformer (the JAX model's weights) on ``ctx.mesh(axes)``,
+    every rank on all rows and its block of each of ``batches`` in turn
+    (``sharding.sequence_chunk``), through the LM loss without gradients:
+    for each batch its block of the logits, the loss, and the MoE route
+    its layers took (None local, else the real tokens of a row)."""
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.parallel import collectives
+
+    mesh, _, model, _, state = _lm_state(ctx, variables, cfg, axes)
+    loss_fn = transformer.make_loss_fn(model)
+    seen = []
+    hook = state.module.register_forward_hook(lambda module, args, out: seen.append(out.detach().clone()))
+    out = []
+    try:
+        for b in batches:
+            with torch.no_grad():
+                loss, _ = loss_fn(state.module, _host_batch(_lm_rows(mesh, b)))
+            (sp_real,) = {m.sp_real for m in state.module.modules() if isinstance(m, transformer.MoeMlp)}
+            out.append({"logits": seen.pop(), "loss": float(loss), "sp_real": sp_real,
+                        "sp_index": collectives.axis_index("sp", mesh)})
+    finally:
+        hook.remove()
+    return out
 
 
 def job_sp_routing_checks(ctx, variables, cfg, batches, axes):
@@ -500,7 +531,7 @@ def job_sp_routing_checks(ctx, variables, cfg, batches, axes):
         out = []
         for b in batches:
             with torch.no_grad():
-                loss_fn(state.module, {k: torch.as_tensor(v) for k, v in _lm_rows(mesh, b).items()})
+                loss_fn(state.module, _host_batch(_lm_rows(mesh, b)))
             routes = {m.sp_real for m in state.module.modules() if isinstance(m, transformer.MoeMlp)}
             (sp_real,) = routes
             out.append([len(calls), "local" if sp_real is None else "gathered {}".format(sp_real)])
