@@ -275,6 +275,20 @@ and the script exits non-zero:
                   seconds, restore seconds, seconds from the kill to the
                   second life's first logged step, and both wall times, read
                   from the runs' flight shards (``TOS_TRACE_DIR``).
+    ``ladder``    the recovery ladder (``elastic.run_ladder``) on the
+                  recover phase's arguments, two executors sharing the card
+                  (no world), the story of the JAX package's
+                  ``test_preempt_drain_regrow_full_size_resume``: executor
+                  1's latched kill, armed once executor 0's checkpoint of
+                  step 30 or later is committed; the blacklist and the
+                  shrink to 1; the regrow probe, the scaler's grow vote and
+                  executor 0's drain; the relaunch at 2. Sizes 2 → 1 → 2,
+                  one shrink, one regrow, one drained preemption, every
+                  life's child on the card, executor 0 resumed each life at
+                  or after its last committed checkpoint, its final
+                  checkpoint bitwise run A's of the recover phase; the
+                  seconds from the kill to the first logged step after it
+                  and the drain's.
 11. ``mnist_compare`` ``MnistMLP`` (784-512-10) and ``MnistCNN`` at full
                   width, float32 with TF32 off: eval logits and one Adam step
                   through ``SyncDataParallel`` on the card against the same
@@ -413,7 +427,8 @@ and the script exits non-zero:
 18. ``kernels``   every kernel of the port and whether the eager and the
                   loop paths of phases 5 and 7 launched it, the traced loop
                   call ran it on the card, (the BN kernels) run A of the
-                  recover phase and the real-data slice launched it, and
+                  recover phase, the ladder's last life and the real-data
+                  slice launched it, and
                   (the flash kernels) the pack-plane LM leg, the fully
                   sharded leg (``slice_fsdp``), the model-axes legs
                   (``slice_axes``: tp, the mixture, remat), the example at its defaults
@@ -433,7 +448,7 @@ three processes run side by side (``trainer_phases`` here;
 ``slice_lm_d256``, ``slice_lm_d512``, ``compare_loop``, ``pipeline``, 9,
 ``slice_lm_pack``
 and ``serve_lm``; ``slice_fsdp``, ``slice_axes``, ``overlap``,
-``loop_cache`` and 10; and phases 11-17 but those two (feeders, data
+``loop_cache``, 10 and ``ladder``; and phases 11-17 but those two (feeders, data
 planes, clients, small models: the card idle most of their time). The
 rates of phases 5 on are taken with the other two running; the recover
 phase's kill waits for a checkpoint, not for a time.
@@ -442,7 +457,8 @@ Then one JSON line with every kernel's measurements (``launches``: its
 wrapper's on the eager path; ``launches_loop_path``: its wrapper's on the
 loop path; ``device_launches_traced_loop_call``: the card's in the traced
 loop call; ``launches_recover_path``: its wrapper's in the recover phase's
-run A; ``launches_mnist_path``: its wrapper's in ``slice_mnist``'s
+run A; ``launches_ladder_last_life``: its wrappers' in the ladder's last
+life, both executors; ``launches_mnist_path``: its wrapper's in ``slice_mnist``'s
 trainer; ``launches_slice_real``: its wrapper's over the three
 ``slice_real`` legs; ``launches_slice_lm_pack``: its wrapper's in
 ``slice_lm_pack``; ``launches_fsdp`` / ``device_launches_fsdp_traced_call``:
@@ -495,6 +511,12 @@ LOOP_STEPS, TRACE_CALL = 20, 3
 #: committed, so the kill lands mid-run wherever the host sets the pace
 RECOVER_STEPS, RECOVER_EVERY, RECOVER_KEEP, RECOVER_KILL_STEP = 200, 10, 3, 70
 HEARTBEAT_S = 0.25
+#: the ladder phase: two executors share the card, each on the recover
+#: phase's arguments in a directory of its own; executor 1's kill is armed
+#: once executor 0's checkpoint of step LADDER_KILL_STEP or later is
+#: committed; the shrunk life trains executor 0 to LADDER_PAUSE and waits
+#: for the drain, which the regrow poll (every LADDER_REGROW_S) asks for
+LADDER_KILL_STEP, LADDER_PAUSE, LADDER_REGROW_S, LADDER_SIZE = 30, 150, 20.0, 2
 #: the slice_axes phase: eager steps and timed turns of its tp leg
 AXES_EAGER, AXES_PAIRS = 3, 3
 #: the pipeline phase: 1F1B over PIPE_STAGES stages of PIPE_BLOCKS LM
@@ -2890,6 +2912,98 @@ def phase_recover(torch, fused_bn, work):
     return launches
 
 
+def phase_ladder(torch, fused_bn, work, run_a):
+    """The recovery ladder on the card: the ResNet example at the recover
+    phase's arguments on two executors that share the card (no world: one
+    card holds one NCCL rank), through ``elastic.run_ladder``, with the story
+    of the JAX package's ``test_preempt_drain_regrow_full_size_resume``
+    (``cluster_check.run_ladder_story``, its map function
+    ``cluster_check.resnet_ladder_fun``): a latched ``node.kill`` of
+    executor 1 armed once executor 0's checkpoint of step
+    ``LADDER_KILL_STEP`` or later is committed; ``blacklist_after=1``, so
+    the ladder shrinks to 1; the mid-run regrow probe forgives executor 1,
+    the scaler votes to grow and executor 0 drains on the preemption
+    warning; the relaunch runs at 2. Fails unless the relaunches, blacklist
+    and sizes (2 → 1 → 2) are the reference's, one shrink, one regrow and
+    one drained preemption are counted, every life's child ran on ``cuda``
+    and the BN wrappers launched in the last life, executor 0 resumed each
+    life at or after its last committed checkpoint, and its final
+    checkpoint equals the recover phase's run A (``run_a``) bitwise and in
+    ``step``. Returns each BN wrapper's launches in the last life."""
+    import shutil
+
+    from tensorflowonspark_tpu_torch.examples import cluster_check
+    from tensorflowonspark_tpu_torch.examples.resnet import resnet_spark
+    from tensorflowonspark_tpu_torch.train import checkpoint
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    args = resnet_spark.build_parser().parse_args([
+        "--dataset", "imagenet", "--bn_impl", "pallas", "--batch_size", str(BATCH), "--train_steps",
+        str(RECOVER_STEPS), "--log_steps", str(STEPS), "--steps_per_loop", str(STEPS), "--checkpoint_steps",
+        str(RECOVER_EVERY), "--keep_checkpoints", str(RECOVER_KEEP), "--model_dir", work, "--deterministic"])
+    args.ladder_root, args.ladder_size, args.ladder_pause = work, LADDER_SIZE, LADDER_PAUSE
+    keeper = os.path.join(work, "executor_0")
+    story = cluster_check.run_ladder_story(
+        cluster_check.resnet_ladder_fun, args, work, LADDER_SIZE, 1, keeper, LADDER_KILL_STEP, "gpu",
+        jax_distributed=False, master_node=None, regrow_s=LADDER_REGROW_S, task_timeout=300)
+    result, lives, armed = story["result"], story["lives"], story["armed"]
+    sizes = [life[0]["size"] for life in lives]
+    cards = [{r["executor_id"]: {"card": r["card"], "device": r["device"]} for r in life} for life in lives]
+    # executor 0 is worker:0 in every life: its shards, the kill, its restores and saves
+    shards = story["shards"]
+    keeper_lives = [recs for _, recs in shards if any(
+        r.get("kind") == "meta" and str(r.get("proc", "")).endswith("worker-0") for r in recs)]
+    kills = [r for _, recs in shards for r in _spans(recs, "chaos_fault")
+             if r.get("attrs", {}).get("site") == "node.kill"]
+    resumed, committed, last_saved = [], [], 0
+    for recs in keeper_lives:
+        restores = _spans(recs, "ckpt_restore")
+        resumed.append(restores[0]["attrs"].get("step") if restores else None)
+        committed.append(last_saved)
+        last_saved = max([last_saved] + [r["attrs"].get("step", 0) for r in _spans(recs, "ckpt_save")])
+    after_kill = [recs for recs in keeper_lives if kills and min(
+        r["ts"] for r in recs if r.get("kind") in ("span", "event")) > kills[0]["ts"]]
+    calls = sorted(_spans(after_kill[0], "train_step"), key=lambda r: r["ts"]) if after_kill else []
+    drains = [(e["ts"], d["ts"]) for recs in keeper_lives
+              for e in recs if e.get("kind") == "event" and e.get("name") == "preempt_drain"
+              for d in recs if d.get("kind") == "dump" and str(d.get("reason", "")).startswith("preempted")]
+    drained_at = next((t for t, kind in story["classified"] if kind == "preemption"), None)
+    node_counters = (result.metrics or {}).get("counters", {})
+    launches = {name: int((node_counters.get("fused_bn_{}_launches_total".format(name)) or {}).get("value", 0))
+                for name, *_ in KERNEL_TABLE}
+    final = os.path.join(keeper, "ckpt_{}".format(RECOVER_STEPS))
+    trees = [checkpoint.restore_checkpoint(p) for p in (final, run_a) if os.path.isdir(p)]
+    diff = _tree_mismatches(torch, trees[0], trees[1]) if len(trees) == 2 else ["a final checkpoint is missing"]
+    line = {"phase": "ladder", "model": "resnet50", "dtype": "bfloat16", "bn_impl": "pallas", "batch": BATCH,
+            "image": IMAGE, "steps": RECOVER_STEPS, "steps_per_loop": STEPS, "checkpoint_steps": RECOVER_EVERY,
+            "executors": LADDER_SIZE, "heartbeat_s": cluster_check.HEARTBEAT_S, "regrow_check_s": LADDER_REGROW_S,
+            "kill_armed_at_checkpoint": armed.get("step"), "kills": len(kills), "relaunches": result.relaunches,
+            "blacklist": sorted(result.blacklist), "final_size": result.num_executors, "sizes": sizes,
+            "events": [e.kind for _, e in result.events], "counters": story["counters"], "cards": cards,
+            "exits_by_life": story["exits"], "executor0_resumed_at": resumed, "executor0_committed_before": committed,
+            "kill_to_first_step_s": calls[0]["ts"] + calls[0]["dur_s"] - kills[0]["ts"] if calls else None,
+            "drain_s": [b - a for a, b in drains],
+            "preempt_to_classified_s": drained_at - story["preempts"][0] if drained_at and story["preempts"]
+            else None,
+            "launches_last_life": launches, "final_mismatches_vs_recover_run_a": diff[:10],
+            "tensors": _count_tensors(torch, trees[0]) if trees else 0, "wall_s": story["wall_s"]}
+    emit(line)
+    failures = cluster_check.story_failures("ladder", story, LADDER_SIZE)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    if any(r["device"].split(":")[0] != "cuda" for life in lives for r in life):
+        raise AssertionError("ladder: a life's child did not run on the card: {}".format(cards))
+    if len(resumed) != 3 or any(r is None or r < c for r, c in zip(resumed[1:], committed[1:])):
+        raise AssertionError("ladder: executor 0 resumed at {} with {} committed before".format(resumed, committed))
+    if diff:
+        raise AssertionError("ladder: executor 0's final checkpoint differs from recover's run A in {} place(s): "
+                             "{}".format(len(diff), diff[:10]))
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError("ladder: a BN wrapper did not launch in the last life: {}".format(launches))
+    return launches
+
+
 #: the MNIST phases: the example's batch, one epoch of half of MNIST's train
 #: split (synthetic rows; cut from 60,000 to keep the script inside its
 #: time) in 8 partitions, a checkpoint every MNIST_CKPT steps; the
@@ -4320,8 +4434,11 @@ def sharded_phases(torch, fa, fused_bn, here):
                                                        os.path.join(here, "build", "chip_smoke_overlap"))
     n["cache_launches"], n["cache_traced"] = timed("loop_cache", phase_loop_cache_child, here,
                                                    os.path.join(here, "build", "chip_smoke_loop_cache"))
-    n["recover_launches"] = timed("recover", phase_recover, torch, fused_bn,
-                                  os.path.join(here, "build", "chip_smoke_recover"))
+    recover_work = os.path.join(here, "build", "chip_smoke_recover")
+    n["recover_launches"] = timed("recover", phase_recover, torch, fused_bn, recover_work)
+    n["ladder_launches"] = timed("ladder", phase_ladder, torch, fused_bn,
+                                 os.path.join(here, "build", "chip_smoke_ladder"),
+                                 os.path.join(recover_work, "recover_a", "model", "ckpt_{}".format(RECOVER_STEPS)))
     return n
 
 
@@ -4551,7 +4668,8 @@ def main():
     emit({"phase": "kernels", "kernels": [
         {"name": name, "route": route, "source": source,
          "launched": (n["launches"][name] > 0 and n["loop_launches"][name] > 0 and n["traced_launches"][name] > 0
-                      and n["recover_launches"][name] > 0 and n["real_launches"][name] > 0
+                      and n["recover_launches"][name] > 0 and n["ladder_launches"][name] > 0
+                      and n["real_launches"][name] > 0
                       and n["cache_launches"][name] > 0 and n["cache_traced"][name] > 0)}
         for name, _, _, _, route, source in KERNEL_TABLE] + [
         {"name": name, "route": "cuda", "source": FLASH_SOURCE,
@@ -4578,6 +4696,7 @@ def main():
          "launches": n["launches"][name], "launches_loop_path": n["loop_launches"][name],
          "device_launches_traced_loop_call": n["traced_launches"][name],
          "launches_recover_path": n["recover_launches"][name],
+         "launches_ladder_last_life": n["ladder_launches"][name],
          "launches_mnist_path": n["mnist_launches"][name],
          "launches_slice_real": n["real_launches"][name],
          "launches_segmentation": n["seg_launches"][name],

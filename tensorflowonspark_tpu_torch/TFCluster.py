@@ -61,7 +61,7 @@ def _abort_nodes(cluster_info, authkey, reason):
             continue
         try:
             mgr = TFManager.connect(tuple(row["manager_addr"]), authkey)
-            mgr.set("abort", str(reason))
+            mgr.set(TFSparkNode.ABORT_KEY, str(reason))
             if row["job_name"] in ("ps", "evaluator"):
                 mgr.get_queue("control").put(None, block=False)
             reached[row["executor_id"]] = (row, mgr)
@@ -1046,6 +1046,9 @@ def run(
     cluster_meta = {
         "id": random.getrandbits(64),
         "cluster_template": template,
+        # the executors this relaunch left out: a survivor's card is placed
+        # past theirs (TFNodeContext.card)
+        "blacklist": sorted(blacklist or ()),
         "num_executors": num_executors,
         "server_addr": server_addr,
         "default_fs": default_fs,

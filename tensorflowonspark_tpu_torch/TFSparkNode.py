@@ -103,6 +103,8 @@ class TFNodeContext:
         process_id=0,
         topology=None,
         cluster_meta=None,
+        card_peers=None,
+        lost=(),
     ):
         self.executor_id = executor_id
         self.worker_num = executor_id  # reference-compat alias
@@ -117,6 +119,11 @@ class TFNodeContext:
         self.process_id = process_id
         self.topology = topology or {}
         self.cluster_meta = cluster_meta or {}
+        #: executor ids of the ranks of this node's world on its host (this
+        #: node alone outside a world) and of the executors the cluster lost
+        #: (blacklisted): what :meth:`card` places this node among
+        self.card_peers = list(card_peers or [executor_id])
+        self.lost = tuple(lost or ())
 
     @property
     def num_workers(self):
@@ -148,12 +155,22 @@ class TFNodeContext:
         """``"gpu"`` (default) or ``"cpu"``, from the cluster's env lane."""
         return os.environ.get(util.ENV_PLATFORM, "gpu")
 
+    def card(self, cards):
+        """This node's card on a host with ``cards`` visible cards: its
+        executor's own, the same in every life whatever its rank, and never
+        another rank's of its world (:func:`util.card_map`)."""
+        return util.card_map(self.card_peers, cards, self.lost)[self.executor_id]
+
     @property
     def device(self):
-        """The ``torch.device`` of this node: the CPU, or one CUDA device
-        (the rank modulo the host's visible cards). Selecting ``"gpu"``
-        without a CUDA device raises."""
-        return util.select_device(self.platform, self.process_id)
+        """The ``torch.device`` of this node: the CPU, or its card
+        (:meth:`card`). Selecting ``"gpu"`` without a CUDA device raises."""
+        if self.platform != "gpu":
+            return util.select_device(self.platform)
+        import torch
+
+        cards = torch.cuda.device_count()  # NVML: no CUDA context yet
+        return util.select_device(self.platform, self.card(cards) if cards else 0)
 
     def initialize_distributed(self):
         """Join the torch.distributed world derived from the reservations:
@@ -242,6 +259,13 @@ def _derive_world(cluster_info, me):
     return None, 1, 0
 
 
+def _card_peers(cluster_info, me):
+    """Executor ids of the world's ranks on ``me``'s host (``me`` among
+    them): the ranks whose cards :meth:`TFNodeContext.card` keeps apart."""
+    host = next(r["host"] for r in cluster_info if r["executor_id"] == me["executor_id"])
+    return [r["executor_id"] for r in _participants(cluster_info) if r["host"] == host]
+
+
 def _nodes_on_host(ctx):
     """Nodes of the cluster whose address names this node's host (this
     one included)."""
@@ -293,7 +317,16 @@ def _child_entry(fn, tf_args, ctx, cluster_meta, error_queue_spec):
         if ctx.platform == "gpu":
             import torch
 
-            gpu_info.validate_against_runtime(torch.cuda.device_count())
+            cards = torch.cuda.device_count()  # NVML: no CUDA context yet
+            gpu_info.validate_against_runtime(cards)
+            if cards:  # none: selecting the device raises
+                # this life's executor → card map (the card stays with the
+                # executor across lives, util.card_map)
+                logger.info(
+                    "executor %s (%s:%d): rank %d of %d on card %d of %d, coordinator %s",
+                    ctx.executor_id, ctx.job_name, ctx.task_index, ctx.process_id,
+                    ctx.num_processes, ctx.card(cards), cards, ctx.coordinator_address,
+                )
         else:
             import torch
 
@@ -393,11 +426,18 @@ HEARTBEAT_INTERVAL = float(os.environ.get("TOS_HEARTBEAT_INTERVAL", "2"))
 # ps/evaluator role that its executor releases at the driver's shutdown gets
 # the same SIGTERM, but the executor marks the release on the channel first
 # (:data:`RELEASED_KEY`): that child commits ``released``, which the watchdog
-# takes as a clean leave and not as a preemption to report.
+# takes as a clean leave and not as a preemption to report. A child the
+# driver's abort terminates (:data:`ABORT_KEY` is on its channel) commits
+# ``aborted``: the teardown after a failure the ladder already classified,
+# not a warned loss of its own.
 
 #: channel key an executor sets before it terminates the child of a parked
 #: role it is releasing
 RELEASED_KEY = "released"
+
+#: channel key the driver's :meth:`TFCluster.TFCluster.abort` posts its
+#: reason under; the executor's abort watcher then terminates the child
+ABORT_KEY = "abort"
 
 _preempt_lock = threading.Lock()
 _preempt = {
@@ -430,15 +470,19 @@ def _preempt_drain(source):
         if _preempt["fired"]:
             return  # handler/heartbeat race: first caller owns the exit
         _preempt["fired"] = True
-    released = False
+    status = "preempted"
     if _preempt["mgr"] is not None:
         try:
-            released = bool(_preempt["mgr"].get(RELEASED_KEY))
+            if _preempt["mgr"].get(RELEASED_KEY):
+                status = "released"
+            elif _preempt["mgr"].get(ABORT_KEY) is not None:
+                status = "aborted"
         except Exception:
             pass
     logger.warning(
         "%s (%s): draining checkpoints before the kill lands",
-        "released by the executor" if released else "preemption warning", source,
+        {"released": "released by the executor", "aborted": "driver abort"}.get(status, "preemption warning"),
+        source,
     )
     try:
         obs_tracing.event(
@@ -456,11 +500,11 @@ def _preempt_drain(source):
             pass
     if _preempt["mgr"] is not None:
         try:  # the parting commit the watchdog journals as a durable leave
-            _preempt["mgr"].set("child_status", "released" if released else "preempted")
+            _preempt["mgr"].set("child_status", status)
         except Exception:
             pass
     try:
-        obs_flight.dump("preempted:{}".format(source))
+        obs_flight.dump("{}:{}".format(status, source))
     except Exception:
         pass
     os._exit(143)  # 128 + SIGTERM: the conventional warned-termination code
@@ -675,6 +719,7 @@ class _NodeLaunchTask:
             )
         me = {"executor_id": executor_id}
         coord, num_procs, proc_id = _derive_world(cluster_info, me)
+        in_world = num_procs > 1 and meta.get("jax_distributed", False)
 
         util.write_executor_state(
             {
@@ -696,9 +741,11 @@ class _NodeLaunchTask:
             working_dir=os.getcwd(),
             mgr=None,  # child re-connects its own handle
             coordinator_address=coord,
-            num_processes=num_procs if meta.get("jax_distributed", False) else 1,
+            num_processes=num_procs if in_world else 1,
             process_id=proc_id,
             topology=gpu_info.local_topology(),
+            card_peers=_card_peers(cluster_info, me) if in_world else None,
+            lost=meta.get("blacklist", ()),
             cluster_meta={
                 k: meta[k]
                 for k in ("id", "server_addr", "input_mode", "feed_shm", "obs")
@@ -770,7 +817,7 @@ class _NodeLaunchTask:
             states.inc()
             _flush_obs()
             if child.exitcode != 0:
-                if mgr.get("abort") is not None:
+                if mgr.get(ABORT_KEY) is not None:
                     # the driver's abort watcher killed this child on
                     # purpose: returning (not raising) keeps Spark from
                     # retrying the task against a cluster being torn down
@@ -882,16 +929,23 @@ class _NodeLaunchTask:
             ticker = resilience.Backoff(base=1.0, factor=1.0, max_delay=1.0, jitter=0.0)
             for _ in ticker.attempts():
                 try:
-                    if mgr.get("abort") is not None:
+                    if mgr.get(ABORT_KEY) is not None:
                         if child.is_alive():
                             logger.warning(
-                                "driver abort: terminating jax child %s:%d", job_name, task_index
+                                "driver abort: terminating trainer child %s:%d", job_name, task_index
                             )
                             child.terminate()
                             child.join(timeout=10)
                             if child.is_alive() and hasattr(child, "kill"):
+                                # its SIGTERM handler never ran: the main
+                                # thread is blocked (a collective on a lost
+                                # peer never returns to the interpreter)
                                 child.kill()
                                 child.join(timeout=5)
+                            logger.warning(
+                                "driver abort: trainer child %s:%d exited %s",
+                                job_name, task_index, child.exitcode,
+                            )
                         mgr.set("state", "stopped")
                         return
                     if mgr.get("state") == "stopped":

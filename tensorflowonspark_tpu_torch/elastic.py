@@ -324,7 +324,10 @@ def _regrow_poll(sc, cluster, scaler, blacklist, num_executors, target, extra_pr
     )
     desired = num_executors - (len(blacklist) - len(healthy))
     try:
-        snapshot = cluster.metrics() or {}
+        # the trainers' input path: the driver's own registry may hold the
+        # stall counters of pipelines it ran itself, which say nothing of
+        # whether more trainers would starve
+        snapshot = cluster.metrics(include_driver=False) or {}
     except Exception:
         snapshot = {}
     classification = control.classify_stalls(

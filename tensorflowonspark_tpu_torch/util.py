@@ -193,6 +193,41 @@ def cpu_share(sharers):
     return max(1, cores // max(1, int(sharers)))
 
 
+def card_map(executor_ids, cards, lost=()):
+    """The cards (CUDA device indices) of the ranks of one world on one host
+    with ``cards`` visible cards, as ``{executor_id: card}``.
+
+    A card belongs to an executor, not to a rank (the JAX package's rule: an
+    executor owns its chips). Executor ``e``'s own card is ``e % cards``,
+    the same in every life of a recovery, so a shrink that renumbers the
+    ranks hands no survivor the card of the executor it lost. Where the own
+    cards of several executors coincide (ids past the host's cards: the
+    chief and a worker beside an evaluator, a spare standing in for a
+    blacklisted executor), the lowest id owns the card, the ``lost``
+    (blacklisted) executors counted among the owners; every other rank, in
+    id order, takes the lowest card that neither a rank nor a lost executor
+    owns, else the lowest card no rank holds. A world with more ranks on the
+    host than cards raises: NCCL takes one rank of a world on a card.
+    """
+    cards = int(cards)
+    ids = sorted({int(e) for e in executor_ids})
+    if len(ids) > cards:
+        raise ValueError(
+            "{} ranks of one world on a host with {} card(s) (executors {}): "
+            "NCCL needs a card for each".format(len(ids), cards, ids)
+        )
+    owner = {}
+    for e in sorted(set(ids) | {int(e) for e in lost}):
+        owner.setdefault(e % cards, e)
+    placed = {e: e % cards for e in ids if owner[e % cards] == e}
+    for e in ids:
+        if e not in placed:
+            held = set(placed.values())
+            free = [c for c in range(cards) if c not in held and c not in owner]
+            placed[e] = (free or [c for c in range(cards) if c not in held])[0]
+    return placed
+
+
 def select_device(platform="gpu", index=0):
     """The ``torch.device`` this process trains on.
 

@@ -423,6 +423,157 @@ def test_run_with_recovery_checks_its_input_mode():
                                     feed_fn=lambda cluster: None)
 
 
+def _cards_of_life(template, cards, blacklist=(), hosts=None):
+    """{executor: (rank, card)} of one life of ``template``'s world, each
+    card placed as the executor's node places it (``_card_peers`` over the
+    reservation, the relaunch's blacklist, ``TFNodeContext.card``)."""
+    from tensorflowonspark_tpu_torch import TFSparkNode
+
+    info = [{"executor_id": e, "job_name": j, "task_index": t, "host": (hosts or {}).get(e, "h"),
+             "port": 7000 + e} for e, (j, t) in template.items()]
+    placed = {}
+    for eid, (job, task) in template.items():
+        if job not in ("chief", "master", "worker"):
+            continue
+        me = {"executor_id": eid}
+        _, world, rank = TFSparkNode._derive_world(info, me)
+        ctx = TFSparkNode.TFNodeContext(eid, job, task, {}, "file://", ".", num_processes=world, process_id=rank,
+                                        card_peers=TFSparkNode._card_peers(info, me), lost=blacklist)
+        placed[eid] = (rank, ctx.card(cards))
+    return placed
+
+
+def test_a_card_stays_with_its_executor_across_a_shrink():
+    """``ctx.card`` is the executor's card, not the rank's: after executor 1
+    of 4 is blacklisted and the world re-forms at 3, every survivor keeps
+    its card and none is handed executor 1's, which the rank would have
+    given executor 2 (ranks 0, 1, 2 on executors 0, 2, 3); the regrown
+    world of 4 puts executor 1 back on its own."""
+    full = _cards_of_life(TFCluster.build_cluster_template(4, master_node=None), 4)
+    shrunk = _cards_of_life(TFCluster.build_cluster_template(3, master_node=None, blacklist={1}), 4, blacklist=[1])
+    assert {e: card for e, (_, card) in full.items()} == {0: 0, 1: 1, 2: 2, 3: 3}
+    assert {e: rank for e, (rank, _) in shrunk.items()} == {0: 0, 2: 1, 3: 2}
+    assert {e: card for e, (_, card) in shrunk.items()} == {0: 0, 2: 2, 3: 3}
+    assert full[1][1] not in {card for _, card in shrunk.values()}
+    assert shrunk[2][0] == full[1][1]  # the card the rank would have handed over
+    assert _cards_of_life(TFCluster.build_cluster_template(4, master_node=None), 4) == full
+
+
+def test_an_evaluator_leaves_no_two_ranks_on_one_card():
+    """5 executors on a host of 4 cards with ``eval_node=True``: the chief
+    (executor 0) and the workers (2, 3, 4) form the world of 4 around the
+    evaluator (1); executor 4 would wrap onto the chief's card, so it takes
+    the card no rank owns. After the loss of worker 2 the survivors keep
+    their cards; after the loss of the chief (the roles re-laid from
+    executor 1), no rank takes executor 0's card."""
+    first = _cards_of_life(TFCluster.build_cluster_template(5, eval_node=True), 4)
+    assert {e: card for e, (_, card) in first.items()} == {0: 0, 2: 2, 3: 3, 4: 1}
+    after_2 = _cards_of_life(TFCluster.build_cluster_template(4, eval_node=True, blacklist={2}), 4, blacklist=[2])
+    assert {e: card for e, (_, card) in after_2.items()} == {0: 0, 3: 3, 4: 1}
+    after_0 = _cards_of_life(TFCluster.build_cluster_template(4, eval_node=True, blacklist={0}), 4, blacklist=[0])
+    assert sorted(after_0) == [1, 3, 4]
+    cards = [card for _, card in after_0.values()]
+    assert len(set(cards)) == len(cards) and 0 not in cards
+
+
+def test_a_spare_executor_takes_the_only_free_card():
+    """A relaunch with a blacklist and a spare (``TFCluster.run`` of 4 on 5
+    executors, executor 1 banned): the survivors 0, 2, 3 keep their cards
+    and the spare, executor 4, whose own card is the chief's, takes the one
+    card no rank holds; a world with more ranks on the host than cards
+    raises before NCCL would."""
+    life = _cards_of_life(TFCluster.build_cluster_template(4, blacklist={1}), 4, blacklist=[1])
+    assert {e: card for e, (_, card) in life.items()} == {0: 0, 2: 2, 3: 3, 4: 1}
+    with pytest.raises(ValueError, match="5 ranks of one world on a host with 4 card"):
+        _cards_of_life(TFCluster.build_cluster_template(5), 4)
+
+
+def test_cards_are_placed_per_host():
+    """Two hosts of 4 cards, executors 0–3 on one and 4–7 on the other: each
+    host's ranks take its 4 cards, executors past a host's cards included;
+    the co-located executors of a world-less cluster (no peers: the ladder
+    on one card) share the cards by id."""
+    hosts = {e: "h{}".format(e // 4) for e in range(8)}
+    life = _cards_of_life(TFCluster.build_cluster_template(8), 4, hosts=hosts)
+    assert {e: card for e, (_, card) in life.items()} == {e: e % 4 for e in range(8)}
+    assert [util.card_map([e], 1)[e] for e in range(2)] == [0, 0]
+    assert [util.card_map([e], 2)[e] for e in range(4)] == [0, 1, 0, 1]
+
+
+def test_zero3_on_a_world_of_three_replicates_what_the_jax_rule_replicates():
+    """The full-width LM's parameters on ``{"fsdp": 3}`` (the ladder's world
+    after a shrink from 4): the port's rule splits the same flax dimension
+    as the JAX package's, leaf for leaf, and replicates the leaves it
+    replicates (3 divides none of 32,000, 512 and 2,048)."""
+    import jax
+    import torch
+
+    from tensorflowonspark_tpu import parallel as jparallel
+    from tensorflowonspark_tpu.models import transformer as jtransformer
+    from tensorflowonspark_tpu.parallel import sharding as jsharding
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+    from tensorflowonspark_tpu_torch.parallel import sharding
+
+    width = dict(vocab_size=32000, d_model=512, n_layers=6, n_heads=8, d_ff=2048)
+    for n in (3, 4):
+        jmodel = jtransformer.create_model(**width)
+        shapes = jax.eval_shape(jtransformer.make_init_fn(jmodel), jax.random.PRNGKey(0))["params"]
+        jspecs = jsharding.fsdp_param_specs(shapes, jparallel.build_mesh({"fsdp": n}, devices=jax.devices()[:n]))
+        want = {"/".join(str(getattr(k, "key", k)) for k in path): next(
+            (i for i, e in enumerate(spec) if e == "fsdp"), None)
+            for path, spec in jax.tree_util.tree_flatten_with_path(
+                jspecs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]}
+        with torch.device("meta"):
+            module = transformer.create_model(**width)
+        plan = mesh_lib.build_mesh({"fsdp": -1}, [mesh_lib.RankDevice(r, None) for r in range(n)],
+                                   device_type="cpu", plan=True)
+        specs = sharding.fsdp_param_specs(module, plan)
+        layouts = convert.flax_layouts(module)
+        leaf = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
+        got = {}
+        for key in want:
+            name = ".".join(key.split("/")[:-1] + [leaf[key.split("/")[-1]]])
+            shape, dims = layouts[name]
+            port_dim = next((i for i, e in enumerate(specs[name]) if e == "fsdp"), None)
+            got[key] = None if port_dim is None else next(d for d in range(len(shape)) if dims[d] == port_dim)
+        assert got == want, n
+        assert any(v is not None for v in want.values()) == (n == 4)
+
+
+def test_cluster_check_rehearsal(tmp_path):
+    """``cluster_check.py --platform cpu --size small`` on 4 gloo executors
+    through ``TFCluster.run``: the dp and dp×tp LM legs (every rank's
+    losses and gathered parameters equal) and the ladder (worlds 4 → 3 → 4,
+    every restore bitwise the checkpoint, one shrink, one regrow)."""
+    import json
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "tensorflowonspark_tpu_torch.examples.cluster_check", "--platform", "cpu",
+         "--size", "small", "--legs", "lm_dp4,lm_dp2_tp2,ladder4", "--work_dir", str(tmp_path)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=400)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    lines = {x["leg"]: x for x in (json.loads(y) for y in proc.stdout.splitlines() if y.startswith('{"leg"'))}
+    assert sorted(lines) == ["ladder4", "lm_dp2_tp2", "lm_dp4"]
+    for name in ("lm_dp4", "lm_dp2_tp2"):
+        line = lines[name]
+        assert line["failures"] == [] and line["gathered_params_equal_on_every_rank"]
+        assert [c["executor"] for c in line["cards"]] == [0, 1, 2, 3]
+        assert len({json.dumps(v) for v in line["losses_by_rank"].values()}) == 1
+    ladder = lines["ladder4"]
+    assert ladder["failures"] == [] and ladder["worlds"] == [4, 3, 4] and ladder["blacklist"] == []
+    assert [sorted(life["cards"]) for life in ladder["lives"]] == [["0", "1", "2", "3"], ["0", "1", "2"],
+                                                                   ["0", "1", "2", "3"]]
+    assert all(life["restore_mismatches"] == [] and life["restore_tensors"] for life in ladder["lives"][1:])
+    assert ladder["counters"]["recovery_shrinks_total"] == ladder["counters"]["recovery_regrows_total"] == 1
+    # on gloo the survivors' collectives fail on the lost peer: the abort
+    # finds each exited or ends it by SIGTERM, never by SIGKILL
+    assert sorted(ladder["survivor_exits"]) == ["0", "1", "2"]
+    assert "sigkill" not in ladder["survivor_exits"].values(), ladder["survivor_exits"]
+
+
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     """Every module of the port and chip_smoke.py import with jax, flax,
     optax, orbax and the JAX package blocked."""
@@ -448,7 +599,7 @@ from tensorflowonspark_tpu_torch import ckpt, control, elastic
 from tensorflowonspark_tpu_torch.ckpt import AsyncCheckpointEngine, snapshot_to_host, verify
 from tensorflowonspark_tpu_torch.convert import convert_train_state
 from tensorflowonspark_tpu_torch.train import checkpoint
-from tensorflowonspark_tpu_torch.examples import sync_dp_check
+from tensorflowonspark_tpu_torch.examples import cluster_check, sync_dp_check
 from tensorflowonspark_tpu_torch.examples.resnet import bench_bn, profile_step
 from tensorflowonspark_tpu_torch.ops.kernel_trace import KernelTrace, kernel_base
 from tensorflowonspark_tpu_torch.examples.transformer import profile_step as lm_profile_step
@@ -488,6 +639,8 @@ from tensorflowonspark_tpu_torch.parallel import (HostAllReduceGroup, Pipeline1F
 from tensorflowonspark_tpu_torch.train import BucketedOverlap, PackedLoopCache
 assert {"tensorflowonspark_tpu_torch.parallel.pipeline_parallel",
         "tensorflowonspark_tpu_torch.parallel.hostreduce"} <= set(names)
+# the main path across executors and the ladder on four cards
+assert "tensorflowonspark_tpu_torch.examples.cluster_check" in names and cluster_check.leg_ladder
 print("imported", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
