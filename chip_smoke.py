@@ -308,6 +308,26 @@ and the script exits non-zero:
                   and images/s, first and last loss (finite, falling), the
                   checkpoints and the bundle, and each kernel wrapper's
                   launches in the trainer (0: MNIST runs none of them).
+   ``chaos_cluster`` the JAX package's cluster chaos on the card, two legs
+                  in one trainer life (one child's start on the card, not
+                  two). A commit torn in a CUDA child
+                  (``tests/test_ckpt_chaos.py``'s cluster case): the MNIST
+                  trainer on ``cuda:0`` saves its first two Adam steps
+                  through ``ckpt.AsyncCheckpointEngine`` under a
+                  ``ckpt.commit_tear`` site seeded to tear the second
+                  commit; the tear and a commit are counted in the merged
+                  metrics, ``tmp.ckpt_2`` stays unpublished and
+                  ``restore_latest`` onto the card takes ``ckpt_1``, whose
+                  tensors equal step 1's bitwise. Then the Spark feed under
+                  ``tests/test_chaos_cluster.py``'s plan (one dropped
+                  registration in the driver, two 10 ms slow dequeues in
+                  the trainer): ``mnist_spark``'s ``main_fun`` through
+                  ``TFCluster.run`` on one executor in InputMode.SPARK,
+                  3,000 synthetic rows in the uneven partitions of
+                  ``cluster_check.py``'s ``mnist_spark_dp4``: the trainer
+                  trains the example's cap (``steps_per_worker``: 41 steps
+                  of 64, every row it took off the feed) and each fault is
+                  a counter in the merged metrics.
 13. ``pipeline_mnist`` ``mnist_pipeline.main`` on the card:
                   ``TFEstimator.fit`` on 10,000 rows, then
                   ``TFModel.transform`` of 2,048 rows in the executor; the
@@ -3209,6 +3229,34 @@ def phase_slice_mnist(torch, work):
     return export_dir, launches
 
 
+#: the chaos_cluster phase's rows (one epoch)
+CHAOS_ROWS = 3000
+
+
+def phase_chaos_cluster(torch, work):
+    """The JAX package's cluster chaos on the card, in one trainer life:
+    ``cluster_check.mnist_spark_story`` with the tear (the async engine's
+    torn second commit, then the Spark feed of ``mnist_spark`` under the
+    cluster chaos plan) on one executor, and the driver's resume. Fails on
+    any of its checks."""
+    from tensorflowonspark_tpu_torch.examples import cluster_check
+
+    story = cluster_check.mnist_spark_story(work, "chaos_cluster", 1, CHAOS_ROWS, 1, MNIST_BATCH, "gpu", tear=True)
+    failures = cluster_check.mnist_story_failures("chaos_cluster", story, 1, MNIST_BATCH, "gpu")
+    failures += cluster_check.tear_failures("chaos_cluster", story["tear"], "gpu")
+    (span,) = story["spans"] or [{}]
+    counters = story["counters"]
+    emit({"phase": "chaos_cluster", "model": "mnist_mlp", "input_mode": "SPARK", "rows": CHAOS_ROWS,
+          "batch": MNIST_BATCH, "partitions": [len(p) for p in story["parts"]], "device": span.get("device"),
+          "steps": span.get("steps"), "step_cap": story["steps"],
+          "rows_fed": counters.get("feed_rows_total"), "rows_trained": counters.get("train_rows_total"),
+          "rows_per_sec": span.get("images_per_sec"), "faults": story["faults"], "tear": story["tear"],
+          "train_s": story["train_s"], "shutdown_s": story["shutdown_s"], "wall_s": story["wall_s"],
+          "failures": failures})
+    if failures:
+        raise AssertionError("chaos_cluster: {}".format(failures))
+
+
 def _direct_predict(predict_fn, params, model_state, images, batch_size):
     """The bundle's ``predict_fn`` in this process, in the batches of the
     caller it is held against (a short last batch padded with its last row,
@@ -4451,6 +4499,7 @@ def host_phases(torch, fa, fused_bn, here):
     n = {}
     timed("mnist_compare", phase_mnist_compare, torch)
     bundle, n["mnist_launches"] = timed("slice_mnist", phase_slice_mnist, torch, mnist_work)
+    timed("chaos_cluster", phase_chaos_cluster, torch, os.path.join(here, "build", "chip_smoke_chaos"))
     timed("pipeline_mnist", phase_pipeline_mnist, torch, mnist_work)
     timed("parallel_mnist", phase_parallel_mnist, torch, bundle)
     n["real_launches"] = timed("real", phase_real, torch, fused_bn, here,

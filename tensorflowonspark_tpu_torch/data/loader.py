@@ -455,6 +455,12 @@ class ImagePipeline:
             return
         caching = self.cache is not None
         acc = [] if caching else None
+        # the native library's first use builds or finds it (a g++ libjpeg
+        # probe, a source hash) and loads it: a one-off cost, not shard IO,
+        # so it is paid before the read clock starts
+        from tensorflowonspark_tpu_torch import native_io
+
+        native_io.load_library()
         t0 = time.monotonic()
         it = SHARD_READ_RETRY.call(self._open_shard, path, cs)
         read_c.inc(time.monotonic() - t0)

@@ -22,6 +22,19 @@ the world from the reservation (``TFSparkNode._derive_world``,
   5``: captured step ms, each rank's logged losses (global: equal on every
   rank) and its gathered parameters (equal on every rank), the flash
   kernels' launches.
+* ``mnist_spark_dp4`` — InputMode.SPARK: ``examples/mnist/mnist_spark.py``'s
+  ``main_fun`` (the MLP at its full width, 784-512-10 f32, Adam 1e-3, batch
+  64 a rank) on 4 executors in one world, fed by ``cluster.train`` from an
+  RDD of ``MNIST_ROWS`` synthetic rows × ``MNIST_EPOCHS`` epochs in uneven
+  partitions (4:3:2:1:4:3:2:1 of an epoch) pinned so that every executor
+  gets the same rows an epoch from partitions of other sizes, under the
+  JAX package's chaos plan of ``test_chaos_cluster.py`` (a dropped
+  registration in the driver, two slow dequeues in each trainer): every
+  rank trains ``steps_per_worker``'s steps on its own card, ends with the
+  same parameter bytes and the same last loss (the global batch's), and
+  the merged metrics count the rows and the faults. Beside it, the same
+  example on one executor (``chip_smoke.py``'s ``slice_mnist``: one epoch of
+  ``MNIST_ROWS`` rows in 8 even partitions): rows/s a card.
 * ``ladder4`` — the LM at the full width on ``{"fsdp": -1}`` with a
   checkpoint directory, through ``elastic.run_ladder`` on 4 executors: the
   kill of executor 3 is armed (its ``once_path`` latch removed) once a
@@ -47,27 +60,42 @@ import argparse
 import glob
 import hashlib
 import json
+import math
 import os
+import shutil
 import sys
 import threading
 import time
 
 WORLD = 4
-LEGS = ("resnet_dp4", "lm_dp4", "lm_dp2_tp2", "ladder4")
+LEGS = ("resnet_dp4", "lm_dp4", "lm_dp2_tp2", "mnist_spark_dp4", "ladder4")
 LM_FULL = dict(vocab_size=32000, d_model=512, n_layers=6, n_heads=8, d_ff=2048)
 LM_SMALL = dict(vocab_size=512, d_model=64, n_layers=2, n_heads=4, d_ff=128)
 SIZES = {
     "full": dict(resnet=["--dataset", "imagenet", "--batch_size", "64"], resnet_steps=60,
                  lm=LM_FULL, seq=2048, lm_steps=40, ladder_rows=12, ladder_every=50, ladder_kill=50,
-                 ladder_tail=50, regrow_s=45.0),
+                 ladder_tail=50, regrow_s=45.0, mnist_rows=30000, mnist_batch=64),
     "small": dict(resnet=["--dataset", "cifar", "--image_size", "8", "--batch_size", "4"], resnet_steps=10,
                   lm=LM_SMALL, seq=64, lm_steps=10, ladder_rows=12, ladder_every=4, ladder_kill=4,
-                  ladder_tail=4, regrow_s=12.0),
+                  ladder_tail=4, regrow_s=12.0, mnist_rows=1200, mnist_batch=16),
 }
+#: the MNIST leg's shutdown bound (seconds)
+SHUTDOWN_S = 120
 #: the LM legs' global batch (rows), split over each leg's data axes
 LM_ROWS = 8
 STEPS_PER_LOOP = 5
 HEARTBEAT_S = 0.25
+#: the MNIST leg's epochs, and its partitions' sizes in parts of an epoch's
+#: rows, each pinned to an executor (PINS[i] takes partition i): every
+#: executor gets 5 parts an epoch from partitions of two sizes
+MNIST_EPOCHS = 2
+MNIST_PARTS = (4, 3, 2, 1, 4, 3, 2, 1)
+MNIST_PINS = (0, 1, 1, 0, 3, 2, 2, 3)
+#: the JAX package's cluster chaos plan (``tests/test_chaos_cluster.py``):
+#: one dropped registration in the driver, two 10 ms slow dequeues in each
+#: trainer; both only delay
+MNIST_CHAOS = (("reservation.reg_drop", dict(probability=1.0, max_count=1)),
+               ("feed.slow_consumer", dict(probability=1.0, max_count=2, delay_s=0.01)))
 
 
 def emit(obj):
@@ -261,12 +289,383 @@ def leg_lm(work, platform, size, data_dir, mesh):
     return failures
 
 
+# -- InputMode.SPARK across executors -------------------------------------------
+
+
+def mnist_leg_fun(args, ctx):
+    """``mnist_spark.main_fun`` on ``args``, then this rank's record into
+    ``args.check_dir``: its executor → card, its trainer's pid and the
+    seconds of its first step (the call and its loss on the host: the
+    world's first collective). With ``args.tear_dir`` the trainer first
+    makes :func:`tear_saves` there."""
+    from tensorflowonspark_tpu_torch.examples.mnist import mnist_spark
+    from tensorflowonspark_tpu_torch.train import strategy as strategy_mod
+
+    if args.tear_dir:
+        tear_saves(args.tear_dir, args.batch_size, ctx.device)
+    first = {}
+    compile_step = strategy_mod.SyncDataParallel.compile_train_step
+
+    def timing(self, *a, **kw):
+        step = compile_step(self, *a, **kw)
+
+        def timed_step(state, batch):
+            if first:
+                return step(state, batch)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            float(metrics["loss"])  # waits for the device
+            first["first_step_s"] = time.perf_counter() - t0
+            return state, metrics
+
+        return timed_step
+
+    strategy_mod.SyncDataParallel.compile_train_step = timing
+    try:
+        mnist_spark.main_fun(args, ctx)
+    finally:
+        strategy_mod.SyncDataParallel.compile_train_step = compile_step
+    with open(os.path.join(args.check_dir, "rank_{}.json".format(ctx.process_id)), "w") as f:
+        json.dump(dict(_card(ctx, ctx.device), pid=os.getpid(), **first), f)
+
+
+def mnist_partitions(rows, epochs, executors):
+    """An RDD's partitions for ``epochs`` epochs of ``rows``: each epoch
+    cut into ``MNIST_PARTS``' sizes, with the executor each is pinned to
+    (``MNIST_PINS`` modulo ``executors``)."""
+    unit, bounds = len(rows) // sum(MNIST_PARTS), [0]
+    for part in MNIST_PARTS:
+        bounds.append(bounds[-1] + part * unit)
+    parts = [rows[a:b] for a, b in zip(bounds, bounds[1:])]
+    return parts * epochs, [pin % executors for pin in MNIST_PINS] * epochs
+
+
+def _still_running(pids, timeout=10.0):
+    """Those of ``pids`` still running after ``timeout`` seconds."""
+    from tensorflowonspark_tpu_torch import resilience
+
+    alive = list(pids)
+    for _ in resilience.Backoff(base=0.1, factor=1.0, jitter=0.0).attempts(resilience.Deadline(timeout)):
+        alive = [pid for pid in alive if _running(pid)]
+        if not alive:
+            break
+    return alive
+
+
+def _running(pid):
+    """Whether ``pid`` runs (a zombie waiting for its reaper does not)."""
+    try:
+        with open("/proc/{}/stat".format(pid)) as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def mnist_one_executor(platform, rows, batch):
+    """``chip_smoke.py``'s ``slice_mnist`` configuration: ``mnist_spark.main``
+    on one executor, one epoch of ``rows`` rows in 8 even partitions.
+    Returns its ``mnist_train`` span and the epoch's seconds."""
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+    from tensorflowonspark_tpu_torch.examples.mnist import mnist_spark
+
+    sc = LocalSparkContext(num_executors=1)
+    try:
+        out = mnist_spark.main(["--cluster_size", "1", "--epochs", "1", "--num_examples", str(rows),
+                                "--batch_size", str(batch), "--num_partitions", "8", "--log_steps", "1000",
+                                "--platform", platform], sc=sc)
+    finally:
+        sc.stop()
+    (span,) = [e for e in out["metrics"]["events"] if e.get("span") == "mnist_train"]
+    return span, out["train_s"]
+
+
+def chaos_plan(tear=False):
+    """The JAX package's cluster chaos plan (``MNIST_CHAOS``); with
+    ``tear``, also ``ckpt.commit_tear`` at ``TEAR_PROBABILITY`` once, under
+    a seed that tears the second commit (the other sites fire at
+    probability 1 under any seed)."""
+    from tensorflowonspark_tpu_torch import chaos
+
+    if not tear:
+        plan = chaos.ChaosPlan(seed=7)
+    else:
+        plan = chaos.ChaosPlan(seed=seed_firing_on_nth("ckpt.commit_tear", 2, TEAR_PROBABILITY)).site(
+            "ckpt.commit_tear", probability=TEAR_PROBABILITY, max_count=1)
+    for site, spec in MNIST_CHAOS:
+        plan = plan.site(site, **spec)
+    return plan
+
+
+def mnist_spark_story(work, name, executors, rows, epochs, batch, platform, tear=False):
+    """``mnist_spark.main_fun`` (through :func:`mnist_leg_fun`) on
+    ``executors`` executors in InputMode.SPARK under :func:`chaos_plan`,
+    fed ``epochs`` epochs of ``rows`` synthetic rows in the uneven pinned
+    partitions of :func:`mnist_partitions`, batch ``batch`` a rank. With
+    ``tear`` (one executor) the trainer first makes :func:`tear_saves`
+    under a ``ckpt.commit_tear`` site seeded to tear the second commit, and
+    the driver then resumes from them (:func:`tear_result`). Returns a dict:
+    ``ranks`` (the rank records), ``spans`` (the ``mnist_train`` spans by
+    rank), ``counters`` (the trainers' merged counters), ``faults`` (the
+    chaos counters merged with the driver's), ``steps``
+    (``steps_per_worker``'s), ``parts``, ``pins``, ``train_s`` (the feed,
+    end to end), ``shutdown_s``, ``left`` (trainers still running after the
+    shutdown), ``wall_s``, ``hidden`` and ``tear`` (None without one)."""
+    from tensorflowonspark_tpu_torch import TFCluster, chaos, util
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+    from tensorflowonspark_tpu_torch.examples.mnist import mnist_spark
+    from tensorflowonspark_tpu_torch.examples.mnist.mnist_data_setup import synthetic_mnist, to_rows
+    from tensorflowonspark_tpu_torch.train import steps_per_worker
+
+    check_dir = os.path.join(work, name)
+    os.makedirs(check_dir, exist_ok=True)
+    for old in glob.glob(os.path.join(check_dir, "rank_*.json")):
+        os.remove(old)
+    args = mnist_spark.build_parser().parse_args([
+        "--cluster_size", str(executors), "--epochs", str(epochs), "--num_examples", str(rows),
+        "--batch_size", str(batch), "--log_steps", "1000", "--platform", platform])
+    args.check_dir = check_dir
+    args.tear_dir = os.path.join(work, name + "_tear") if tear else None
+    if tear:
+        shutil.rmtree(args.tear_dir, ignore_errors=True)
+    parts, pins = mnist_partitions(to_rows(*synthetic_mnist(rows)), epochs, executors)
+    t0 = time.perf_counter()
+    sc = LocalSparkContext(num_executors=executors)
+    chaos.install(chaos_plan(tear))  # the trainers inherit it through the env lane
+    try:
+        cluster = TFCluster.run(sc, mnist_leg_fun, args, executors, input_mode=TFCluster.InputMode.SPARK,
+                                master_node="chief", env={util.ENV_PLATFORM: platform})
+        try:
+            rdd = sc.parallelize([r for part in parts for r in part], len(parts), pin_to_executors=pins)
+            rdd._parts = [(part, ()) for part in parts]  # the uneven partitions, as cut
+            t1 = time.perf_counter()
+            cluster.train(rdd, num_epochs=1)  # the epochs are the RDD's own partitions
+            train_s = time.perf_counter() - t1
+            metrics = mnist_spark.await_trainers(cluster)
+            merged = cluster.metrics()  # with the driver's registry: the dropped registration
+        finally:
+            t2 = time.perf_counter()
+            cluster.shutdown(grace_secs=5, timeout=SHUTDOWN_S)
+            shutdown_s = time.perf_counter() - t2
+    finally:
+        chaos.uninstall()
+        sc.stop()
+    ranks = _ranks(check_dir)
+    counters = {k: v["value"] for k, v in metrics["counters"].items()}
+    return dict(ranks=ranks, spans=sorted((e for e in metrics["events"] if e.get("span") == "mnist_train"),
+                                          key=lambda e: e["rank"]),
+                counters=counters, tear=tear_result(args.tear_dir, platform, counters) if tear else None,
+                faults={k: merged["counters"].get(k, {}).get("value", 0) for k in (
+                    "chaos_fault_reservation_reg_drop_total", "chaos_fault_feed_slow_consumer_total",
+                    "chaos_faults_injected_total")},
+                steps=steps_per_worker(rows * epochs, batch, executors), parts=parts, pins=pins, train_s=train_s,
+                shutdown_s=shutdown_s, left=_still_running([r["pid"] for r in ranks]),
+                wall_s=time.perf_counter() - t0, hidden=args.hidden)
+
+
+def mnist_story_failures(name, story, executors, batch, platform):
+    """The checks on :func:`mnist_spark_story`'s run: a record and a span
+    of every rank, executor e on card e (``cuda:e``), ``steps_per_worker``'s
+    steps on every rank, the same parameter bytes and last loss on every
+    rank, falling losses, the rows trained and fed, the plan's faults (one
+    dropped registration, two slow dequeues a trainer) and a clean
+    shutdown."""
+    ranks, spans, counters, faults, steps = (story[k] for k in ("ranks", "spans", "counters", "faults", "steps"))
+    failures = []
+    if len(ranks) != executors or sorted(r["rank"] for r in ranks) != list(range(executors)) or \
+            any(r["world"] != executors for r in ranks):
+        failures.append("{}: rank records {}".format(name, [(r["rank"], r["world"]) for r in ranks]))
+    if platform == "gpu" and any(r["card"] != r["executor_id"] or r["device"] != "cuda:{}".format(r["executor_id"])
+                                 for r in ranks):
+        failures.append("{}: executors off their cards {}".format(name, [_card_of(r) for r in ranks]))
+    if platform == "gpu" and sorted(e["device"] for e in spans) != ["cuda:{}".format(i) for i in range(executors)]:
+        failures.append("{}: mnist_train devices {}".format(name, [e["device"] for e in spans]))
+    if len(spans) != executors or any(e["steps"] != steps for e in spans):
+        failures.append("{}: steps {} (want {} on each of {} ranks)".format(
+            name, [e["steps"] for e in spans], steps, executors))
+    if len({e["params_sha256"] for e in spans}) != 1 or len({e["last_loss"] for e in spans}) != 1:
+        failures.append("{}: the ranks' parameters or last losses differ: {}".format(
+            name, [(e["params_sha256"][:12], e["last_loss"]) for e in spans]))
+    if not all(math.isfinite(e["last_loss"]) and e["last_loss"] < e["first_loss"] for e in spans):
+        failures.append("{}: losses {} are not finite and falling".format(
+            name, [(e["first_loss"], e["last_loss"]) for e in spans]))
+    trained = executors * steps * batch
+    if counters.get("train_rows_total") != trained or counters.get("feed_rows_total", 0) < trained:
+        failures.append("{}: rows trained {}, fed {} (want {} trained)".format(
+            name, counters.get("train_rows_total"), counters.get("feed_rows_total"), trained))
+    if faults["chaos_fault_reservation_reg_drop_total"] < 1 or \
+            faults["chaos_fault_feed_slow_consumer_total"] < 2 * executors or \
+            faults["chaos_faults_injected_total"] < 1 + 2 * executors:
+        failures.append("{}: chaos counters {}".format(name, faults))
+    if story["shutdown_s"] > SHUTDOWN_S or story["left"]:
+        failures.append("{}: shutdown took {} s, trainers {} still running".format(
+            name, story["shutdown_s"], story["left"]))
+    return failures
+
+
+def leg_mnist_spark(work, platform, size):
+    s = SIZES[size]
+    name, rows, batch = "mnist_spark_dp4", s["mnist_rows"], s["mnist_batch"]
+    one_span, one_epoch_s = mnist_one_executor(platform, rows, batch)
+    story = mnist_spark_story(work, name, WORLD, rows, MNIST_EPOCHS, batch, platform)
+    failures = mnist_story_failures(name, story, WORLD, batch, platform)
+    ranks, spans, counters = story["ranks"], story["spans"], story["counters"]
+    emit({"leg": name, "platform": platform, "size": size, "world": WORLD, "model": "mnist_mlp",
+          "width": [784, story["hidden"], 10], "dtype": "float32", "batch_per_rank": batch, "rows": rows,
+          "epochs": MNIST_EPOCHS, "partitions": [len(p) for p in story["parts"]], "pins": story["pins"],
+          "steps_per_rank": story["steps"], "cards": [_card_of(r) for r in ranks],
+          "devices": [e["device"] for e in spans], "steps": [e["steps"] for e in spans],
+          "params_equal_on_every_rank": len({e["params_sha256"] for e in spans}) == 1,
+          "last_losses": [e["last_loss"] for e in spans], "first_losses": [e["first_loss"] for e in spans],
+          "rows_trained": counters.get("train_rows_total"), "rows_fed": counters.get("feed_rows_total"),
+          "feed_chunks": counters.get("feed_chunks_total"), "faults": story["faults"],
+          "rows_per_sec_per_card": [e["images_per_sec"] for e in spans],
+          "epoch_s": story["train_s"] / MNIST_EPOCHS, "train_s": story["train_s"],
+          "trainer_s": [e["train_s"] for e in spans],
+          "host_s": [{k: e[k] for k in ("feed_s", "batch_s", "step_s")} for e in spans],
+          "feed_share_of_trainer_s": [e["feed_s"] / e["train_s"] for e in spans],
+          "first_step_s": [r.get("first_step_s") for r in ranks],
+          "world_first_step_s": max((r.get("first_step_s") or 0.0) for r in ranks) if ranks else None,
+          "shutdown_s": story["shutdown_s"], "trainers_left": story["left"], "wall_s": story["wall_s"],
+          "one_executor": {"rows": rows, "epochs": 1, "steps": one_span["steps"], "device": one_span["device"],
+                           "rows_per_sec": one_span["images_per_sec"], "epoch_s": one_epoch_s,
+                           "trainer_s": one_span["train_s"],
+                           "host_s": {k: one_span[k] for k in ("feed_s", "batch_s", "step_s")}},
+          "failures": failures})
+    return failures
+
+
+# -- a commit torn in a trainer child ------------------------------------------
+
+#: the tear's firing probability; the seed is searched so that it fires on
+#: the second commit (``tests/test_ckpt_chaos.py``'s cluster case)
+TEAR_PROBABILITY = 0.5
+
+
+def seed_firing_on_nth(site, n, probability):
+    """A plan seed whose RNG for ``site`` stays quiet for the first ``n - 1``
+    arrivals and fires on the n-th (the stream ``ChaosPlan`` rolls)."""
+    import random
+
+    for seed in range(10000):
+        rng = random.Random("{}:{}".format(seed, site))
+        draws = [rng.random() for _ in range(n)]
+        if all(d >= probability for d in draws[:-1]) and draws[-1] < probability:
+            return seed
+    raise ValueError("no seed fires {} on arrival {}".format(site, n))
+
+
+def mnist_state(device):
+    """The MNIST example's trainer pieces on ``device``: its MLP (weights
+    from seed 0), Adam 1e-3 through ``SyncDataParallel``; returns
+    ``(strategy, state, step)``."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import mnist
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel, optim
+
+    strategy = SyncDataParallel(device)
+    model = mnist.create_model("mlp")
+    optimizer = optim.adam(1e-3)
+    state = strategy.create_state(mnist.make_init_fn(model), optimizer, torch.Generator().manual_seed(0))
+    return strategy, state, strategy.compile_train_step(mnist.make_loss_fn(model), optimizer, has_aux=True)
+
+
+def _saved_tensors(state):
+    """The parameters and optimizer state a checkpoint of ``state`` holds,
+    flat, on the host."""
+    from tensorflowonspark_tpu_torch.train import checkpoint
+
+    tree = checkpoint._to_saveable(state)
+    return {k: v.detach().cpu() for k, v in _flat({k: tree[k] for k in ("params", "opt_state")}).items()
+            if hasattr(v, "detach")}
+
+
+def tear_saves(root, batch_size, device):
+    """In the trainer child, on ``device``: two Adam steps of the MNIST MLP
+    on one batch, each saved under ``root/model`` through the async engine
+    (under the story's plan the second commit tears); the tensors of step 1
+    are kept in ``root/step1.pt`` for the driver's bitwise check and the
+    device's name in ``root/device.txt``."""
+    import torch
+
+    from tensorflowonspark_tpu_torch import chaos, ckpt
+    from tensorflowonspark_tpu_torch.examples.mnist.mnist_data_setup import synthetic_mnist
+
+    if not chaos.active:
+        raise RuntimeError("the chaos plan did not reach the trainer child")
+    strategy, state, step = mnist_state(device)
+    images, labels = synthetic_mnist(batch_size)
+    batch = strategy.shard_batch({"image": images, "label": labels})
+    with ckpt.AsyncCheckpointEngine(os.path.join(root, "model")) as eng:
+        for i in (1, 2):
+            state, metrics = step(state, batch)
+            float(metrics["loss"])
+            eng.save(state, i)
+            if not eng.drain(timeout=120):
+                raise TimeoutError("the save of step {} did not drain".format(i))
+            if i == 1:
+                torch.save(_saved_tensors(state), os.path.join(root, "step1.pt"))
+    with open(os.path.join(root, "device.txt"), "w") as f:
+        f.write(str(device))
+
+
+def tear_result(root, platform, counters):
+    """The driver's resume after :func:`tear_saves` (the JAX package's
+    ``TestClusterCommitTear``): ``restore_latest`` onto ``platform``'s device
+    (``cuda:0`` or the CPU). Returns the trainer's device, the tear and
+    commit counters, the model directory's entries, the restored checkpoint
+    and step, and the restored tensors that differ from step 1's."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.train import checkpoint
+
+    model_dir = os.path.join(root, "model")
+    _, state, _ = mnist_state(torch.device("cuda:0" if platform == "gpu" else "cpu"))
+    _, path = checkpoint.restore_latest(model_dir, target=state)
+    want = torch.load(os.path.join(root, "step1.pt"), map_location="cpu")
+    got = _saved_tensors(state)
+    with open(os.path.join(root, "device.txt")) as f:
+        trainer_device = f.read()
+    return {"trainer_device": trainer_device, "tears": counters.get("chaos_fault_ckpt_commit_tear_total", 0),
+            "commits": counters.get("ckpt_commits_total", 0), "ckpt_bytes": counters.get("ckpt_bytes_total", 0),
+            "entries": sorted(os.listdir(model_dir)), "restored": os.path.basename(path) if path else None,
+            "restored_step": state.step, "restored_device": str(next(iter(state.params.values())).device),
+            "restored_tensors": len(want),
+            "mismatches": sorted(k for k in want if k not in got or not torch.equal(got[k], want[k]))}
+
+
+def tear_failures(name, tear, platform):
+    """The reference's checks on :func:`tear_result`: the tear and a commit
+    counted, ``tmp.ckpt_2`` left unpublished, ``ckpt_1`` restored at step 1,
+    bitwise step 1's tensors; on the card the trainer and the restore on
+    ``cuda:0``."""
+    failures = []
+    if tear["tears"] < 1 or tear["commits"] < 1 or tear["ckpt_bytes"] <= 0:
+        failures.append("{}: tears {}, commits {}, bytes {}".format(name, tear["tears"], tear["commits"],
+                                                                 tear["ckpt_bytes"]))
+    if "tmp.ckpt_2" not in tear["entries"] or "ckpt_2" in tear["entries"]:
+        failures.append("{}: the torn commit was published: {}".format(name, tear["entries"]))
+    if tear["restored"] != "ckpt_1" or tear["restored_step"] != 1:
+        failures.append("{}: restored {} at step {} (want ckpt_1, 1)".format(name, tear["restored"],
+                                                                           tear["restored_step"]))
+    if tear["mismatches"] or not tear["restored_tensors"]:
+        failures.append("{}: the restore differs from step 1 in {}".format(
+            name, tear["mismatches"] or "every tensor (none saved)"))
+    if platform == "gpu" and (tear["trainer_device"] != "cuda:0" or tear["restored_device"] != "cuda:0"):
+        failures.append("{}: trainer on {}, restored onto {}".format(name, tear["trainer_device"],
+                                                                   tear["restored_device"]))
+    return failures
+
+
 # -- the recovery ladder across executors -------------------------------------
 
 #: the ladder's files under its root: the latch that holds the kill back, the
 #: marker the arm thread leaves once it released it, and the trainers' flight
 #: shards
 KILL_LATCH, KILL_FIRED, TRACE = "kill.latch", "kill.fired", "trace"
+#: how long the driver waits for the arm thread once the ladder is over, and
+#: a paused shrunk life for the driver's drain
+ARM_JOIN_S, SHRUNK_WAIT_S = 30.0, 900.0
 #: the driver's counters the ladder moves, read as this run's deltas
 LADDER_COUNTERS = ("recovery_attempts_total", "recovery_shrinks_total", "recovery_regrows_total",
                    "preemptions_drained_total")
@@ -307,8 +706,16 @@ def resnet_ladder_fun(args, ctx):
     record = life_record(args.ladder_root, ctx, ctx.device)
     resnet_spark.main_fun(args, ctx)
     record(trained_to=args.train_steps, t_end=time.time())
-    while not full:
-        time.sleep(1)  # the drain ends this life
+    if full:
+        return
+    from tensorflowonspark_tpu_torch import resilience
+
+    # the drain ends this life; a life it never reaches fails here
+    for _ in resilience.Backoff(base=1.0, factor=1.0, jitter=0.0).attempts(
+            resilience.Deadline(SHRUNK_WAIT_S)):
+        pass
+    raise TimeoutError("executor {}: no drain within {} s of the shrunk life's pause".format(
+        ctx.executor_id, SHRUNK_WAIT_S))
 
 
 def run_ladder_story(map_fun, args, root, executors, victim, arm_dir, kill_step, platform, jax_distributed,
@@ -395,7 +802,7 @@ def run_ladder_story(map_fun, args, root, executors, victim, arm_dir, kill_step,
             jax_distributed=jax_distributed, reservation_timeout=300, shutdown_timeout=300)
     finally:
         done.set()
-        watcher.join()
+        watcher.join(timeout=ARM_JOIN_S)
         sc.stop()
         chaos.uninstall()
         TFCluster.TFCluster.abort, TFCluster.TFCluster.preempt, elastic.classify_failure = real
@@ -430,7 +837,7 @@ def run_ladder_story(map_fun, args, root, executors, victim, arm_dir, kill_step,
     exits = [{r["executor_id"]: last_dump.get(r["pid"], "sigkill") for r in life} for life in lives[:-1]]
     return dict(result=result, lives=lives, armed=armed, counters={
         name: obs.counter(name).value - before[name] for name in LADDER_COUNTERS}, exits=exits, shards=shards,
-        wall_s=wall, **moments)
+        wall_s=wall, arm_wedged=watcher.is_alive(), **moments)
 
 
 def story_failures(name, story, executors):
@@ -445,6 +852,8 @@ def story_failures(name, story, executors):
             name, result.relaunches, sorted(result.blacklist), sizes, [executors, executors - 1, executors]))
     if any(story["counters"][k] != 1 for k in LADDER_COUNTERS[1:]):
         failures.append("{}: counters {} (want one shrink, one regrow, one drain)".format(name, story["counters"]))
+    if story["arm_wedged"]:
+        failures.append("{}: the ladder-arm watcher did not stop within {} s".format(name, ARM_JOIN_S))
     return failures
 
 
@@ -543,8 +952,6 @@ def _committed_steps(model_dir):
 
 
 def leg_ladder(work, platform, size):
-    import shutil
-
     s = SIZES[size]
     root = os.path.join(work, "ladder4")
     shutil.rmtree(root, ignore_errors=True)
@@ -636,6 +1043,8 @@ def main(argv=None):
             failures += leg_resnet(work, args.platform, args.size)
         elif leg == "ladder4":
             failures += leg_ladder(work, args.platform, args.size)
+        elif leg == "mnist_spark_dp4":
+            failures += leg_mnist_spark(work, args.platform, args.size)
         else:
             failures += leg_lm(work, args.platform, args.size, data_dir,
                                {"lm_dp4": "dp=4", "lm_dp2_tp2": "dp=2,tp=2"}[leg])

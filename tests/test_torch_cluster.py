@@ -545,23 +545,33 @@ def test_zero3_on_a_world_of_three_replicates_what_the_jax_rule_replicates():
 def test_cluster_check_rehearsal(tmp_path):
     """``cluster_check.py --platform cpu --size small`` on 4 gloo executors
     through ``TFCluster.run``: the dp and dp×tp LM legs (every rank's
-    losses and gathered parameters equal) and the ladder (worlds 4 → 3 → 4,
-    every restore bitwise the checkpoint, one shrink, one regrow)."""
+    losses and gathered parameters equal), the MNIST example fed from Spark
+    in uneven partitions under the chaos plan (every rank trains the same
+    steps to the same parameters, every row and fault counted) and the
+    ladder (worlds 4 → 3 → 4, every restore bitwise the checkpoint, one
+    shrink, one regrow)."""
     import json
 
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run(
         [sys.executable, "-m", "tensorflowonspark_tpu_torch.examples.cluster_check", "--platform", "cpu",
-         "--size", "small", "--legs", "lm_dp4,lm_dp2_tp2,ladder4", "--work_dir", str(tmp_path)],
+         "--size", "small", "--legs", "lm_dp4,lm_dp2_tp2,mnist_spark_dp4,ladder4", "--work_dir", str(tmp_path)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=400)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = {x["leg"]: x for x in (json.loads(y) for y in proc.stdout.splitlines() if y.startswith('{"leg"'))}
-    assert sorted(lines) == ["ladder4", "lm_dp2_tp2", "lm_dp4"]
+    assert sorted(lines) == ["ladder4", "lm_dp2_tp2", "lm_dp4", "mnist_spark_dp4"]
     for name in ("lm_dp4", "lm_dp2_tp2"):
         line = lines[name]
         assert line["failures"] == [] and line["gathered_params_equal_on_every_rank"]
         assert [c["executor"] for c in line["cards"]] == [0, 1, 2, 3]
         assert len({json.dumps(v) for v in line["losses_by_rank"].values()}) == 1
+    mnist = lines["mnist_spark_dp4"]
+    # steps_per_worker(2 x 1,200, 16, 4) = int(37 x 0.9) = 33 a rank
+    assert mnist["failures"] == [] and mnist["steps"] == [33] * 4 and mnist["params_equal_on_every_rank"]
+    assert len(set(mnist["last_losses"])) == 1 and mnist["rows_trained"] == 4 * 33 * 16
+    assert sorted(set(mnist["partitions"])) == [60, 120, 180, 240] and mnist["trainers_left"] == []
+    assert mnist["faults"] == {"chaos_fault_reservation_reg_drop_total": 1, "chaos_fault_feed_slow_consumer_total": 8,
+                               "chaos_faults_injected_total": 9}
     ladder = lines["ladder4"]
     assert ladder["failures"] == [] and ladder["worlds"] == [4, 3, 4] and ladder["blacklist"] == []
     assert [sorted(life["cards"]) for life in ladder["lives"]] == [["0", "1", "2", "3"], ["0", "1", "2"],
@@ -641,6 +651,7 @@ assert {"tensorflowonspark_tpu_torch.parallel.pipeline_parallel",
         "tensorflowonspark_tpu_torch.parallel.hostreduce"} <= set(names)
 # the main path across executors and the ladder on four cards
 assert "tensorflowonspark_tpu_torch.examples.cluster_check" in names and cluster_check.leg_ladder
+assert cluster_check.leg_mnist_spark and cluster_check.mnist_spark_story and cluster_check.tear_result
 print("imported", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))

@@ -600,6 +600,12 @@ def fn_regrow_train(args, ctx):
                        "mesh": mesh_shape(strategy.mesh)}, f)
 
 
+def _committed_steps(model_dir):
+    """The steps of the committed checkpoints (``ckpt_<step>``) in ``model_dir``."""
+    return [int(name[len("ckpt_"):]) for name in os.listdir(model_dir)
+            if name.startswith("ckpt_") and name[len("ckpt_"):].isdigit()]
+
+
 @pytest.mark.chaos
 def test_preempt_drain_regrow_full_size_resume(tmp_path, monkeypatch):
     """The bidirectional acceptance story in a gloo world: one latched chaos
@@ -636,15 +642,25 @@ def test_preempt_drain_regrow_full_size_resume(tmp_path, monkeypatch):
         once_path=latch,
     )
     chaos.install(plan)
+    # the regrown life resumes from the drained checkpoint, so the story
+    # needs the shrunk life past the target before the regrow: each poll
+    # reports "not yet" until a checkpoint at the target is committed
+    # (keyed on progress, not on the clock: under load the first poll came
+    # before the shrunk life reached the target)
+    poll = elastic._regrow_poll
+
+    def poll_after_target(*a, **kw):
+        if max(_committed_steps(model_dir), default=0) < args["target_steps"]:
+            return False
+        return poll(*a, **kw)
+
+    monkeypatch.setattr(elastic, "_regrow_poll", poll_after_target)
     sc = LocalSparkContext(num_executors=2, task_timeout=900)
     try:
         result = elastic.run_ladder(
             sc, fn_regrow_train, args, num_executors=2,
             max_relaunches=1, min_workers=1, blacklist_after=1,
-            # the first poll comes after the shrunk life trained past the
-            # target (the reference's 3 s assumed a slower first step than a
-            # torch child's; its stop condition needs the progress)
-            regrow=True, regrow_check_secs=10.0,
+            regrow=True, regrow_check_secs=3.0,
             scaler=control.ClusterScaler(2, min_size=1, grow_patience=1),
             input_mode=InputMode.TENSORFLOW, master_node=None,
             env=CPU_ENV, jax_distributed=True, reservation_timeout=180,

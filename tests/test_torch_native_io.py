@@ -224,3 +224,45 @@ def test_decode_env_var_vetoes_the_native_path(monkeypatch):
     pil_out = np.empty((16, 16, 3), np.uint8)
     assert parse.into(rec, pil_out) == (3, False)
     assert np.array_equal(native_out, pil_out)
+
+
+def _parse_2x2(rec):
+    v = int(rec)
+    return np.full((2, 2, 1), v, np.float32), v
+
+
+@pytest.mark.parametrize("kind", ["text", "image"])
+def test_read_seconds_leave_out_the_native_librarys_first_load(tmp_path, monkeypatch, kind):
+    """The pipelines charge ``data_producer_read_seconds_total`` with shard
+    IO only: the native library's first use (the ``g++`` libjpeg probe, the
+    source hash and the load) is paid before the read clock starts, as the
+    JAX package's prebuilt library costs nothing there. Here the first use
+    is made to take 0.5 s; the reads of a small shard take far less."""
+    import time
+
+    from tensorflowonspark_tpu_torch import obs
+    from tensorflowonspark_tpu_torch.data import ImagePipeline, TextPipeline, Tokenizer
+
+    shard = str(tmp_path / "part-00000")
+    with tfrecord.TFRecordWriter(shard) as w:
+        for i in range(32):
+            w.write(("record number {} with a few words".format(i) if kind == "text" else str(i)).encode())
+    real, first = native_io.load_library, []
+
+    def slow_first_load():
+        if not first:
+            first.append(True)
+            time.sleep(0.5)
+        return real()
+
+    monkeypatch.setattr(native_io, "load_library", slow_first_load)
+    if kind == "text":
+        pipe = TextPipeline([shard], Tokenizer(kind="word", vocab_size=64), seq_len=32, batch_size=2,
+                            shuffle=False, epochs=1, drop_remainder=False)
+    else:
+        pipe = ImagePipeline([shard], _parse_2x2, batch_size=4, shuffle=False, epochs=1)
+    read = obs.counter("data_producer_read_seconds_total")
+    before = read.value
+    assert sum(1 for _ in pipe) > 0
+    assert first, "the pipeline never used the native library"
+    assert read.value - before < 0.25, read.value - before
