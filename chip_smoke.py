@@ -289,6 +289,15 @@ and the script exits non-zero:
                   checkpoint bitwise run A's of the recover phase; the
                   seconds from the kill to the first logged step after it
                   and the drain's.
+    ``spark_recover`` the JAX package's
+                  ``test_spark_feed_killed_node_training_finishes_anyway``
+                  (``cluster_check.spark_feed_story``): two executors share
+                  the card as independent workers, fed 128 rows in waves
+                  (feed timeout 30 s); executor 1 SIGKILLs its trainer at
+                  step 5, after ``ckpt_4``; ``run_with_recovery(feed_fn=...)``
+                  relaunches once and re-runs the feed loop; both workers
+                  end at step 8 on ``cuda:0``, the victim's checkpoints are
+                  ``ckpt_2, 4, 6, 8``.
 11. ``mnist_compare`` ``MnistMLP`` (784-512-10) and ``MnistCNN`` at full
                   width, float32 with TF32 off: eval logits and one Adam step
                   through ``SyncDataParallel`` on the card against the same
@@ -468,7 +477,7 @@ three processes run side by side (``trainer_phases`` here;
 ``slice_lm_d256``, ``slice_lm_d512``, ``compare_loop``, ``pipeline``, 9,
 ``slice_lm_pack``
 and ``serve_lm``; ``slice_fsdp``, ``slice_axes``, ``overlap``,
-``loop_cache``, 10 and ``ladder``; and phases 11-17 but those two (feeders, data
+``loop_cache``, 10, ``ladder`` and ``spark_recover``; and phases 11-17 but those two (feeders, data
 planes, clients, small models: the card idle most of their time). The
 rates of phases 5 on are taken with the other two running; the recover
 phase's kill waits for a checkpoint, not for a time.
@@ -3040,6 +3049,37 @@ MNIST_DEVICE = "cuda:0"
 MNIST_REL_TOL = 1e-4
 
 
+#: the spark_recover phase's feed waves' timeout (seconds)
+SPARK_RECOVER_FEED_TIMEOUT = 30
+
+
+def phase_spark_recover(work):
+    """The JAX package's ``test_spark_feed_killed_node_training_finishes_anyway``
+    on the card (``cluster_check.spark_feed_story``): two executors share
+    ``cuda:0`` as independent workers, fed in waves of
+    ``SPARK_RECOVER_FEED_TIMEOUT``; executor 1 SIGKILLs its trainer at step 5
+    (after ``ckpt_4``), the feed task bound for it surfaces the loss at its
+    timeout, and ``TFCluster.run_with_recovery`` relaunches both, which
+    resume from their own checkpoints. Fails unless there was one relaunch
+    and two feed passes, both workers ended at step 8 on ``cuda:0`` and the
+    victim's checkpoints are ``ckpt_2, 4, 6, 8``."""
+    from tensorflowonspark_tpu_torch.examples import cluster_check
+
+    story = cluster_check.spark_feed_story(work, "gpu", SPARK_RECOVER_FEED_TIMEOUT)
+    failures = cluster_check.spark_feed_failures("spark_recover", story)
+    devices = {eid: d.get("device") for eid, d in story["done"].items()}
+    if any(d != "cuda:0" for d in devices.values()):
+        failures.append("spark_recover: the workers ran on {}".format(devices))
+    emit({"phase": "spark_recover", "model": "mnist_mlp", "width": [784, cluster_check.SPARK_FEED_MLP["hidden"], 10],
+          "input_mode": "SPARK", "executors": 2, "feed_timeout_s": SPARK_RECOVER_FEED_TIMEOUT,
+          "target_steps": cluster_check.SPARK_FEED_TARGET, "kill_at": cluster_check.SPARK_FEED_KILL_AT,
+          "relaunches": story["relaunches"], "feed_passes": story["feeds"],
+          "final_steps": {eid: d["final_step"] for eid, d in story["done"].items()}, "devices": devices,
+          "victim_ckpts": story["victim_ckpts"], "wall_s": story["wall_s"], "failures": failures})
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def timed(name, phase, *args):
     """Run ``phase(*args)``, print its seconds as ``<name>_seconds``, return
     its result."""
@@ -4468,7 +4508,7 @@ def trainer_phases(torch, fa, fused_bn, resnet, transformer, here, data_dir, lm_
 
 def sharded_phases(torch, fa, fused_bn, here):
     """The LM on its sharded and model axes, the two-rank overlap, the loop
-    cache and the recovery, in a process of their own
+    cache, the recovery and the Spark-fed recovery, in a process of their own
     (:class:`PhaseProcess`). Returns their launch counts by name."""
     data_dir, lm_batch = lm_corpus(here)
     n = {}
@@ -4487,6 +4527,7 @@ def sharded_phases(torch, fa, fused_bn, here):
     n["ladder_launches"] = timed("ladder", phase_ladder, torch, fused_bn,
                                  os.path.join(here, "build", "chip_smoke_ladder"),
                                  os.path.join(recover_work, "recover_a", "model", "ckpt_{}".format(RECOVER_STEPS)))
+    timed("spark_recover", phase_spark_recover, os.path.join(here, "build", "chip_smoke_spark_recover"))
     return n
 
 

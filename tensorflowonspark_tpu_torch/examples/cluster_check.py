@@ -48,6 +48,17 @@ the world from the reservation (``TFSparkNode._derive_world``,
   whether the restored tensors, gathered, equal the checkpoint's bitwise;
   the line adds how the survivors left (the abort's SIGTERM drain or its
   SIGKILL after the grace) and the kill → abort → first step seconds.
+* ``mnist_spark_recover4`` — the JAX package's
+  ``test_spark_feed_killed_node_training_finishes_anyway`` on
+  ``mnist_spark.main_fun`` in one world of 4 (``mnist_spark_dp4``'s model,
+  batch and pinned partitions, one epoch a feed wave, rank 0 saving every
+  50 steps): executor 2's trainer is killed once a checkpoint is
+  committed, mid-feed; ``TFCluster.run_with_recovery(feed_fn=...)`` aborts
+  the world and relaunches it at 4, the reference's ``feed_fn`` re-feeds
+  it, and every rank resumes from the newest checkpoint, bitwise rank 0's
+  save, to ``steps_per_worker``'s step. The line reads kill → the
+  driver's first error → ``feed_fn``'s return → abort → relaunch → first
+  step → last step.
 
 ``--platform gpu`` (the default) raises unless torch sees 4 cards; ``--platform
 cpu --size small`` rehearses every leg on 4 gloo executors at narrow widths.
@@ -57,6 +68,7 @@ Exits non-zero if any leg's check fails. On four cards::
 """
 
 import argparse
+import contextlib
 import glob
 import hashlib
 import json
@@ -68,16 +80,24 @@ import threading
 import time
 
 WORLD = 4
-LEGS = ("resnet_dp4", "lm_dp4", "lm_dp2_tp2", "mnist_spark_dp4", "ladder4")
+LEGS = ("resnet_dp4", "lm_dp4", "lm_dp2_tp2", "mnist_spark_dp4", "ladder4", "mnist_spark_recover4")
 LM_FULL = dict(vocab_size=32000, d_model=512, n_layers=6, n_heads=8, d_ff=2048)
 LM_SMALL = dict(vocab_size=512, d_model=64, n_layers=2, n_heads=4, d_ff=128)
 SIZES = {
     "full": dict(resnet=["--dataset", "imagenet", "--batch_size", "64"], resnet_steps=60,
                  lm=LM_FULL, seq=2048, lm_steps=40, ladder_rows=12, ladder_every=50, ladder_kill=50,
-                 ladder_tail=50, regrow_s=45.0, mnist_rows=30000, mnist_batch=64),
+                 ladder_tail=50, regrow_s=45.0, mnist_rows=30000, mnist_batch=64, recover_rows=30000,
+                 recover_every=50, recover_feed_timeout=120),
     "small": dict(resnet=["--dataset", "cifar", "--image_size", "8", "--batch_size", "4"], resnet_steps=10,
                   lm=LM_SMALL, seq=64, lm_steps=10, ladder_rows=12, ladder_every=4, ladder_kill=4,
-                  ladder_tail=4, regrow_s=12.0, mnist_rows=1200, mnist_batch=16),
+                  ladder_tail=4, regrow_s=12.0, mnist_rows=1200, mnist_batch=16, recover_rows=2400,
+                  # the recovery leg's first checkpoint lands in the victim's last
+                  # partition of the first wave (its partitions end at steps 22.5 and
+                  # 37.5), so one feed task waits out the timeout, not two; the feed
+                  # timeout (s; the reference test's 120 at full) is at least 5x the
+                  # longest healthy wave measured on the CPU beside the test suite's 6
+                  # workers, 3.60 s (a life's first wave, its trainers started): 6.9x
+                  recover_every=24, recover_feed_timeout=25),
 }
 #: the MNIST leg's shutdown bound (seconds)
 SHUTDOWN_S = 120
@@ -340,6 +360,14 @@ def mnist_partitions(rows, epochs, executors):
     return parts * epochs, [pin % executors for pin in MNIST_PINS] * epochs
 
 
+def pinned_rdd(sc, parts, pins):
+    """An RDD of :func:`mnist_partitions`' ``parts``, as cut, partition i
+    pinned to executor ``pins[i]``."""
+    rdd = sc.parallelize([r for part in parts for r in part], len(parts), pin_to_executors=pins)
+    rdd._parts = [(part, ()) for part in parts]  # the uneven partitions, as cut
+    return rdd
+
+
 def _still_running(pids, timeout=10.0):
     """Those of ``pids`` still running after ``timeout`` seconds."""
     from tensorflowonspark_tpu_torch import resilience
@@ -435,8 +463,7 @@ def mnist_spark_story(work, name, executors, rows, epochs, batch, platform, tear
         cluster = TFCluster.run(sc, mnist_leg_fun, args, executors, input_mode=TFCluster.InputMode.SPARK,
                                 master_node="chief", env={util.ENV_PLATFORM: platform})
         try:
-            rdd = sc.parallelize([r for part in parts for r in part], len(parts), pin_to_executors=pins)
-            rdd._parts = [(part, ()) for part in parts]  # the uneven partitions, as cut
+            rdd = pinned_rdd(sc, parts, pins)
             t1 = time.perf_counter()
             cluster.train(rdd, num_epochs=1)  # the epochs are the RDD's own partitions
             train_s = time.perf_counter() - t1
@@ -681,8 +708,9 @@ def life_record(root, ctx, device, **extra):
 
     def record(**kw):
         life.update(kw)
-        with open(path, "w") as f:
+        with open(path + ".tmp", "w") as f:
             json.dump(life, f)
+        os.replace(path + ".tmp", path)  # whole for a reader polling the lives
 
     record()
     return record
@@ -718,55 +746,47 @@ def resnet_ladder_fun(args, ctx):
         ctx.executor_id, SHRUNK_WAIT_S))
 
 
-def run_ladder_story(map_fun, args, root, executors, victim, arm_dir, kill_step, platform, jax_distributed,
-                     master_node, regrow_s, task_timeout=None):
-    """The story of the JAX package's ``test_preempt_drain_regrow_full_size_resume``
-    through ``elastic.run_ladder`` on ``executors`` executors of the local
-    backend: a latched ``node.kill`` of executor ``victim``, armed (the
-    latch ``root/kill.latch`` removed, ``root/kill.fired`` left) once a
-    checkpoint of step ``kill_step`` or later is committed in ``arm_dir``;
-    ``blacklist_after=1``, so the ladder shrinks by one; the mid-run regrow
-    probe (every ``regrow_s``) forgives the victim, the scaler votes to grow
-    and the driver's preemption warning drains the shrunk world; the
-    relaunch runs at full size. ``map_fun`` records each life with
-    :func:`life_record` under ``root``; the trainers trace into
-    ``root/trace``.
-
-    Returns a dict: ``result`` (the ladder's), ``lives`` (the life records
-    grouped by life, oldest first: a life's trainers share its coordinator,
-    a fresh port each life), ``armed`` (the checkpoint step and the time the
-    kill was armed), ``aborts`` (start and end of each driver abort),
-    ``preempts`` (each preemption warning), ``classified`` (time and kind of
-    each classified failure), ``counters`` (:data:`LADDER_COUNTERS`' deltas),
-    ``exits`` (of each life but the last, each trainer's way out: the
-    reason of its last flight dump, ``aborted`` for the abort's SIGTERM
-    drain, or ``sigkill`` when it left none, which is the abort's SIGKILL
-    after its grace), ``shards`` (the trainers' flight shards as ``(start
-    wall time, records)``, oldest first) and ``wall_s``."""
-    from tensorflowonspark_tpu_torch import TFCluster, chaos, control, elastic, obs, util
-    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+@contextlib.contextmanager
+def latched_kill(root, victim, arm_dir, kill_step):
+    """A latched ``node.kill`` of executor ``victim`` for the trainers of
+    the local backend started inside: the latch ``root/kill.latch`` holds
+    the kill back until a thread sees a checkpoint of step ``kill_step`` or
+    later committed in ``arm_dir``, removes it and leaves
+    ``root/kill.fired``; the victim's next heartbeat makes the latch again
+    and SIGKILLs its trainer (the latch's mtime is the kill's time). Sets
+    the heartbeat and monitor env (start the ``LocalSparkContext``
+    inside) and the trainers' flight shards under ``root/trace``, and
+    records the driver's aborts, preemption warnings and classified
+    failures. Yields a dict that fills as the story runs: ``armed`` (the
+    checkpoint step and the time the kill was armed), ``aborts`` (start
+    and end of each driver abort), ``committed_at_abort`` (the committed
+    steps in ``arm_dir`` when each abort started), ``preempts``,
+    ``classified`` (time and kind of each classified failure) and, on
+    exit, ``arm_wedged``."""
+    from tensorflowonspark_tpu_torch import TFCluster, chaos, elastic
     from tensorflowonspark_tpu_torch.obs import flight
 
     latch, fired = os.path.join(root, KILL_LATCH), os.path.join(root, KILL_FIRED)
     with open(latch, "w"):
         pass  # holds the kill back until a checkpoint is committed
-    armed, done = {}, threading.Event()
+    moments = {"armed": {}, "aborts": [], "committed_at_abort": [], "preempts": [], "classified": []}
+    done = threading.Event()
 
     def arm():
         while not done.wait(0.02):
             steps = _committed_steps(arm_dir)
             if steps and max(steps) >= kill_step:
-                armed.update(step=max(steps), t=time.time())
+                moments["armed"].update(step=max(steps), t=time.time())
                 with open(fired, "w"):
                     pass  # the lives after this one are not the first
                 os.remove(latch)
                 return
 
-    moments = {"aborts": [], "preempts": [], "classified": []}
     real = (TFCluster.TFCluster.abort, TFCluster.TFCluster.preempt, elastic.classify_failure)
 
     def abort(self, *a, **kw):
         t0 = time.time()
+        moments["committed_at_abort"].append(sorted(_committed_steps(arm_dir)))
         try:
             return real[0](self, *a, **kw)
         finally:
@@ -781,7 +801,6 @@ def run_ladder_story(map_fun, args, root, executors, victim, arm_dir, kill_step,
         moments["classified"].append((time.time(), event.kind))
         return event
 
-    before = {name: obs.counter(name).value for name in LADDER_COUNTERS}
     env = {"TOS_HEARTBEAT_INTERVAL": str(HEARTBEAT_S), "TOS_MONITOR_INTERVAL": "1",
            flight.TRACE_DIR_ENV: os.path.join(root, TRACE)}
     saved_env = {k: os.environ.get(k) for k in env}
@@ -790,20 +809,13 @@ def run_ladder_story(map_fun, args, root, executors, victim, arm_dir, kill_step,
                                                once_path=latch))
     TFCluster.TFCluster.abort, TFCluster.TFCluster.preempt, elastic.classify_failure = abort, preempt, classify
     watcher = threading.Thread(target=arm, name="ladder-arm", daemon=True)
-    t0 = time.time()
-    sc = LocalSparkContext(num_executors=executors, **({"task_timeout": task_timeout} if task_timeout else {}))
     watcher.start()
     try:
-        result = elastic.run_ladder(
-            sc, map_fun, args, num_executors=executors, max_relaunches=1, min_workers=1, blacklist_after=1,
-            regrow=True, regrow_check_secs=regrow_s,
-            scaler=control.ClusterScaler(executors, min_size=1, grow_patience=1),
-            input_mode=TFCluster.InputMode.TENSORFLOW, master_node=master_node, env={util.ENV_PLATFORM: platform},
-            jax_distributed=jax_distributed, reservation_timeout=300, shutdown_timeout=300)
+        yield moments
     finally:
         done.set()
         watcher.join(timeout=ARM_JOIN_S)
-        sc.stop()
+        moments["arm_wedged"] = watcher.is_alive()
         chaos.uninstall()
         TFCluster.TFCluster.abort, TFCluster.TFCluster.preempt, elastic.classify_failure = real
         for k, v in saved_env.items():
@@ -811,16 +823,35 @@ def run_ladder_story(map_fun, args, root, executors, victim, arm_dir, kill_step,
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    wall = time.time() - t0
+
+
+def _life_records(root):
     records = []
     for path in glob.glob(os.path.join(root, "life_*.json")):
         with open(path) as f:
             records.append(json.load(f))
+    return records
+
+
+def trainer_lives(root):
+    """The life records under ``root`` grouped by life, oldest first (a
+    life's trainers share its coordinator, a fresh port each life), each
+    life in executor order."""
     groups = {}
-    for rec in records:
+    for rec in _life_records(root):
         groups.setdefault(rec["coordinator"], []).append(rec)
-    lives = [sorted(life, key=lambda r: r["executor_id"])
-             for life in sorted(groups.values(), key=lambda life: min(r["t_start"] for r in life))]
+    return [sorted(life, key=lambda r: r["executor_id"])
+            for life in sorted(groups.values(), key=lambda life: min(r["t_start"] for r in life))]
+
+
+def trainer_exits(root, lives):
+    """The trainers' flight shards under ``root/trace`` as ``(start wall
+    time, records)``, oldest first, and for each life but the last each
+    trainer's way out: the reason of its last flight dump (``aborted`` for
+    the abort's SIGTERM drain) or ``sigkill`` when it left none (the
+    abort's SIGKILL after its grace, or the chaos kill)."""
+    from tensorflowonspark_tpu_torch.obs import flight
+
     shards = []
     for shard in flight.list_shards(os.path.join(root, TRACE)):
         recs, _ = flight.read_shard(shard)
@@ -834,10 +865,62 @@ def run_ladder_story(map_fun, args, root, executors, victim, arm_dir, kill_step,
         dumps = [r for r in recs if r.get("kind") == "dump"]
         if dumps:
             last_dump[pid] = str(dumps[-1].get("reason", "")).split(":")[0]
-    exits = [{r["executor_id"]: last_dump.get(r["pid"], "sigkill") for r in life} for life in lives[:-1]]
-    return dict(result=result, lives=lives, armed=armed, counters={
+    return shards, [{r["executor_id"]: last_dump.get(r["pid"], "sigkill") for r in life} for life in lives[:-1]]
+
+
+def run_ladder_story(map_fun, args, root, executors, victim, arm_dir, kill_step, platform, jax_distributed,
+                     master_node, regrow_s, task_timeout=None):
+    """The story of the JAX package's ``test_preempt_drain_regrow_full_size_resume``
+    through ``elastic.run_ladder`` on ``executors`` executors of the local
+    backend, under :func:`latched_kill` of executor ``victim`` at a
+    checkpoint of step ``kill_step`` or later in ``arm_dir``;
+    ``blacklist_after=1``, so the ladder shrinks by one; the mid-run regrow
+    probe (every ``regrow_s``, once the shrunk life committed a checkpoint
+    past the newest at the abort) forgives the victim, the scaler votes to
+    grow and the driver's preemption warning drains the shrunk world; the
+    relaunch runs at full size. ``map_fun`` records each life with
+    :func:`life_record` under ``root``.
+
+    Returns :func:`latched_kill`'s moments and: ``result`` (the ladder's),
+    ``lives`` (:func:`trainer_lives`), ``counters``
+    (:data:`LADDER_COUNTERS`' deltas), ``exits`` and ``shards``
+    (:func:`trainer_exits`) and ``wall_s``."""
+    from tensorflowonspark_tpu_torch import TFCluster, control, elastic, obs, util
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+
+    before = {name: obs.counter(name).value for name in LADDER_COUNTERS}
+    t0 = time.time()
+    poll = elastic._regrow_poll
+    with latched_kill(root, victim, arm_dir, kill_step) as moments:
+
+        def regrow_poll(*a, **kw):
+            # the shrunk life must train before the regrow ends it: under a
+            # loaded host its trainers can take longer to start than a
+            # regrow period (the story's timing, not the ladder's rule)
+            newest = max(moments["committed_at_abort"][0] or [0]) if moments["committed_at_abort"] else None
+            if newest is None or max(_committed_steps(arm_dir) or [0]) <= newest:
+                return False
+            return poll(*a, **kw)
+
+        elastic._regrow_poll = regrow_poll
+        sc = LocalSparkContext(num_executors=executors, **({"task_timeout": task_timeout} if task_timeout else {}))
+        try:
+            result = elastic.run_ladder(
+                sc, map_fun, args, num_executors=executors, max_relaunches=1, min_workers=1, blacklist_after=1,
+                regrow=True, regrow_check_secs=regrow_s,
+                scaler=control.ClusterScaler(executors, min_size=1, grow_patience=1),
+                input_mode=TFCluster.InputMode.TENSORFLOW, master_node=master_node,
+                env={util.ENV_PLATFORM: platform}, jax_distributed=jax_distributed, reservation_timeout=300,
+                shutdown_timeout=300)
+        finally:
+            elastic._regrow_poll = poll
+            sc.stop()
+    wall = time.time() - t0
+    lives = trainer_lives(root)
+    shards, exits = trainer_exits(root, lives)
+    return dict(result=result, lives=lives, counters={
         name: obs.counter(name).value - before[name] for name in LADDER_COUNTERS}, exits=exits, shards=shards,
-        wall_s=wall, arm_wedged=watcher.is_alive(), **moments)
+        wall_s=wall, **moments)
 
 
 def story_failures(name, story, executors):
@@ -1011,6 +1094,475 @@ def leg_ladder(work, platform, size):
     return failures
 
 
+# -- an executor lost mid-feed, recovered through run_with_recovery(feed_fn) ------
+
+#: the executor the recovery leg kills (not the chief's); how long its
+#: ``feed_fn`` waits for a life's trainers to start (seconds)
+RECOVER_VICTIM, RECOVER_START_S = 2, 300.0
+
+
+def recover_leg_fun(args, ctx):
+    """``mnist_spark.main_fun`` in one life of the recovery leg, recorded
+    under ``args.recover_root``: the life's record (:func:`life_record`)
+    with the checkpoint it restored (name, step and the sha256 of the
+    restored parameters and optimizer state) and the first step's end; the
+    sha256 of each checkpoint this rank saved (``saved_<step>.json``); each
+    step's global step, rows trained in this life and wall time in
+    ``progress_<executor>_<pid>.txt`` (one fixed-width line rewritten in
+    place: a SIGKILL leaves the last step there); and once the example
+    returns, the final step, the parameters' sha256 and whether every loss
+    was finite."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.examples.mnist import mnist_spark
+    from tensorflowonspark_tpu_torch.train import checkpoint
+    from tensorflowonspark_tpu_torch.train import strategy as strategy_mod
+
+    root = args.recover_root
+    record = life_record(root, ctx, ctx.device)
+    progress = os.open(os.path.join(root, "progress_{}_{}.txt".format(ctx.executor_id, os.getpid())),
+                       os.O_CREAT | os.O_WRONLY, 0o644)
+    seen = {"rows": 0, "state": None}
+    losses = []
+    real = (checkpoint.restore_latest, checkpoint.save_checkpoint, strategy_mod.SyncDataParallel.compile_train_step)
+
+    def restore_latest(model_dir, *a, **kw):
+        state, path = real[0](model_dir, *a, **kw)
+        if path:
+            record(restored=os.path.basename(path), restored_step=state.step,
+                   restored_sha256=_digest(_saved_tensors(state)))
+        return state, path
+
+    def save_checkpoint(path, state, *a, **kw):
+        out = real[1](path, state, *a, **kw)
+        with open(os.path.join(root, "saved_{}.json".format(state.step)), "w") as f:
+            json.dump({"step": state.step, "executor_id": ctx.executor_id,
+                       "sha256": _digest(_saved_tensors(state))}, f)
+        return out
+
+    def compile_train_step(self, *a, **kw):
+        step = real[2](self, *a, **kw)
+
+        def recorded(state, batch):
+            state, metrics = step(state, batch)
+            seen["state"] = state
+            seen["rows"] += len(batch["label"])
+            losses.append(metrics["loss"])
+            if len(losses) == 1:
+                float(metrics["loss"])  # waits for the device
+                record(t_first_step=time.time(), first_step=state.step)
+            os.pwrite(progress, "{:10d} {:10d} {:20.6f}\n".format(state.step, seen["rows"], time.time()).encode(),
+                      0)
+            return state, metrics
+
+        return recorded
+
+    checkpoint.restore_latest, checkpoint.save_checkpoint = restore_latest, save_checkpoint
+    strategy_mod.SyncDataParallel.compile_train_step = compile_train_step
+    try:
+        mnist_spark.main_fun(args, ctx)
+    finally:
+        checkpoint.restore_latest, checkpoint.save_checkpoint = real[:2]
+        strategy_mod.SyncDataParallel.compile_train_step = real[2]
+        os.close(progress)
+    state = seen["state"]
+    record(final_step=state.step if state else None, rows_trained=seen["rows"],
+           params_sha256=_digest(dict(state.params)) if state else None,
+           losses_finite=bool(torch.isfinite(torch.stack(losses)).all()) if losses else None, t_end=time.time())
+
+
+def _progress(root):
+    """``{pid: (step, rows, wall time)}`` of every trainer's last step."""
+    got = {}
+    for path in glob.glob(os.path.join(root, "progress_*_*.txt")):
+        with open(path) as f:
+            fields = f.read().split()
+        if fields:
+            got[int(path.rsplit("_", 1)[1].split(".")[0])] = (int(fields[0]), int(fields[1]), float(fields[2]))
+    return got
+
+
+def mnist_recover_story(work, name, executors, rows, epochs, batch, every, platform, feed_timeout, victim):
+    """The JAX package's ``test_spark_feed_killed_node_training_finishes_anyway``
+    on ``mnist_spark.main_fun`` (through :func:`recover_leg_fun`):
+    ``executors`` executors in one world in InputMode.SPARK, rank 0 saving
+    every ``every`` steps into a shared model directory and training
+    ``steps_per_worker``'s steps for ``epochs`` epochs of ``rows`` rows,
+    fed by the reference's ``feed_fn``: once the attempt's trainers have
+    started, waves of ``cluster.train(rdd, num_epochs=1,
+    feed_timeout=feed_timeout)``, each one epoch in
+    :func:`mnist_partitions`' pinned partitions, until every rank of the
+    attempt reports done, ``cluster.check_errors()`` between waves,
+    through ``TFCluster.run_with_recovery`` with two relaunches at most,
+    under :func:`latched_kill` of executor ``victim`` at the first
+    committed checkpoint. Returns :func:`latched_kill`'s moments and:
+    ``relaunches``, ``attempts`` (each ``feed_fn`` call: start, end, the
+    seconds it waited for its trainers, waves,
+    the error it raised, when ``tf_status`` first held an error, the
+    rows its waves fed (the executors' ``feed_rows_total`` from its start
+    to its end), each finished wave's seconds), ``lives``
+    (:func:`trainer_lives`), ``progress`` (:func:`_progress`), ``exits``,
+    ``saved`` (the checkpoints' save-time sha256 by step), ``entries`` and
+    ``unverified`` (the model directory's entries, and its published
+    checkpoints that fail their manifest), ``kill_t`` (the latch's mtime),
+    ``steps`` (``steps_per_worker``'s), ``parts``, ``pins``, ``hidden``
+    and ``wall_s``."""
+    from tensorflowonspark_tpu_torch import TFCluster, ckpt, resilience, util
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+    from tensorflowonspark_tpu_torch.examples.mnist import mnist_spark
+    from tensorflowonspark_tpu_torch.examples.mnist.mnist_data_setup import synthetic_mnist, to_rows
+    from tensorflowonspark_tpu_torch.train import steps_per_worker
+
+    root = os.path.join(os.path.abspath(work), name)  # executors run in directories of their own
+    shutil.rmtree(root, ignore_errors=True)
+    model_dir = os.path.join(root, "model")
+    os.makedirs(model_dir)
+    args = mnist_spark.build_parser().parse_args([
+        "--cluster_size", str(executors), "--epochs", str(epochs), "--num_examples", str(rows),
+        "--batch_size", str(batch), "--log_steps", "1000", "--platform", platform, "--model_dir", model_dir,
+        "--checkpoint_steps", str(every)])
+    args.recover_root = root
+    parts, pins = mnist_partitions(to_rows(*synthetic_mnist(rows)), 1, executors)
+    attempts = []
+
+    def fed_rows(cluster):
+        """The executors' ``feed_rows_total`` (their channels outlive a
+        trainer life: read as a difference), or None when a channel cannot
+        be read: a reading, not a check."""
+        try:
+            return cluster.metrics(include_driver=False)["counters"].get("feed_rows_total", {}).get("value", 0)
+        except Exception:
+            return None
+
+    def all_done(since):
+        return len({r["executor_id"] for r in _life_records(root) if r.get("t_end", 0) >= since}) == executors
+
+    def await_trainers(cluster, since):
+        """Wait until every rank of this life has started (its life record
+        is from after ``since``), ``cluster.check_errors()`` between polls:
+        the feed timeout then bounds each wave's own work, not a trainer's
+        start-up. Returns the seconds waited."""
+        t = time.time()
+        for _ in resilience.Backoff(base=0.05, factor=1.0, jitter=0.0).attempts(resilience.Deadline(RECOVER_START_S)):
+            cluster.check_errors()
+            if len({r["executor_id"] for r in _life_records(root) if r["t_start"] >= since}) == executors:
+                return time.time() - t
+        raise TimeoutError("{}: the trainers did not start within {} s".format(name, RECOVER_START_S))
+
+    def feed_fn(cluster):
+        since = attempts[-1]["t_end"] if attempts else 0.0  # life records of this attempt's trainers
+        attempt = {"t_start": time.time(), "waves": 0, "wave_s": [], "error": None, "error_seen": None,
+                   "rows_fed_before": fed_rows(cluster)}
+        attempts.append(attempt)
+        stop = threading.Event()
+
+        def watch():  # the driver's first error on this attempt: the watchdog's or a node's
+            while not stop.wait(0.05):
+                if cluster.tf_status.get("error"):
+                    attempt["error_seen"] = time.time()
+                    return
+
+        watcher = threading.Thread(target=watch, name="recover-watch", daemon=True)
+        watcher.start()
+        try:
+            attempt["start_wait_s"] = await_trainers(cluster, since)
+            while not all_done(attempt["t_start"]):
+                cluster.check_errors()
+                rdd = pinned_rdd(cluster.sc, parts, pins)
+                attempt["waves"] += 1
+                t_wave = time.time()
+                cluster.train(rdd, num_epochs=1, feed_timeout=feed_timeout)
+                attempt["wave_s"].append(time.time() - t_wave)
+        except Exception as e:
+            attempt["error"] = "{}: {}".format(type(e).__name__, (str(e).splitlines() or [""])[0])
+            raise
+        finally:
+            attempt["t_end"] = time.time()
+            stop.set()
+            watcher.join(timeout=5)
+            fed = fed_rows(cluster)
+            attempt["rows_fed"] = fed - attempt["rows_fed_before"] if None not in (fed, attempt["rows_fed_before"]) \
+                else None
+
+    t0 = time.time()
+    with latched_kill(root, victim, model_dir, every) as moments:
+        sc = LocalSparkContext(num_executors=executors)
+        try:
+            relaunches = TFCluster.run_with_recovery(
+                sc, recover_leg_fun, args, executors, max_relaunches=2, feed_fn=feed_fn,
+                input_mode=TFCluster.InputMode.SPARK, master_node="chief", env={util.ENV_PLATFORM: platform},
+                reservation_timeout=300, shutdown_timeout=300)
+        finally:
+            sc.stop()
+    wall = time.time() - t0
+    lives = trainer_lives(root)
+    _, exits = trainer_exits(root, lives)
+    saved = {}
+    for path in glob.glob(os.path.join(root, "saved_*.json")):
+        with open(path) as f:
+            rec = json.load(f)
+        saved[rec["step"]] = rec["sha256"]
+    entries = sorted(os.listdir(model_dir))
+    latch = os.path.join(root, KILL_LATCH)
+    return dict(relaunches=relaunches, attempts=attempts, lives=lives, progress=_progress(root), exits=exits,
+                saved=saved, entries=entries,
+                unverified=[e for e in entries if e.startswith("ckpt_")
+                            and not ckpt.verify(os.path.join(model_dir, e))[0]],
+                kill_t=os.stat(latch).st_mtime if os.path.exists(latch) else None,
+                steps=steps_per_worker(rows * epochs, batch, executors), parts=parts, pins=pins,
+                hidden=args.hidden, wall_s=wall, **moments)
+
+
+def recover_story_failures(name, story, executors, victim, every, platform):
+    """The reference's assertions on :func:`mnist_recover_story` (one
+    relaunch, ``feed_fn`` run twice, every rank at the step target) and the
+    leg's own: two lives at the full world with executor e on ``cuda:e``;
+    the kill landed while the victim still had steps to train; every rank
+    of the second life restored the newest checkpoint committed when the
+    abort started, of step ``every`` or later, bitwise the tensors rank 0
+    saved, and every published checkpoint verifies; equal parameters and
+    finite losses on every rank; no trainer left; each survivor's way out
+    recorded."""
+    lives, steps, progress = story["lives"], story["steps"], story["progress"]
+    failures = []
+    if story["relaunches"] != 1 or len(story["attempts"]) != 2:
+        failures.append("{}: {} relaunches, feed_fn ran {} times (want 1, 2)".format(
+            name, story["relaunches"], len(story["attempts"])))
+    if len(lives) != 2 or any(sorted(r["executor_id"] for r in life) != list(range(executors))
+                              or any(r["world"] != executors for r in life) for life in lives):
+        failures.append("{}: lives {}".format(name, [[(r["executor_id"], r["world"]) for r in life]
+                                                      for life in lives]))
+        return failures
+    if platform == "gpu" and any(r["card"] != r["executor_id"] or r["device"] != "cuda:{}".format(r["executor_id"])
+                                 for life in lives for r in life):
+        failures.append("{}: executors off their cards {}".format(
+            name, [[(r["executor_id"], r["device"]) for r in life] for life in lives]))
+    (victim_life1,) = [r for r in lives[0] if r["executor_id"] == victim]
+    victim_step = progress.get(victim_life1["pid"], (0,))[0]
+    if story["kill_t"] is None or not story["armed"] or not 0 < victim_step < steps:
+        failures.append("{}: the kill (armed {}, at {}) did not land mid-feed: the victim's first life ended at "
+                        "step {} of {}".format(name, story["armed"], story["kill_t"], victim_step, steps))
+    second = lives[1]
+    want = max(story["committed_at_abort"][0]) if story["committed_at_abort"] and \
+        story["committed_at_abort"][0] else None
+    restored = {(r.get("restored"), r.get("restored_step"), r.get("restored_sha256")) for r in second}
+    if want is None or want < every or restored != {("ckpt_{}".format(want), want, story["saved"].get(want))}:
+        failures.append("{}: the second life restored {} (want ckpt_{} of step >= {}, saved {})".format(
+            name, sorted(restored, key=str), want, every, story["saved"].get(want)))
+    if story["unverified"]:
+        failures.append("{}: published checkpoints fail their manifest: {}".format(name, story["unverified"]))
+    if any(r.get("final_step") != steps for r in second):
+        failures.append("{}: final steps {} (want {})".format(name, [r.get("final_step") for r in second], steps))
+    if len({r.get("params_sha256") for r in second}) != 1 or not all(r.get("losses_finite") for r in second):
+        failures.append("{}: parameters {}, losses finite {}".format(
+            name, [(r.get("params_sha256") or "")[:12] for r in second], [r.get("losses_finite") for r in second]))
+    left = _still_running([r["pid"] for life in lives for r in life])
+    if left:
+        failures.append("{}: trainers {} still running".format(name, left))
+    survivors = {e: how for e, how in (story["exits"][0] if story["exits"] else {}).items() if e != victim}
+    if sorted(survivors) != sorted(set(range(executors)) - {victim}):
+        failures.append("{}: survivors' exits {}".format(name, survivors))
+    if story["arm_wedged"]:
+        failures.append("{}: the ladder-arm watcher did not stop within {} s".format(name, ARM_JOIN_S))
+    return failures
+
+
+def cards_smi():
+    """``nvidia-smi``'s name and power limit of each card, a line each."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()
+
+
+def leg_mnist_spark_recover(work, platform, size):
+    s = SIZES[size]
+    name, rows, batch, every = "mnist_spark_recover4", s["recover_rows"], s["mnist_batch"], s["recover_every"]
+    story = mnist_recover_story(work, name, WORLD, rows, MNIST_EPOCHS, batch, every, platform,
+                                s["recover_feed_timeout"], RECOVER_VICTIM)
+    failures = recover_story_failures(name, story, WORLD, RECOVER_VICTIM, every, platform)
+    lives, progress, attempts, kill_t = story["lives"], story["progress"], story["attempts"], story["kill_t"]
+    aborts, classified = story["aborts"], story["classified"]
+
+    def since(t, t0):
+        return t - t0 if t is not None and t0 is not None else None
+
+    second = lives[1] if len(lives) > 1 else []
+    first_steps = [r["t_first_step"] for r in second if "t_first_step" in r]
+    last_steps = [progress[r["pid"]][2] for r in second if r["pid"] in progress]
+    # the driver's first word of the loss: tf_status (the watchdog or a
+    # node's error), the feed's own error, or the ladder's classification
+    driver_errors = [t for t, _ in classified[:1]]
+    if attempts:
+        driver_errors += [t for t in (attempts[0]["error_seen"], attempts[0]["error"] and attempts[0]["t_end"])
+                          if t]
+    life2_rate = []
+    for r in second:
+        if r["pid"] in progress and "t_first_step" in r and progress[r["pid"]][2] > r["t_first_step"]:
+            life2_rate.append((r["rows_trained"] - batch) / (progress[r["pid"]][2] - r["t_first_step"]))
+    emit({"leg": name, "platform": platform, "size": size, "world": WORLD, "cards_smi": cards_smi()
+          if platform == "gpu" else None, "model": "mnist_mlp", "width": [784, story["hidden"], 10],
+          "dtype": "float32", "batch_per_rank": batch, "rows": rows, "epochs": MNIST_EPOCHS,
+          "partitions": [len(p) for p in story["parts"]], "pins": story["pins"], "steps_per_rank": story["steps"],
+          "checkpoint_every": every, "feed_timeout_s": s["recover_feed_timeout"], "victim": RECOVER_VICTIM,
+          "relaunches": story["relaunches"], "feed_fn_calls": len(attempts),
+          "attempts": [{k: a.get(k) for k in ("start_wait_s", "waves", "wave_s", "error", "rows_fed")}
+                       for a in attempts],
+          "lives": [{"world": life[0]["world"], "cards": {r["executor_id"]: r["device"] for r in life},
+                     "restored": sorted({str(r.get("restored")) for r in life}),
+                     "restored_step": sorted({r.get("restored_step") or 0 for r in life}),
+                     "steps_reached": {r["executor_id"]: progress.get(r["pid"], (None,))[0] for r in life},
+                     "rows_trained": {r["executor_id"]: progress.get(r["pid"], (0, None))[1] for r in life},
+                     "final_step": [r.get("final_step") for r in life]} for life in lives],
+          "kill_armed_at_checkpoint": story["armed"].get("step"),
+          "committed_at_abort": story["committed_at_abort"][:1], "saved_steps": sorted(story["saved"]),
+          "entries": story["entries"],
+          "params_equal_on_every_rank": len({r.get("params_sha256") for r in second}) == 1 if second else None,
+          "survivor_exits": {e: how for e, how in (story["exits"][0] if story["exits"] else {}).items()
+                             if e != RECOVER_VICTIM},
+          "classified": [kind for _, kind in classified],
+          "kill_to_driver_first_error_s": since(min(driver_errors) if driver_errors else None, kill_t),
+          "kill_to_feed_fn_first_return_s": since(attempts[0]["t_end"] if attempts else None, kill_t),
+          "abort_s": [b - a for a, b in aborts],
+          "abort_end_to_second_life_start_s": since(min(r["t_start"] for r in second) if second else None,
+                                                    aborts[0][1] if aborts else None),
+          "abort_end_to_first_step_s": since(min(first_steps) if first_steps else None,
+                                             aborts[0][1] if aborts else None),
+          "kill_to_last_step_s": since(max(last_steps) if last_steps else None, kill_t),
+          "second_life_rows_per_sec_per_card": life2_rate, "wall_s": story["wall_s"], "failures": failures})
+    return failures
+
+
+# -- the reference test's own shape: two independent workers, one card -------
+
+#: ``spark_feed_story``'s run (the reference test's): the step target, the
+#: checkpoint cadence, the victim's kill step (after the step-4 checkpoint)
+#: and the victim; the MLP's width
+SPARK_FEED_TARGET, SPARK_FEED_EVERY, SPARK_FEED_KILL_AT, SPARK_FEED_VICTIM = 8, 2, 5, 1
+SPARK_FEED_MLP = dict(hidden=16, dropout_rate=0.0)
+
+
+def spark_feed_resume_or_die(args, ctx):
+    """The JAX package's ``fn_spark_feed_resume_or_die`` on the port's own
+    MLP init (``SPARK_FEED_MLP``, seed 0, SGD 0.1): trains one step a fed
+    batch of 16 to ``SPARK_FEED_TARGET`` steps across lives, checkpointing
+    every ``SPARK_FEED_EVERY`` into its executor's own directory; the victim
+    SIGKILLs itself at ``SPARK_FEED_KILL_AT``, once (a marker file makes the
+    second life survive). Writes ``done.json`` with the final step and the
+    device."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import mnist
+    from tensorflowonspark_tpu_torch.train import SyncDataParallel, checkpoint, optim
+
+    model_dir = os.path.join(args["model_dir"], "worker_{}".format(ctx.executor_id))
+    os.makedirs(model_dir, exist_ok=True)
+    strategy = SyncDataParallel(ctx.device)
+    optimizer = optim.sgd(0.1)
+    model = mnist.create_model("mlp", **SPARK_FEED_MLP)
+    state = strategy.create_state(mnist.make_init_fn(model), optimizer, torch.Generator().manual_seed(0))
+    step = strategy.compile_train_step(mnist.make_loss_fn(model), optimizer, has_aux=True)
+    latest = checkpoint.latest_checkpoint(model_dir)
+    if latest:
+        checkpoint.restore_checkpoint(latest, target=state)
+    global_step = state.step
+    marker = os.path.join(args["model_dir"], "killed.marker")
+    feed = ctx.get_data_feed(train_mode=True)
+    while not feed.should_stop() and global_step < SPARK_FEED_TARGET:
+        rows = feed.next_batch(16)
+        if not rows:
+            continue
+        images = np.asarray([r[0] for r in rows], np.float32).reshape(-1, 28, 28)
+        labels = np.asarray([r[1] for r in rows])
+        state, metrics = step(state, strategy.shard_batch({"image": images, "label": labels}))
+        float(metrics["loss"])
+        global_step += 1
+        if global_step % SPARK_FEED_EVERY == 0:
+            checkpoint.save_checkpoint(os.path.join(model_dir, "ckpt_{}".format(global_step)), state)
+        if ctx.executor_id == SPARK_FEED_VICTIM and global_step == SPARK_FEED_KILL_AT and not os.path.exists(marker):
+            with open(marker, "w") as f:
+                f.write("first life died here")
+            os.kill(os.getpid(), signal.SIGKILL)  # no traceback, no cleanup
+    feed.terminate()  # drain the rest of the feed so feeders can finish
+    with open(os.path.join(model_dir, "done.json"), "w") as f:
+        json.dump({"final_step": global_step, "device": str(ctx.device)}, f)
+
+
+def spark_feed_story(work, platform, feed_timeout):
+    """The JAX package's ``test_spark_feed_killed_node_training_finishes_anyway``
+    on :func:`spark_feed_resume_or_die`: two independent workers
+    (``jax_distributed=False``: NCCL takes no two ranks on one card) fed
+    128 rows in waves of ``cluster.train(rdd, num_epochs=1,
+    feed_timeout=feed_timeout)`` until both report done, through
+    ``TFCluster.run_with_recovery`` with two relaunches at most. Returns
+    ``relaunches``, ``feeds`` (``feed_fn``'s calls), ``marker`` (the kill
+    happened), ``done`` (each worker's final step and device),
+    ``victim_ckpts`` and ``wall_s``."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import TFCluster, util
+    from tensorflowonspark_tpu_torch.backends.local import LocalSparkContext
+
+    model_dir = os.path.join(os.path.abspath(work), "spark_feed")  # executors run in directories of their own
+    shutil.rmtree(model_dir, ignore_errors=True)
+    os.makedirs(model_dir)
+    rng = np.random.default_rng(3)
+    rows = [(rng.standard_normal(784).astype(np.float32).tolist(), int(i % 10)) for i in range(128)]
+    feeds = []
+
+    def done_path(eid):
+        return os.path.join(model_dir, "worker_{}".format(eid), "done.json")
+
+    def feed_fn(cluster):
+        feeds.append(time.time())
+        while not all(os.path.exists(done_path(e)) for e in (0, 1)):
+            cluster.check_errors()
+            cluster.train(cluster.sc.parallelize(rows, 4), num_epochs=1, feed_timeout=feed_timeout)
+
+    t0 = time.time()
+    saved_env = os.environ.get("TOS_MONITOR_INTERVAL")
+    os.environ["TOS_MONITOR_INTERVAL"] = "1"
+    sc = LocalSparkContext(num_executors=2, task_timeout=900)
+    try:
+        relaunches = TFCluster.run_with_recovery(
+            sc, spark_feed_resume_or_die, {"model_dir": model_dir}, num_executors=2,
+            input_mode=TFCluster.InputMode.SPARK, master_node=None, env={util.ENV_PLATFORM: platform},
+            jax_distributed=False, reservation_timeout=180, max_relaunches=2, shutdown_timeout=240, feed_fn=feed_fn)
+    finally:
+        sc.stop()
+        if saved_env is None:
+            os.environ.pop("TOS_MONITOR_INTERVAL", None)
+        else:
+            os.environ["TOS_MONITOR_INTERVAL"] = saved_env
+    done = {}
+    for eid in (0, 1):
+        if os.path.exists(done_path(eid)):
+            with open(done_path(eid)) as f:
+                done[eid] = json.load(f)
+    victim_dir = os.path.join(model_dir, "worker_{}".format(SPARK_FEED_VICTIM))
+    return dict(relaunches=relaunches, feeds=len(feeds), marker=os.path.exists(os.path.join(model_dir, "killed.marker")),
+                done=done, victim_ckpts=sorted(d for d in os.listdir(victim_dir) if d.startswith("ckpt_")),
+                wall_s=time.time() - t0)
+
+
+def spark_feed_failures(name, story):
+    """The reference test's assertions on :func:`spark_feed_story`."""
+    failures = []
+    if story["relaunches"] != 1 or story["feeds"] != 2 or not story["marker"]:
+        failures.append("{}: {} relaunches, feed_fn ran {} times, killed {} (want 1, 2, True)".format(
+            name, story["relaunches"], story["feeds"], story["marker"]))
+    if sorted(story["done"]) != [0, 1] or any(d["final_step"] != SPARK_FEED_TARGET for d in story["done"].values()):
+        failures.append("{}: final steps {} (want {} on both)".format(name, story["done"], SPARK_FEED_TARGET))
+    want = ["ckpt_{}".format(i) for i in range(SPARK_FEED_EVERY, SPARK_FEED_TARGET + 1, SPARK_FEED_EVERY)]
+    if story["victim_ckpts"] != sorted(want):
+        failures.append("{}: the victim's checkpoints {} (want {})".format(name, story["victim_ckpts"], sorted(want)))
+    return failures
+
+
 def build_parser():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--platform", choices=["gpu", "cpu"], default="gpu")
@@ -1045,6 +1597,8 @@ def main(argv=None):
             failures += leg_ladder(work, args.platform, args.size)
         elif leg == "mnist_spark_dp4":
             failures += leg_mnist_spark(work, args.platform, args.size)
+        elif leg == "mnist_spark_recover4":
+            failures += leg_mnist_spark_recover(work, args.platform, args.size)
         else:
             failures += leg_lm(work, args.platform, args.size, data_dir,
                                {"lm_dp4": "dp=4", "lm_dp2_tp2": "dp=2,tp=2"}[leg])

@@ -652,6 +652,9 @@ assert {"tensorflowonspark_tpu_torch.parallel.pipeline_parallel",
 # the main path across executors and the ladder on four cards
 assert "tensorflowonspark_tpu_torch.examples.cluster_check" in names and cluster_check.leg_ladder
 assert cluster_check.leg_mnist_spark and cluster_check.mnist_spark_story and cluster_check.tear_result
+# an executor lost mid-feed, recovered through run_with_recovery(feed_fn)
+assert cluster_check.leg_mnist_spark_recover and cluster_check.mnist_recover_story
+assert "mnist_spark_recover4" in cluster_check.LEGS and cluster_check.latched_kill
 print("imported", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))

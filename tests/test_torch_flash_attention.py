@@ -4,6 +4,7 @@ interpret mode, and the port's ``plain_attention`` against the JAX one. The
 inputs come from numpy with a seed; the tolerances are the JAX package's
 own flash-attention tests'."""
 
+import functools
 import math
 
 import jax
@@ -37,6 +38,12 @@ def _segments(b, length, spans):
 SPANS = ((0, 100), (100, 171), (171, 230))
 
 
+#: the JAX package's forward and backward kernels in interpret mode,
+#: compiled once a configuration (eager interpret takes about twice as long)
+_jax_flash_fwd = jax.jit(jfa._flash_fwd, static_argnums=(4, 5, 6, 7, 8))
+_jax_flash_bwd = jax.jit(jfa._flash_bwd, static_argnums=(7, 8, 9, 10, 11))
+
+
 def _t(x, requires_grad=False):
     return torch.tensor(x, requires_grad=requires_grad)
 
@@ -50,7 +57,7 @@ def test_forward_o_and_lse_match_pallas_interpret(block, causal, segmented):
     seg = _segments(B, L, SPANS) if segmented else None
     merge = lambda x: x.reshape(B * H, L, D)  # noqa: E731
     jseg = None if seg is None else jnp.asarray(np.repeat(seg, H, axis=0))
-    jo, jlse = jfa._flash_fwd(
+    jo, jlse = _jax_flash_fwd(
         jnp.asarray(merge(q)), jnp.asarray(merge(k)), jnp.asarray(merge(v)), jseg,
         1 / math.sqrt(D), causal, block, block, True,
     )
@@ -76,7 +83,7 @@ def test_gradients_through_autograd_function_match_jax_grad(causal, segmented):
                                 block_q=64, block_k=64, interpret=True)
         return jnp.sum(o * w)
 
-    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(*(jnp.asarray(x) for x in (q, k, v)))
     tq, tk, tv = (_t(x, True) for x in (q, k, v))
     out = fa.flash_attention(tq, tk, tv, causal=causal, segment_ids=None if seg is None else _t(seg))
     (out * _t(w)).sum().backward()
@@ -221,7 +228,7 @@ def test_plain_versions_skipping_unvisited_blocks_match_pallas_interpret(kind, c
 
     monkeypatch.setattr(fa, "_masked_scores", skipping)
     merge = lambda x: x.reshape(B * H, L, D)  # noqa: E731
-    jo, jlse = jfa._flash_fwd(
+    jo, jlse = _jax_flash_fwd(
         jnp.asarray(merge(q)), jnp.asarray(merge(k)), jnp.asarray(merge(v)),
         jnp.asarray(np.repeat(seg, H, axis=0)), 1 / math.sqrt(D), causal, 64, 64, True,
     )
@@ -234,7 +241,7 @@ def test_plain_versions_skipping_unvisited_blocks_match_pallas_interpret(kind, c
                                 block_q=64, block_k=64, interpret=True)
         return jnp.sum(o * w)
 
-    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(*(jnp.asarray(x) for x in (q, k, v)))
     tq, tk, tv = (_t(x, True) for x in (q, k, v))
     (fa.flash_attention(tq, tk, tv, causal=causal, segment_ids=_t(seg)) * _t(w)).sum().backward()
     for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
@@ -379,7 +386,7 @@ def test_forward_kernel_loop_twin_matches_pallas_interpret(kind, causal, dtype, 
     if kind in ("mid_block", "reused"):
         assert _first_visited_block_masked(seg, causal, length) > 0
     merge = lambda x: x.reshape(B * H, length, D)  # noqa: E731
-    jo, jlse = jfa._flash_fwd(
+    jo, jlse = _jax_flash_fwd(
         *(jnp.asarray(merge(x), dtype) for x in (q, k, v)), jnp.asarray(np.repeat(seg, H, axis=0)),
         1 / math.sqrt(D), causal, 64, 64, True,
     )
@@ -485,8 +492,8 @@ def test_padding_route_matches_pallas_interpret_at_the_real_head_dim(d, causal):
     scale = 1 / math.sqrt(d)
     jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
     jseg = jnp.asarray(np.repeat(seg, H, axis=0))
-    jo, jlse = jfa._flash_fwd(jq, jk, jv, jseg, scale, causal, 64, 64, True)
-    jdq, jdk, jdv = jfa._flash_bwd(jq, jk, jv, jseg, jdo, jo, jlse, scale, causal, 64, 64, True)
+    jo, jlse = _jax_flash_fwd(jq, jk, jv, jseg, scale, causal, 64, 64, True)
+    jdq, jdk, jdv = _jax_flash_bwd(jq, jk, jv, jseg, jdo, jo, jlse, scale, causal, 64, 64, True)
 
     tq, tk, tv, tdo, tseg = _t(q), _t(k), _t(v), _t(do), _t(seg)
     o, lse = fa.padded_fwd(fa.flash_fwd_plain, tq, tk, tv, tseg, scale, causal, H)
@@ -519,8 +526,8 @@ def test_wide_head_dims_match_pallas_interpret_at_a_ragged_length(route, causal,
     scale = 1 / math.sqrt(d)
     jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
     jseg = jnp.asarray(np.repeat(seg, H, axis=0))
-    jo, jlse = jfa._flash_fwd(jq, jk, jv, jseg, scale, causal, 40, 40, True)
-    jdq, jdk, jdv = jfa._flash_bwd(jq, jk, jv, jseg, jdo, jo, jlse, scale, causal, 40, 40, True)
+    jo, jlse = _jax_flash_fwd(jq, jk, jv, jseg, scale, causal, 40, 40, True)
+    jdq, jdk, jdv = _jax_flash_bwd(jq, jk, jv, jseg, jdo, jo, jlse, scale, causal, 40, 40, True)
 
     tq, tk, tv, tdo, tseg = _t(q), _t(k), _t(v), _t(do), _t(seg)
     if route == "plain":
@@ -702,7 +709,15 @@ def _wide_case(d, causal, length=200, block=40):
     """``[BH, L, D]`` operands and dO at head dim ``d`` with packed segments
     and a padded tail at a ragged L, and the JAX package's Pallas kernels'
     O, lse, dq, dk, dv on them at the real D in interpret mode (blocks of
-    ``block``, which tile L)."""
+    ``block``, which tile L); fresh tensors each call."""
+    (q, k, v, do, seg, scale), want = _wide_case_arrays(d, causal, length, block)
+    return (_t(q), _t(k), _t(v), _t(do), _t(seg), scale), want
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_case_arrays(d, causal, length, block):
+    """:func:`_wide_case`'s inputs and the JAX package's outputs as numpy
+    arrays, computed once a configuration (both routes share them)."""
     bh = B * H
     rng = np.random.default_rng(d + causal)
     q, k, v, do = (rng.standard_normal((bh, length, d)).astype(np.float32) for _ in range(4))
@@ -710,11 +725,11 @@ def _wide_case(d, causal, length=200, block=40):
     scale = 1 / math.sqrt(d)
     jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
     jseg = jnp.asarray(np.repeat(seg, H, axis=0))
-    jo, jlse = jfa._flash_fwd(jq, jk, jv, jseg, scale, causal, block, block, True)
-    jdq, jdk, jdv = jfa._flash_bwd(jq, jk, jv, jseg, jdo, jo, jlse, scale, causal, block, block, True)
+    jo, jlse = _jax_flash_fwd(jq, jk, jv, jseg, scale, causal, block, block, True)
+    jdq, jdk, jdv = _jax_flash_bwd(jq, jk, jv, jseg, jdo, jo, jlse, scale, causal, block, block, True)
     want = {"o": np.asarray(jo), "lse": np.asarray(jlse)[:, :, 0], "dq": np.asarray(jdq), "dk": np.asarray(jdk),
             "dv": np.asarray(jdv)}
-    return (_t(q), _t(k), _t(v), _t(do), _t(seg), scale), want
+    return (q, k, v, do, seg, scale), want
 
 
 @pytest.mark.parametrize("d", [300, 320, 384, 512])

@@ -61,16 +61,15 @@ def _jax_params(**over):
 
 
 def _jax_logits(model, params, batch):
-    return np.asarray(model.apply({"params": params}, jnp.asarray(batch["tokens"]),
-                                  positions=jnp.asarray(batch["positions"]),
-                                  segment_ids=jnp.asarray(batch["segment_ids"])))
+    return np.asarray(jax.jit(lambda p, t, ps, sg: model.apply({"params": p}, t, positions=ps, segment_ids=sg))(
+        params, jnp.asarray(batch["tokens"]), jnp.asarray(batch["positions"]), jnp.asarray(batch["segment_ids"])))
 
 
 def _jax_step(model, params, batch, lr=1e-3):
     """One replicated AdamW step of the JAX package: loss and the new
     parameters under the port's names."""
     tx = optax.adamw(lr)
-    (loss, _), grads = jax.value_and_grad(jtransformer.make_loss_fn(model), has_aux=True)(
+    (loss, _), grads = jax.jit(jax.value_and_grad(jtransformer.make_loss_fn(model), has_aux=True))(
         params, {k: jnp.asarray(v) for k, v in batch.items()})
     updates, _ = tx.update(grads, tx.init(params), params)
     return float(loss), convert.convert_variables({"params": _np(optax.apply_updates(params, updates))})
@@ -304,7 +303,7 @@ def test_remat_is_bitwise_no_remat_and_matches_jax_remat(ref, moe):
     over = dict(moe_experts=moe, moe_group_size=8) if moe else {}
     jmodel, jparams = _jax_params(remat=True, **over)
     batch = ref["batch"]
-    (jloss, _), jgrads = jax.value_and_grad(jtransformer.make_loss_fn(jmodel), has_aux=True)(
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jtransformer.make_loss_fn(jmodel), has_aux=True))(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
     jgrads = convert.convert_variables({"params": _np(jgrads)})
     got = {}

@@ -136,7 +136,7 @@ def test_param_specs_put_the_experts_on_ep():
 
 def _jax_step(params, tokens, **cfg):
     model = jtransformer.create_model(**cfg)
-    (loss, metrics), grads = jax.value_and_grad(jtransformer.make_loss_fn(model), has_aux=True)(
+    (loss, metrics), grads = jax.jit(jax.value_and_grad(jtransformer.make_loss_fn(model), has_aux=True))(
         params, {"tokens": jnp.asarray(tokens)})
     return {"batch": {"tokens": tokens}, "loss": float(loss), "moe_aux": float(metrics["moe_aux"]),
             "grads": convert.convert_variables({"params": _np(grads)})}
@@ -155,7 +155,8 @@ def ref():
     out["row_lengths"] = []
     for n in ROW_LENGTHS:
         tokens = np.random.default_rng(n).integers(0, 128, (4, n + 1)).astype(np.int32)
-        logits, _ = model.apply({"params": params}, jnp.asarray(tokens[:, :-1]), mutable=["losses"])
+        logits, _ = jax.jit(lambda p, t: model.apply({"params": p}, t, mutable=["losses"]))(
+            params, jnp.asarray(tokens[:, :-1]))
         out["row_lengths"].append(dict(_jax_step(params, tokens, **dict(LM, moe_group_size=ROW_LENGTHS_GROUP)),
                                        logits=np.asarray(logits)))
     return out

@@ -21,6 +21,7 @@ its final checkpoint equals, bitwise, the one of the executor that was
 never interrupted.
 """
 
+import functools
 import json
 import os
 import time
@@ -73,6 +74,7 @@ class _Case:
 
     def __init__(self, name):
         self.name = name
+        self._variables = {}
         self.jstrategy = JaxSyncDataParallel(parallel.build_mesh({"dp": 1}, devices=jax.devices()[:1]))
         self.strategy = SyncDataParallel("cpu")
         if name == "resnet_sgd":
@@ -91,11 +93,16 @@ class _Case:
                 jtransformer.make_loss_fn(self.jmodel), self.tx, has_aux=True, donate=False)
 
     def variables(self, seed):
-        if self.name == "resnet_sgd":
-            return _np(jax.jit(lambda x: self.jmodel.init(jax.random.PRNGKey(seed), x, train=False))(
-                jnp.asarray(_image_batch(0)["image"])))
-        return {"params": _np(jtransformer.make_init_fn(self.jmodel, sample_len=8)(
-            jax.random.PRNGKey(seed))["params"])}
+        """The JAX model's variables from ``seed``, a fresh numpy copy each
+        call (the init is compiled once a case, its result kept a seed)."""
+        if seed not in self._variables:
+            if self.name == "resnet_sgd":
+                init = jax.jit(lambda key, x: self.jmodel.init(key, x, train=False))
+                self._variables[seed] = _np(init(jax.random.PRNGKey(seed), jnp.asarray(_image_batch(0)["image"])))
+            else:
+                init = jax.jit(jtransformer.make_init_fn(self.jmodel, sample_len=8))
+                self._variables[seed] = {"params": _np(init(jax.random.PRNGKey(seed))["params"])}
+        return jax.tree.map(np.array, self._variables[seed])
 
     def jax_state(self, variables):
         return self.jstrategy.create_state(lambda: variables, self.tx)
@@ -155,9 +162,15 @@ def _assert_matches_reference(case, state, jstate):
     return gap
 
 
+@functools.lru_cache(maxsize=None)
+def _case(name):
+    """One ``_Case`` a model for the file: the JAX step compiles once."""
+    return _Case(name)
+
+
 @pytest.mark.parametrize("name", ["resnet_sgd", "transformer_adamw"])
 def test_resume_continues_the_reference_trajectory(name, tmp_path):
-    case = _Case(name)
+    case = _case(name)
     variables = case.variables(0)
     # the JAX package: K steps, an orbax save, a restore into a fresh state, K more
     jstate = case.jax_train(case.jax_state(variables), range(K))
@@ -186,7 +199,7 @@ def test_resume_continues_the_reference_trajectory(name, tmp_path):
 
 @pytest.mark.parametrize("name", ["resnet_sgd", "transformer_adamw"])
 def test_a_converted_orbax_checkpoint_continues_in_the_port(name, tmp_path):
-    case = _Case(name)
+    case = _case(name)
     jstate = case.jax_train(case.jax_state(case.variables(0)), range(K))
     jpath = jax_checkpoint.save_checkpoint(str(tmp_path / "ckpt_{}".format(K)), jax.device_get(jstate))
     jrestored = jax_checkpoint.restore_checkpoint(jpath, target=jax.device_get(case.jax_state(case.variables(1))))
@@ -199,7 +212,7 @@ def test_a_converted_orbax_checkpoint_continues_in_the_port(name, tmp_path):
 
 
 def test_convert_train_state_raises_on_an_unmatched_leaf():
-    case = _Case("resnet_sgd")
+    case = _case("resnet_sgd")
     jstate = _np(case.jax_state(case.variables(0)))
     port = case.port_state(case.variables(0))
     before = {k: v.clone() for k, v in _port_tensors(port)[0].items()}

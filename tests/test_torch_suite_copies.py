@@ -1,4 +1,4 @@
-"""The port's copies of the JAX package's control-plane suites keep every
+"""The port's copies of the JAX package's control- and checkpoint-plane suites keep every
 assertion of the reference.
 
 Each suite below was copied with the package name rewritten; a copy whose
@@ -27,7 +27,8 @@ SUITES = {
         "TFCluster", "TFNode", "backends_context", "chaos_cluster", "chaos_control", "chaos_feed",
         "chaos_plan", "chaos_reservation", "chaos_text", "control", "local_backend", "obs_cluster",
         "obs_registry", "pyspark_compat", "registry", "reservation", "resilience", "shm", "streaming",
-        "tracing", "watchdog", "trace_smoke", "pipeline_pyspark_ml",
+        "tracing", "watchdog", "trace_smoke", "pipeline_pyspark_ml", "ckpt_engine", "ckpt_manifest",
+        "ckpt_chaos", "chaos_checkpoint",
     )
 }
 SUITES["test_jax_distributed.py"] = "test_torch_distributed.py"
@@ -51,6 +52,11 @@ RESTATED = {
     "test_trace_smoke.py": {
         "assert any((p.startswith('jax-') for p in procs))":
             "assert any((p.startswith('trainer-') for p in procs))",
+    },
+    # the same child's name in an assertion's message
+    "test_ckpt_chaos.py": {
+        "assert _chaos.active, 'chaos plan did not reach the jax child'":
+            "assert _chaos.active, 'chaos plan did not reach the trainer child'",
     },
 }
 

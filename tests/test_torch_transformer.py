@@ -36,7 +36,7 @@ def _packed_batch(b, length, vocab, seed, spans):
 
 def _models(cfg, attention, seed=0):
     jmodel = jtransformer.create_model(dtype="float32", attention=attention, **cfg)
-    variables = jtransformer.make_init_fn(jmodel, sample_len=8)(jax.random.PRNGKey(seed))
+    variables = jax.jit(jtransformer.make_init_fn(jmodel, sample_len=8))(jax.random.PRNGKey(seed))
     params = jax.tree.map(np.asarray, variables["params"])
     module = convert.load_variables(
         transformer.create_model(dtype="float32", attention=attention, **cfg), {"params": params}
@@ -54,14 +54,14 @@ def test_converted_small_transformer_matches_logits_loss_and_grads():
     jmodel, params, module = _models(SMALL, "flash")
     batch = _packed_batch(2, 48, SMALL["vocab_size"], 0, ((0, 20), (20, 37), (37, 45)))
     tokens, seg, pos = (batch[k][:, :-1] for k in ("tokens", "segment_ids", "positions"))
-    jlogits = jmodel.apply({"params": params}, jnp.asarray(tokens), positions=jnp.asarray(pos),
-                           segment_ids=jnp.asarray(seg))
+    jlogits = jax.jit(lambda p, t, ps, sg: jmodel.apply({"params": p}, t, positions=ps, segment_ids=sg))(
+        params, jnp.asarray(tokens), jnp.asarray(pos), jnp.asarray(seg))
     logits = module(torch.as_tensor(tokens), positions=torch.as_tensor(pos),
                     segment_ids=torch.as_tensor(seg))
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits), atol=1e-4)
 
     jloss_fn = jtransformer.make_loss_fn(jmodel)
-    (jloss, jmetrics), jgrads = jax.value_and_grad(jloss_fn, has_aux=True)(
+    (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(jloss_fn, has_aux=True))(
         params, jax.tree.map(jnp.asarray, batch))
     loss, metrics = transformer.make_loss_fn(module)(module, _torch_batch(batch))
     loss.backward()
@@ -94,7 +94,7 @@ def test_full_width_forward_loss_matches_at_short_length():
     cfg = dict(vocab_size=32000, d_model=512, n_layers=6, n_heads=8, d_ff=2048, max_seq_len=2048)
     jmodel, params, module = _models(cfg, "auto", seed=1)
     batch = _packed_batch(1, 128, 32000, 1, ((0, 50), (50, 128)))
-    jloss, _ = jtransformer.make_loss_fn(jmodel)(params, jax.tree.map(jnp.asarray, batch))
+    jloss, _ = jax.jit(jtransformer.make_loss_fn(jmodel))(params, jax.tree.map(jnp.asarray, batch))
     with torch.no_grad():
         loss, _ = transformer.make_loss_fn(module)(module, _torch_batch(batch))
     assert abs(float(loss) - float(jloss)) < 1e-4, (float(loss), float(jloss))
@@ -109,8 +109,9 @@ def test_adamw_three_steps_match_optax():
     jstate = tx.init(params)
     jloss_fn = jtransformer.make_loss_fn(jmodel)
     jparams = params
+    jgrad = jax.jit(jax.grad(lambda p, b: jloss_fn(p, b)[0]))
     for batch in batches:
-        grads = jax.grad(lambda p, b: jloss_fn(p, b)[0])(jparams, jax.tree.map(jnp.asarray, batch))
+        grads = jgrad(jparams, jax.tree.map(jnp.asarray, batch))
         updates, jstate = tx.update(grads, jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
 
